@@ -1,0 +1,239 @@
+"""The pairwise kernels: CUDA wrappers, their plain PyTorch versions, and
+launch counters (port of ``repro.kernels.pairwise.kernel``).
+
+Two kernels, hand-written in CUDA C++ (``csrc/pairwise.cu``):
+
+- ``pairwise_block(spec, Xr, Xc)`` — the explicit block
+  ``entry_fn(stat(Xr, Xc))`` (replaces ``pairwise_block_padded``);
+- ``pairwise_matmat_multi(spec, Xr, Xc, Vs)`` — ``[K(Xr, Xc) @ V for V in
+  Vs]`` with K built tile by tile on chip and never written out (replaces
+  ``pairwise_matmat_multi_padded``).  The right-hand sides are concatenated
+  column-wise into one operand, so one launch serves every V.
+
+Each takes any shapes: the kernels mask their own ragged edges, so nothing
+is padded to 128.  Dispatch is by the device of the tensors: CPU tensors run
+the plain version (``*_plain``, the same arithmetic in PyTorch); CUDA
+tensors launch the kernel through ``*_cuda`` or raise — there is no
+fallback.  ``*_cuda.launches`` counts the launches (a plain int bumped where
+the kernel is launched and nowhere else).
+
+``edges`` (a sign-split table) selects the sign-split form of the l1
+statistic in the plain version; the CUDA kernels sum |x_k − y_k| directly,
+which is the same function on data inside the plan.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.pairwise import specs as _specs
+from repro_torch.kernels.pairwise.specs import KernelSpec
+
+_STAT_IDS = {"dot": 0, "sqdist": 1, "l1dist": 2}
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the comparison the card is held to)
+# ---------------------------------------------------------------------------
+
+def pairwise_block_plain(spec: KernelSpec, Xr: torch.Tensor,
+                         Xc: torch.Tensor,
+                         edges: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """entry_fn(stat(Xr, Xc)) as an (nr, nc) f32 block."""
+    return _specs.apply(spec, Xr, Xc, edges)
+
+
+def pairwise_matmat_multi_plain(spec: KernelSpec, Xr: torch.Tensor,
+                                Xc: torch.Tensor, Vs: Sequence[torch.Tensor],
+                                edges: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, ...]:
+    """[K(Xr, Xc) @ V for V in Vs] with K and V quantized to the spec's tile
+    dtype and f32 accumulation (``_contract_tile`` of the reference)."""
+    dt = spec.tile_dtype()
+    K = _specs.apply(spec, Xr, Xc, edges).to(dt).to(torch.float32)
+    return tuple(K @ V.to(dt).to(torch.float32) for V in Vs)
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by both paths
+# ---------------------------------------------------------------------------
+
+def _check_points(Xr: torch.Tensor, Xc: torch.Tensor,
+                  edges: Optional[torch.Tensor]) -> None:
+    for name, X in (("Xr", Xr), ("Xc", Xc)):
+        if not isinstance(X, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if X.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (got {X.dtype})")
+        if X.ndim != 2:
+            raise ValueError(f"{name} must be 2-D (got shape "
+                             f"{tuple(X.shape)})")
+    if Xr.shape[1] != Xc.shape[1]:
+        raise ValueError(f"feature dims differ: {Xr.shape[1]} vs "
+                         f"{Xc.shape[1]}")
+    if Xr.device != Xc.device:
+        raise ValueError(f"Xr on {Xr.device} but Xc on {Xc.device}")
+    if edges is not None:
+        if edges.dtype != torch.float32 or edges.ndim != 2 or \
+                edges.shape[0] != Xr.shape[1]:
+            raise ValueError(f"edges must be float32 (d, B-1) with d = "
+                             f"{Xr.shape[1]} (got {edges.dtype} "
+                             f"{tuple(edges.shape)})")
+        if edges.device != Xr.device:
+            raise ValueError(f"edges on {edges.device} but points on "
+                             f"{Xr.device}")
+
+
+def _check_rhs(Xc: torch.Tensor, Vs: Sequence[torch.Tensor]) -> None:
+    for V in Vs:
+        if not isinstance(V, torch.Tensor) or V.dtype != torch.float32:
+            raise TypeError("every right-hand side must be a float32 tensor")
+        if V.ndim != 2 or V.shape[0] != Xc.shape[0]:
+            raise ValueError(f"right-hand side of shape {tuple(V.shape)} "
+                             f"does not match nc = {Xc.shape[0]}")
+        if V.device != Xc.device:
+            raise ValueError(f"right-hand side on {V.device} but points on "
+                             f"{Xc.device}")
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _epilogue(spec: KernelSpec) -> _specs.Epilogue:
+    if spec.epilogue is None:
+        raise NotImplementedError(
+            f"KernelSpec {spec.name!r} has only a Python entry_fn and no "
+            f"kernel epilogue, so the CUDA kernels cannot evaluate it; it "
+            f"runs on CPU tensors only (ROADMAP.md, queue B: epilogues for "
+            f"user-registered specs)")
+    return spec.epilogue
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    for X in tensors:
+        if X.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel takes CUDA tensors (got a "
+                             f"tensor on {X.device})")
+        if not X.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous row-major "
+                             "tensors")
+
+
+def _raise_on(lib, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.pairwise_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def _ptr(X: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(X.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def pairwise_block_cuda(spec: KernelSpec, Xr: torch.Tensor, Xc: torch.Tensor,
+                        edges: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the block kernel; raises on anything it does not take."""
+    ep = _epilogue(spec)
+    _check_points(Xr, Xc, edges)
+    _check_cuda(Xr, Xc)
+    nr, d = Xr.shape
+    nc = Xc.shape[0]
+    if d == 0:
+        raise ValueError("the CUDA kernel needs d ≥ 1 features")
+    out = torch.empty((nr, nc), dtype=torch.float32, device=Xr.device)
+    if nr == 0 or nc == 0:
+        return out
+    from repro_torch.kernels.pairwise import build
+    lib = build.load_library()
+    code = lib.pairwise_block_f32(
+        _ptr(Xr), _ptr(Xc), _ptr(out), nr, nc, d, _STAT_IDS[spec.stat],
+        ep.id, ep.a, ep.b, ep.degree, int(spec.precision == "bf16_f32acc"),
+        Xr.device.index or 0, _stream(Xr.device))
+    _raise_on(lib, code, "pairwise_block")
+    pairwise_block_cuda.launches += 1
+    return out
+
+
+pairwise_block_cuda.launches = 0
+
+
+def pairwise_matmat_multi_cuda(spec: KernelSpec, Xr: torch.Tensor,
+                               Xc: torch.Tensor, Vs: Sequence[torch.Tensor],
+                               edges: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Launch the fused multi-right-hand-side kernel once for all ``Vs``;
+    raises on anything it does not take."""
+    ep = _epilogue(spec)
+    _check_points(Xr, Xc, edges)
+    Vs = tuple(Vs)
+    _check_rhs(Xc, Vs)
+    _check_cuda(Xr, Xc)
+    nr, d = Xr.shape
+    nc = Xc.shape[0]
+    widths = [int(V.shape[1]) for V in Vs]
+    M = sum(widths)
+    if d == 0:
+        raise ValueError("the CUDA kernel needs d ≥ 1 features")
+    if nr == 0 or nc == 0 or M == 0:
+        return tuple(torch.zeros((nr, m), dtype=torch.float32,
+                                 device=Xr.device) for m in widths)
+    V = Vs[0] if len(Vs) == 1 else torch.cat(Vs, dim=1)
+    _check_cuda(V)
+    out = torch.empty((nr, M), dtype=torch.float32, device=Xr.device)
+    from repro_torch.kernels.pairwise import build
+    lib = build.load_library()
+    code = lib.pairwise_matmat_multi_f32(
+        _ptr(Xr), _ptr(Xc), _ptr(V), _ptr(out), nr, nc, d, M,
+        _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
+        int(spec.precision == "bf16_f32acc"), Xr.device.index or 0,
+        _stream(Xr.device))
+    _raise_on(lib, code, "pairwise_matmat_multi")
+    pairwise_matmat_multi_cuda.launches += 1
+    return tuple(torch.split(out, widths, dim=1))
+
+
+pairwise_matmat_multi_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch by device
+# ---------------------------------------------------------------------------
+
+def pairwise_block(spec: KernelSpec, Xr: torch.Tensor, Xc: torch.Tensor,
+                   edges: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K block entry_fn(stat(Xr, Xc)): the plain version on CPU tensors, the
+    CUDA kernel on CUDA tensors."""
+    if Xr.device.type == "cpu":
+        _check_points(Xr, Xc, edges)
+        return pairwise_block_plain(spec, Xr, Xc, edges)
+    return pairwise_block_cuda(spec, Xr, Xc, edges)
+
+
+def pairwise_matmat_multi(spec: KernelSpec, Xr: torch.Tensor,
+                          Xc: torch.Tensor, Vs: Sequence[torch.Tensor],
+                          edges: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, ...]:
+    """[K(Xr, Xc) @ V for V in Vs]: the plain version on CPU tensors, one
+    CUDA launch on CUDA tensors."""
+    if Xr.device.type == "cpu":
+        _check_points(Xr, Xc, edges)
+        _check_rhs(Xc, Vs)
+        return pairwise_matmat_multi_plain(spec, Xr, Xc, Vs, edges)
+    return pairwise_matmat_multi_cuda(spec, Xr, Xc, Vs, edges)
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset."""
+    return {"pairwise_block": pairwise_block_cuda.launches,
+            "pairwise_matmat_multi": pairwise_matmat_multi_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    pairwise_block_cuda.launches = 0
+    pairwise_matmat_multi_cuda.launches = 0

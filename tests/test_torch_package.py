@@ -1,0 +1,157 @@
+"""Package rules of the PyTorch/CUDA port.
+
+- nothing under ``src/repro_torch/`` (nor ``chip_smoke.py``) imports ``jax``
+  or the reference package ``repro``: checked in a fresh interpreter that
+  imports every module, and by a scan of the sources;
+- entry points default to the CUDA device and raise without one;
+- the CUDA wrappers raise on what their kernels do not take (CPU tensors,
+  other dtypes, specs without a kernel epilogue) instead of falling back;
+- ``chip_smoke.py`` fails, printing no result, without a card or outside
+  the repository.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import device as tdevice
+from repro_torch.core import spsd as tsp
+from repro_torch.core.kernelop import PairwiseKernel, RBFKernel
+from repro_torch.kernels.pairwise import build
+from repro_torch.kernels.pairwise import kernel as tkernel
+from repro_torch.kernels.pairwise import specs as tspecs
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    mods = _all_modules()
+    assert "repro_torch.kernels.pairwise.kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax_and_no_reference(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_default_device_is_cuda_or_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.default_device()
+    with pytest.raises(RuntimeError):
+        RBFKernel(np.zeros((4, 2), np.float32), sigma=1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tdevice.default_device() == torch.device("cuda")
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
+    spec = tspecs.rbf(1.0)
+    X = torch.zeros((5, 3))
+    V = torch.zeros((5, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernel.pairwise_block_cuda(spec, X, X)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernel.pairwise_matmat_multi_cuda(spec, X, X, [V])
+    X64 = X.double()
+    for fn in (tkernel.pairwise_block, tkernel.pairwise_block_cuda):
+        with pytest.raises(TypeError, match="float32"):
+            fn(spec, X64, X64)
+    with pytest.raises(TypeError, match="float32"):
+        tkernel.pairwise_matmat_multi(spec, X, X, [V.double()])
+    with pytest.raises(ValueError, match="feature dims"):
+        tkernel.pairwise_block(spec, X, torch.zeros((5, 4)))
+    with pytest.raises(ValueError, match="does not match"):
+        tkernel.pairwise_matmat_multi(spec, X, X, [torch.zeros((4, 2))])
+    assert tkernel.launch_counts() == {"pairwise_block": 0,
+                                       "pairwise_matmat_multi": 0}
+
+
+def test_user_spec_runs_on_cpu_and_raises_on_the_kernel_path():
+    """A spec with only a Python entry_fn has no kernel epilogue: its plain
+    version serves CPU tensors, the CUDA path raises (no hidden fallback)."""
+    cauchy = tspecs.KernelSpec("cauchy", "sqdist",
+                               lambda t: 1.0 / (1.0 + t))
+    X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    K = PairwiseKernel(X, cauchy, device="cpu")
+    ap = tsp.fast_model(K, 8, 16, s_sketch="gaussian")
+    assert torch.isfinite(ap.U).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkernel.pairwise_block_cuda(cauchy, K.X, K.X)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkernel.pairwise_matmat_multi_cuda(cauchy, K.X, K.X, [K.X])
+
+
+def test_build_flags_and_location():
+    cmd = build.nvcc_command("nvcc", Path("out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd
+    assert not any("fast-math" in c or "fast_math" in c for c in cmd)
+    assert build.BUILD_DIR == REPO / "build" / "kernels"
+    assert build.library_path().name.startswith("libpairwise_")
+    assert all(src.exists() for src in build.SOURCES)
+    if shutil.which("nvcc") is None and \
+            not Path("/usr/local/cuda/bin/nvcc").exists() and \
+            not os.environ.get("CUDA_HOME"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.find_nvcc()
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card_and_outside_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: chip_smoke.py runs for real")
+    res = _run_smoke(REPO)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
