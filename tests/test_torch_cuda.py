@@ -72,6 +72,25 @@ def test_kernels_match_plain_versions(cuda_device, name, prec):
         assert scaled(o, p) <= TOL[prec]
 
 
+@pytest.mark.parametrize("nr,nc,d,m", [(1, 1, 1, 1), (3, 70, 40, 5),
+                                       (65, 33, 33, 129), (200, 150, 72, 257)])
+@pytest.mark.parametrize("name", ["rbf", "laplacian", "polynomial"])
+def test_ragged_shapes_and_feature_chunks(cuda_device, nr, nc, d, m, name):
+    """Tiles of one row, feature dims past the 32-wide staging chunk, and
+    right-hand sides past one 128-column chunk — one per statistic."""
+    rng = np.random.default_rng(2)
+    Xr, Xc = _rand(rng, nr, d, dev=cuda_device), _rand(rng, nc, d,
+                                                      dev=cuda_device)
+    V = _rand(rng, nc, m, dev=cuda_device)
+    spec = specs.suggested_spec(name, d)
+    assert scaled(kernel.pairwise_block(spec, Xr, Xc),
+                  kernel.pairwise_block_plain(spec, Xr, Xc)) <= 1e-5
+    (out,) = kernel.pairwise_matmat_multi(spec, Xr, Xc, [V])
+    (plain,) = kernel.pairwise_matmat_multi_plain(spec, Xr, Xc, [V])
+    assert out.shape == (nr, m)
+    assert scaled(out, plain) <= 1e-5
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     X = torch.zeros((8, 4), device=cuda_device)
     spec = specs.rbf(1.0)
