@@ -93,8 +93,11 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 1):
-    """Mean milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int = 1, warmup: int = 0):
+    """Mean milliseconds of ``fn`` on the current stream (CUDA events),
+    after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -362,7 +365,7 @@ def _b1_line(m: dict) -> dict:
                 spec, X[r0:r0 + slab], X, Vs), dim=1)
         return plain
 
-    plain_ms, _ = cuda_ms(run_plain)
+    plain_ms, _ = cuda_ms(run_plain, warmup=1)
     err = float((out - plain).abs().max())
     rel = err / float(plain.abs().max())
     # the plain version's f32 entries contracted in f64
@@ -382,7 +385,7 @@ def _b1_line(m: dict) -> dict:
 
     spec16 = spec.with_precision("bf16_f32acc")
     ms16, outs16 = cuda_ms(
-        lambda: kernel.pairwise_matmat_multi_cuda(spec16, X, X, Vs))
+        lambda: kernel.pairwise_matmat_multi_cuda(spec16, X, X, Vs), warmup=1)
     rows = torch.arange(0, N, N // 512, device=DEV)[:512]
     plain16 = kernel.pairwise_matmat_multi_plain(spec16, X[rows], X, Vs)
     e16 = max(scaled_err(o[rows], p) for o, p in zip(outs16, plain16))
@@ -391,7 +394,7 @@ def _b1_line(m: dict) -> dict:
     # the l1dist statistic inside B1 (laplacian, the same inputs)
     lap = specs.suggested_spec("laplacian", D)
     ms_l1, outs_l1 = cuda_ms(
-        lambda: kernel.pairwise_matmat_multi_cuda(lap, X, X, Vs))
+        lambda: kernel.pairwise_matmat_multi_cuda(lap, X, X, Vs), warmup=1)
     plain_l1 = kernel.pairwise_matmat_multi_plain(lap, X[rows], X, Vs)
     e_l1 = max(scaled_err(o[rows], p) for o, p in zip(outs_l1, plain_l1))
     check(e_l1 <= TOL_F32_MAIN, f"B1 laplacian rows vs plain: {e_l1:.3g}")
@@ -429,7 +432,7 @@ def _b2_line(m: dict) -> dict:
     Xr = X[:b].contiguous()
     ms, out = cuda_ms(lambda: kernel.pairwise_block_cuda(spec, Xr, X), reps=5)
     plain_ms, plain = cuda_ms(
-        lambda: kernel.pairwise_block_plain(spec, Xr, X), reps=5)
+        lambda: kernel.pairwise_block_plain(spec, Xr, X), reps=5, warmup=1)
     err = float((out - plain).abs().max())
     check(scaled_err(out, plain) <= TOL_F32, f"B2 panel vs plain: {err:.3g}")
     # the main path's other two B2 shapes: C = K[:, idx] and the
@@ -442,13 +445,13 @@ def _b2_line(m: dict) -> dict:
         check(e <= TOL_F32, f"B2 {what} vs plain: {e:.3g}")
     lap = specs.suggested_spec("laplacian", D)
     ms_l1, out_l1 = cuda_ms(
-        lambda: kernel.pairwise_block_cuda(lap, Xr, X), reps=5)
+        lambda: kernel.pairwise_block_cuda(lap, Xr, X), reps=5, warmup=1)
     check(scaled_err(out_l1, kernel.pairwise_block_plain(lap, Xr, X))
           <= TOL_F32, "B2 laplacian vs plain")
     lin = specs.linear()
     lin_ms, lin_out = cuda_ms(
-        lambda: kernel.pairwise_block_cuda(lin, Xr, X), reps=5)
-    lib_ms, lib_out = cuda_ms(lambda: torch.mm(Xr, X.T), reps=5)
+        lambda: kernel.pairwise_block_cuda(lin, Xr, X), reps=5, warmup=1)
+    lib_ms, lib_out = cuda_ms(lambda: torch.mm(Xr, X.T), reps=5, warmup=1)
     check(scaled_err(lin_out, lib_out) <= TOL_F32, "B2 linear vs torch.mm")
     flops = 2 * D * b * N
     nbytes = 4 * (b * D + N * D + b * N)
