@@ -6,10 +6,14 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile the pairwise CUDA kernels from ``src/repro_torch/.../csrc``;
+2. build: compile both CUDA libraries (pairwise, landmark) from
+   ``src/repro_torch/.../csrc`` side by side, one nvcc each;
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
-   a sign-split edge table), and the one-hot gather exact;
+   a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
+   sketched attention), and the one-hot gather exact; the landmark read
+   (B5) at the reference's test shapes in f32 and bf16, with the U1
+   sign flip exact;
 4. main path: the fast SPSD model (paper Algorithm 1) at the documented
    large-n setting (``examples/quickstart.py`` ``large_n_demo``: n = 50,000
    points, d = 16, 32 Gaussian clusters, RBF σ = 3, c = n/250 = 200,
@@ -19,9 +23,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
    block kernel) — with launch counts and metered entries, results checked
    against the plain versions and the Hutchinson estimate against the exact
    error; then the entry counts at the n = 3,000 scaling shape;
-5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the main
+5. attention_long: sketched attention at one (batch, kv-head) of a
+   gemma3-12b global layer at ``long_500k`` (``src/repro/configs``:
+   context n = 524,288, head_dim 256, landmark_c 512, landmark_theta 4,
+   strided landmarks, f32) — ``build_landmark_state``, the landmark read
+   over all n queries (one B5 launch) and at a decode shape (16 queries),
+   ``sketched_attention`` fast and Nyström; errors against exact softmax
+   attention on 1,024 sampled rows, fast ≤ Nyström + 1e-3, B5 ≤ 1e-5
+   against its plain version;
+6. attention_policy: landmarks chosen by ``uniform_adaptive2`` and
+   ``leverage`` over the context's softmax Gram at n = 32,768 through a
+   ``CountingOperator`` (sweeps, gathers and entries equal the count model;
+   B2 launches counted), then ``sketched_attention`` with them;
+7. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    path, time, plain-version time, bound, library-call time, error;
-6. the card line again, then the last line
+8. the card line again, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It exits non-zero without a CUDA device, and in a directory without the
@@ -42,11 +58,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import sketch as sk  # noqa: E402
+from repro_torch.core import sketched_attention as tsa  # noqa: E402
 from repro_torch.core import spsd  # noqa: E402
 from repro_torch.core import sweep as sweep_lib  # noqa: E402
 from repro_torch.core.instrument import CountingOperator  # noqa: E402
 from repro_torch.core.kernelop import RBFKernel  # noqa: E402
 from repro_torch.core.selection import get_policy  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.landmark_attention import build as lm_build  # noqa: E402
+from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
+from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.pairwise import build, kernel, signsplit, specs  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -66,11 +87,22 @@ TOL_BF16_F32 = 5e-2     # bf16_f32acc kernel vs the f32 plain version
 # tolerance against the f32 plain version itself.
 TOL_F32_MAIN = 5e-5
 
+TOL_READ_BF16 = 2e-2    # landmark read with bf16 inputs: the reference's
+                        # _tol(bf16), rtol = atol = 2e-2
+
 DEV = "cuda"
 
 # the main-path configuration (quickstart large_n_demo)
 N, D, CLUSTERS, NOISE, SIGMA = 50_000, 16, 32, 0.5, 3.0
 C_COLS, S_COLS, PROBES = N // 250, 4 * (N // 250), 64
+
+# the attention configuration: one (batch, kv-head) of a gemma3-12b global
+# layer at long_500k (src/repro/configs/gemma3_12b.py, configs/base.py)
+ATT_N, ATT_D, ATT_C, ATT_THETA = 524_288, 256, 512, 4
+ATT_DECODE_M = 16       # 2 query heads per kv head x batch 8
+ATT_DECODE_REPS = 20    # decode reads timed (and launched) per run
+ATT_ERR_ROWS, ATT_ERR_CHUNK = 1024, 256
+POLICY_N = 32_768       # context of the policy phase
 
 
 class SmokeFailure(AssertionError):
@@ -157,12 +189,15 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.load_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_seconds()} s) -> {build.library_path()}")
-    for ln in build.build_log().splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    libs = (build.LIBRARY, lm_build.LIBRARY)
+    kbuild.build_all(libs)
+    log(f"build: {time.perf_counter() - t0:.1f} s for both libraries")
+    for lib in libs:
+        log(f"  {lib.name}: nvcc {lib.build_seconds()} s -> "
+            f"{lib.library_path()}")
+        for ln in lib.build_log().splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                log(f"  ptxas: {ln.strip()}")
 
 
 def _parity_case(spec, Xr, Xc, Vs, edges, label) -> dict:
@@ -232,6 +267,61 @@ def phase_parity() -> None:
                             f"laplacian+edges/{prec}")
         log(f"parity laplacian+edges {prec:12s} " + " ".join(
             f"{k}={v:.3g}" for k, v in errs.items()))
+    # the softmax Gram of sketched attention (exp_affine) at head_dim 256
+    Xa = torch.as_tensor(rng.normal(size=(nr + nc, ATT_D)) * 0.4,
+                         dtype=torch.float32, device=dev)
+    soft = tsa.softmax_gram_operator(Xa).spec
+    for prec in specs.PRECISIONS:
+        errs = _parity_case(soft.with_precision(prec), Xa[:nr].contiguous(),
+                            Xa[nr:].contiguous(), Vs, None,
+                            f"softmax_gram/{prec}")
+        log(f"parity softmax_gram (exp_affine) {prec:12s} " + " ".join(
+            f"{k}={v:.3g}" for k, v in errs.items()))
+
+
+def _read_case(m, c, d, dv, dtype, seed=3):
+    """B5 against its plain version at one shape; returns the error."""
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=DEV)
+
+    Q = (t(rng.normal(size=(m, d))) * 0.5).to(dtype)
+    kl = (t(rng.normal(size=(c, d))) * 0.5).to(dtype)
+    UV = t(rng.normal(size=(c, dv))).to(dtype)
+    U1 = t(np.abs(rng.normal(size=(c,))) + 0.5)
+    off = t([0.3])
+    out = lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off)
+    plain = lm_kernel.landmark_read_plain(Q, kl, UV, U1, off)
+    flipped = lm_kernel.landmark_read_cuda(Q, kl, UV, -U1, off)
+    torch.cuda.synchronize()
+    label = f"landmark_read ({m}, {c}, {d}, {dv}) {dtype}"
+    check(out.dtype == dtype and tuple(out.shape) == (m, dv),
+          f"{label}: {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    check(torch.equal(flipped, -out), f"{label}: U1 sign flip not exact")
+    o32, p32 = out.float(), plain.float()
+    if dtype == torch.float32:
+        err = scaled_err(o32, p32)
+        check(err <= TOL_F32, f"{label}: {err:.3g} > {TOL_F32}")
+    else:
+        excess = float(((o32 - p32).abs() - TOL_READ_BF16
+                        * (1.0 + p32.abs())).max())
+        check(excess <= 0.0, f"{label}: outside rtol = atol = "
+              f"{TOL_READ_BF16} by {excess:.3g}")
+        err = scaled_err(o32, p32)
+    return err
+
+
+def phase_parity_read() -> None:
+    """B5 at the reference's test_landmark_read_vs_ref shapes."""
+    for m, c, d, dv in ((128, 16, 64, 64), (200, 32, 32, 16),
+                        (64, 8, 128, 128), (1, 16, 64, 64)):
+        errs = {str(dt).split(".")[-1]: _read_case(m, c, d, dv, dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        log(f"parity landmark_read (m, c, d, dv) = ({m}, {c}, {d}, {dv}): "
+            + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + ", U1 sign flip exact")
 
 
 def _main_calls(op, idx, S, Z):
@@ -400,7 +490,26 @@ def _b1_line(m: dict) -> dict:
     check(e_l1 <= TOL_F32_MAIN, f"B1 laplacian rows vs plain: {e_l1:.3g}")
     del outs_l1, plain_l1
 
+    def run_plain_l1():
+        for r0 in range(0, N, slab):
+            plain[r0:r0 + slab] = torch.cat(kernel.pairwise_matmat_multi_plain(
+                lap, X[r0:r0 + slab], X, Vs), dim=1)
+        return plain
+
+    plain_ms_l1, _ = cuda_ms(run_plain_l1, warmup=1)
+    # the softmax Gram of sketched attention (exp_affine) on the same inputs
+    soft = tsa.softmax_gram_operator(X).spec
+    ms_soft, outs_s = cuda_ms(
+        lambda: kernel.pairwise_matmat_multi_cuda(soft, X, X, Vs), warmup=1)
+    plain_s = kernel.pairwise_matmat_multi_plain(soft, X[rows], X, Vs)
+    e_s = max(scaled_err(o[rows], p) for o, p in zip(outs_s, plain_s))
+    check(e_s <= TOL_F32_MAIN, f"B1 exp_affine rows vs plain: {e_s:.3g}")
+    del outs_s, plain_s
+
     M = sum(int(V.shape[1]) for V in Vs)
+    # B3's own bound: the l1dist statistic is ~3 flops per feature (sub,
+    # abs, add) on the FP32 CUDA cores, beside the contraction
+    bound_l1 = (2 * N * N * M + 3 * D * N * N) / PEAK_FP32_FLOPS * 1e3
     flops = 2 * N * N * M + 2 * D * N * N
     nbytes = 4 * (2 * N * D + N * M + N * M)
     bound_f32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
@@ -410,7 +519,9 @@ def _b1_line(m: dict) -> dict:
         f"{bound_f32:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{bound_f32 / ms:.1%} of the FP32 roof); bf16_f32acc {ms16:.3f} ms "
         f"(tensor-core bound {bound_bf16:.3f} ms, rows vs plain {e16:.3g}); "
-        f"laplacian (l1dist) {ms_l1:.3f} ms (rows vs plain {e_l1:.3g})")
+        f"laplacian (l1dist) {ms_l1:.3f} ms (rows vs plain {e_l1:.3g}, "
+        f"plain {plain_ms_l1:.3f} ms, bound {bound_l1:.3f} ms); softmax "
+        f"Gram (exp_affine) {ms_soft:.3f} ms (rows vs plain {e_s:.3g})")
     return {"name": "pairwise_matmat_multi", "route": "cuda",
             "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
             "replaces": "src/repro/kernels/pairwise/kernel.py:127",
@@ -422,6 +533,9 @@ def _b1_line(m: dict) -> dict:
                       "precision": "f32"},
             "scaled_err_vs_f64_contraction": err_k / scale,
             "ms_bf16_f32acc": ms16, "ms_laplacian_l1dist": ms_l1,
+            "plain_ms_laplacian_l1dist": plain_ms_l1,
+            "bound_ms_laplacian_l1dist": bound_l1,
+            "ms_exp_affine": ms_soft,
             "bound_ms_bf16_tensor_cores": bound_bf16}
 
 
@@ -446,8 +560,11 @@ def _b2_line(m: dict) -> dict:
     lap = specs.suggested_spec("laplacian", D)
     ms_l1, out_l1 = cuda_ms(
         lambda: kernel.pairwise_block_cuda(lap, Xr, X), reps=5, warmup=1)
-    check(scaled_err(out_l1, kernel.pairwise_block_plain(lap, Xr, X))
-          <= TOL_F32, "B2 laplacian vs plain")
+    plain_ms_l1, plain_l1 = cuda_ms(
+        lambda: kernel.pairwise_block_plain(lap, Xr, X), reps=5, warmup=1)
+    check(scaled_err(out_l1, plain_l1) <= TOL_F32, "B2 laplacian vs plain")
+    bound_l1 = max(3 * D * b * N / PEAK_FP32_FLOPS,
+                   4 * (b * D + N * D + b * N) / PEAK_HBM_BYTES) * 1e3
     lin = specs.linear()
     lin_ms, lin_out = cuda_ms(
         lambda: kernel.pairwise_block_cuda(lin, Xr, X), reps=5, warmup=1)
@@ -458,8 +575,9 @@ def _b2_line(m: dict) -> dict:
     bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     log(f"B2 panel shape ({b} x {N}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound:.4f} ms, linear spec {lin_ms:.4f} ms vs torch.mm "
-        f"{lib_ms:.4f} ms, laplacian (l1dist) {ms_l1:.4f} ms, "
-        f"max abs err {err:.3g}")
+        f"{lib_ms:.4f} ms, laplacian (l1dist) {ms_l1:.4f} ms (plain "
+        f"{plain_ms_l1:.4f} ms, bound {bound_l1:.4f} ms), max abs err "
+        f"{err:.3g}")
     return {"name": "pairwise_block", "route": "cuda",
             "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
             "replaces": "src/repro/kernels/pairwise/kernel.py:241",
@@ -469,7 +587,233 @@ def _b2_line(m: dict) -> dict:
             "shape": {"nr": b, "nc": N, "d": D, "spec": "rbf",
                       "precision": "f32"},
             "library_call": "torch.mm(Xr, Xc.T) (the linear spec)",
-            "linear_spec_ms": lin_ms, "ms_laplacian_l1dist": ms_l1}
+            "linear_spec_ms": lin_ms, "ms_laplacian_l1dist": ms_l1,
+            "plain_ms_laplacian_l1dist": plain_ms_l1,
+            "bound_ms_laplacian_l1dist": bound_l1}
+
+
+# ---------------------------------------------------------------------------
+# sketched attention
+# ---------------------------------------------------------------------------
+
+def _qkv(n: int, seed: int):
+    """The workloads bench's law: q, k ~ 0.4·N(0, 1), v ~ N(0, 1)."""
+    g = gen(seed)
+    Q = torch.randn((n, ATT_D), generator=g, device=DEV) * 0.4
+    K = torch.randn((n, ATT_D), generator=g, device=DEV) * 0.4
+    V = torch.randn((n, ATT_D), generator=g, device=DEV)
+    return Q, K, V
+
+
+def _exact_rows(Q, K, V, rows):
+    """Exact softmax attention of the queries ``rows``, in chunks."""
+    out = []
+    inv = 1.0 / float(np.sqrt(ATT_D))
+    for r0 in range(0, rows.shape[0], ATT_ERR_CHUNK):
+        w = torch.softmax((Q[rows[r0:r0 + ATT_ERR_CHUNK]] @ K.T) * inv, dim=-1)
+        out.append(w @ V)
+    return torch.cat(out)
+
+
+def rel_err(out, exact) -> float:
+    return float((out - exact).norm() / exact.norm())
+
+
+def _read_f64(Q, kl, UV, U1, off):
+    """The landmark read in f64 (same formula as the plain version)."""
+    inv = 1.0 / float(np.sqrt(Q.shape[1]))
+    cvec = torch.exp((Q.double() @ kl.double().T) * inv - off.double())
+    den = cvec @ U1.double()
+    den = torch.where(den < 0, -1.0, 1.0).double() * den.abs().clamp_min(1e-6)
+    return (cvec @ UV.double()) / den[:, None]
+
+
+def _attention_calls(Q, K, V, Qd):
+    """The five attention_long calls, each timed; returns times, outputs."""
+    times, out = {}, {}
+    times["build_landmark_state"], st = cuda_ms(
+        lambda: tsa.build_landmark_state(K, V, ATT_C, ATT_THETA,
+                                         generator=gen(12), device=DEV))
+    out["state"] = st
+    times["landmark_read"], out["read"] = cuda_ms(
+        lambda: lm_ops.landmark_read(Q, st.k_land, st.UV, st.U1, st.scale))
+    times["landmark_read_decode"], out["decode"] = cuda_ms(
+        lambda: lm_ops.landmark_read(Qd, st.k_land, st.UV, st.U1, st.scale),
+        reps=ATT_DECODE_REPS)
+    for mode in ("fast", "nystrom"):
+        times[f"sketched_attention_{mode}"], out[mode] = cuda_ms(
+            lambda: tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA,
+                                           mode=mode, generator=gen(13),
+                                           device=DEV))
+    return times, out
+
+
+def phase_attention_long() -> dict:
+    n = ATT_N
+    Q, K, V = _qkv(n, seed=11)
+    Qd = Q[:ATT_DECODE_M].contiguous()
+    _attention_calls(Q, K, V, Qd)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launch_counts()
+    lm_kernel.reset_launch_counts()
+    times, out = _attention_calls(Q, K, V, Qd)      # the counted run
+    torch.cuda.synchronize()
+    launches = {**kernel.launch_counts(), **lm_kernel.launch_counts()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"attention_long (n={n}, D={ATT_D}, c={ATT_C}, theta={ATT_THETA}, "
+        f"strided, f32): times ms {json.dumps(times)}")
+    log(f"attention_long launches {json.dumps(launches)}, peak memory "
+        f"{peak_gb:.2f} GB")
+    check(launches["landmark_read"] == 1 + ATT_DECODE_REPS,
+          f"the reads should be {1 + ATT_DECODE_REPS} B5 launches (one over "
+          f"all n queries, {ATT_DECODE_REPS} decode reads): {launches}")
+    st = out["state"]
+    for name, t, shape in (("read", out["read"], (n, ATT_D)),
+                           ("decode", out["decode"], (ATT_DECODE_M, ATT_D)),
+                           ("fast", out["fast"], (n, ATT_D)),
+                           ("nystrom", out["nystrom"], (n, ATT_D)),
+                           ("UV", st.UV, (ATT_C, ATT_D)),
+                           ("U1", st.U1, (ATT_C,))):
+        check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()),
+              f"attention_long {name}: shape {tuple(t.shape)} or non-finite")
+
+    rows = torch.randperm(n, generator=gen(14), device=DEV)[:ATT_ERR_ROWS]
+    exact = _exact_rows(Q, K, V, rows)
+    errs = {k: rel_err(out[k][rows], exact) for k in ("fast", "nystrom",
+                                                      "read")}
+    log(f"attention_long rel err vs exact softmax attention ({ATT_ERR_ROWS} "
+        f"rows): fast {errs['fast']:.6f}, nystrom {errs['nystrom']:.6f}, "
+        f"landmark read {errs['read']:.6f}")
+    check(errs["fast"] <= errs["nystrom"] + 1e-3,
+          f"fast {errs['fast']:.5f} > nystrom {errs['nystrom']:.5f} + 1e-3")
+
+    # B5 at the main shape against its plain version
+    args = (Q, st.k_land, st.UV, st.U1, st.scale.reshape(1))
+    ms, got = cuda_ms(lambda: lm_kernel.landmark_read_cuda(*args), reps=5,
+                      warmup=1)
+    plain_ms, plain = cuda_ms(lambda: lm_kernel.landmark_read_plain(*args),
+                              reps=3, warmup=1)
+    err = float((got - plain).abs().max())
+    rel = scaled_err(got, plain)
+    sub = slice(0, 4096)
+    exact64 = _read_f64(Q[sub], *args[1:])
+    e64_k = scaled_err(got[sub].double(), exact64)
+    e64_p = scaled_err(plain[sub].double(), exact64)
+    ms_dec, _ = cuda_ms(lambda: lm_kernel.landmark_read_cuda(
+        Qd, *args[1:]), reps=50, warmup=5)
+    check(rel <= TOL_F32, f"B5 main shape vs plain: {rel:.3g} > {TOL_F32}")
+    m, c, d, dv = n, ATT_C, ATT_D, ATT_D
+    flops = 2 * m * c * (d + dv + 1)
+    nbytes = 4 * (m * d + c * d + c * dv + c + m * dv)
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    dflops = 2 * ATT_DECODE_M * c * (d + dv + 1)
+    dbytes = 4 * (ATT_DECODE_M * d + c * d + c * dv + c + ATT_DECODE_M * dv)
+    bound_dec = max(dflops / PEAK_FP32_FLOPS, dbytes / PEAK_HBM_BYTES) * 1e3
+    log(f"B5 main shape (m={m}, c={c}, d={d}, dv={dv}): {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s, {bound / ms:.1%} of the FP32 roof); vs plain {rel:.3g} "
+        f"(max abs {err:.3g}); vs f64 on {sub.stop} rows: kernel {e64_k:.3g}, "
+        f"plain {e64_p:.3g}; decode (m={ATT_DECODE_M}) {ms_dec:.4f} ms "
+        f"(bound {bound_dec:.4f} ms)")
+    line = {"name": "landmark_read", "route": "cuda",
+            "source": "src/repro_torch/kernels/landmark_attention/csrc/"
+                      "landmark.cu",
+            "replaces": "src/repro/kernels/landmark_attention/kernel.py:49",
+            "launches": launches["landmark_read"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "library_call": "none (no single PyTorch call computes it)",
+            "shape": {"m": m, "c": c, "d": d, "dv": dv, "dtype": "float32"},
+            "scaled_err_vs_plain": rel, "scaled_err_vs_f64": e64_k,
+            "ms_decode": ms_dec, "bound_ms_decode": bound_dec,
+            "decode_shape": {"m": ATT_DECODE_M, "c": c, "d": d, "dv": dv}}
+    return dict(times=times, errs=errs, launches=launches, line=line,
+                peak_gb=peak_gb)
+
+
+def _policy_model(name: str, n: int, c: int) -> dict:
+    """The reference's count model for one select call at (n, c)."""
+    pol = get_policy(name)
+    b = sweep_lib.resolved_block_size(n, n, None)
+    sweep_entries = sweep_lib.num_panels(n, n, None) * b * n
+    if name == "uniform_adaptive2":
+        extra = c // (pol.adaptive_rounds + 1)
+        c0 = c - pol.adaptive_rounds * extra
+        gathered = sum(c0 + r * extra for r in range(pol.adaptive_rounds))
+        entries = pol.sweep_budget() * sweep_entries + n * gathered
+        blocks = pol.gathers + pol.sweep_budget() * sweep_lib.num_panels(
+            n, n, None)
+    else:                                   # leverage: one n x p pilot
+        p = min(n, max(2 * c, c + pol.oversample))
+        entries = n * p
+        blocks = pol.gathers
+    return {"sweeps": pol.sweep_budget(), "columns": pol.gathers,
+            "entries": entries, "b2_launches": blocks}
+
+
+def phase_attention_policy() -> dict:
+    n = POLICY_N
+    Q, K, V = _qkv(n, seed=21)
+    op = CountingOperator(tsa.softmax_gram_operator(K))
+    rows = torch.randperm(n, generator=gen(24), device=DEV)[:ATT_ERR_ROWS]
+    exact = _exact_rows(Q, K, V, rows)
+    res = {}
+    strided = tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA,
+                                     generator=gen(23), device=DEV)
+    res["strided_err"] = rel_err(strided[rows], exact)
+    for name in ("uniform_adaptive2", "leverage"):
+        op.reset()
+        kernel.reset_launch_counts()
+        ms, idx = cuda_ms(lambda: get_policy(name).select(
+            op, ATT_C, generator=gen(22)))
+        torch.cuda.synchronize()
+        launches = kernel.launch_counts()
+        want = _policy_model(name, n, ATT_C)
+        log(f"attention_policy {name} (n={n}, c={ATT_C}): {ms:.1f} ms, "
+            f"counts {json.dumps(op.counts)}, launches {json.dumps(launches)}, "
+            f"model {json.dumps(want)}")
+        check(len(set(idx.tolist())) == ATT_C, f"{name}: repeated landmarks")
+        check(op.counts["sweeps"] == want["sweeps"]
+              and op.counts["columns"] == want["columns"]
+              and op.counts["entries"] == want["entries"]
+              and op.counts["fulls"] == 0,
+              f"{name}: metered {op.counts} != model {want}")
+        check(launches["pairwise_block"] == want["b2_launches"]
+              and launches["pairwise_matmat_multi"] == 0,
+              f"{name}: launches {launches} != model {want}")
+        out = tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA, p_idx=idx,
+                                     generator=gen(23), device=DEV)
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        res[name] = {"ms": ms, "counts": dict(op.counts),
+                     "b2_launches": launches["pairwise_block"],
+                     "err": rel_err(out[rows], exact)}
+    log(f"attention_policy rel err (fast mode, {ATT_ERR_ROWS} rows): "
+        f"uniform_adaptive2 {res['uniform_adaptive2']['err']:.6f}, leverage "
+        f"{res['leverage']['err']:.6f}, strided {res['strided_err']:.6f}")
+
+    # B2 under exp_affine at this phase's panel shape
+    spec = op.inner.spec
+    b = sweep_lib.resolved_block_size(n, n, None)
+    Kr = K[:b].contiguous()
+    ms, blk = cuda_ms(lambda: kernel.pairwise_block_cuda(spec, Kr, K),
+                      reps=5, warmup=1)
+    plain_ms, plain = cuda_ms(lambda: kernel.pairwise_block_plain(spec, Kr, K),
+                              reps=5, warmup=1)
+    e = scaled_err(blk, plain)
+    check(e <= TOL_F32, f"B2 exp_affine panel vs plain: {e:.3g}")
+    flops = 2 * ATT_D * b * n
+    nbytes = 4 * (b * ATT_D + n * ATT_D + b * n)
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    log(f"B2 exp_affine panel ({b} x {n}, d={ATT_D}): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations), vs plain "
+        f"{e:.3g}")
+    res["b2_panel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "shape": {"nr": b, "nc": n, "d": ATT_D,
+                                 "spec": "softmax_gram (exp_affine)"}}
+    res["b2_launches"] = sum(res[k]["b2_launches"]
+                             for k in ("uniform_adaptive2", "leverage"))
+    return res
 
 
 def main() -> int:
@@ -480,9 +824,25 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_parity()
+    phase_parity_read()
     m = phase_main()
     phase_scaling()
-    kernels_line = {"kernels": [_b1_line(m), _b2_line(m)]}
+    b1, b2 = _b1_line(m), _b2_line(m)
+    att = phase_attention_long()
+    pol = phase_attention_policy()
+    b1["launches_by_path"] = {"spsd_main": b1["launches"],
+                              "attention_long": 0, "attention_policy": 0}
+    b2["launches_by_path"] = {
+        "spsd_main": b2["launches"], "attention_long": 0,
+        "attention_policy": pol["b2_launches"]}
+    b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
+               "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
+               "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],
+               "exp_affine_policy_panel_shape": pol["b2_panel"]["shape"]})
+    b5 = att["line"]
+    b5["launches_by_path"] = {"spsd_main": 0, "attention_long":
+                              b5["launches"], "attention_policy": 0}
+    kernels_line = {"kernels": [b1, b2, b5]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)

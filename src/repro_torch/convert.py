@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import sketch as sk
 from repro_torch.core.kernelop import PairwiseKernel
+from repro_torch.core.sketched_attention import LandmarkState
 from repro_torch.core.spsd import SPSDApprox
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pairwise import specs
@@ -57,3 +58,15 @@ def approx_from_reference(C, U, P_indices=None, device=None) -> SPSDApprox:
         C=torch.as_tensor(np.array(C, np.float32), device=device),
         U=torch.as_tensor(np.array(U, np.float32), device=device),
         P_indices=P)
+
+
+def landmark_state_from_reference(k_land, UV, U1, scale, device=None):
+    """A reference ``LandmarkState`` (k_land, UV, U1, scale as numpy) as
+    the port's, in f32 (bf16 values widen exactly)."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return LandmarkState(k_land=f32(k_land), UV=f32(UV), U1=f32(U1),
+                         scale=f32(scale).reshape(()))

@@ -1,5 +1,6 @@
-from repro_torch.core import (instrument, kernelop, leverage,  # noqa: F401
-                              selection, sketch, spsd, sweep)
+from repro_torch.core import (adaptive, cur, instrument,  # noqa: F401
+                              kernelop, leverage, selection,
+                              sketched_attention, sketch, spsd, sweep)
 from repro_torch.core.instrument import CountingOperator  # noqa: F401
 from repro_torch.core.kernelop import (DenseSPSD, LinearKernel,  # noqa: F401
                                        PairwiseKernel, RBFKernel,

@@ -1,10 +1,12 @@
-"""Leverage scores and the pseudo-inverse (port of ``repro.core.leverage``;
-the blocked-Gram variants and coherence come with the selection slice)."""
+"""Leverage scores, coherence and the pseudo-inverse (port of
+``repro.core.leverage``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.core.sweep import GramPlan, RowQuadFormPlan, sweep_panels
 
 _EPS_F32 = float(torch.finfo(torch.float32).eps)
 
@@ -22,6 +24,48 @@ def row_leverage_scores(A: torch.Tensor,
     u, s, _ = torch.linalg.svd(A.to(torch.float32), full_matrices=False)
     mask = (s > rcond * torch.max(s)).to(torch.float32)
     return torch.sum((u * mask[None, :]) ** 2, dim=1)
+
+
+def column_leverage_scores(A: torch.Tensor,
+                           rcond: Optional[float] = None) -> torch.Tensor:
+    return row_leverage_scores(A.T, rcond)
+
+
+def _gram_leverage(panel_fn, nrows: int, dim: int, block_size, device):
+    """l_i = p_i (Σ panelsᵀ panels)† p_iᵀ over (b × dim) panels: a blocked
+    Gram pass then a blocked quadratic-form pass through the sweep engine —
+    peak memory O(b·dim + dim²)."""
+    (G,) = sweep_panels(panel_fn, nrows, dim, [GramPlan(dim)],
+                        block_size=block_size, device=device)
+    W = pinv(0.5 * (G + G.T))
+    (lev,) = sweep_panels(panel_fn, nrows, dim, [RowQuadFormPlan(W)],
+                          block_size=block_size, device=device)
+    return lev
+
+
+def row_leverage_scores_gram(A: torch.Tensor,
+                             block_size: Optional[int] = None
+                             ) -> torch.Tensor:
+    """Row leverage scores of a tall A (m × c) via a blocked Gram AᵀA pass:
+    l_i = a_i (AᵀA)† a_iᵀ, with no transposed copy or SVD workspace of A."""
+    m, cdim = A.shape
+    return _gram_leverage(lambda idx: A[idx], m, cdim, block_size, A.device)
+
+
+def column_leverage_scores_gram(R: torch.Tensor,
+                                block_size: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Column leverage scores of a wide R (r × n), streamed: l_j =
+    R_:jᵀ (R Rᵀ)† R_:j, the Gram accumulated over (b × r) column panels."""
+    r, n = R.shape
+    return _gram_leverage(lambda idx: R[:, idx].T, n, r, block_size,
+                          R.device)
+
+
+def row_coherence(A: torch.Tensor) -> torch.Tensor:
+    """mu(A) = (m / rank) · max_i l_i, in [1, m]."""
+    lev = row_leverage_scores(A)
+    return A.shape[0] / torch.sum(lev) * torch.max(lev)
 
 
 def pinv(A: torch.Tensor, rcond: Optional[float] = None) -> torch.Tensor:

@@ -12,7 +12,7 @@
 //                                 out = K(Xr, Xc) @ V with K never written out
 //
 // The statistic (dot, sqdist, l1dist) and the entry function (identity,
-// exp(-a t), Matern-3/2, integer polynomial) are selected at run time by the
+// exp(-a t), Matern-3/2, integer polynomial, exp(a t - b)) are selected at run time by the
 // ids the wrapper passes (KernelSpec.stat / KernelSpec.epilogue).  The
 // l1dist statistic is the direct sum of |x_k - y_k| over the feature axis on
 // the CUDA cores, in feature order; on data inside a sign-split plan the
@@ -74,7 +74,13 @@ constexpr int NT = 256;   // threads per block
 constexpr int CPT = BC / (NT / BR);  // K-tile columns per thread (8)
 
 enum { STAT_DOT = 0, STAT_SQDIST = 1, STAT_L1 = 2 };
-enum { EPI_IDENTITY = 0, EPI_EXP_NEG = 1, EPI_MATERN32 = 2, EPI_POLY = 3 };
+enum {
+  EPI_IDENTITY = 0,
+  EPI_EXP_NEG = 1,
+  EPI_MATERN32 = 2,
+  EPI_POLY = 3,
+  EPI_EXP_AFFINE = 4   // exp(a t - b): the softmax Gram exp(t / sqrt(d) - offset)
+};
 
 struct Params {
   int epi;
@@ -119,6 +125,8 @@ __device__ __forceinline__ float entry(float t, const Params& p) {
     }
     case EPI_POLY:
       return ipow(__fadd_rn(__fmul_rn(p.a, t), p.b), p.degree);
+    case EPI_EXP_AFFINE:   // two roundings, no FMA contraction
+      return expf(__fsub_rn(__fmul_rn(t, p.a), p.b));
     default:
       return t;
   }

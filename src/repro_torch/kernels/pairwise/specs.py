@@ -36,7 +36,8 @@ STAT_KINDS = ("sqdist", "dot", "l1dist")
 PRECISIONS = ("f32", "bf16_f32acc")
 
 #: entry functions the CUDA kernels evaluate, by epilogue id (index)
-EPILOGUE_KINDS = ("identity", "exp_neg", "matern32", "polynomial")
+EPILOGUE_KINDS = ("identity", "exp_neg", "matern32", "polynomial",
+                  "exp_affine")
 
 
 def tile_dtype(precision: str) -> torch.dtype:
@@ -53,7 +54,9 @@ class Epilogue(NamedTuple):
 
     ``identity``: t; ``exp_neg``: exp(−a·t); ``matern32``:
     (1 + a·r)·exp(−a·r) with r = sqrt(max(t, 0)); ``polynomial``:
-    (a·t + b)^degree by repeated multiplication.
+    (a·t + b)^degree by repeated multiplication; ``exp_affine``:
+    exp(a·t − b), rounded after the product and after the difference (the
+    softmax Gram of sketched attention, exp(t/√d − offset)).
     """
 
     kind: str

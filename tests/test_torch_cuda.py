@@ -7,7 +7,9 @@ a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, scale-normalized against the plain PyTorch versions on the same
-card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates).
+card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates); the landmark
+read with bf16 inputs within the reference's ``_tol(bf16)`` (rtol = atol =
+2e-2).
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ from repro_torch.core import spsd
 from repro_torch.core import sweep as sweep_lib
 from repro_torch.core.instrument import CountingOperator
 from repro_torch.core.kernelop import PairwiseKernel
+from repro_torch.core import sketched_attention as tsa
+from repro_torch.kernels.landmark_attention import kernel as lm_kernel
+from repro_torch.kernels.landmark_attention import ops as lm_ops
 from repro_torch.kernels.pairwise import kernel, specs
 
 NAMES = ("laplacian", "linear", "matern32", "polynomial", "rbf")
@@ -127,3 +132,70 @@ def test_fast_model_with_error_is_one_fused_launch(cuda_device):
     assert scaled(ap.C.cpu(), ap_cpu.C) <= 1e-5
     assert scaled(ap.dense().cpu(), ap_cpu.dense()) <= 1e-4
     assert abs(float(err) - float(err_cpu)) <= 1e-5
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_exp_affine_epilogue_matches_plain_versions(cuda_device, prec):
+    """The softmax-Gram spec exp(t/√d − offset) in both kernels."""
+    rng = np.random.default_rng(3)
+    X = _rand(rng, 300, 64, dev=cuda_device) * 0.4
+    V = _rand(rng, 170, 140, dev=cuda_device)
+    spec = tsa.softmax_gram_operator(X).spec.with_precision(prec)
+    assert spec.epilogue.kind == "exp_affine"
+    Xr, Xc = X[:130].contiguous(), X[130:].contiguous()
+    assert scaled(kernel.pairwise_block(spec, Xr, Xc),
+                  kernel.pairwise_block_plain(spec, Xr, Xc)) <= TOL[prec]
+    (out,) = kernel.pairwise_matmat_multi(spec, Xr, Xc, [V])
+    (plain,) = kernel.pairwise_matmat_multi_plain(spec, Xr, Xc, [V])
+    assert scaled(out, plain) <= TOL[prec]
+
+
+def _read_inputs(m, c, d, dv, dev, dtype):
+    rng = np.random.default_rng(3)
+    Q = (_rand(rng, m, d, dev=dev) * 0.5).to(dtype)
+    kl = (_rand(rng, c, d, dev=dev) * 0.5).to(dtype)
+    UV = _rand(rng, c, dv, dev=dev).to(dtype)
+    U1 = _rand(rng, c, dev=dev).abs() + 0.5
+    return Q, kl, UV, U1, torch.tensor([0.3], device=dev)
+
+
+@pytest.mark.parametrize("m,c,d,dv", [(128, 16, 64, 64), (200, 32, 32, 16),
+                                      (64, 8, 128, 128), (1, 16, 64, 64),
+                                      (300, 130, 40, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_landmark_read_matches_plain_version(cuda_device, m, c, d, dv,
+                                             dtype):
+    """The reference's shapes, plus a ragged one past one landmark chunk,
+    one feature chunk and one 256-wide value chunk."""
+    args = _read_inputs(m, c, d, dv, cuda_device, dtype)
+    before = lm_kernel.launch_counts()["landmark_read"]
+    out = lm_ops.landmark_read(*args)
+    assert lm_kernel.launch_counts()["landmark_read"] == before + 1
+    plain = lm_kernel.landmark_read_plain(*args)
+    assert out.dtype == dtype and out.shape == plain.shape == (m, dv)
+    if dtype == torch.float32:
+        assert scaled(out, plain) <= 1e-5
+    else:
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2)
+    Q, kl, UV, U1, off = args
+    flipped = lm_ops.landmark_read(Q, kl, UV, -U1, off)
+    assert torch.equal(flipped, -out)
+
+
+def test_landmark_decode_runs_the_kernel(cuda_device):
+    rng = np.random.default_rng(4)
+    K = _rand(rng, 512, 32, dev=cuda_device) * 0.4
+    V = _rand(rng, 512, 32, dev=cuda_device)
+    st = tsa.build_landmark_state(K, V, 32, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    q = _rand(rng, 5, 32, dev=cuda_device) * 0.4
+    lm_kernel.reset_launch_counts()
+    out = tsa.landmark_decode(st, q)
+    assert lm_kernel.launch_counts() == {"landmark_read": 1}
+    plain = lm_kernel.landmark_read_plain(q, st.k_land, st.UV, st.U1,
+                                          st.scale)
+    assert scaled(out, plain) <= 1e-5
+    with pytest.raises(TypeError, match="float32"):
+        lm_kernel.landmark_read_cuda(q, st.k_land, st.UV, st.U1.double(),
+                                     st.scale.reshape(1))

@@ -27,6 +27,9 @@ import repro_torch
 from repro_torch import device as tdevice
 from repro_torch.core import spsd as tsp
 from repro_torch.core.kernelop import PairwiseKernel, RBFKernel
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.landmark_attention import build as lm_build
+from repro_torch.kernels.landmark_attention import kernel as lm_kernel
 from repro_torch.kernels.pairwise import build
 from repro_torch.kernels.pairwise import kernel as tkernel
 from repro_torch.kernels.pairwise import specs as tspecs
@@ -155,3 +158,29 @@ def test_chip_smoke_fails_without_a_card_and_outside_the_repo(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     res = _run_smoke(tmp_path)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_shared_build_helper_names_one_library_per_source():
+    libs = (build.LIBRARY, lm_build.LIBRARY)
+    assert [lib.name for lib in libs] == ["pairwise", "landmark"]
+    for lib in libs:
+        path = lib.library_path()
+        assert path.parent == kbuild.BUILD_DIR == REPO / "build" / "kernels"
+        assert path.name == f"lib{lib.name}_{lib.source_hash()}.so"
+        assert all(src.exists() and src.suffix == ".cu"
+                   for src in lib.sources)
+        cmd = lib.nvcc_command("nvcc", Path("out.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
+        assert [c for c in cmd if c.endswith(".cu")] == \
+            [str(src) for src in lib.sources]
+    assert build.LIBRARY.source_hash() != lm_build.LIBRARY.source_hash()
+
+
+def test_landmark_wrapper_refuses_what_the_kernel_does_not_take():
+    Q, kl, UV = torch.zeros((4, 8)), torch.zeros((3, 8)), torch.zeros((3, 5))
+    U1, off = torch.zeros(3), torch.zeros(1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off)
+    assert lm_kernel.launch_counts() == {"landmark_read": 0}
+    out = lm_kernel.landmark_read_plain(Q, kl, UV, U1, off)
+    assert tuple(out.shape) == (4, 5) and bool(torch.isfinite(out).all())

@@ -493,7 +493,7 @@ def test_generator_draws_are_reproducible(X):
     idx = tsel.get_policy("uniform").select(Kt, C, mask=mask)
     assert len(set(idx.tolist())) == C and int(idx.max()) < 40
     with pytest.raises(ValueError, match="unknown selection policy"):
-        tsel.get_policy("leverage")
+        tsel.get_policy("no_such_policy")
 
 
 def test_fast_model_masked_rows(X):
