@@ -27,16 +27,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gemma3-12b global layer at ``long_500k`` (``src/repro/configs``:
    context n = 524,288, head_dim 256, landmark_c 512, landmark_theta 4,
    strided landmarks, f32) — ``build_landmark_state``, the landmark read
-   over all n queries (one B5 launch) and at a decode shape (16 queries),
-   ``sketched_attention`` fast and Nyström; errors against exact softmax
-   attention on 1,024 sampled rows, fast ≤ Nyström + 1e-3, B5 ≤ 1e-5
-   against its plain version;
+   over all n queries and at a decode shape (16 queries), one B5 launch
+   each, ``sketched_attention`` fast and Nyström; errors against exact
+   softmax attention on 1,024 sampled rows, fast ≤ Nyström + 1e-3; B5
+   against its plain version at the main shape (f32 ≤ 1e-5, bf16 inputs
+   within rtol = atol = 2e-2) and at the decode shape (≤ 1e-5);
 6. attention_policy: landmarks chosen by ``uniform_adaptive2`` and
    ``leverage`` over the context's softmax Gram at n = 32,768 through a
    ``CountingOperator`` (sweeps, gathers and entries equal the count model;
    B2 launches counted), then ``sketched_attention`` with them;
 7. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   path, time, plain-version time, bound, library-call time, error;
+   own path and on each of the three paths (every count reset just before
+   the path and read just after it, and checked), time, plain-version
+   time, bound, library-call time, error;
 8. the card line again, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -100,7 +103,6 @@ C_COLS, S_COLS, PROBES = N // 250, 4 * (N // 250), 64
 # layer at long_500k (src/repro/configs/gemma3_12b.py, configs/base.py)
 ATT_N, ATT_D, ATT_C, ATT_THETA = 524_288, 256, 512, 4
 ATT_DECODE_M = 16       # 2 query heads per kv head x batch 8
-ATT_DECODE_REPS = 20    # decode reads timed (and launched) per run
 ATT_ERR_ROWS, ATT_ERR_CHUNK = 1024, 256
 POLICY_N = 32_768       # context of the policy phase
 
@@ -168,6 +170,18 @@ def letters(n: int, seed: int) -> torch.Tensor:
 
 def gen(seed: int) -> torch.Generator:
     return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    kernel.reset_launch_counts()
+    lm_kernel.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last reset."""
+    torch.cuda.synchronize()
+    return {**kernel.launch_counts(), **lm_kernel.launch_counts()}
 
 
 # ---------------------------------------------------------------------------
@@ -300,16 +314,21 @@ def _read_case(m, c, d, dv, dtype, seed=3):
           f"{label}: {out.dtype} {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     check(torch.equal(flipped, -out), f"{label}: U1 sign flip not exact")
+    return _check_read(out, plain, label)
+
+
+def _check_read(out, plain, label) -> float:
+    """B5's gates: f32 ≤ TOL_F32 scale-normalized; bf16 inputs within the
+    reference's rtol = atol = TOL_READ_BF16.  Returns the scaled error."""
     o32, p32 = out.float(), plain.float()
-    if dtype == torch.float32:
-        err = scaled_err(o32, p32)
+    err = scaled_err(o32, p32)
+    if out.dtype == torch.float32:
         check(err <= TOL_F32, f"{label}: {err:.3g} > {TOL_F32}")
     else:
         excess = float(((o32 - p32).abs() - TOL_READ_BF16
                         * (1.0 + p32.abs())).max())
         check(excess <= 0.0, f"{label}: outside rtol = atol = "
               f"{TOL_READ_BF16} by {excess:.3g}")
-        err = scaled_err(o32, p32)
     return err
 
 
@@ -367,10 +386,9 @@ def phase_main() -> dict:
 
     _main_calls(op, idx, S, Z)                      # warm-up
     torch.cuda.synchronize()
-    kernel.reset_launch_counts()
+    reset_counts()
     times, out = _main_calls(op, idx, S, Z)         # the counted run
-    torch.cuda.synchronize()
-    launches = kernel.launch_counts()
+    launches = read_counts()
     log(f"main path (n={N}, d={D}, c={C_COLS}, s={S_COLS}, "
         f"probes={PROBES}): times ms {json.dumps(times)}")
     log(f"main path launches {json.dumps(launches)}")
@@ -394,6 +412,8 @@ def phase_main() -> dict:
           f"blocked error metering {cb} {out['route_blocked']}")
     check(launches["pairwise_block"] == 2 + panels,
           f"block launches {launches['pairwise_block']} != {2 + panels}")
+    check(launches["landmark_read"] == 0,
+          f"the SPSD path launched the landmark read: {launches}")
 
     apg, apl = out["apg"], out["apl"]
     err_h, err_b = float(out["err_h"]), float(out["err_b"])
@@ -638,8 +658,7 @@ def _attention_calls(Q, K, V, Qd):
     times["landmark_read"], out["read"] = cuda_ms(
         lambda: lm_ops.landmark_read(Q, st.k_land, st.UV, st.U1, st.scale))
     times["landmark_read_decode"], out["decode"] = cuda_ms(
-        lambda: lm_ops.landmark_read(Qd, st.k_land, st.UV, st.U1, st.scale),
-        reps=ATT_DECODE_REPS)
+        lambda: lm_ops.landmark_read(Qd, st.k_land, st.UV, st.U1, st.scale))
     for mode in ("fast", "nystrom"):
         times[f"sketched_attention_{mode}"], out[mode] = cuda_ms(
             lambda: tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA,
@@ -655,19 +674,18 @@ def phase_attention_long() -> dict:
     _attention_calls(Q, K, V, Qd)                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launch_counts()
-    lm_kernel.reset_launch_counts()
+    reset_counts()
     times, out = _attention_calls(Q, K, V, Qd)      # the counted run
-    torch.cuda.synchronize()
-    launches = {**kernel.launch_counts(), **lm_kernel.launch_counts()}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"attention_long (n={n}, D={ATT_D}, c={ATT_C}, theta={ATT_THETA}, "
         f"strided, f32): times ms {json.dumps(times)}")
     log(f"attention_long launches {json.dumps(launches)}, peak memory "
         f"{peak_gb:.2f} GB")
-    check(launches["landmark_read"] == 1 + ATT_DECODE_REPS,
-          f"the reads should be {1 + ATT_DECODE_REPS} B5 launches (one over "
-          f"all n queries, {ATT_DECODE_REPS} decode reads): {launches}")
+    check(launches == {"pairwise_block": 0, "pairwise_matmat_multi": 0,
+                       "landmark_read": 2},
+          f"the path should launch B5 twice (one read over all n queries, "
+          f"one decode read) and no pairwise kernel: {launches}")
     st = out["state"]
     for name, t, shape in (("read", out["read"], (n, ATT_D)),
                            ("decode", out["decode"], (ATT_DECODE_M, ATT_D)),
@@ -700,9 +718,21 @@ def phase_attention_long() -> dict:
     exact64 = _read_f64(Q[sub], *args[1:])
     e64_k = scaled_err(got[sub].double(), exact64)
     e64_p = scaled_err(plain[sub].double(), exact64)
-    ms_dec, _ = cuda_ms(lambda: lm_kernel.landmark_read_cuda(
-        Qd, *args[1:]), reps=50, warmup=5)
     check(rel <= TOL_F32, f"B5 main shape vs plain: {rel:.3g} > {TOL_F32}")
+    # bf16 inputs at the main shape
+    args16 = (Q.bfloat16(), st.k_land.bfloat16(), st.UV.bfloat16(),
+              *args[3:])
+    ms16, got16 = cuda_ms(lambda: lm_kernel.landmark_read_cuda(*args16),
+                          reps=5, warmup=1)
+    rel16 = _check_read(got16, lm_kernel.landmark_read_plain(*args16),
+                        "B5 main shape bf16")
+    del args16, got16
+    # the decode shape: the path's own read and the timed one
+    ms_dec, got_dec = cuda_ms(lambda: lm_kernel.landmark_read_cuda(
+        Qd, *args[1:]), reps=50, warmup=5)
+    plain_dec = lm_kernel.landmark_read_plain(Qd, *args[1:])
+    rel_dec = max(_check_read(got_dec, plain_dec, "B5 decode shape"),
+                  _check_read(out["decode"], plain_dec, "B5 decode (path)"))
     m, c, d, dv = n, ATT_C, ATT_D, ATT_D
     flops = 2 * m * c * (d + dv + 1)
     nbytes = 4 * (m * d + c * d + c * dv + c + m * dv)
@@ -714,8 +744,9 @@ def phase_attention_long() -> dict:
         f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({flops / ms / 1e9:.1f} "
         f"TFLOP/s, {bound / ms:.1%} of the FP32 roof); vs plain {rel:.3g} "
         f"(max abs {err:.3g}); vs f64 on {sub.stop} rows: kernel {e64_k:.3g}, "
-        f"plain {e64_p:.3g}; decode (m={ATT_DECODE_M}) {ms_dec:.4f} ms "
-        f"(bound {bound_dec:.4f} ms)")
+        f"plain {e64_p:.3g}; bf16 inputs {ms16:.3f} ms (vs plain "
+        f"{rel16:.3g}); decode (m={ATT_DECODE_M}) {ms_dec:.4f} ms (bound "
+        f"{bound_dec:.4f} ms, vs plain {rel_dec:.3g})")
     line = {"name": "landmark_read", "route": "cuda",
             "source": "src/repro_torch/kernels/landmark_attention/csrc/"
                       "landmark.cu",
@@ -726,7 +757,9 @@ def phase_attention_long() -> dict:
             "library_call": "none (no single PyTorch call computes it)",
             "shape": {"m": m, "c": c, "d": d, "dv": dv, "dtype": "float32"},
             "scaled_err_vs_plain": rel, "scaled_err_vs_f64": e64_k,
+            "ms_bf16": ms16, "scaled_err_bf16_vs_plain": rel16,
             "ms_decode": ms_dec, "bound_ms_decode": bound_dec,
+            "scaled_err_decode_vs_plain": rel_dec,
             "decode_shape": {"m": ATT_DECODE_M, "c": c, "d": d, "dv": dv}}
     return dict(times=times, errs=errs, launches=launches, line=line,
                 peak_gb=peak_gb)
@@ -759,16 +792,16 @@ def phase_attention_policy() -> dict:
     rows = torch.randperm(n, generator=gen(24), device=DEV)[:ATT_ERR_ROWS]
     exact = _exact_rows(Q, K, V, rows)
     res = {}
+    reset_counts()
     strided = tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA,
                                      generator=gen(23), device=DEV)
     res["strided_err"] = rel_err(strided[rows], exact)
     for name in ("uniform_adaptive2", "leverage"):
         op.reset()
-        kernel.reset_launch_counts()
+        before = read_counts()
         ms, idx = cuda_ms(lambda: get_policy(name).select(
             op, ATT_C, generator=gen(22)))
-        torch.cuda.synchronize()
-        launches = kernel.launch_counts()
+        launches = {k: v - before[k] for k, v in read_counts().items()}
         want = _policy_model(name, n, ATT_C)
         log(f"attention_policy {name} (n={n}, c={ATT_C}): {ms:.1f} ms, "
             f"counts {json.dumps(op.counts)}, launches {json.dumps(launches)}, "
@@ -780,7 +813,8 @@ def phase_attention_policy() -> dict:
               and op.counts["fulls"] == 0,
               f"{name}: metered {op.counts} != model {want}")
         check(launches["pairwise_block"] == want["b2_launches"]
-              and launches["pairwise_matmat_multi"] == 0,
+              and launches["pairwise_matmat_multi"] == 0
+              and launches["landmark_read"] == 0,
               f"{name}: launches {launches} != model {want}")
         out = tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA, p_idx=idx,
                                      generator=gen(23), device=DEV)
@@ -788,6 +822,14 @@ def phase_attention_policy() -> dict:
         res[name] = {"ms": ms, "counts": dict(op.counts),
                      "b2_launches": launches["pairwise_block"],
                      "err": rel_err(out[rows], exact)}
+    res["launches"] = read_counts()
+    b2_want = sum(res[k]["b2_launches"] for k in ("uniform_adaptive2",
+                                                   "leverage"))
+    log(f"attention_policy launches {json.dumps(res['launches'])}")
+    check(res["launches"] == {"pairwise_block": b2_want,
+                              "pairwise_matmat_multi": 0, "landmark_read": 0},
+          f"the policy path should launch only the selections' "
+          f"{b2_want} B2 panels: {res['launches']}")
     log(f"attention_policy rel err (fast mode, {ATT_ERR_ROWS} rows): "
         f"uniform_adaptive2 {res['uniform_adaptive2']['err']:.6f}, leverage "
         f"{res['leverage']['err']:.6f}, strided {res['strided_err']:.6f}")
@@ -811,8 +853,6 @@ def phase_attention_policy() -> dict:
     res["b2_panel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "shape": {"nr": b, "nc": n, "d": ATT_D,
                                  "spec": "softmax_gram (exp_affine)"}}
-    res["b2_launches"] = sum(res[k]["b2_launches"]
-                             for k in ("uniform_adaptive2", "leverage"))
     return res
 
 
@@ -830,19 +870,17 @@ def main() -> int:
     b1, b2 = _b1_line(m), _b2_line(m)
     att = phase_attention_long()
     pol = phase_attention_policy()
-    b1["launches_by_path"] = {"spsd_main": b1["launches"],
-                              "attention_long": 0, "attention_policy": 0}
-    b2["launches_by_path"] = {
-        "spsd_main": b2["launches"], "attention_long": 0,
-        "attention_policy": pol["b2_launches"]}
+    # each path's counts were reset just before it and read just after
+    paths = {"spsd_main": m["launches"], "attention_long": att["launches"],
+             "attention_policy": pol["launches"]}
+    for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
+                      (att["line"], "landmark_read")):
+        line["launches_by_path"] = {p: c[key] for p, c in paths.items()}
     b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],
                "exp_affine_policy_panel_shape": pol["b2_panel"]["shape"]})
-    b5 = att["line"]
-    b5["launches_by_path"] = {"spsd_main": 0, "attention_long":
-                              b5["launches"], "attention_policy": 0}
-    kernels_line = {"kernels": [b1, b2, b5]}
+    kernels_line = {"kernels": [b1, b2, att["line"]]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)

@@ -2,7 +2,7 @@
 
 The library is built at first use by the shared helper
 (``repro_torch.kernels.build``) into ``build/kernels/liblandmark_<hash>.so``;
-``build_log()`` keeps the compiler's ``-Xptxas -v`` report.
+``LIBRARY.build_log()`` keeps the compiler's ``-Xptxas -v`` report.
 """
 from __future__ import annotations
 

@@ -240,6 +240,7 @@ extern "C" {
 // out (m x dv, row-major, bf16 if out_bf16 else f32) = the landmark read of
 // Q (m x d), k_land (c x d), UV (c x dv) -- all bf16 if in_bf16 else f32 --
 // U1 (c,) f32 and the f32 device scalar *off; returns the launch's error.
+// bf16 inputs need a bf16 output.
 int landmark_read(const void* q, const void* kl, const void* uv,
                   const void* u1, const void* off, void* out, long long m,
                   int c, int d, int dv, int in_bf16, int out_bf16,
@@ -262,8 +263,7 @@ int landmark_read(const void* q, const void* kl, const void* uv,
     err = launch<float, __nv_bfloat16>(q, kl, uv, u1f, offf, out, m, c, d,
                                        dv, inv_sqrt_d, eps, s);
   else
-    err = launch<__nv_bfloat16, float>(q, kl, uv, u1f, offf, out, m, c, d,
-                                       dv, inv_sqrt_d, eps, s);
+    err = cudaErrorInvalidValue;  // bf16 in, f32 out: no caller needs it
   return (int)err;
 }
 

@@ -54,6 +54,9 @@ def _check(Q, k_land, UV, U1, offset, out_dtype) -> None:
     if out_dtype not in KERNEL_DTYPES:
         raise TypeError(f"the output dtype must be one of {KERNEL_DTYPES} "
                         f"(got {out_dtype})")
+    if Q.dtype == torch.bfloat16 and out_dtype != torch.bfloat16:
+        raise TypeError(f"bf16 inputs need a bf16 output (got "
+                        f"{out_dtype})")
     if Q.ndim != 2 or k_land.ndim != 2 or UV.ndim != 2 or U1.ndim != 1:
         raise ValueError("Q (m, d), k_land (c, d), UV (c, dv) and U1 (c,) "
                          "expected")

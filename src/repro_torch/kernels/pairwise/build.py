@@ -2,7 +2,7 @@
 
 The library is built at first use by the shared helper
 (``repro_torch.kernels.build``) into ``build/kernels/libpairwise_<hash>.so``;
-``build_log()`` keeps the compiler's ``-Xptxas -v`` report.
+``LIBRARY.build_log()`` keeps the compiler's ``-Xptxas -v`` report.
 """
 from __future__ import annotations
 
@@ -10,7 +10,6 @@ import ctypes
 from pathlib import Path
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.build import BUILD_DIR, find_nvcc  # noqa: F401
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "pairwise.cu",)
 
@@ -31,7 +30,4 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 LIBRARY = _build.Library("pairwise", SOURCES, _bind)
 
-library_path = LIBRARY.library_path
-nvcc_command = LIBRARY.nvcc_command
-build_log = LIBRARY.build_log
 load_library = LIBRARY.load

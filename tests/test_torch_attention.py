@@ -19,12 +19,9 @@ Tolerances, scale-normalized (max |port − ref| / max |ref|):
   rank-deficient exp-score blocks amplifies the two SVD implementations'
   rounding); k_land exact; the offset ≤ 1e-6 relative; a decode of the
   reference's own state ≤ 1e-5;
-- ``sketched_attention`` outputs: ≤ 1e-4 + κ·eps(f32), κ the largest
-  condition number (over the singular values above the pinv cutoff) of the
-  blocks the mode pseudo-inverts, computed in f64 from the same draws — the
-  first-order perturbation bound of an f32 pinv.  Nyström's W over
-  adaptive² landmarks has κ ≈ 5e4 here: both sides' U then sit ~1e-4 from
-  the f64 pinv and their outputs 2.4e-3 apart (ROADMAP §C).
+- ``sketched_attention`` outputs: ≤ 1e-4, except Nyström over adaptive²
+  landmarks ≤ 5e-3: its W has condition number 5.2e4 here, both sides' U
+  sit ~1e-4 from the f64 pinv and their outputs 2.4e-3 apart (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -54,7 +51,11 @@ READ_SHAPES = [(128, 16, 64, 64), (200, 32, 32, 16), (64, 8, 128, 128),
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL_STATE = 1e-4
-EPS_F32 = float(np.finfo(np.float32).eps)
+# Nyström with the reference's uniform_adaptive2 landmarks at the BENCH_pr10
+# shape pseudo-inverts a W of condition number 5.2e4: the two f32 pinvs
+# differ by 2.4e-3 scale-normalized on the output (ROADMAP §C, PR 12).
+# That one case is held to twice that; every other case to TOL_STATE.
+TOL_NYSTROM_ADAPTIVE2 = 5e-3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -229,25 +230,6 @@ def test_landmark_state_and_decode_match_reference(selection):
 # the whole slice: sketched_attention in its three modes
 # ---------------------------------------------------------------------------
 
-def _pinv_kappa(mode, q, k, p_idx, sq, skx) -> float:
-    """Largest condition number, over the singular values kept by the pinv
-    cutoff, of the blocks ``mode`` pseudo-inverts (f64)."""
-    q64, k64 = q.astype(np.float64), k.astype(np.float64)
-    inv = 1.0 / np.sqrt(q.shape[1])
-    off = np.max(q64[p_idx] @ k64[p_idx].T) * inv
-    Chat = np.exp(q64 @ k64[p_idx].T * inv - off)
-    Rhat = np.exp(q64[p_idx] @ k64.T * inv - off)
-    blocks = {"nystrom": [np.exp(q64[p_idx] @ k64[p_idx].T * inv - off)],
-              "fast": [Chat[sq], Rhat[:, skx]],
-              "prototype": [Chat, Rhat]}[mode]
-    kappas = []
-    for A in blocks:
-        s = np.linalg.svd(A, compute_uv=False)
-        kept = s[s > max(A.shape) * EPS_F32 * s[0]]
-        kappas.append(s[0] / kept[-1])
-    return max(kappas)
-
-
 @pytest.mark.parametrize("selection", ["strided", "uniform_adaptive2"])
 @pytest.mark.parametrize("mode", ["fast", "nystrom", "prototype"])
 def test_sketched_attention_matches_reference(mode, selection):
@@ -265,9 +247,9 @@ def test_sketched_attention_matches_reference(mode, selection):
                                  p_idx=np.array(p_idx), sq=np.array(sq),
                                  skx=np.array(skx), device="cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == (S, D)
-    kappa = _pinv_kappa(mode, q, k, np.asarray(p_idx), np.asarray(sq),
-                        np.asarray(skx))
-    assert scaled(_np(got), want) <= TOL_STATE + kappa * EPS_F32
+    tol = TOL_NYSTROM_ADAPTIVE2 if (mode, selection) == (
+        "nystrom", "uniform_adaptive2") else TOL_STATE
+    assert scaled(_np(got), want) <= tol
 
 
 def test_rectangular_queries_and_port_draws():

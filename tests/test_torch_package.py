@@ -128,18 +128,18 @@ def test_user_spec_runs_on_cpu_and_raises_on_the_kernel_path():
 
 
 def test_build_flags_and_location():
-    cmd = build.nvcc_command("nvcc", Path("out.so"))
+    cmd = build.LIBRARY.nvcc_command("nvcc", Path("out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-O3" in cmd
     assert not any("fast-math" in c or "fast_math" in c for c in cmd)
-    assert build.BUILD_DIR == REPO / "build" / "kernels"
-    assert build.library_path().name.startswith("libpairwise_")
+    assert kbuild.BUILD_DIR == REPO / "build" / "kernels"
+    assert build.LIBRARY.library_path().name.startswith("libpairwise_")
     assert all(src.exists() for src in build.SOURCES)
     if shutil.which("nvcc") is None and \
             not Path("/usr/local/cuda/bin/nvcc").exists() and \
             not os.environ.get("CUDA_HOME"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            build.find_nvcc()
+            kbuild.find_nvcc()
 
 
 def _run_smoke(cwd: Path):
