@@ -6,8 +6,8 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile both CUDA libraries (pairwise, landmark) from
-   ``src/repro_torch/.../csrc`` side by side, one nvcc each;
+2. build: compile the three CUDA libraries (pairwise, landmark, flash)
+   from ``src/repro_torch/.../csrc`` side by side, one nvcc each;
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
@@ -36,11 +36,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``leverage`` over the context's softmax Gram at n = 32,768 through a
    ``CountingOperator`` (sweeps, gathers and entries equal the count model;
    B2 launches counted), then ``sketched_attention`` with them;
-7. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the three paths (every count reset just before
+7. serve_gemma3: the decoder-only LM served end to end through
+   ``launch.serve.generate`` at gemma3-12b's full width with landmark
+   decode on the global layers (``config_for_shape(FULL, long_500k)``,
+   ``attn_impl="pallas"``: d_model 3,840, 16 heads, 8 kv heads, head_dim
+   256, d_ff 15,360, vocab 262,144, window 1,024, landmark_c 512, θ 4, bf16
+   compute, f32 params), cut to 12 layers (two superblocks of the 5:1
+   pattern), a 32,768-token context (prefill_32k's length), 2 requests and
+   16 generated tokens, random weights from a seeded generator: one warm-up
+   and one timed run; prefill ms, decode ms per token, tokens per second,
+   peak memory; B6 launches (12 per prefill, 0 in decode); every token in
+   [0, vocab) and every logit finite; device time by kernel class of one
+   prefill and 4 decode steps (``torch.profiler``, outside the counted
+   run) with the idle share over the same call's unprofiled wall time;
+   then B6 timed at the global and the local layer's shape and held, row
+   by row on 1,024 sampled query rows, to its plain version and to an f64
+   computation in bf16, and to its plain version in f32, and the library
+   yardstick ``scaled_dot_product_attention`` timed at the global shape
+   (the smoke model's card-against-CPU check lives in
+   ``tests/test_torch_cuda.py``).  B6 is also
+   held to its plain version at every shape of the reference's flash tests
+   (``phase_parity_flash``, f32 and bf16);
+8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+   own path and on each of the four paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error;
-8. the card line again, then the last line
+9. the card line again, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It exits non-zero without a CUDA device, and in a directory without the
@@ -48,6 +69,7 @@ repository's ``src/``.  It never imports JAX or the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -67,11 +89,16 @@ from repro_torch.core import sweep as sweep_lib  # noqa: E402
 from repro_torch.core.instrument import CountingOperator  # noqa: E402
 from repro_torch.core.kernelop import RBFKernel  # noqa: E402
 from repro_torch.core.selection import get_policy  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
+from repro_torch.configs import gemma3_12b  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels.landmark_attention import build as lm_build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
-from repro_torch.kernels.pairwise import build, kernel, signsplit, specs  # noqa: E402
+from repro_torch.kernels.pairwise import kernel, signsplit, specs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
@@ -105,6 +132,27 @@ ATT_N, ATT_D, ATT_C, ATT_THETA = 524_288, 256, 512, 4
 ATT_DECODE_M = 16       # 2 query heads per kv head x batch 8
 ATT_ERR_ROWS, ATT_ERR_CHUNK = 1024, 256
 POLICY_N = 32_768       # context of the policy phase
+
+# the serving configuration: gemma3-12b at long_500k (landmark decode on the
+# global layers) through the flash kernel, at full width; cut to 12 of 48
+# layers (the 48-layer f32 params alone are 47 GB), a 32,768-token context
+# (prefill_32k's length; at 524,288 one global layer's causal attention is
+# 2.3e15 flop), 2 requests and 16 generated tokens
+SERVE_LAYERS, SERVE_CONTEXT, SERVE_BATCH, SERVE_GEN = 12, 32_768, 2, 16
+FLASH_ROWS = 1024       # sampled query rows of the B6 checks at full shape
+TOL_FLASH_BF16 = 2e-2   # B6 with bf16 inputs: the reference's _tol(bf16)
+# At the served shapes a sampled row's output is small (|out| ~ sqrt(e/p) at
+# key position p), so an elementwise atol of 2e-2 would pass a wrong row.
+# There each (b, h, row) is held to its own relative error
+# ||got - exact|| / ||exact||: rounding the output to bf16 alone moves an
+# element by up to 2^-8 = 3.9e-3 of itself, so 1e-2 in bf16; f32 against
+# f32 at 1e-5.
+TOL_FLASH_ROW_BF16 = 1e-2
+TOL_FLASH_ROW_F32 = 1e-5
+# the shapes of the reference's flash tests (tests/test_kernels.py)
+FLASH_SHAPES = ((1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 32),
+                (1, 4, 1, 256, 256, 64), (2, 4, 2, 100, 100, 32),
+                (1, 2, 2, 1, 256, 64), (1, 4, 2, 64, 256, 32))
 
 
 class SmokeFailure(AssertionError):
@@ -176,12 +224,22 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0."""
     kernel.reset_launch_counts()
     lm_kernel.reset_launch_counts()
+    fa_kernel.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset."""
     torch.cuda.synchronize()
-    return {**kernel.launch_counts(), **lm_kernel.launch_counts()}
+    return {**kernel.launch_counts(), **lm_kernel.launch_counts(),
+            **fa_kernel.launch_counts()}
+
+
+def no_launches(**counts) -> dict:
+    """The full launch-count dict: 0 for every kernel not named."""
+    zero = {"pairwise_block": 0, "pairwise_matmat_multi": 0,
+            "landmark_read": 0, "flash_attention": 0}
+    assert set(counts) <= set(zero), counts
+    return {**zero, **counts}
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +261,10 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = (build.LIBRARY, lm_build.LIBRARY)
+    libs = tkernels.libraries()
     kbuild.build_all(libs)
-    log(f"build: {time.perf_counter() - t0:.1f} s for both libraries")
+    log(f"build: {time.perf_counter() - t0:.1f} s for the {len(libs)} "
+        f"libraries ({', '.join(lib.name for lib in libs)})")
     for lib in libs:
         log(f"  {lib.name}: nvcc {lib.build_seconds()} s -> "
             f"{lib.library_path()}")
@@ -412,8 +471,8 @@ def phase_main() -> dict:
           f"blocked error metering {cb} {out['route_blocked']}")
     check(launches["pairwise_block"] == 2 + panels,
           f"block launches {launches['pairwise_block']} != {2 + panels}")
-    check(launches["landmark_read"] == 0,
-          f"the SPSD path launched the landmark read: {launches}")
+    check(launches["landmark_read"] == 0 and launches["flash_attention"] == 0,
+          f"the SPSD path launched the landmark read or B6: {launches}")
 
     apg, apl = out["apg"], out["apl"]
     err_h, err_b = float(out["err_h"]), float(out["err_b"])
@@ -682,8 +741,7 @@ def phase_attention_long() -> dict:
         f"strided, f32): times ms {json.dumps(times)}")
     log(f"attention_long launches {json.dumps(launches)}, peak memory "
         f"{peak_gb:.2f} GB")
-    check(launches == {"pairwise_block": 0, "pairwise_matmat_multi": 0,
-                       "landmark_read": 2},
+    check(launches == no_launches(landmark_read=2),
           f"the path should launch B5 twice (one read over all n queries, "
           f"one decode read) and no pairwise kernel: {launches}")
     st = out["state"]
@@ -812,9 +870,7 @@ def phase_attention_policy() -> dict:
               and op.counts["entries"] == want["entries"]
               and op.counts["fulls"] == 0,
               f"{name}: metered {op.counts} != model {want}")
-        check(launches["pairwise_block"] == want["b2_launches"]
-              and launches["pairwise_matmat_multi"] == 0
-              and launches["landmark_read"] == 0,
+        check(launches == no_launches(pairwise_block=want["b2_launches"]),
               f"{name}: launches {launches} != model {want}")
         out = tsa.sketched_attention(Q, K, V, ATT_C, ATT_THETA, p_idx=idx,
                                      generator=gen(23), device=DEV)
@@ -826,8 +882,7 @@ def phase_attention_policy() -> dict:
     b2_want = sum(res[k]["b2_launches"] for k in ("uniform_adaptive2",
                                                    "leverage"))
     log(f"attention_policy launches {json.dumps(res['launches'])}")
-    check(res["launches"] == {"pairwise_block": b2_want,
-                              "pairwise_matmat_multi": 0, "landmark_read": 0},
+    check(res["launches"] == no_launches(pairwise_block=b2_want),
           f"the policy path should launch only the selections' "
           f"{b2_want} B2 panels: {res['launches']}")
     log(f"attention_policy rel err (fast mode, {ATT_ERR_ROWS} rows): "
@@ -855,6 +910,435 @@ def phase_attention_policy() -> dict:
                                  "spec": "softmax_gram (exp_affine)"}}
     return res
 
+# ---------------------------------------------------------------------------
+# flash attention (B6) and the served model
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed, qk_scale=0.5):
+    g = gen(seed)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device=DEV) * qk_scale
+    k = torch.randn((B, Hkv, Sk, D), generator=g, device=DEV) * qk_scale
+    v = torch.randn((B, Hkv, Sk, D), generator=g, device=DEV)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _check_flash(out, plain, label) -> float:
+    """B6's gates: f32 ≤ TOL_F32 scale-normalized; bf16 within the
+    reference's rtol = atol = TOL_FLASH_BF16.  Returns the scaled error."""
+    check(out.dtype == plain.dtype and out.shape == plain.shape,
+          f"{label}: {out.dtype} {tuple(out.shape)} vs {plain.dtype} "
+          f"{tuple(plain.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    o32, p32 = out.float(), plain.float()
+    err = scaled_err(o32, p32)
+    if out.dtype == torch.float32:
+        check(err <= TOL_F32, f"{label}: {err:.3g} > {TOL_F32}")
+    else:
+        excess = float(((o32 - p32).abs() - TOL_FLASH_BF16
+                        * (1.0 + p32.abs())).max())
+        check(excess <= 0.0, f"{label}: outside rtol = atol = "
+              f"{TOL_FLASH_BF16} by {excess:.3g}")
+    return err
+
+
+def phase_parity_flash() -> None:
+    """B6 against its plain version at every shape of the reference's
+    flash tests (causal; the sliding windows 16, 64, 200; the block-shape
+    sweep's 512-long case), f32 and bf16."""
+    cases = [(shape, None) for shape in FLASH_SHAPES]
+    cases += [((1, 2, 2, 256, 256, 32), w) for w in (16, 64, 200)]
+    cases += [((1, 2, 2, 512, 512, 64), None)]
+    for shape, window in cases:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(*shape, dtype, seed=41)
+            out = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                 window=window)
+            plain = fa_kernel.flash_attention_plain(q, k, v, causal=True,
+                                                    window=window)
+            torch.cuda.synchronize()
+            errs[str(dtype).split(".")[-1]] = _check_flash(
+                out, plain, f"flash {shape} window {window} {dtype}")
+        log(f"parity flash_attention (B, Hq, Hkv, Sq, Sk, D) = {shape}, "
+            f"window {window}: " + " ".join(f"{k}={v:.3g}"
+                                            for k, v in errs.items()))
+
+
+def serve_config():
+    """gemma3-12b at long_500k with the flash kernel, at full width, cut in
+    depth."""
+    cfg = tconfigs.config_for_shape(gemma3_12b.FULL,
+                                    tconfigs.SHAPES["long_500k"])
+    return dataclasses.replace(cfg, attn_impl="pallas",
+                               n_layers=SERVE_LAYERS)
+
+
+def _instrumented(model):
+    """The model with its prefill timed (host clock around a synchronized
+    call) and the B6 launches of prefill and of each decode step counted.
+    Decode steps are not synchronized, as in a plain ``generate``: their
+    logits' finiteness is kept on the device and read after the run."""
+    rec = {"prefill_ms": [], "b6_prefill": [], "b6_decode": [],
+           "finite": []}
+
+    def prefill(*args, **kw):
+        torch.cuda.synchronize()
+        c0 = fa_kernel.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(*args, **kw)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["b6_prefill"].append(
+            fa_kernel.launch_counts()["flash_attention"] - c0)
+        rec["finite"].append(torch.isfinite(logits).all())
+        return logits, cache
+
+    def decode_step(*args, **kw):
+        c0 = fa_kernel.launch_counts()["flash_attention"]
+        logits, cache = model.decode_step(*args, **kw)
+        rec["b6_decode"].append(
+            fa_kernel.launch_counts()["flash_attention"] - c0)
+        rec["finite"].append(torch.isfinite(logits).all())
+        return logits, cache
+
+    return model._replace(prefill=prefill, decode_step=decode_step), rec
+
+
+def phase_serve_gemma3() -> dict:
+    cfg = serve_config()
+    B, S, n_gen = SERVE_BATCH, SERVE_CONTEXT, SERVE_GEN
+    t0 = time.perf_counter()
+    model = tmodel.build_model(cfg)
+    params = model.prepare(model.init(gen(30), DEV))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(32),
+                            device=DEV)
+    log(f"serve_gemma3: {cfg.name} with {cfg.n_layers} layers "
+        f"{cfg.layer_pattern}, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.window}, landmark c {cfg.landmark_c}"
+        f" θ {cfg.landmark_theta}, {n_params:,} params held in bf16 "
+        f"(init + cast {init_s:.1f} s); batch {B}, context {S}, gen {n_gen}")
+    warm, _ = _instrumented(model)
+    serve.generate(warm, params, prompts, n_gen,
+                   generator=torch.Generator().manual_seed(31))
+    timed, rec = _instrumented(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve.generate(timed, params, prompts, n_gen,
+                         generator=torch.Generator().manual_seed(31))
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # decode: the rest of the generate loop after prefill's synchronized
+    # end, one synchronize at the end of the run
+    decode_ms = (total_ms - rec["prefill_ms"][0]) / (n_gen - 1)
+    res = {"prefill_ms": rec["prefill_ms"][0], "decode_ms_per_token":
+           decode_ms, "generate_ms": total_ms,
+           "tokens_per_s": B * n_gen / (total_ms / 1e3),
+           "decode_tokens_per_s": B / (decode_ms / 1e3),
+           "peak_gb": peak_gb, "launches": launches,
+           "b6_prefill": rec["b6_prefill"], "b6_decode": rec["b6_decode"]}
+    log(f"serve_gemma3 timed run: prefill {res['prefill_ms']:.1f} ms, decode"
+        f" {decode_ms:.2f} ms per token (generate minus prefill over "
+        f"{n_gen - 1} steps), generate {total_ms:.1f} ms, "
+        f"{res['tokens_per_s']:.2f} tokens/s ({res['decode_tokens_per_s']:.1f}"
+        f" in decode), peak memory {peak_gb:.2f} GB")
+    log(f"serve_gemma3 launches {json.dumps(launches)}; B6 per prefill "
+        f"{rec['b6_prefill']}, per decode step {rec['b6_decode']}")
+    check(launches == no_launches(flash_attention=cfg.n_layers),
+          f"the serving path should launch B6 once per layer of its one "
+          f"prefill and nothing else: {launches}")
+    check(rec["b6_prefill"] == [cfg.n_layers]
+          and rec["b6_decode"] == [0] * (n_gen - 1),
+          f"B6 per prefill {rec['b6_prefill']}, per decode step "
+          f"{rec['b6_decode']}")
+    check(tuple(out.shape) == (B, n_gen) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"tokens {tuple(out.shape)} outside [0, {cfg.vocab_size})")
+    check(bool(torch.stack(rec["finite"]).all()), "a logit was not finite")
+    log(f"serve_gemma3 tokens row 0: {out[0].tolist()}")
+    res["profile"] = _profile_serve(model, params, prompts)
+    del params, model, warm, timed
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_kernel" in low:
+        return "B6 flash_attention"
+    if any(t in low for t in ("svd", "geqr", "orgqr", "ormqr", "syevj",
+                              "potrf", "lapack", "cusolver")):
+        return "SVD and QR (cuSOLVER)"
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "sm90")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, reductions, copies)"
+
+
+def _device_profile(fn) -> dict:
+    """Device time of ``fn()`` by kernel class: ``fn`` runs once unprofiled
+    (wall ms, one synchronize at the end) and once under ``torch.profiler``
+    (busy ms: the sum of kernel times, one stream).  The idle share is busy
+    over the unprofiled wall, since the profiler's own host work slows a
+    host-bound loop.  Returns {"error": ...} where the profiler records no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+        top.append((us / 1e3, e.count, e.key[:90]))
+    busy = sum(by_class.values())
+    if busy <= 0.0:
+        return {"error": "the profiler recorded no device time"}
+    top.sort(reverse=True)
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
+            "busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "by_class_ms": by_class,
+            "top": [{"ms": ms, "count": n, "kernel": k}
+                    for ms, n, k in top[:8]]}
+
+
+def _profile_serve(model, params, prompts) -> dict:
+    """One prefill and 4 decode steps, each run unprofiled and then under
+    the profiler (outside the counted run)."""
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, {"tokens": prompts}, SERVE_CONTEXT + SERVE_GEN,
+            generator=torch.Generator().manual_seed(31))
+
+    def decode():
+        tok = torch.argmax(state["logits"], dim=-1)
+        for i in range(4):
+            logits, _ = model.decode_step(params, state["cache"],
+                                          tok[:, None], SERVE_CONTEXT + i)
+            tok = torch.argmax(logits, dim=-1)
+
+    prof = {"prefill": _device_profile(prefill),
+            "decode_4_steps": _device_profile(decode)}
+    state.clear()
+    for what, p in prof.items():
+        if "error" in p:
+            log(f"serve_gemma3 {what} profile: not measured ({p['error']})")
+            continue
+        log(f"serve_gemma3 {what} profile: device busy {p['busy_ms']:.1f} ms"
+            f" of {p['wall_ms']:.1f} ms unprofiled wall (idle share "
+            f"{p['idle_share']:.1%}; {p['profiled_wall_ms']:.1f} ms wall "
+            f"under the profiler); by class " + json.dumps(
+                {k: round(v, 2) for k, v in p["by_class_ms"].items()}))
+        for t in p["top"]:
+            log(f"    {t['ms']:9.2f} ms  x{t['count']:<5d} {t['kernel']}")
+    return prof
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _attention_rows_f64(q, k, v, rows, window):
+    """Causal attention of the query ``rows`` (also their key positions:
+    Sq = Sk) in f64, one (batch row, kv head) at a time."""
+    B, Hq, _, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    out = torch.empty((B, Hq, rows.shape[0], v.shape[3]),
+                      dtype=torch.float64, device=q.device)
+    col = torch.arange(Sk, device=q.device)[None, :]
+    mask = col <= rows[:, None]
+    if window is not None:
+        mask &= (rows[:, None] - col) < window
+    for b in range(B):
+        for h in range(Hkv):
+            qs = q[b, h * G:(h + 1) * G, rows].double()
+            s = (qs @ k[b, h].double().T) / np.sqrt(D)
+            s = torch.where(mask, s, float("-inf"))
+            out[b, h * G:(h + 1) * G] = torch.softmax(s, dim=-1) \
+                @ v[b, h].double()
+    return out
+
+
+def _flash_flops(B, Hq, S, D, Dv, window=None) -> float:
+    """Useful flops of causal (windowed) attention at Sq = Sk = S: 2·(D + Dv)
+    per visible (query, key) pair."""
+    if window is None:
+        pairs = S * (S + 1) // 2
+    else:
+        w = min(window, S)
+        pairs = w * (w + 1) // 2 + (S - w) * w
+    return 2.0 * (D + Dv) * pairs * B * Hq
+
+
+def row_errs(got: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """||got - exact|| / ||exact|| over the feature axis, per (b, h, row)."""
+    g, e = got.double(), exact.double()
+    return (g - e).norm(dim=-1) / e.norm(dim=-1).clamp_min(1e-300)
+
+
+def _check_rows(got, ref, tol, label) -> dict:
+    """B6's gate at the served shapes: every sampled row within ``tol`` of
+    ``ref`` in its own relative error.  Returns the max and median."""
+    check(got.shape == ref.shape, f"{label}: {tuple(got.shape)} vs "
+          f"{tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    e = row_errs(got, ref)
+    worst = float(e.max())
+    check(worst <= tol, f"{label}: a row's relative error {worst:.3g} > {tol}")
+    return {"max": worst, "median": float(e.median())}
+
+
+def _flash_line(serve_res: dict) -> dict:
+    """B6 at the served model's global and local layer shapes: timed in
+    bf16; held row by row on FLASH_ROWS sampled query rows to the plain
+    version and to f64 in bf16, and to the plain version in f32 on the same
+    inputs (bf16 values, exact in f32)."""
+    cfg = serve_config()
+    B, S = SERVE_BATCH, SERVE_CONTEXT
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # q, k with the unit variance that qk-norm gives, v ~ N(0, 1)
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, seed=42,
+                            qk_scale=1.0)
+    rows = torch.sort(torch.randperm(S, generator=gen(43), device=DEV)[
+        :FLASH_ROWS]).values
+    res = {}
+    for name, window, reps in (("global", None, 3), ("local", cfg.window, 5)):
+        ms, out = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+            q, k, v, causal=True, window=window), reps=reps, warmup=1)
+        got = out[:, :, rows]
+        del out
+        plain_ms, plain = cuda_ms(lambda: fa_kernel.flash_attention_plain(
+            q[:, :, rows], k, v, causal=True, window=window, q_pos=rows),
+            reps=3, warmup=1)
+        exact = _attention_rows_f64(q, k, v, rows, window)
+        check(got.dtype == plain.dtype == torch.bfloat16,
+              f"B6 {name}: {got.dtype}, plain {plain.dtype}")
+        vs_plain = _check_rows(got, plain, TOL_FLASH_ROW_BF16,
+                               f"B6 {name} shape bf16 rows vs plain")
+        vs_f64 = _check_rows(got, exact, TOL_FLASH_ROW_BF16,
+                             f"B6 {name} shape bf16 rows vs f64")
+        plain_vs_f64 = float(row_errs(plain, exact).max())
+        max_abs = float((got.float() - plain.float()).abs().max())
+        del got, plain
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ms_f32, out = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+            q32, k32, v32, causal=True, window=window))
+        got = out[:, :, rows]
+        del out
+        plain = fa_kernel.flash_attention_plain(
+            q32[:, :, rows], k32, v32, causal=True, window=window,
+            q_pos=rows)
+        f32_vs_plain = _check_rows(got, plain, TOL_FLASH_ROW_F32,
+                                   f"B6 {name} shape f32 rows vs plain")
+        f32_vs_f64 = float(row_errs(got, exact).max())
+        del got, plain, exact, q32, k32, v32
+        flops = _flash_flops(B, Hq, S, D, D, window)
+        nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+        res[name] = {
+            "ms": ms, "ms_f32": ms_f32, "plain_ms_rows": plain_ms,
+            "max_abs_err": max_abs,
+            "row_err_vs_plain": vs_plain["max"],
+            "row_err_vs_f64": vs_f64["max"],
+            "row_err_vs_f64_median": vs_f64["median"],
+            "plain_row_err_vs_f64": plain_vs_f64,
+            "row_err_f32_vs_plain": f32_vs_plain["max"],
+            "row_err_f32_vs_f64": f32_vs_f64,
+            "flops": flops,
+            "bound_ms_bf16": max(flops / PEAK_BF16_TC_FLOPS,
+                                 nbytes / PEAK_HBM_BYTES) * 1e3,
+            "bound_ms_fp32": max(flops / PEAK_FP32_FLOPS,
+                                 nbytes / PEAK_HBM_BYTES) * 1e3}
+        r = res[name]
+        log(f"B6 {name} shape (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, D={D}, "
+            f"window {window}, bf16): {ms:.2f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s; {r['bound_ms_fp32'] / ms:.1%} of the FP32 roof, "
+            f"{r['bound_ms_bf16'] / ms:.2%} of the bf16 tensor-core roof), "
+            f"bound {r['bound_ms_bf16']:.2f} ms bf16 / {r['bound_ms_fp32']:.1f}"
+            f" ms FP32; f32 {ms_f32:.2f} ms; plain on {FLASH_ROWS} rows "
+            f"{plain_ms:.2f} ms")
+        log(f"B6 {name} shape, per-row relative error on {FLASH_ROWS} rows: "
+            f"bf16 vs plain {vs_plain['max']:.3g} (median "
+            f"{vs_plain['median']:.3g}), vs f64 {vs_f64['max']:.3g} (median "
+            f"{vs_f64['median']:.3g}; plain vs f64 {plain_vs_f64:.3g}), limit "
+            f"{TOL_FLASH_ROW_BF16}; f32 vs plain {f32_vs_plain['max']:.3g} "
+            f"(median {f32_vs_plain['median']:.3g}), limit "
+            f"{TOL_FLASH_ROW_F32}; f32 vs f64 {f32_vs_f64:.3g}")
+    # the library yardstick at the global shape (never called by the port)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        lib_ms, lib_out = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=5, warmup=1)
+    lib_rows = lib_out[:, :, rows]
+    del lib_out
+    lib_err = float(row_errs(lib_rows, _attention_rows_f64(
+        q, k, v, rows, None)).max())
+    g = res["global"]
+    log(f"B6 global shape vs the library: {g['ms']:.2f} ms vs SDPA "
+        f"{lib_ms:.3f} ms ({g['ms'] / lib_ms:.1f}x); SDPA per-row relative "
+        f"error vs f64 {lib_err:.3g}")
+    loc = res["local"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+            "launches": serve_res["launches"]["flash_attention"],
+            "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+            "plain_ms": g["plain_ms_rows"], "bound_ms": g["bound_ms_bf16"],
+            "bound_by": "operations", "library_ms": lib_ms,
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "is_causal=True, enable_gqa=True) "
+                            "(flash/cuDNN/efficient backends)",
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+                      "causal": True, "window": None, "dtype": "bfloat16"},
+            "plain_ms_on": f"{FLASH_ROWS} sampled query rows (the full-shape "
+                           "plain version needs a 137 GB score panel)",
+            "bound_ms_fp32": g["bound_ms_fp32"], "ms_f32": g["ms_f32"],
+            "row_err_vs_plain": g["row_err_vs_plain"],
+            "row_err_vs_f64": g["row_err_vs_f64"],
+            "row_err_f32_vs_plain": g["row_err_f32_vs_plain"],
+            "row_err_f32_vs_f64": g["row_err_f32_vs_f64"],
+            "library_row_err_vs_f64": lib_err,
+            "ms_local": loc["ms"], "ms_f32_local": loc["ms_f32"],
+            "plain_ms_local": loc["plain_ms_rows"],
+            "bound_ms_local": loc["bound_ms_bf16"],
+            "bound_ms_fp32_local": loc["bound_ms_fp32"],
+            "row_err_local_vs_plain": loc["row_err_vs_plain"],
+            "row_err_local_vs_f64": loc["row_err_vs_f64"],
+            "row_err_f32_local_vs_plain": loc["row_err_f32_vs_plain"],
+            "local_window": cfg.window}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -865,22 +1349,29 @@ def main() -> int:
     phase_build()
     phase_parity()
     phase_parity_read()
+    phase_parity_flash()
     m = phase_main()
     phase_scaling()
     b1, b2 = _b1_line(m), _b2_line(m)
     att = phase_attention_long()
     pol = phase_attention_policy()
+    srv = phase_serve_gemma3()
+    b6 = _flash_line(srv)
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "attention_long": att["launches"],
-             "attention_policy": pol["launches"]}
+             "attention_policy": pol["launches"],
+             "serve_gemma3": srv["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
-                      (att["line"], "landmark_read")):
+                      (att["line"], "landmark_read"), (b6, "flash_attention")):
         line["launches_by_path"] = {p: c[key] for p, c in paths.items()}
+    b6["serve_gemma3"] = {k: srv[k] for k in (
+        "prefill_ms", "decode_ms_per_token", "generate_ms", "tokens_per_s",
+        "decode_tokens_per_s", "peak_gb", "b6_prefill")}
     b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],
                "exp_affine_policy_panel_shape": pol["b2_panel"]["shape"]})
-    kernels_line = {"kernels": [b1, b2, att["line"]]}
+    kernels_line = {"kernels": [b1, b2, att["line"], b6]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)

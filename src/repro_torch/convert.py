@@ -1,9 +1,11 @@
 """State carried across from the reference.
 
-The system has no weights: its state is the data, the kernel spec and the
-random draws.  These helpers build the port's objects from numpy arrays (as
-the reference's arrays convert with ``np.asarray``), so both sides compute
-the same thing from the same numbers.
+The kernel methods have no weights: their state is the data, the kernel
+spec and the random draws.  The model stack has weights and decode caches.
+These helpers build the port's objects from numpy arrays (as the
+reference's arrays convert with ``np.asarray``), so both sides compute the
+same thing from the same numbers, and hand the port's caches back in the
+reference's layout for comparison.
 """
 from __future__ import annotations
 
@@ -70,3 +72,82 @@ def landmark_state_from_reference(k_land, UV, U1, scale, device=None):
 
     return LandmarkState(k_land=f32(k_land), UV=f32(UV), U1=f32(U1),
                          scale=f32(scale).reshape(()))
+
+
+# ---------------------------------------------------------------------------
+# model parameters and decode caches
+# ---------------------------------------------------------------------------
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact via f32
+        return torch.as_tensor(arr.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(arr, device=device)
+
+
+def _unstack(tree, r: int):
+    """Slice ``r`` of every leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unstack(v, r) for v in tree]
+    return np.asarray(tree)[r]
+
+
+def model_params_from_reference(params, cfg, device=None) -> dict:
+    """The reference LM's params pytree (leaves as numpy, or anything
+    ``np.asarray`` takes) as the port's params, in the reference's dtypes.
+
+    The reference stores its superblocks stacked on a leading ``reps`` axis
+    when ``cfg.scan_layers`` (its ``init_stack`` vmaps them) and as a list
+    of per-rep tuples otherwise; the port holds a list of per-rep lists
+    either way.
+    """
+    from repro_torch.models.transformer import stack_layout
+    device = resolve_device(device)
+    _, _, reps, _ = stack_layout(cfg)
+    stack = params["stack"]
+    scanned = stack["scanned"]
+    if reps == 0:
+        scanned = []
+    elif cfg.scan_layers:
+        scanned = [_unstack(scanned, r) for r in range(reps)]
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = {"prefix": stack["prefix"], "scanned": scanned,
+                    "remainder": stack["remainder"]}
+    return _tree_to_torch(out, device)
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def cache_to_reference(cache: dict, cfg) -> dict:
+    """The port's decode cache in the reference's layout, as numpy (bf16
+    widened to f32): ``{"prefix": (...), "scanned": (per pattern slot, each
+    leaf stacked on a leading reps axis), "remainder": (...)}``."""
+    from repro_torch.models.transformer import stack_layout
+    _, pattern, reps, _ = stack_layout(cfg)
+    scanned = None
+    if reps > 0:
+        per_rep = [_tree_to_numpy(c) for c in cache["scanned"]]
+
+        def stack(*leaves):
+            return np.stack(leaves)
+
+        scanned = tuple(
+            {name: stack(*(per_rep[r][i][name] for r in range(reps)))
+             for name in per_rep[0][i]}
+            for i in range(len(pattern)))
+    return {"prefix": _tree_to_numpy(cache["prefix"]), "scanned": scanned,
+            "remainder": _tree_to_numpy(cache["remainder"])}

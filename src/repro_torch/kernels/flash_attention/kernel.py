@@ -1,0 +1,131 @@
+"""Online-softmax (flash) attention: CUDA wrapper, its plain PyTorch
+version, and a launch counter (port of
+``repro.kernels.flash_attention.kernel``).
+
+One kernel, hand-written in CUDA C++ (``csrc/flash.cu``), replaces the
+Pallas ``flash_attention_padded`` (body ``_flash_kernel``): causal and
+sliding-window masks, decode right-alignment ``offs = Sk − Sq``, GQA by
+reading kv head ``h // (Hq / Hkv)`` (K and V are never repeated in memory),
+guards for fully masked tiles, and ``acc / max(l, 1e-30)``.  Lengths need
+not be tile multiples: the kernel masks its ragged edges and nothing is
+padded.  Tensors may be strided views (the model passes (B, S, H, D)
+activations transposed to (B, H, S, D)) as long as the feature axis is
+contiguous; the output takes q's layout.
+
+``flash_attention_cuda.launches`` counts launches (bumped where the kernel
+is launched and nowhere else).  CPU tensors never reach it: ``ops`` sends
+them to the plain version (``flash_attention_plain``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_attention.ref import \
+    attention as flash_attention_plain  # noqa: F401  (the plain version)
+
+#: dtypes the kernel reads q, k, v in (one dtype for all three) and writes
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: widest head the kernel takes (D and Dv); wider heads raise
+MAX_HEAD_DIM = 256
+
+
+def softmax_scale(D: int) -> float:
+    """1/√D rounded to f32, as the Pallas body scales its f32 logits."""
+    return float(np.float32(1.0 / math.sqrt(D)))
+
+
+def _check(q, k, v, window) -> None:
+    for name, X in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(X, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if X.ndim != 4:
+            raise ValueError(f"{name} must be 4-d (B, H, S, D), got "
+                             f"{tuple(X.shape)}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one dtype of {KERNEL_DTYPES}"
+                        f" (got {q.dtype}, {k.dtype}, {v.dtype})")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, Dk = k.shape
+    if k.shape[0] != B or v.shape[0] != B or v.shape[1] != Hkv or \
+            v.shape[2] != Sk or Dk != D:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Dv = v.shape[3]
+    if Hkv == 0 or Hq % Hkv != 0:
+        raise ValueError(f"Hq = {Hq} must be a multiple of Hkv = {Hkv}")
+    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"the kernel takes head dims D, Dv in [1, "
+                         f"{MAX_HEAD_DIM}] (got D = {D}, Dv = {Dv})")
+    if window is not None and not 1 <= window < 2 ** 31:
+        raise ValueError(f"window must be in [1, 2^31) (got {window})")
+    if max(Sq, Sk) >= 2 ** 31 or max(B, Hq) > 65535:
+        raise ValueError(f"the kernel takes Sq, Sk < 2^31 and B, Hq ≤ "
+                         f"65,535 (got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)})")
+    for name, X in (("q", q), ("k", k), ("v", v)):
+        if X.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel takes CUDA tensors (got "
+                             f"{name} on {X.device})")
+        if X.device != q.device:
+            raise ValueError(f"{name} on {X.device} but q on {q.device}")
+        if X.shape[3] > 1 and X.stride(3) != 1:
+            raise ValueError(f"the CUDA kernel needs a contiguous feature "
+                             f"axis ({name} has strides {X.stride()})")
+
+
+def _out_like(q: torch.Tensor, Dv: int) -> torch.Tensor:
+    """The output in q's memory layout when the head dims agree (so a
+    (B, S, H, D) activation viewed as (B, H, S, D) gets a (B, S, H, Dv)
+    output back), else contiguous."""
+    if Dv == q.shape[3] and q.stride(3) == 1:
+        return torch.empty_like(q, memory_format=torch.preserve_format)
+    B, Hq, Sq, _ = q.shape
+    return torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel; raises on anything it does not take."""
+    _check(q, k, v, window)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = _out_like(q, Dv)
+    if B == 0 or Hq == 0 or Sq == 0:
+        return out
+    from repro_torch.kernels.flash_attention import build
+    lib = build.load_library()
+    strides = (ctypes.c_longlong * 12)(
+        *(X.stride(i) for X in (q, k, v, out) for i in range(3)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        strides, B, Hq, Hkv, Sq, Sk, D, Dv,
+        int(q.dtype == torch.bfloat16), int(bool(causal)),
+        -1 if window is None else int(window), softmax_scale(D),
+        q.device.index or 0, ctypes.c_void_p(stream))
+    if code != 0:
+        msg = lib.flash_error_string(code).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{code} ({msg})")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of the CUDA kernel since the last reset."""
+    return {"flash_attention": flash_attention_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    flash_attention_cuda.launches = 0

@@ -8,10 +8,12 @@ a machine with only PyTorch:
 
 Tolerances, scale-normalized against the plain PyTorch versions on the same
 card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates); the landmark
-read with bf16 inputs within the reference's ``_tol(bf16)`` (rtol = atol =
-2e-2).
+read and flash attention with bf16 inputs within the reference's
+``_tol(bf16)`` (rtol = atol = 2e-2).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,9 +24,13 @@ from repro_torch.core import sweep as sweep_lib
 from repro_torch.core.instrument import CountingOperator
 from repro_torch.core.kernelop import PairwiseKernel
 from repro_torch.core import sketched_attention as tsa
+from repro_torch.configs import gemma3_12b
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel
 from repro_torch.kernels.landmark_attention import ops as lm_ops
 from repro_torch.kernels.pairwise import kernel, specs
+from repro_torch.models import model as tm
 
 NAMES = ("laplacian", "linear", "matern32", "polynomial", "rbf")
 PRECISIONS = ("f32", "bf16_f32acc")
@@ -199,3 +205,105 @@ def test_landmark_decode_runs_the_kernel(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         lm_kernel.landmark_read_cuda(q, st.k_land, st.UV, st.U1.double(),
                                      st.scale.reshape(1))
+
+
+# the shapes of the reference's test_flash_vs_ref
+FLASH_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 32),
+                (1, 4, 1, 256, 256, 64), (2, 4, 2, 100, 100, 32),
+                (1, 2, 2, 1, 256, 64), (1, 4, 2, 64, 256, 32)]
+
+
+def _flash_inputs(shape, dev, dtype, seed=0):
+    B, Hq, Hkv, Sq, Sk, D = shape
+    rng = np.random.default_rng(seed)
+    q = (_rand(rng, B, Hq, Sq, D, dev=dev) * 0.5).to(dtype)
+    k = (_rand(rng, B, Hkv, Sk, D, dev=dev) * 0.5).to(dtype)
+    v = _rand(rng, B, Hkv, Sk, D, dev=dev).to(dtype)
+    return q, k, v
+
+
+def _flash_close(out, plain):
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    if out.dtype == torch.float32:
+        assert scaled(out, plain) <= 1e-5
+    else:
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [(2, 4, 2, 300, 300, 256)])
+@pytest.mark.parametrize("window", [None, 16, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda_device, shape, window,
+                                               dtype):
+    """The reference's flash shapes with and without a window, plus a
+    ragged one at gemma3's head_dim 256; one launch per call."""
+    q, k, v = _flash_inputs(shape, cuda_device, dtype)
+    before = fa_kernel.launch_counts()["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    assert fa_kernel.launch_counts()["flash_attention"] == before + 1
+    _flash_close(out, fa_kernel.flash_attention_plain(q, k, v, causal=True,
+                                                      window=window))
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 100, 100, 32),
+                                   (1, 4, 2, 64, 256, 32),
+                                   (1, 2, 1, 70, 130, 256)])
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_non_causal(cuda_device, shape, window):
+    q, k, v = _flash_inputs(shape, cuda_device, torch.float32, seed=6)
+    out = fa_ops.flash_attention(q, k, v, causal=False, window=window)
+    _flash_close(out, fa_kernel.flash_attention_plain(q, k, v, causal=False,
+                                                      window=window))
+
+
+def test_flash_attention_takes_strided_views(cuda_device):
+    """(B, S, H, D) activations viewed as (B, H, S, D), as the model passes
+    them: no copy, and the output comes back in the same layout."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_rand(rng, 2, 70, h, 64, dev=cuda_device).transpose(1, 2)
+               for h in (4, 2, 2))
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=24)
+    assert out.stride() == q.stride()
+    assert scaled(out, fa_kernel.flash_attention_plain(
+        q, k, v, causal=True, window=24)) <= 1e-5
+    with pytest.raises(ValueError, match="feature axis"):
+        fa_kernel.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                       .transpose(2, 3), k, v)
+
+
+def test_smoke_model_on_the_card_matches_the_cpu(cuda_device):
+    """gemma3-12b's smoke model with landmark decode: prefill and three
+    decode steps on the card against the same params on the CPU; one B6
+    launch per layer in prefill, none in decode."""
+    cfg = dataclasses.replace(gemma3_12b.SMOKE, use_landmark_decode=True)
+    model = tm.build_model(cfg)
+    params = model.prepare(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    on_card = to(params, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 36),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        fa_kernel.reset_launch_counts()
+        lg, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)}, 40,
+                                  generator=torch.Generator().manual_seed(2))
+        seq = [lg]
+        prefill_launches = fa_kernel.launch_counts()["flash_attention"]
+        for t in range(32, 35):
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                          t)
+            seq.append(lg)
+        torch.cuda.synchronize()
+        outs[dev] = (torch.stack(seq).float().cpu(), prefill_launches,
+                     fa_kernel.launch_counts()["flash_attention"])
+    assert outs["cpu"][1:] == (0, 0)
+    assert outs["cuda"][1:] == (cfg.n_layers, cfg.n_layers)
+    assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 5e-2

@@ -25,14 +25,19 @@ import torch
 
 import repro_torch
 from repro_torch import device as tdevice
+from repro_torch import kernels as tkernels
 from repro_torch.core import spsd as tsp
 from repro_torch.core.kernelop import PairwiseKernel, RBFKernel
+from repro_torch.configs import gemma3_12b
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.flash_attention import build as fa_build
 from repro_torch.kernels.landmark_attention import build as lm_build
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel
 from repro_torch.kernels.pairwise import build
 from repro_torch.kernels.pairwise import kernel as tkernel
 from repro_torch.kernels.pairwise import specs as tspecs
+from repro_torch.launch import serve as tserve
+from repro_torch.models import model as tmodel
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
@@ -50,7 +55,12 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = _all_modules()
-    assert "repro_torch.kernels.pairwise.kernel" in mods
+    for m in ("repro_torch.kernels.pairwise.kernel",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.configs.base", "repro_torch.configs.gemma3_12b",
+              "repro_torch.models.attention", "repro_torch.models.model",
+              "repro_torch.models.transformer", "repro_torch.launch.serve"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,6 +98,15 @@ def test_default_device_is_cuda_or_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tdevice.default_device() == torch.device("cuda")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tmodel.build_model(gemma3_12b.SMOKE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", "gemma3-12b", "--smoke"])
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
@@ -161,8 +180,9 @@ def test_chip_smoke_fails_without_a_card_and_outside_the_repo(tmp_path):
 
 
 def test_shared_build_helper_names_one_library_per_source():
-    libs = (build.LIBRARY, lm_build.LIBRARY)
-    assert [lib.name for lib in libs] == ["pairwise", "landmark"]
+    libs = tkernels.libraries()
+    assert libs == (build.LIBRARY, lm_build.LIBRARY, fa_build.LIBRARY)
+    assert [lib.name for lib in libs] == ["pairwise", "landmark", "flash"]
     for lib in libs:
         path = lib.library_path()
         assert path.parent == kbuild.BUILD_DIR == REPO / "build" / "kernels"
@@ -173,7 +193,7 @@ def test_shared_build_helper_names_one_library_per_source():
         assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
         assert [c for c in cmd if c.endswith(".cu")] == \
             [str(src) for src in lib.sources]
-    assert build.LIBRARY.source_hash() != lm_build.LIBRARY.source_hash()
+    assert len({lib.source_hash() for lib in libs}) == len(libs)
 
 
 def test_landmark_wrapper_refuses_what_the_kernel_does_not_take():
