@@ -11,9 +11,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
-   sketched attention), and the one-hot gather exact; the landmark read
-   (B5) at the reference's test shapes in f32 and bf16, with the U1
-   sign flip exact;
+   sketched attention), and the one-hot gather exact; the slab launch (B4)
+   the same way at a head, a middle and a clamped tail slab, its rows bit
+   for bit equal to B1's; the landmark read (B5) at the reference's test
+   shapes in f32 and bf16, with the U1 sign flip exact;
 4. main path: the fast SPSD model (paper Algorithm 1) at the documented
    large-n setting (``examples/quickstart.py`` ``large_n_demo``: n = 50,000
    points, d = 16, 32 Gaussian clusters, RBF σ = 3, c = n/250 = 200,
@@ -23,6 +24,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    block kernel) — with launch counts and metered entries, results checked
    against the plain versions and the Hutchinson estimate against the exact
    error; then the entry counts at the n = 3,000 scaling shape;
+4b. spsd_sharded: the same configuration as a data-parallel sweep over a
+   ("data",) ``DeviceMesh`` of 2 ranks (``torch.multiprocessing`` spawn,
+   a gloo group over a ``file://`` store, both ranks on the one card):
+   ``fast_model_with_error``, ``relative_error(method="blocked")``,
+   ``fast_cur`` (c = r = 200, sc = sr = 800, Gaussian sketches) and
+   ``streaming_subspace_eigh`` (k = 16), each rank with the same inputs and
+   draws; the route ``fused_sharded`` (slab mode ``prefetch``), one B4 and
+   no B1 launch per rank and fused sweep, the meter's 76 panels and
+   2,500,400,000 entries per sweep, the fused outputs bit for bit equal to
+   the single-device run's, the blocked error, CUR U and eigenpairs within
+   their tolerances of it; B4 timed alone at rank 1's slab (25,004 ×
+   50,000, M = 1,064) against its plain version, and its rows held to B1's
+   bit for bit; the carries' all-reduce timed in the ranks;
 5. attention_long: sketched attention at one (batch, kv-head) of a
    gemma3-12b global layer at ``long_500k`` (``src/repro/configs``:
    context n = 524,288, head_dim 256, landmark_c 512, landmark_theta 4,
@@ -58,7 +72,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    held to its plain version at every shape of the reference's flash tests
    (``phase_parity_flash``, f32 and bf16);
 8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the four paths (every count reset just before
+   own path and on each of the five paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error;
 9. the card line again, then the last line
@@ -70,10 +84,12 @@ repository's ``src/``.  It never imports JAX or the reference package.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -82,6 +98,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.core import cur as tcur  # noqa: E402
+from repro_torch.core import eig as teig  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core import sketched_attention as tsa  # noqa: E402
 from repro_torch.core import spsd  # noqa: E402
@@ -92,6 +110,7 @@ from repro_torch.core.selection import get_policy  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.configs import gemma3_12b  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
@@ -132,6 +151,16 @@ ATT_N, ATT_D, ATT_C, ATT_THETA = 524_288, 256, 512, 4
 ATT_DECODE_M = 16       # 2 query heads per kv head x batch 8
 ATT_ERR_ROWS, ATT_ERR_CHUNK = 1024, 256
 POLICY_N = 32_768       # context of the policy phase
+
+# the sharded configuration: the main path over 2 ranks on the one card,
+# plus CUR and the subspace eigensolver on the same operator
+WORLD = 2
+CUR_C, CUR_R, CUR_SC, CUR_SR = 200, 200, 800, 800
+EIG_K = 16
+TOL_EIG = 1e-5          # eigenvalues, relative
+TOL_MISALIGN = 1e-4     # eigenvector subspace (misalignment)
+TOL_SHARDED_ERR = 1e-5  # blocked error, relative: the ranks' partial sums
+                        # reassociate the single-device sum
 
 # the serving configuration: gemma3-12b at long_500k (landmark decode on the
 # global layers) through the flash kernel, at full width; cut to 12 of 48
@@ -229,7 +258,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset."""
-    torch.cuda.synchronize()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
     return {**kernel.launch_counts(), **lm_kernel.launch_counts(),
             **fa_kernel.launch_counts()}
 
@@ -237,7 +267,8 @@ def read_counts() -> dict:
 def no_launches(**counts) -> dict:
     """The full launch-count dict: 0 for every kernel not named."""
     zero = {"pairwise_block": 0, "pairwise_matmat_multi": 0,
-            "landmark_read": 0, "flash_attention": 0}
+            "pairwise_matmat_multi_slab": 0, "landmark_read": 0,
+            "flash_attention": 0}
     assert set(counts) <= set(zero), counts
     return {**zero, **counts}
 
@@ -352,6 +383,75 @@ def phase_parity() -> None:
             f"{k}={v:.3g}" for k, v in errs.items()))
 
 
+def _slab_case(spec, X, Vs, slabs, label) -> dict:
+    """B4 against its plain version at each (start, length) slab, and its
+    rows against B1's rows of the same X bit for bit (clamp rows against
+    B1's last row).  Returns the largest scale-normalized error."""
+    n = X.shape[0]
+    full = torch.cat(kernel.pairwise_matmat_multi_cuda(spec, X, X, Vs), dim=1)
+    worst = 0.0
+    for start, length in slabs:
+        outs = kernel.pairwise_matmat_multi_slab_cuda(spec, X, start, length,
+                                                      Vs)
+        plain = kernel.pairwise_matmat_multi_slab_plain(spec, X, start,
+                                                        length, Vs)
+        torch.cuda.synchronize()
+        out = torch.cat(outs, dim=1)
+        check(tuple(out.shape) == (length, full.shape[1])
+              and bool(torch.isfinite(out).all()),
+              f"{label} slab ({start}, {length}): shape or non-finite")
+        e = max(scaled_err(o, q) for o, q in zip(outs, plain))
+        tol = TOL_F32 if spec.precision == "f32" else TOL_BF16_SAME
+        check(e <= tol, f"{label} slab ({start}, {length}): {e:.3g} > {tol}")
+        worst = max(worst, e)
+        rows = kernel.slab_rows(n, start, length, X.device)
+        check(torch.equal(out, full[rows]),
+              f"{label} slab ({start}, {length}): rows differ from B1's")
+    return worst
+
+
+def phase_parity_slab() -> None:
+    """B4 at a head, a middle and a clamped tail slab of a ragged shape, for
+    every registered spec × precision and the ``exp_affine`` spec: against
+    its plain version (f32 ≤ TOL_F32, bf16_f32acc ≤ TOL_BF16_SAME), its
+    rows against B1's bit for bit, and the one-hot gather exact."""
+    rng = np.random.default_rng(2)
+    n = 1500
+    X = torch.as_tensor(rng.normal(size=(n, D)), dtype=torch.float32,
+                        device=DEV)
+    gidx = torch.as_tensor(rng.choice(n, 37, replace=False), device=DEV)
+    Vs = (sweep_lib.one_hot_columns(gidx, n, DEV),
+          torch.as_tensor(rng.normal(size=(n, 129)), dtype=torch.float32,
+                          device=DEV),
+          torch.as_tensor(rng.normal(size=(n, 16)), dtype=torch.float32,
+                          device=DEV))
+    slabs = ((0, 700), (400, 650), (1100, 700))      # the tail runs past n
+    for name in specs.registered_kernels():
+        errs = {}
+        for prec in specs.PRECISIONS:
+            spec = specs.suggested_spec(name, D).with_precision(prec)
+            errs[prec] = _slab_case(spec, X, Vs, slabs, f"B4 {name}/{prec}")
+        spec = specs.suggested_spec(name, D)
+        start, length = slabs[2]
+        gathered = kernel.pairwise_matmat_multi_slab_cuda(
+            spec, X, start, length, Vs[:1])[0]
+        direct = kernel.pairwise_block_cuda(
+            spec, X[kernel.slab_rows(n, start, length, DEV)], X[gidx])
+        gap = float((gathered - direct).abs().max())
+        check(gap == 0.0, f"B4 {name}: one-hot gather not exact ({gap})")
+        log(f"parity slab {name:10s} " + " ".join(
+            f"{k}={v:.3g}" for k, v in errs.items())
+            + f" gather_gap={gap}, rows = B1's bit for bit")
+    Xa = torch.as_tensor(rng.normal(size=(n, ATT_D)) * 0.4,
+                         dtype=torch.float32, device=DEV)
+    soft = tsa.softmax_gram_operator(Xa).spec
+    errs = {prec: _slab_case(soft.with_precision(prec), Xa, Vs, slabs,
+                             f"B4 softmax_gram/{prec}")
+            for prec in specs.PRECISIONS}
+    log("parity slab softmax_gram (exp_affine) " + " ".join(
+        f"{k}={v:.3g}" for k, v in errs.items()) + ", rows = B1's bit for bit")
+
+
 def _read_case(m, c, d, dv, dtype, seed=3):
     """B5 against its plain version at one shape; returns the error."""
     rng = np.random.default_rng(seed)
@@ -425,6 +525,34 @@ def _main_calls(op, idx, S, Z):
     return times, out
 
 
+def _main_inputs():
+    """The main path's operator and draws: X, the counting RBF operator,
+    idx, S, Z (the same on every process that calls it)."""
+    X = clusters(N, seed=0)
+    op = CountingOperator(RBFKernel(X, sigma=SIGMA, device=DEV))
+    g = gen(0)
+    idx = get_policy("uniform").select(op, C_COLS, generator=g)
+    S = sk.GaussianSketch.draw(N, S_COLS, generator=g, device=DEV)
+    Z = sk.rademacher(N, PROBES, generator=g, device=DEV)
+    return X, op, idx, S, Z
+
+
+def _cur_eig_inputs():
+    """The draws of ``fast_cur`` (cidx, ridx, Gaussian Sc and Sr) and of
+    ``streaming_subspace_eigh`` (Omega)."""
+    g = gen(50)
+    cidx = torch.randperm(N, generator=g, device=DEV)[:CUR_C]
+    ridx = torch.randperm(N, generator=g, device=DEV)[:CUR_R]
+    Sc = sk.GaussianSketch.draw(N, CUR_SC, generator=g, device=DEV)
+    Sr = sk.GaussianSketch.draw(N, CUR_SR, generator=g, device=DEV)
+    Omega = torch.randn((N, EIG_K + 8), generator=gen(60), device=DEV)
+    return dict(cidx=cidx, ridx=ridx, Sc=Sc, Sr=Sr), Omega
+
+
+def _checksum(*tensors) -> list:
+    return [float(t.double().sum()) for t in tensors]
+
+
 def phase_main() -> dict:
     # the reference's count model: a sweep evaluates nblocks · b · n entries
     # (75 panels of 671 rows at n = 50,000: 2,516,250,000)
@@ -435,13 +563,8 @@ def phase_main() -> dict:
         check(panels == 75 and block == 671
               and fused_entries == 2_516_250_000,
               f"panel model {panels} x {block}")
-    X = clusters(N, seed=0)
-    op = CountingOperator(RBFKernel(X, sigma=SIGMA, device=DEV))
+    X, op, idx, S, Z = _main_inputs()
     spec = op.inner.spec
-    g = gen(0)
-    idx = get_policy("uniform").select(op, C_COLS, generator=g)
-    S = sk.GaussianSketch.draw(N, S_COLS, generator=g, device=DEV)
-    Z = sk.rademacher(N, PROBES, generator=g, device=DEV)
 
     _main_calls(op, idx, S, Z)                      # warm-up
     torch.cuda.synchronize()
@@ -471,8 +594,9 @@ def phase_main() -> dict:
           f"blocked error metering {cb} {out['route_blocked']}")
     check(launches["pairwise_block"] == 2 + panels,
           f"block launches {launches['pairwise_block']} != {2 + panels}")
-    check(launches["landmark_read"] == 0 and launches["flash_attention"] == 0,
-          f"the SPSD path launched the landmark read or B6: {launches}")
+    check(launches["landmark_read"] == 0 and launches["flash_attention"] == 0
+          and launches["pairwise_matmat_multi_slab"] == 0,
+          f"the SPSD path launched the landmark read, B6 or B4: {launches}")
 
     apg, apl = out["apg"], out["apl"]
     err_h, err_b = float(out["err_h"]), float(out["err_b"])
@@ -495,7 +619,8 @@ def phase_main() -> dict:
     check(e_c <= TOL_F32 and e_cl <= TOL_F32, f"C rows: {e_c} {e_cl}")
     log(f"main path C rows vs plain: fused {e_c:.3g}, columns {e_cl:.3g}")
     return dict(X=X, spec=spec, idx=idx, S=S, Z=Z, launches=launches,
-                times=times, err_h=err_h, err_b=err_b)
+                times=times, err_h=err_h, err_b=err_b, U=apg.U,
+                err_h_tensor=out["err_h"])
 
 
 def phase_scaling() -> None:
@@ -515,6 +640,268 @@ def phase_scaling() -> None:
         f"rel err {err:.5f} / fused {float(err_f):.5f}")
     check(separate == 18_000_000 and fused == 9_000_000,
           f"scaling entries {separate} {fused}")
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel sweep (spsd_sharded)
+# ---------------------------------------------------------------------------
+
+def _sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall_ms(fn):
+    """Host milliseconds of ``fn()`` between two synchronizes."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _sharded_calls(op, idx, S, Z, cur_draws, Omega, mesh):
+    """The four sharded calls, each with its own launch and meter counts;
+    returns results and per-call records."""
+    rec, out = {}, {}
+
+    def run(name, fn):
+        op.reset()
+        before = read_counts()
+        ms, res = _wall_ms(fn)
+        rec[name] = {"ms": ms, "launches": {
+                         k: v - before[k] for k, v in read_counts().items()},
+                     "counts": dict(op.counts), "route": op.last_route,
+                     "slab_mode": op.last_slab_mode}
+        return res
+
+    out["apg"], out["err_h"] = run(
+        "fast_model_with_error", lambda: spsd.fast_model_with_error(
+            op, C_COLS, S_COLS, s_sketch="gaussian", probes=PROBES, idx=idx,
+            S=S, Z=Z, mesh=mesh))
+    out["err_b"] = run("relative_error_blocked", lambda: spsd.relative_error(
+        op, out["apg"], method="blocked", mesh=mesh))
+    out["cur"] = run("fast_cur", lambda: tcur.fast_cur(
+        op, CUR_C, CUR_R, CUR_SC, CUR_SR, sketch_kind="gaussian", mesh=mesh,
+        **cur_draws))
+    out["eig"] = run("streaming_subspace_eigh",
+                     lambda: teig.streaming_subspace_eigh(
+                         op, EIG_K, mesh=mesh, Omega=Omega))
+    return out, rec
+
+
+def _sharded_rank(rank: int, world: int, tmpdir: str, cfg: dict) -> None:
+    """One rank of ``spsd_sharded``: a gloo group over a ``file://`` store,
+    a ("data",) mesh over it, the four calls once to warm up and once
+    counted; writes its records, and on rank 0 its results, to ``tmpdir``.
+    ``cfg`` carries the parent's configuration (this process imported the
+    script afresh)."""
+    globals().update(cfg)
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(tmpdir, 'store')}",
+        rank=rank, world_size=world, timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = sharding.data_parallel_mesh(DEV)
+        X, op, idx, S, Z = _main_inputs()
+        cur_draws, Omega = _cur_eig_inputs()
+        _sharded_calls(op, idx, S, Z, cur_draws, Omega, mesh)    # warm-up
+        dist.barrier()
+        reset_counts()
+        out, rec = _sharded_calls(op, idx, S, Z, cur_draws, Omega, mesh)
+        path_launches = read_counts()
+        # the raw fused sweep, outside the counted run
+        fused = op.sweep([sweep_lib.ColumnGatherPlan(idx),
+                          sweep_lib.MatmulPlan(S.mat),
+                          sweep_lib.MatmulPlan(Z)], mesh=mesh)
+        # the all-reduce of one rank's carries on its own (n × 1,064 f32)
+        buf = torch.randn((N, C_COLS + S_COLS + PROBES), generator=gen(70),
+                          device=DEV)
+        ar = []
+        for _ in range(3):
+            dist.barrier()
+            ms, _ = _wall_ms(lambda: dist.all_reduce(buf))
+            ar.append(ms)
+        info = {"rank": rank, "shard": sharding.shard_index(mesh),
+                "calls": rec, "path_launches": path_launches,
+                "all_reduce_ms": ar, "all_reduce_bytes": buf.numel() * 4,
+                "checksums": _checksum(X, idx, S.mat, Z, cur_draws["cidx"],
+                                       cur_draws["ridx"], cur_draws["Sc"].mat,
+                                       cur_draws["Sr"].mat, Omega)}
+        with open(os.path.join(tmpdir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+        if rank == 0:
+            cpu = {"C": fused[0], "KS": fused[1], "KZ": fused[2],
+                   "U": out["apg"].U, "err_h": out["err_h"],
+                   "err_b": out["err_b"], "cur_U": out["cur"].U,
+                   "eigvals": out["eig"].eigenvalues,
+                   "eigvecs": out["eig"].eigenvectors}
+            torch.save({k: v.cpu() for k, v in cpu.items()},
+                       os.path.join(tmpdir, "rank0.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spsd_sharded(m: dict) -> dict:
+    """The main path as a data-parallel sweep over WORLD ranks on the card,
+    checked against the single-device run of ``phase_main``."""
+    dp = WORLD
+    block = sweep_lib.resolved_block_size(N, N, None, dp)
+    panels = sweep_lib.num_panels(N, N, None, dp)
+    slab = sweep_lib.local_slab_rows(N, N, None, dp)
+    entries = dp * slab * N
+    if N == 50_000:
+        check(panels == 76 and block == 658 and slab == 25_004
+              and entries == 2_500_400_000,
+              f"sharded panel model {panels} x {block}, slab {slab}")
+    cfg = {k: globals()[k] for k in ("DEV", "N", "C_COLS", "S_COLS",
+                                     "PROBES", "CUR_C", "CUR_R", "CUR_SC",
+                                     "CUR_SR", "EIG_K")}
+    import torch.multiprocessing as mp
+    tmpdir = tempfile.mkdtemp(prefix="spsd_sharded_")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # a failed rank raises here (ProcessRaisedException) and ends the script
+    mp.spawn(_sharded_rank, args=(dp, tmpdir, cfg), nprocs=dp, join=True)
+    spawn_s = time.perf_counter() - t0
+    infos = []
+    for r in range(dp):
+        with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+    got = torch.load(os.path.join(tmpdir, "rank0.pt"))
+    for name in os.listdir(tmpdir):
+        os.remove(os.path.join(tmpdir, name))
+    os.rmdir(tmpdir)
+
+    X, idx, S, Z = m["X"], m["idx"], m["S"], m["Z"]
+    cur_draws, Omega = _cur_eig_inputs()
+    mine = _checksum(X, idx, S.mat, Z, cur_draws["cidx"], cur_draws["ridx"],
+                     cur_draws["Sc"].mat, cur_draws["Sr"].mat, Omega)
+    for info in infos:
+        check(info["checksums"] == mine,
+              f"rank {info['rank']} drew other inputs than the parent")
+    log(f"spsd_sharded: {dp} ranks on one card, spawn + run {spawn_s:.1f} s;"
+        f" per sweep {panels} panels of {block} rows, slab {slab} rows")
+    shards = sorted(info["shard"] for info in infos)
+    check(shards == list(range(dp)), f"shard indices {shards}")
+    for info in infos:
+        calls = info["calls"]
+        log(f"spsd_sharded rank {info['rank']}: " + json.dumps(
+            {k: {"ms": round(v["ms"], 3), "launches": v["launches"],
+                 "counts": v["counts"], "route": v["route"],
+                 "slab_mode": v["slab_mode"]} for k, v in calls.items()}))
+        log(f"spsd_sharded rank {info['rank']}: path launches "
+            f"{json.dumps(info['path_launches'])}, all-reduce of "
+            f"{info['all_reduce_bytes'] / 1e6:.1f} MB: "
+            + ", ".join(f"{t:.1f}" for t in info["all_reduce_ms"]) + " ms")
+        fm = calls["fast_model_with_error"]
+        check(fm["route"] == "fused_sharded" and fm["slab_mode"] == "prefetch",
+              f"rank {info['rank']}: route {fm['route']} {fm['slab_mode']}")
+        check(fm["launches"] == no_launches(pairwise_matmat_multi_slab=1),
+              f"rank {info['rank']}: the fused sweep should be one B4 and no "
+              f"B1 launch: {fm['launches']}")
+        check(fm["counts"]["sweeps"] == 1 and fm["counts"]["fused_sweeps"] == 1
+              and fm["counts"]["panels"] == panels
+              and fm["counts"]["entries"] == entries,
+              f"rank {info['rank']}: fused meter {fm['counts']}")
+        rb = calls["relative_error_blocked"]
+        check(rb["route"] == "panel" and rb["counts"]["panels"] == panels
+              and rb["counts"]["entries"] == entries
+              and rb["launches"] == no_launches(
+                  pairwise_block=slab // block),
+              f"rank {info['rank']}: blocked error {rb}")
+        for name in ("fast_cur", "streaming_subspace_eigh"):
+            c = calls[name]
+            check(c["route"] == "fused_sharded"
+                  and c["launches"]["pairwise_matmat_multi"] == 0
+                  and c["launches"]["pairwise_matmat_multi_slab"]
+                  == c["counts"]["fused_sweeps"] > 0,
+                  f"rank {info['rank']}: {name} {c}")
+    # the fused outputs against the single-device fused route, bit for bit
+    op1 = RBFKernel(X, sigma=SIGMA, device=DEV)
+    single = op1.sweep([sweep_lib.ColumnGatherPlan(idx),
+                        sweep_lib.MatmulPlan(S.mat), sweep_lib.MatmulPlan(Z)])
+    same = {k: torch.equal(got[k].to(DEV), t)
+            for k, t in zip(("C", "KS", "KZ"), single)}
+    same["U"] = torch.equal(got["U"].to(DEV), m["U"])
+    same["err_h"] = float(got["err_h"]) == m["err_h"]
+    log(f"spsd_sharded fused outputs bit for bit equal to the single-device "
+        f"run: {json.dumps(same)}")
+    check(all(same.values()), f"sharded fused outputs differ: {same}")
+    del single
+    err_b = float(got["err_b"])
+    e_rel = abs(err_b - m["err_b"]) / m["err_b"]
+    check(e_rel <= TOL_SHARDED_ERR, f"blocked error {err_b} vs {m['err_b']}")
+    # CUR and the eigensolver, unsharded in this process
+    cur1 = tcur.fast_cur(op1, CUR_C, CUR_R, CUR_SC, CUR_SR,
+                         sketch_kind="gaussian", **cur_draws)
+    e_cur = scaled_err(got["cur_U"].to(DEV), cur1.U)
+    check(e_cur <= TOL_F32, f"fast_cur U sharded vs unsharded: {e_cur:.3g}")
+    eig1 = teig.streaming_subspace_eigh(op1, EIG_K, Omega=Omega)
+    lam = got["eigvals"].to(DEV)
+    e_lam = float(((lam - eig1.eigenvalues).abs()
+                   / eig1.eigenvalues.abs()).max())
+    mis = float(teig.misalignment(eig1.eigenvectors,
+                                  got["eigvecs"].to(DEV)))
+    check(e_lam <= TOL_EIG and mis <= TOL_MISALIGN,
+          f"eigenpairs: eigenvalues {e_lam:.3g}, misalignment {mis:.3g}")
+    log(f"spsd_sharded: blocked error {err_b:.6f} vs {m['err_b']:.6f} "
+        f"(rel {e_rel:.3g}); fast_cur U vs unsharded {e_cur:.3g}; "
+        f"eigenvalues rel {e_lam:.3g}, misalignment {mis:.3g}; top "
+        f"eigenvalue {float(lam[0]):.3f}")
+    return {"infos": infos, "launches": infos[0]["path_launches"],
+            "panels": panels, "block": block, "slab": slab,
+            "entries": entries, "spawn_s": spawn_s, "err_b": err_b,
+            "err_b_rel": e_rel, "cur_U_err": e_cur, "eig_rel": e_lam,
+            "misalignment": mis}
+
+
+def _b4_line(m: dict, sh: dict) -> dict:
+    """B4 at rank 1's slab of the sharded main path (its last rows are clamp
+    padding), against its plain version (a 5 GB slab panel) and B1's rows."""
+    X, spec = m["X"], m["spec"]
+    Vs = (sweep_lib.one_hot_columns(m["idx"], N, DEV), m["S"].mat, m["Z"])
+    start, length = sh["slab"], sh["slab"]
+    ms, outs = cuda_ms(lambda: kernel.pairwise_matmat_multi_slab_cuda(
+        spec, X, start, length, Vs), reps=2, warmup=1)
+    out = torch.cat(outs, dim=1)
+    del outs
+    plain_ms, plain = cuda_ms(lambda: torch.cat(
+        kernel.pairwise_matmat_multi_slab_plain(spec, X, start, length, Vs),
+        dim=1), warmup=1)
+    err = float((out - plain).abs().max())
+    rel = err / float(plain.abs().max())
+    del plain
+    check(rel <= TOL_F32_MAIN, f"B4 slab shape vs plain: {rel:.3g}")
+    full = torch.cat(kernel.pairwise_matmat_multi_cuda(spec, X, X, Vs), dim=1)
+    rows = kernel.slab_rows(N, start, length, DEV)
+    same = torch.equal(out, full[rows])
+    check(same, "B4 rows differ from B1's rows")
+    del full
+    M = sum(int(V.shape[1]) for V in Vs)
+    flops = 2 * length * N * M + 2 * D * length * N
+    nbytes = 4 * (N * D + N * M + length * M)
+    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    log(f"B4 slab shape ({length} x {N} from row {start}, M = {M}): "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the FP32 "
+        f"roof); vs plain {rel:.3g} (max abs {err:.3g}); rows = B1's bit "
+        f"for bit: {same}")
+    return {"name": "pairwise_matmat_multi_slab", "route": "cuda",
+            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
+            "replaces": "src/repro/kernels/pairwise/kernel.py:184",
+            "launches": sh["launches"]["pairwise_matmat_multi_slab"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "library_call": "none (no single torch call computes it)",
+            "shape": {"start_row": start, "slab_len": length, "n": N,
+                      "d": D, "M": M, "spec": "rbf", "precision": "f32"},
+            "rows_equal_b1": same, "scaled_err_vs_plain": rel}
 
 
 def _b1_line(m: dict) -> dict:
@@ -1348,22 +1735,36 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_parity()
+    phase_parity_slab()
     phase_parity_read()
     phase_parity_flash()
     m = phase_main()
     phase_scaling()
     b1, b2 = _b1_line(m), _b2_line(m)
+    sh = phase_spsd_sharded(m)
+    b4 = _b4_line(m, sh)
     att = phase_attention_long()
     pol = phase_attention_policy()
     srv = phase_serve_gemma3()
     b6 = _flash_line(srv)
     # each path's counts were reset just before it and read just after
-    paths = {"spsd_main": m["launches"], "attention_long": att["launches"],
+    paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
+             "attention_long": att["launches"],
              "attention_policy": pol["launches"],
              "serve_gemma3": srv["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
+                      (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
         line["launches_by_path"] = {p: c[key] for p, c in paths.items()}
+    b4["spsd_sharded"] = {
+        "ranks": WORLD, "panels": sh["panels"], "block": sh["block"],
+        "slab_rows": sh["slab"], "entries_per_sweep": sh["entries"],
+        "fast_model_with_error_ms": [
+            i["calls"]["fast_model_with_error"]["ms"] for i in sh["infos"]],
+        "all_reduce_ms": [i["all_reduce_ms"] for i in sh["infos"]],
+        "all_reduce_bytes": sh["infos"][0]["all_reduce_bytes"],
+        "blocked_err_rel": sh["err_b_rel"], "cur_U_err": sh["cur_U_err"],
+        "eig_rel": sh["eig_rel"], "misalignment": sh["misalignment"]}
     b6["serve_gemma3"] = {k: srv[k] for k in (
         "prefill_ms", "decode_ms_per_token", "generate_ms", "tokens_per_s",
         "decode_tokens_per_s", "peak_gb", "b6_prefill")}
@@ -1371,7 +1772,7 @@ def main() -> int:
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],
                "exp_affine_policy_panel_shape": pol["b2_panel"]["shape"]})
-    kernels_line = {"kernels": [b1, b2, att["line"], b6]}
+    kernels_line = {"kernels": [b1, b2, b4, att["line"], b6]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)

@@ -18,14 +18,15 @@ from repro_torch.core.selection import (_masked_orthonormal_basis,  # noqa: F401
 
 
 def _residual_column_norms(Kop, idx: torch.Tensor,
-                           block_size: Optional[int] = None) -> torch.Tensor:
+                           block_size: Optional[int] = None,
+                           mesh=None) -> torch.Tensor:
     """||(I − C C†) K||² column norms in one panel sweep."""
-    return residual_column_norms(Kop, idx, block_size=block_size)
+    return residual_column_norms(Kop, idx, block_size=block_size, mesh=mesh)
 
 
 def uniform_adaptive2_indices(K, c: int, block_size: Optional[int] = None,
-                              generator: Optional[torch.Generator] = None
-                              ) -> torch.Tensor:
+                              generator: Optional[torch.Generator] = None,
+                              mesh=None) -> torch.Tensor:
     """Return c distinct column indices via uniform + two adaptive rounds."""
     return selection_lib.UniformAdaptive2Policy().select(
-        K, c, generator=generator, block_size=block_size)
+        K, c, generator=generator, block_size=block_size, mesh=mesh)

@@ -6,7 +6,10 @@ model:
 
 - ``sweeps`` / ``panels`` / ``entries``: a sweep counts ``nblocks·b·n``
   entries, clamp padding of the tail panel included, whatever route runs it
-  (the fused launch evaluates the same row extent);
+  (the fused launch evaluates the same row extent).  A sweep sharded over a
+  mesh counts the sentinel panels too: its ranks' slabs cover
+  ``data width · local_slab_rows`` rows.  Each rank's meter counts the
+  whole (global) sweep, as the reference's single SPMD program does;
 - ``fused_sweeps``: sweeps the inner operator answered with one fused
   launch (route 'fused…'); ``last_route`` holds the route verbatim;
 - ``bf16_sweeps``: sweeps and cross launches under a non-f32 policy;
@@ -73,19 +76,23 @@ class CountingOperator(SPSDOperator):
 
     # -- streaming protocol (counted per pass) ------------------------------
 
-    def _count_sweep(self, block_size):
-        bs = sweep_lib.resolved_block_size(self.n, self.n, block_size)
+    def _count_sweep(self, block_size, mesh=None):
+        dp = sweep_lib.mesh_data_size(mesh)
+        bs = sweep_lib.resolved_block_size(self.n, self.n, block_size, dp)
         nblocks = -(-self.n // bs)
+        if dp > 1:
+            nblocks += (-nblocks) % dp       # sentinel padding panels
         self.counts["sweeps"] += 1
         self.counts["panels"] += nblocks
         self.counts["entries"] += nblocks * bs * self.n
 
-    def sweep(self, plans: Sequence, block_size: Optional[int] = None):
-        self._count_sweep(block_size)
+    def sweep(self, plans: Sequence, block_size: Optional[int] = None,
+              mesh=None):
+        self._count_sweep(block_size, mesh)
         self._in_sweep = True
         try:
             # delegate so the inner operator's fused route stays engaged
-            out = self.inner.sweep(plans, block_size=block_size)
+            out = self.inner.sweep(plans, block_size=block_size, mesh=mesh)
         finally:
             self._in_sweep = False
         self._attribute(getattr(self.inner, "_last_sweep_route", "panel"))

@@ -5,7 +5,10 @@ of ``repro.core.kernelop``).
 ``columns(idx)`` (C = K P), ``block(ri, ci)`` (SᵀKS), ``diag()``,
 ``full()`` (small n only) — plus the streaming protocol: ``sweep(plans)``
 (the single-pass panel engine of ``repro_torch.core.sweep``),
-``map_row_panels``, ``matmat`` and ``frobenius_norm_sq``.
+``map_row_panels``, ``matmat`` and ``frobenius_norm_sq``.  ``sweep``,
+``matmat`` and ``frobenius_norm_sq`` take ``mesh=``: on a mesh of data
+width above 1 every rank sweeps its share of the rows and the partial
+results are all-reduced (``sweep.sweep_panels``).
 
 ``PairwiseKernel`` computes entries on the fly from the data for any
 ``KernelSpec``.  Every block it needs goes through the pairwise kernels of
@@ -13,7 +16,8 @@ of ``repro.core.kernelop``).
 on a CPU tensor its plain version.  ``use_kernel`` (the counterpart of the
 reference's ``use_pallas``, on by default here) picks the route of
 matmul-shaped sweeps: on, one fused multi-right-hand-side launch
-('fused'); off, the panel route over explicit blocks ('panel').
+('fused'), or on a wide mesh one row-slab launch per rank
+('fused_sharded'); off, the panel route over explicit blocks ('panel').
 
 Operators live on one device, the CUDA device unless the caller passes
 ``device=`` (``repro_torch.device.resolve_device``).
@@ -79,6 +83,17 @@ class SPSDOperator:
         rows).  Only called when ``supports_fused_matmat()``."""
         raise NotImplementedError
 
+    def supports_prefetch_slab(self) -> bool:
+        """True when ``fused_slab`` answers a contiguous row slab with the
+        slab addressed inside the launch (no gathered row copy)."""
+        return False
+
+    def fused_slab(self, start_row: int, slab_len: int, Vs):
+        """[K[start:start+slab_len, :] @ V for V in Vs]; rows at indices
+        ≥ n are clamp duplicates the caller must mask.  Only called when
+        ``supports_prefetch_slab()``."""
+        raise NotImplementedError
+
     def cross(self, Xq, Vs):
         """[K(Xq, ·) @ V for V in Vs] for out-of-sample query points."""
         raise NotImplementedError(
@@ -88,10 +103,12 @@ class SPSDOperator:
 
     # -- streaming protocol -------------------------------------------------
 
-    def sweep(self, plans: Sequence, block_size: Optional[int] = None):
+    def sweep(self, plans: Sequence, block_size: Optional[int] = None,
+              mesh=None):
         """Run the multi-product panel engine over this operator's rows
-        (route chosen by ``sweep.sweep_operator``)."""
-        return sweep_lib.sweep_operator(self, plans, block_size=block_size)
+        (route chosen by ``sweep.sweep_operator``; ``mesh`` shards it)."""
+        return sweep_lib.sweep_operator(self, plans, block_size=block_size,
+                                        mesh=mesh)
 
     def map_row_panels(self, fn, block_size: Optional[int] = None):
         """``fn(panel, row_idx, valid)`` on consecutive (b × n) row panels,
@@ -109,18 +126,19 @@ class SPSDOperator:
             outs.append(fn(self.block(idx, cols), idx, valid))
         return torch.stack(outs)
 
-    def matmat(self, V: torch.Tensor,
-               block_size: Optional[int] = None) -> torch.Tensor:
+    def matmat(self, V: torch.Tensor, block_size: Optional[int] = None,
+               mesh=None) -> torch.Tensor:
         """K @ V without materializing K."""
         V2 = V if V.ndim == 2 else V[:, None]
-        (out,) = self.sweep([sweep_lib.MatmulPlan(V2)], block_size=block_size)
+        (out,) = self.sweep([sweep_lib.MatmulPlan(V2)], block_size=block_size,
+                            mesh=mesh)
         return out if V.ndim == 2 else out[:, 0]
 
-    def frobenius_norm_sq(self,
-                          block_size: Optional[int] = None) -> torch.Tensor:
+    def frobenius_norm_sq(self, block_size: Optional[int] = None,
+                          mesh=None) -> torch.Tensor:
         """||K||_F² accumulated over row panels."""
         (out,) = self.sweep([sweep_lib.FrobeniusPlan()],
-                            block_size=block_size)
+                            block_size=block_size, mesh=mesh)
         return out
 
 
@@ -150,10 +168,10 @@ class DenseSPSD(SPSDOperator):
     def diag(self):
         return torch.diagonal(self.K)
 
-    def matmat(self, V, block_size: Optional[int] = None):
+    def matmat(self, V, block_size: Optional[int] = None, mesh=None):
         return self.K @ V
 
-    def frobenius_norm_sq(self, block_size: Optional[int] = None):
+    def frobenius_norm_sq(self, block_size: Optional[int] = None, mesh=None):
         K32 = self.K.to(torch.float32)
         return torch.sum(K32 * K32)
 
@@ -245,6 +263,17 @@ class PairwiseKernel(SPSDOperator):
         return pw_ops.kernel_matmat_multi_rows(self.spec, Xr, self.X, Vs,
                                                edges=self.l1_edges())
 
+    def supports_prefetch_slab(self) -> bool:
+        return self.use_kernel
+
+    def fused_slab(self, start_row, slab_len, Vs):
+        """The slab launch: the rank's contiguous row range is addressed
+        inside the kernel (``ops.kernel_matmat_multi_slab``), so no row
+        copy of X is gathered."""
+        return pw_ops.kernel_matmat_multi_slab(
+            self.spec, self.X, start_row, int(slab_len), Vs,
+            edges=self.l1_edges())
+
     def cross(self, Xq, Vs):
         """[K(Xq, X) @ V for V in Vs] — the serving-path query launch.
 
@@ -296,10 +325,10 @@ class LinearKernel(PairwiseKernel):
     def columns(self, idx):
         return self.X @ self.X[_index(idx, self.device)].T
 
-    def matmat(self, V, block_size: Optional[int] = None):
+    def matmat(self, V, block_size: Optional[int] = None, mesh=None):
         return self.X @ (self.X.T @ V)
 
-    def frobenius_norm_sq(self, block_size: Optional[int] = None):
+    def frobenius_norm_sq(self, block_size: Optional[int] = None, mesh=None):
         G = self.X.T @ self.X
         return torch.sum(G * G)
 

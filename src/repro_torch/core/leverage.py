@@ -31,35 +31,37 @@ def column_leverage_scores(A: torch.Tensor,
     return row_leverage_scores(A.T, rcond)
 
 
-def _gram_leverage(panel_fn, nrows: int, dim: int, block_size, device):
+def _gram_leverage(panel_fn, nrows: int, dim: int, block_size, device,
+                   mesh=None):
     """l_i = p_i (Σ panelsᵀ panels)† p_iᵀ over (b × dim) panels: a blocked
     Gram pass then a blocked quadratic-form pass through the sweep engine —
-    peak memory O(b·dim + dim²)."""
+    peak memory O(b·dim + dim²), sharded over ``mesh``."""
     (G,) = sweep_panels(panel_fn, nrows, dim, [GramPlan(dim)],
-                        block_size=block_size, device=device)
+                        block_size=block_size, device=device, mesh=mesh)
     W = pinv(0.5 * (G + G.T))
     (lev,) = sweep_panels(panel_fn, nrows, dim, [RowQuadFormPlan(W)],
-                          block_size=block_size, device=device)
+                          block_size=block_size, device=device, mesh=mesh)
     return lev
 
 
 def row_leverage_scores_gram(A: torch.Tensor,
-                             block_size: Optional[int] = None
-                             ) -> torch.Tensor:
+                             block_size: Optional[int] = None,
+                             mesh=None) -> torch.Tensor:
     """Row leverage scores of a tall A (m × c) via a blocked Gram AᵀA pass:
     l_i = a_i (AᵀA)† a_iᵀ, with no transposed copy or SVD workspace of A."""
     m, cdim = A.shape
-    return _gram_leverage(lambda idx: A[idx], m, cdim, block_size, A.device)
+    return _gram_leverage(lambda idx: A[idx], m, cdim, block_size, A.device,
+                          mesh)
 
 
 def column_leverage_scores_gram(R: torch.Tensor,
-                                block_size: Optional[int] = None
-                                ) -> torch.Tensor:
+                                block_size: Optional[int] = None,
+                                mesh=None) -> torch.Tensor:
     """Column leverage scores of a wide R (r × n), streamed: l_j =
     R_:jᵀ (R Rᵀ)† R_:j, the Gram accumulated over (b × r) column panels."""
     r, n = R.shape
     return _gram_leverage(lambda idx: R[:, idx].T, n, r, block_size,
-                          R.device)
+                          R.device, mesh)
 
 
 def row_coherence(A: torch.Tensor) -> torch.Tensor:

@@ -21,9 +21,12 @@ uniform_adaptive2  2       1                2         round 0 uniform, then
 
 Every policy samples without replacement and zeroes already-selected
 indices between adaptive rounds, so index sets are duplicate-free; ``mask``
-restricts selection to the valid rows of a padded operator.  Randomness
-comes from an explicit ``torch.Generator``: draws are made on the
-generator's device and the indices moved to the operator's.
+restricts selection to the valid rows of a padded operator; ``mesh``
+shards every sweep the policy makes.  Randomness comes from an explicit
+``torch.Generator``: draws are made on the generator's device and the
+indices moved to the operator's.  On a mesh every rank must seed its
+generator alike: the all-reduced statistics are the same on every rank, so
+the ranks draw the same indices.
 """
 from __future__ import annotations
 
@@ -59,14 +62,14 @@ class SelectionPolicy:
         return self.rounds * self.sweeps_per_round
 
     def select(self, K, c: int, *, generator: Optional[torch.Generator] = None,
-               block_size: Optional[int] = None,
+               block_size: Optional[int] = None, mesh=None,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Return ``c`` distinct column indices of ``K`` (mask-aware)."""
         raise NotImplementedError
 
     def select_pair(self, K, c: int, r: int, *,
                     generator: Optional[torch.Generator] = None,
-                    block_size: Optional[int] = None,
+                    block_size: Optional[int] = None, mesh=None,
                     mask: Optional[torch.Tensor] = None):
         """Two independent index sets from one call (CUR's C and R sides).
 
@@ -75,7 +78,7 @@ class SelectionPolicy:
         symmetric operator (leverage) share the scoring pass.
         """
         g = generator_or_default(generator)
-        kw = dict(generator=g, block_size=block_size, mask=mask)
+        kw = dict(generator=g, block_size=block_size, mesh=mesh, mask=mask)
         return self.select(K, c, **kw), self.select(K, r, **kw)
 
 
@@ -120,7 +123,8 @@ class UniformPolicy(SelectionPolicy):
     sweeps_per_round: int = 0
     gathers: int = 0
 
-    def select(self, K, c, *, generator=None, block_size=None, mask=None):
+    def select(self, K, c, *, generator=None, block_size=None, mesh=None,
+               mask=None):
         Kop = as_operator(K)
         idx = _uniform_indices(Kop.n, c, mask,
                                generator_or_default(generator))
@@ -148,8 +152,8 @@ class LeveragePolicy(SelectionPolicy):
     pilot: Optional[int] = None     # pilot panel width (default max(2c, c+8))
     oversample: int = 8
 
-    def _pilot_scores(self, Kop, c: int, mask, block_size,
-                      generator) -> torch.Tensor:
+    def _pilot_scores(self, Kop, c: int, mask, block_size, generator,
+                      mesh=None) -> torch.Tensor:
         """Approximate leverage scores from one uniform n×p pilot gather."""
         n = Kop.n
         p = self.pilot if self.pilot is not None else max(2 * c,
@@ -161,28 +165,29 @@ class LeveragePolicy(SelectionPolicy):
         Cp = Kop.columns(pilot_idx)
         if mask is not None:
             Cp = Cp * mask.to(Cp.dtype)[:, None]
-        return row_leverage_scores_gram(Cp, block_size=block_size)
+        return row_leverage_scores_gram(Cp, block_size=block_size, mesh=mesh)
 
     @staticmethod
     def _allowed(n: int, mask, device) -> torch.Tensor:
         return torch.ones((n,), dtype=_F32, device=device) if mask is None \
             else mask.to(device=device, dtype=_F32)
 
-    def select(self, K, c, *, generator=None, block_size=None, mask=None):
+    def select(self, K, c, *, generator=None, block_size=None, mesh=None,
+               mask=None):
         Kop = as_operator(K)
         g = generator_or_default(generator)
-        lev = self._pilot_scores(Kop, c, mask, block_size, g)
+        lev = self._pilot_scores(Kop, c, mask, block_size, g, mesh)
         idx = _weighted_indices_without_replacement(
             lev, c, self._allowed(Kop.n, mask, lev.device), g)
         return idx.to(Kop.device)
 
     def select_pair(self, K, c, r, *, generator=None, block_size=None,
-                    mask=None):
+                    mesh=None, mask=None):
         """Both CUR sides from ONE pilot: for an SPSD operator the pilot
         panel's row and column leverage agree."""
         Kop = as_operator(K)
         g = generator_or_default(generator)
-        lev = self._pilot_scores(Kop, max(c, r), mask, block_size, g)
+        lev = self._pilot_scores(Kop, max(c, r), mask, block_size, g, mesh)
         allowed = self._allowed(Kop.n, mask, lev.device)
         return (_weighted_indices_without_replacement(lev, c, allowed,
                                                       g).to(Kop.device),
@@ -200,7 +205,7 @@ def _masked_orthonormal_basis(C: torch.Tensor) -> torch.Tensor:
 
 
 def residual_column_norms(Kop, idx: torch.Tensor,
-                          block_size: Optional[int] = None,
+                          block_size: Optional[int] = None, mesh=None,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """||(I − C C†) K||² column norms in ONE panel sweep (adaptive rounds).
@@ -213,7 +218,7 @@ def residual_column_norms(Kop, idx: torch.Tensor,
         C = C * mask.to(C.dtype)[:, None]
     Q = _masked_orthonormal_basis(C)
     (norms,) = Kop.sweep([sweep_lib.ProjResidualColNormPlan(Q, mask)],
-                         block_size=block_size)
+                         block_size=block_size, mesh=mesh)
     return norms
 
 
@@ -238,7 +243,8 @@ class UniformAdaptive2Policy(SelectionPolicy):
     def gathers(self) -> int:           # one C gather per adaptive round
         return self.adaptive_rounds
 
-    def select(self, K, c, *, generator=None, block_size=None, mask=None):
+    def select(self, K, c, *, generator=None, block_size=None, mesh=None,
+               mask=None):
         Kop = as_operator(K)
         g = generator_or_default(generator)
         extra = c // (self.adaptive_rounds + 1)
@@ -253,7 +259,7 @@ class UniformAdaptive2Policy(SelectionPolicy):
         idx = _uniform_indices(Kop.n, c0, mask, g).to(Kop.device)
         for _ in range(self.adaptive_rounds):
             norms = residual_column_norms(Kop, idx, block_size=block_size,
-                                          mask=mask)
+                                          mesh=mesh, mask=mask)
             # sized to the rows THIS round's sweep saw (the operator may
             # have grown between rounds)
             n = int(norms.shape[0])

@@ -321,15 +321,18 @@ def plan_for_sketch(S):
     return sweep_lib.SketchRightPlan(S, S.s)
 
 
-def right_streaming(S, Kop, block_size: Optional[int] = None) -> torch.Tensor:
-    """K S (n × s) in one sweep of the panel engine."""
-    (KS,) = Kop.sweep([plan_for_sketch(S)], block_size=block_size)
+def right_streaming(S, Kop, block_size: Optional[int] = None,
+                    mesh=None) -> torch.Tensor:
+    """K S (n × s) in one sweep of the panel engine (sharded over
+    ``mesh``)."""
+    (KS,) = Kop.sweep([plan_for_sketch(S)], block_size=block_size, mesh=mesh)
     return KS
 
 
-def sym_streaming(S, Kop, block_size: Optional[int] = None) -> torch.Tensor:
+def sym_streaming(S, Kop, block_size: Optional[int] = None,
+                  mesh=None) -> torch.Tensor:
     """SᵀKS via a streamed K S then one ``S.left``."""
-    return S.left(right_streaming(S, Kop, block_size))
+    return S.left(right_streaming(S, Kop, block_size, mesh=mesh))
 
 
 # ---------------------------------------------------------------------------

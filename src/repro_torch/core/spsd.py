@@ -18,8 +18,11 @@ sketch, before the P ⊂ S union), ``Z`` (Hutchinson probes), ``Omega``
 (subspace-iteration start) — so tests can hand the reference's draws to both
 sides.  Draws left to the generator are taken in the order idx, Z, S.
 
-``fast_model_batched`` and ``fast_model_ragged`` (with ``bucket_by_size``)
-are not ported yet; neither is the ``mesh=`` sharding.
+``mesh=`` (a ``DeviceMesh`` with a ``data`` dim, see
+``repro_torch.distributed.sharding``) shards every sweep a model or metric
+makes; every rank gets the same inputs and draws and returns the full
+result.  ``fast_model_batched`` and ``fast_model_ragged`` (with
+``bucket_by_size``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -85,12 +88,12 @@ def _column_sketch(S, n: int, device) -> sk.ColumnSketch:
 # U matrices
 # ---------------------------------------------------------------------------
 
-def prototype_U(K, C: torch.Tensor,
-                block_size: Optional[int] = None) -> torch.Tensor:
+def prototype_U(K, C: torch.Tensor, block_size: Optional[int] = None,
+                mesh=None) -> torch.Tensor:
     """U* = C† K (C†)ᵀ (Eq. 4), with K (C†)ᵀ streamed through ``matmat``."""
     Kop = as_operator(K)
     Cp = pinv(C)                                          # (c, n)
-    KCpT = Kop.matmat(Cp.T, block_size=block_size)        # (n, c)
+    KCpT = Kop.matmat(Cp.T, block_size=block_size, mesh=mesh)   # (n, c)
     return Cp @ KCpT.to(Cp.dtype)
 
 
@@ -177,6 +180,7 @@ def fast_model_from_C(
     n_valid=None,
     S=None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> SPSDApprox:
     """Algorithm 1 given a fixed C.
 
@@ -205,7 +209,8 @@ def fast_model_from_C(
         if streaming is None:
             streaming = not isinstance(Kop, DenseSPSD)
         if streaming:
-            StKS = sk.sym_streaming(Sk, Kop, block_size=block_size)
+            StKS = sk.sym_streaming(Sk, Kop, block_size=block_size,
+                                    mesh=mesh)
         else:
             StKS = Sk.sym(Kop.full())
     return SPSDApprox(C=C, U=fast_U(StC, StKS), P_indices=P_indices)
@@ -225,6 +230,7 @@ def fast_model(
     idx=None,
     S=None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> SPSDApprox:
     """Algorithm 1 end to end: select C = K P, then the fast U.
 
@@ -240,7 +246,7 @@ def fast_model(
         (torch.arange(n, device=Kop.device) < n_valid).to(_F32)
     if idx is None:
         idx = selection_lib.get_policy(selection).select(
-            Kop, c, generator=g, block_size=block_size, mask=mask)
+            Kop, c, generator=g, block_size=block_size, mesh=mesh, mask=mask)
     idx = _index(idx, Kop.device)
 
     if streaming is None:
@@ -252,7 +258,8 @@ def fast_model(
         return fast_model_from_C(
             Kop, C, s, P_indices=idx, s_sketch=s_sketch,
             enforce_subset=enforce_subset, scale=scale, streaming=streaming,
-            block_size=block_size, n_valid=n_valid, S=S, generator=g)
+            block_size=block_size, n_valid=n_valid, S=S, generator=g,
+            mesh=mesh)
 
     # fused path: C = K P and K S from ONE sweep over the row panels
     Sk = _projection_sketch(S, s_sketch, n, s, g, Kop.device)
@@ -260,7 +267,7 @@ def fast_model(
         Sk = sk.MaskedSketch(Sk, mask)
     C, KS = Kop.sweep(
         [sweep_lib.ColumnGatherPlan(idx), sk.plan_for_sketch(Sk)],
-        block_size=block_size)
+        block_size=block_size, mesh=mesh)
     if mask is not None:
         C = C * mask[:, None]
     U = fast_U(Sk.left(C), Sk.left(KS))
@@ -281,6 +288,7 @@ def fast_model_with_error(
     S=None,
     Z=None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Tuple[SPSDApprox, torch.Tensor]:
     """Algorithm 1 + its Hutchinson relative error in ONE panel sweep.
 
@@ -294,7 +302,7 @@ def fast_model_with_error(
     g = generator_or_default(generator)
     if idx is None:
         idx = selection_lib.get_policy(selection).select(
-            Kop, c, generator=g, block_size=block_size)
+            Kop, c, generator=g, block_size=block_size, mesh=mesh)
     idx = _index(idx, Kop.device)
     Z = sk.rademacher(n, probes, generator=g, device=Kop.device) \
         if Z is None else _tensor(Z, Kop.device)
@@ -302,7 +310,7 @@ def fast_model_with_error(
     if s_sketch in ("uniform", "leverage"):
         C, KZ = Kop.sweep(
             [sweep_lib.ColumnGatherPlan(idx), sweep_lib.MatmulPlan(Z)],
-            block_size=block_size)
+            block_size=block_size, mesh=mesh)
         _, StC, StKS = _column_sketch_for_C(
             Kop, C, s, s_sketch, idx, enforce_subset, scale, None, S, g)
     else:
@@ -310,7 +318,7 @@ def fast_model_with_error(
         C, KS, KZ = Kop.sweep(
             [sweep_lib.ColumnGatherPlan(idx), sk.plan_for_sketch(Sk),
              sweep_lib.MatmulPlan(Z)],
-            block_size=block_size)
+            block_size=block_size, mesh=mesh)
         StC, StKS = Sk.left(C), Sk.left(KS)
 
     approx = SPSDApprox(C=C, U=fast_U(StC, StKS), P_indices=idx)
@@ -336,24 +344,25 @@ def _resolve_error_method(Kop: SPSDOperator, method: str) -> str:
 
 
 def _blocked_residual_fro2(Kop: SPSDOperator, approx: SPSDApprox,
-                           block_size: Optional[int], extra_plans=()):
+                           block_size: Optional[int], mesh=None,
+                           extra_plans=()):
     """(||K − CUCᵀ||_F², ||K||_F², extra results) in ONE panel sweep."""
     C32 = approx.C.to(_F32)
     M = approx.U.to(_F32) @ C32.T                          # (c, n)
     *extras, (num, den) = Kop.sweep(
         [*extra_plans, sweep_lib.ResidualFroPlan(C32, M)],
-        block_size=block_size)
+        block_size=block_size, mesh=mesh)
     return num, den, extras
 
 
 def _hutchinson_residual_fro2(Kop: SPSDOperator, approx: SPSDApprox,
                               Z: torch.Tensor, block_size: Optional[int],
-                              extra_plans=()):
+                              mesh=None, extra_plans=()):
     """Rademacher estimates of (||K − CUCᵀ||_F², ||K||_F²), plus any
     ``extra_plans`` fused into the same probe sweep."""
     probes = Z.shape[1]
     *extras, KZ = Kop.sweep([*extra_plans, sweep_lib.MatmulPlan(Z)],
-                            block_size=block_size)
+                            block_size=block_size, mesh=mesh)
     KZ = KZ.to(_F32)
     RZ = KZ - approx.matmat(Z).to(_F32)
     return torch.sum(RZ * RZ) / probes, torch.sum(KZ * KZ) / probes, extras
@@ -361,10 +370,11 @@ def _hutchinson_residual_fro2(Kop: SPSDOperator, approx: SPSDApprox,
 
 def relative_error(K, approx: SPSDApprox, method: str = "auto",
                    block_size: Optional[int] = None, probes: int = 64,
-                   Z=None, generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   Z=None, generator: Optional[torch.Generator] = None,
+                   mesh=None) -> torch.Tensor:
     """||K − C U Cᵀ||_F² / ||K||_F² (Fig. 3/4 y-axis).  The streaming
-    methods cost exactly one sweep; ``Z`` passes Hutchinson probes."""
+    methods cost exactly one sweep (sharded over ``mesh``); ``Z`` passes
+    Hutchinson probes."""
     Kop = as_operator(K)
     method = _resolve_error_method(Kop, method)
     if method == "dense":
@@ -372,13 +382,14 @@ def relative_error(K, approx: SPSDApprox, method: str = "auto",
         R = Kd - approx.dense().to(_F32)
         return torch.sum(R * R) / torch.sum(Kd * Kd)
     if method == "blocked":
-        num, den, _ = _blocked_residual_fro2(Kop, approx, block_size)
+        num, den, _ = _blocked_residual_fro2(Kop, approx, block_size, mesh)
         return num / den
     if method == "hutchinson":
         Z = sk.rademacher(Kop.n, probes, generator=generator,
                           device=Kop.device) if Z is None \
             else _tensor(Z, Kop.device)
-        num, den, _ = _hutchinson_residual_fro2(Kop, approx, Z, block_size)
+        num, den, _ = _hutchinson_residual_fro2(Kop, approx, Z, block_size,
+                                                mesh)
         return num / den
     raise ValueError(f"unknown error method {method!r}")
 
@@ -390,14 +401,15 @@ def _gaussian(n: int, q: int, generator, device) -> torch.Tensor:
 
 
 def _subspace_eigvals_from_Y(Kop: SPSDOperator, Y: torch.Tensor, k: int,
-                             power_iters: int, block_size: Optional[int]):
+                             power_iters: int, block_size: Optional[int],
+                             mesh=None):
     """Finish subspace iteration from Y = K Ω: ``power_iters`` power passes
     plus the Rayleigh quotient."""
     for _ in range(power_iters):
         Q, _ = torch.linalg.qr(Y)
-        Y = Kop.matmat(Q, block_size=block_size)
+        Y = Kop.matmat(Q, block_size=block_size, mesh=mesh)
     Q, _ = torch.linalg.qr(Y)
-    B = Q.T @ Kop.matmat(Q, block_size=block_size)
+    B = Q.T @ Kop.matmat(Q, block_size=block_size, mesh=mesh)
     B = 0.5 * (B + B.T)
     lam = torch.flip(torch.linalg.eigvalsh(B), dims=(0,))
     return lam[:k]
@@ -406,23 +418,23 @@ def _subspace_eigvals_from_Y(Kop: SPSDOperator, Y: torch.Tensor, k: int,
 def streaming_topk_eigvals(K, k: int, oversample: int = 8,
                            power_iters: int = 2,
                            block_size: Optional[int] = None, Omega=None,
-                           generator: Optional[torch.Generator] = None
-                           ) -> torch.Tensor:
+                           generator: Optional[torch.Generator] = None,
+                           mesh=None) -> torch.Tensor:
     """Top-k eigenvalues by randomized subspace iteration (2 + power_iters
     streamed passes, O(n·(k+p)) memory); ``Omega`` passes the start."""
     Kop = as_operator(K)
     q = min(Kop.n, k + oversample)
     Omega = _gaussian(Kop.n, q, generator, Kop.device) if Omega is None \
         else _tensor(Omega, Kop.device)
-    Y = Kop.matmat(Omega, block_size=block_size)
-    return _subspace_eigvals_from_Y(Kop, Y, k, power_iters, block_size)
+    Y = Kop.matmat(Omega, block_size=block_size, mesh=mesh)
+    return _subspace_eigvals_from_Y(Kop, Y, k, power_iters, block_size, mesh)
 
 
 def error_vs_best_rank_k(K, approx: SPSDApprox, k: int, method: str = "auto",
                          block_size: Optional[int] = None, probes: int = 64,
                          Omega=None, Z=None,
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         mesh=None) -> torch.Tensor:
     """||K − CUCᵀ||_F² / ||K − K_k||_F² (the 1+ε target of Thm 3).
 
     Streaming methods use ||K − K_k||_F² = ||K||_F² − Σ_{i≤k} λ_i² with the
@@ -448,14 +460,15 @@ def error_vs_best_rank_k(K, approx: SPSDApprox, k: int, method: str = "auto",
     omega_plan = sweep_lib.MatmulPlan(Omega)
     if method == "blocked":
         num, fro2, (Y,) = _blocked_residual_fro2(
-            Kop, approx, block_size, extra_plans=[omega_plan])
+            Kop, approx, block_size, mesh, extra_plans=[omega_plan])
     elif method == "hutchinson":
         Z = sk.rademacher(n, probes, generator=g, device=Kop.device) \
             if Z is None else _tensor(Z, Kop.device)
         num, fro2, (Y,) = _hutchinson_residual_fro2(
-            Kop, approx, Z, block_size, extra_plans=[omega_plan])
+            Kop, approx, Z, block_size, mesh, extra_plans=[omega_plan])
     else:
         raise ValueError(f"unknown error method {method!r}")
-    lam = _subspace_eigvals_from_Y(Kop, Y, k, power_iters, block_size)
+    lam = _subspace_eigvals_from_Y(Kop, Y, k, power_iters, block_size,
+                                   mesh)
     tail = torch.maximum(fro2 - torch.sum(lam ** 2), 1e-12 * fro2)
     return num / tail

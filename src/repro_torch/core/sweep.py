@@ -12,8 +12,17 @@ norms) for one evaluation of each kernel entry.  A plan implements::
 ``sweep_panels`` walks the row panels in a Python loop (the counterpart of
 the reference's ``jax.lax.scan``); tail panels are clamped to the last row
 and masked by ``valid``, exactly as in the reference, so panel and entry
-counts match it.  Only the single-device routes are ported; the sharded
-route (``mesh=``) comes with the multi-device slice.
+counts match it.
+
+Data-parallel sweeps.  With a ``mesh`` whose data width (``pod`` × ``data``
+dims, ``repro_torch.distributed.sharding``) is above 1, the panel count is
+rebalanced to a multiple of the width (``resolved_block_size``), padded with
+sentinel starts equal to ``nrows`` (all rows invalid, exact zero
+contributions), and each rank walks its contiguous share of the starts — or
+makes one slab claim over them (``slab_fn``).  The partial carries are then
+summed over the ranks with ``dist.all_reduce`` and finalized on every rank:
+the reference's ``shard_map`` + ``psum``.  Inputs are replicated; every rank
+returns the full result.
 
 Route names (``op._last_sweep_route``) drop the reference's ``pallas_``
 prefix; a non-f32 precision policy is a ``+bf16_f32acc`` suffix in both:
@@ -22,9 +31,10 @@ prefix; a non-f32 precision policy is a ``+bf16_f32acc`` suffix in both:
 reference                   port
 ==========================  ==========================
 ``pallas_fused``            ``fused``
+``pallas_fused_sharded``    ``fused_sharded`` (one slab launch per rank)
 ``pallas_fused_rows``       ``fused_rows``  (``cross``)
 ``dense_rows``              ``dense_rows``  (``cross``)
-``panel``                   ``panel``
+``panel``                   ``panel`` (sharded on a wide mesh)
 ==========================  ==========================
 """
 from __future__ import annotations
@@ -33,6 +43,8 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.distributed import sharding
 
 # Row panels are capped at roughly this many f32 elements (b·ncols), so the
 # streaming paths stay ~128 MB whatever the problem size (the reference's
@@ -48,16 +60,44 @@ def panel_block_size(ncols: int, block_size: Optional[int]) -> int:
     return max(128, min(4096, PANEL_ELEMENT_BUDGET // max(ncols, 1)))
 
 
-def resolved_block_size(nrows: int, ncols: int,
-                        block_size: Optional[int]) -> int:
+def resolved_block_size(nrows: int, ncols: int, block_size: Optional[int],
+                        data_parallel: int = 1) -> int:
     """The panel height a sweep uses: the budgeted (or requested) size,
-    clamped to ``nrows``."""
-    return min(panel_block_size(ncols, block_size), max(nrows, 1))
+    clamped to ``nrows``.  With ``data_parallel`` > 1 it shrinks so the
+    panel count is (as nearly as possible) a multiple of the width: each
+    sentinel panel would evaluate a full b × ncols block of throwaway
+    entries."""
+    bs = min(panel_block_size(ncols, block_size), max(nrows, 1))
+    if data_parallel > 1:
+        nblocks = -(-nrows // bs)
+        target = data_parallel * (-(-nblocks // data_parallel))
+        bs = -(-nrows // target)
+    return bs
 
 
-def num_panels(nrows: int, ncols: int, block_size: Optional[int]) -> int:
-    """How many panels one sweep over ``nrows`` rows touches."""
-    return -(-nrows // resolved_block_size(nrows, ncols, block_size))
+def num_panels(nrows: int, ncols: int, block_size: Optional[int],
+               data_parallel: int = 1) -> int:
+    """How many panels one sweep over ``nrows`` rows touches (sentinel
+    panels not included)."""
+    return -(-nrows // resolved_block_size(nrows, ncols, block_size,
+                                           data_parallel))
+
+
+def local_slab_rows(nrows: int, ncols: int, block_size: Optional[int],
+                    data_parallel: int = 1) -> int:
+    """Rows of the per-rank slab of a sharded sweep (panels · b), clamp and
+    sentinel padding included — the height of a ``slab_fn`` claim."""
+    bs = resolved_block_size(nrows, ncols, block_size, data_parallel)
+    nblocks = -(-nrows // bs)
+    if data_parallel > 1:
+        nblocks += (-nblocks) % data_parallel
+    return (nblocks // data_parallel) * bs
+
+
+def mesh_data_size(mesh) -> int:
+    """Total data-parallel width of ``mesh`` (1 for None / trivial
+    meshes)."""
+    return sharding.data_size(mesh)
 
 
 def _rowmask(valid: torch.Tensor) -> torch.Tensor:
@@ -269,53 +309,122 @@ def fused_right_hand_sides(plans: Sequence, ncols: int, device):
         for p in plans)
 
 
-def sweep_operator(op, plans: Sequence, block_size: Optional[int] = None):
+def sweep_operator(op, plans: Sequence, block_size: Optional[int] = None,
+                   mesh=None):
     """Run a plan bundle over a square operator's rows, fastest route first.
 
     A matmul-shaped bundle on a capable operator (``supports_fused_matmat``)
-    is ONE fused launch ('fused'); everything else walks the blocked panel
-    scan over ``op.block`` ('panel').  The route is recorded on
-    ``op._last_sweep_route``.
+    is ONE fused launch ('fused'); on a mesh of data width above 1 it is one
+    rectangular row-slab launch per rank through the engine's ``slab_fn``
+    claim, the partial carries all-reduced like the panel route's
+    ('fused_sharded').  Everything else walks the blocked panel scan over
+    ``op.block`` ('panel'), sharded on a wide mesh.  The route is recorded
+    on ``op._last_sweep_route``; a sharded claim records on
+    ``op._last_slab_mode`` whether it addressed its slab inside the launch
+    ('prefetch') or gathered the rows ('gather').
     """
     plans = list(plans)
     n = op.n
     fused = op.supports_fused_matmat() and is_matmul_shaped(plans)
     prec = getattr(op, "precision", "f32")
     suffix = "" if prec == "f32" else "+" + prec
-    op._last_slab_mode = None
-    if fused:
+    op._last_slab_mode = None          # only sharded fused claims set this
+    if fused and mesh_data_size(mesh) <= 1:
         op._last_sweep_route = "fused" + suffix
         return list(op.fused_rows(
             None, fused_right_hand_sides(plans, n, op.device)))
+    if fused:
+        op._last_sweep_route = "fused_sharded" + suffix
+        Vs = fused_right_hand_sides(plans, n, op.device)
+        use_slab = op.supports_prefetch_slab()
+        op._last_slab_mode = "prefetch" if use_slab else "gather"
+
+        def slab_fn(row_idx, valid):
+            # one launch for this rank's slab; row_idx[0] is the slab start
+            # (clamped only on an all-sentinel shard, which valid zeroes)
+            if use_slab:
+                outs = op.fused_slab(int(row_idx[0]), int(row_idx.shape[0]),
+                                     Vs)
+            else:
+                outs = op.fused_rows(row_idx, Vs)
+            v = _rowmask(valid)
+            return tuple(p.init(n, n, op.device).index_add(0, row_idx, o * v)
+                         for p, o in zip(plans, outs))
+
+        return sweep_panels(None, n, n, plans, block_size=block_size,
+                            device=op.device, mesh=mesh, slab_fn=slab_fn)
     op._last_sweep_route = "panel"
     cols = torch.arange(n, device=op.device)
     return sweep_panels(lambda idx: op.block(idx, cols), n, n, plans,
-                        block_size=block_size, device=op.device)
+                        block_size=block_size, device=op.device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
+def _flatten(carry) -> list:
+    if isinstance(carry, (tuple, list)):
+        return [t for c in carry for t in _flatten(c)]
+    return [carry]
+
+
+def _unflatten(like, flat: list):
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(c, flat) for c in like)
+    return flat.pop(0)
+
+
 def sweep_panels(panel_fn, nrows: int, ncols: int, plans: Sequence,
-                 block_size: Optional[int] = None, device=None):
+                 block_size: Optional[int] = None, device=None, mesh=None,
+                 slab_fn=None):
     """Apply every plan to each (b × ncols) row panel in a single pass.
 
     ``panel_fn(idx)`` materializes rows ``idx`` (a (b,) int64 tensor; tail
     panels are clamped to the last row and masked via ``valid``).  Returns
     ``[plan.finalize(carry) for plan in plans]``.
+
+    With a ``mesh`` of data width above 1 each rank sweeps its share of the
+    panel starts (sentinel-padded to a multiple of the width) and the
+    carries are summed over the ranks before ``finalize``, so results match
+    the single-device sweep to float reassociation.
+
+    ``slab_fn(row_idx, valid) -> tuple(carry per plan)`` lets a caller
+    claim a rank's whole contiguous row range in one shot (the fused slab
+    launch): ``row_idx`` is the rank's ``local_slab_rows`` rows clamped into
+    ``[0, nrows)``, ``valid`` masks clamp and sentinel padding, and the
+    returned carries must equal what the panel scan would produce.
+    ``panel_fn`` may then be None.
     """
     plans = list(plans)
     device = torch.device("cpu") if device is None else torch.device(device)
-    bs = resolved_block_size(nrows, ncols, block_size)
+    dp = mesh_data_size(mesh)
+    bs = resolved_block_size(nrows, ncols, block_size, dp)
     nblocks = -(-nrows // bs)
-    carry = [p.init(nrows, ncols, device) for p in plans]
-    offsets = torch.arange(bs, device=device)
-    for start in range(0, nblocks * bs, bs):
-        idx = start + offsets
+    starts = list(range(0, nblocks * bs, bs))
+    if dp > 1:
+        # sentinel starts == nrows: every row invalid, exact zero
+        # contributions (≤ dp − 1 thin panels, after the rebalancing)
+        starts += [nrows] * ((-nblocks) % dp)
+        per = len(starts) // dp
+        k = sharding.shard_index(mesh)
+        starts = starts[k * per:(k + 1) * per]
+    if slab_fn is not None:
+        # the shard's panels tile [starts[0], starts[0] + len·bs) exactly
+        idx = starts[0] + torch.arange(len(starts) * bs, device=device)
         valid = idx < nrows
-        idx = torch.clamp(idx, max=nrows - 1)
-        panel = panel_fn(idx)
-        carry = [p.update(c, panel, idx, valid)
-                 for p, c in zip(plans, carry)]
+        carry = list(slab_fn(torch.clamp(idx, max=nrows - 1), valid))
+    else:
+        carry = [p.init(nrows, ncols, device) for p in plans]
+        offsets = torch.arange(bs, device=device)
+        for start in starts:
+            idx = start + offsets
+            valid = idx < nrows
+            idx = torch.clamp(idx, max=nrows - 1)
+            panel = panel_fn(idx)
+            carry = [p.update(c, panel, idx, valid)
+                     for p, c in zip(plans, carry)]
+    if dp > 1:
+        carry = _unflatten(carry, sharding.all_reduce_sum(_flatten(carry),
+                                                          mesh))
     return [p.finalize(c) for p, c in zip(plans, carry)]

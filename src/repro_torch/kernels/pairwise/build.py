@@ -23,6 +23,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pairwise_matmat_multi_f32.argtypes = [p, p, p, p, ll, ll, i, ll, i,
                                               i, f, f, i, i, i, p]
     lib.pairwise_matmat_multi_f32.restype = i
+    lib.pairwise_matmat_multi_slab_f32.argtypes = [p, p, p, ll, ll, ll, i, ll,
+                                                   i, i, f, f, i, i, i, p]
+    lib.pairwise_matmat_multi_slab_f32.restype = i
     lib.pairwise_error_string.argtypes = [i]
     lib.pairwise_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,6 +10,13 @@
 //                                 _pairwise_matmat_multi_kernel (+ _entry_tile,
 //                                 _contract_tile)
 //                                 out = K(Xr, Xc) @ V with K never written out
+//   pairwise_matmat_multi_slab_f32
+//                              <- src/repro/kernels/pairwise/kernel.py
+//                                 pairwise_matmat_multi_slab /
+//                                 _pairwise_matmat_slab_kernel
+//                                 out = K(X[start : start + len], X) @ V, the
+//                                 row slab of one shard of the data-parallel
+//                                 sweep, addressed inside the launch
 //
 // The statistic (dot, sqdist, l1dist) and the entry function (identity,
 // exp(-a t), Matern-3/2, integer polynomial, exp(a t - b)) are selected at run time by the
@@ -35,7 +42,10 @@
 // and V and the write of out: at the main shape (nr = nc = 50,000, d = 16,
 // M = 1,064) that is ~5.4e12 flops against ~0.43 GB, so it is bound by
 // operations: under f32 the FP32 CUDA-core rate (67 TFLOP/s on an H100 SXM),
-// under bf16_f32acc the tensor cores (989 TFLOP/s).  pairwise_block moves
+// under bf16_f32acc the tensor cores (989 TFLOP/s).
+// pairwise_matmat_multi_slab does the same work per row: at one of two
+// shards' slabs of the main shape (25,004 x 50,000, M = 1,064) ~2.7e12
+// flops, also bound by operations.  pairwise_block moves
 // nr nc 4-byte outputs and does ~2 d flops per output, so at d = 16 it is
 // bound by the bytes it writes.
 //
@@ -53,6 +63,15 @@
 //     (ceil(M / 128) times, 9 at the main shape), not once overall; building
 //     each tile exactly once is a later redesign, as are wgmma, TMA and the
 //     tensor cores for bf16_f32acc.
+//   * pairwise_matmat_multi_slab: pairwise_matmat_multi's kernel itself,
+//     run over the rows X[start + i], i < len, against all of X.  The TPU
+//     kernel needs a scalar-prefetch block offset because one compiled
+//     launch serves every traced slab position; here the start is a plain
+//     64-bit argument and nothing is compiled per offset.  Rows past the
+//     end clamp to the last row, per row (the reference clamps per 128-row
+//     block on zero-padded points); the sweep's validity mask drops them
+//     either way.  Each output row is computed by the same instructions in
+//     the same order as B1's row start + i, so the two agree bit for bit.
 //   * pairwise_block: one block per 64 x 32 output tile, staged in shared
 //     memory and written out row-coalesced.
 // Out-of-range rows and columns are masked explicitly (entries of invalid
@@ -135,12 +154,15 @@ __device__ __forceinline__ float entry(float t, const Params& p) {
 // The entries of one BR x BC tile, rows [r0, r0 + BR) x columns
 // [c0, c0 + BC).  Thread tid owns row r = tid % BR and columns
 // cg + 4 i (cg = tid / BR, i < CPT); ent[i] receives entry(stat).  Values of
-// out-of-range rows and columns are unspecified: callers mask them.
+// out-of-range rows and columns are unspecified: callers mask them.  Row i
+// of the tile reads point min(row0 + r0 + i, row_last) of Xr: row0 = 0 and
+// row_last = nr - 1 read rows in place, a slab passes its start and the
+// last row of the data.
 template <int STAT>
 __device__ __forceinline__ void tile_entries(
     const float* __restrict__ Xr, const float* __restrict__ Xc, long long nr,
-    long long nc, int d, long long r0, long long c0, const Params& p,
-    StatSmem& sm, float ent[CPT]) {
+    long long nc, int d, long long r0, long long c0, long long row0,
+    long long row_last, const Params& p, StatSmem& sm, float ent[CPT]) {
   const int tid = threadIdx.x;
   const int r = tid % BR;
   const int cg = tid / BR;
@@ -154,7 +176,8 @@ __device__ __forceinline__ void tile_entries(
     for (int e = tid; e < BR * kw; e += NT) {
       const int rr = e / kw, kk = e % kw;
       const long long gr = r0 + rr;
-      sm.xr[kk][rr] = gr < nr ? quant(Xr[gr * d + k0 + kk], p.bf16) : 0.f;
+      const long long xrow = min(row0 + gr, row_last);
+      sm.xr[kk][rr] = gr < nr ? quant(Xr[xrow * d + k0 + kk], p.bf16) : 0.f;
     }
     for (int e = tid; e < BC * kw; e += NT) {
       const int cc = e / kw, kk = e % kw;
@@ -212,7 +235,7 @@ pairwise_block_kernel(const float* __restrict__ Xr,
   const int r = tid % BR;
   const int cg = tid / BR;
   float ent[CPT];
-  tile_entries<STAT>(Xr, Xc, nr, nc, d, r0, c0, p, sm, ent);
+  tile_entries<STAT>(Xr, Xc, nr, nc, d, r0, c0, 0, nr - 1, p, sm, ent);
 #pragma unroll
   for (int i = 0; i < CPT; ++i) ko[cg + 4 * i][r] = ent[i];
   __syncthreads();
@@ -223,13 +246,14 @@ pairwise_block_kernel(const float* __restrict__ Xr,
   }
 }
 
+// out row i = K(Xr[min(row0 + i, row_last)], Xc) @ V for i < nr.
 template <int STAT>
 __global__ void __launch_bounds__(NT, 2)
 pairwise_matmat_kernel(const float* __restrict__ Xr,
                        const float* __restrict__ Xc,
                        const float* __restrict__ V, float* __restrict__ out,
                        long long nr, long long nc, int d, long long M,
-                       Params p) {
+                       long long row0, long long row_last, Params p) {
   __shared__ StatSmem sm;
   __shared__ __align__(16) float kt[BC][BR];   // K tile, column-major
   __shared__ __align__(16) float vt[BC][BM];   // V tile
@@ -249,7 +273,8 @@ pairwise_matmat_kernel(const float* __restrict__ Xr,
 
   for (long long c0 = 0; c0 < nc; c0 += BC) {
     float ent[CPT];
-    tile_entries<STAT>(Xr, Xc, nr, nc, d, r0, c0, p, sm, ent);
+    tile_entries<STAT>(Xr, Xc, nr, nc, d, r0, c0, row0, row_last, p, sm,
+                       ent);
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int cc = cg + 4 * i;
@@ -299,6 +324,38 @@ pairwise_matmat_kernel(const float* __restrict__ Xr,
   }
 }
 
+// One launch of pairwise_matmat_kernel: out rows i < nr read points
+// min(row0 + i, row_last) of xr.
+int launch_matmat(const float* xr, const float* xc, const float* v, float* out,
+                  long long nr, long long nc, int d, long long m,
+                  long long row0, long long row_last, int stat, int epi,
+                  float a, float b, int degree, int bf16, int device,
+                  void* stream) {
+  if (nr <= 0 || nc <= 0 || d <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles_r = (nr + BR - 1) / BR;
+  const long long chunks = (m + BM - 1) / BM;
+  if (tiles_r > INT_MAX || chunks > 65535) return (int)cudaErrorInvalidValue;
+  const Params p{epi, a, b, degree, bf16};
+  const dim3 grid((unsigned)tiles_r, (unsigned)chunks);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (stat) {
+    case STAT_DOT:
+      pairwise_matmat_kernel<STAT_DOT><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, row0, row_last, p);
+      break;
+    case STAT_SQDIST:
+      pairwise_matmat_kernel<STAT_SQDIST><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, row0, row_last, p);
+      break;
+    case STAT_L1:
+      pairwise_matmat_kernel<STAT_L1><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, row0, row_last, p);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -340,29 +397,23 @@ int pairwise_matmat_multi_f32(const float* xr, const float* xc,
                               long long nc, int d, long long m, int stat,
                               int epi, float a, float b, int degree, int bf16,
                               int device, void* stream) {
-  if (nr <= 0 || nc <= 0 || d <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles_r = (nr + BR - 1) / BR;
-  const long long chunks = (m + BM - 1) / BM;
-  if (tiles_r > INT_MAX || chunks > 65535) return (int)cudaErrorInvalidValue;
-  const Params p{epi, a, b, degree, bf16};
-  const dim3 grid((unsigned)tiles_r, (unsigned)chunks);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (stat) {
-    case STAT_DOT:
-      pairwise_matmat_kernel<STAT_DOT><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, p);
-      break;
-    case STAT_SQDIST:
-      pairwise_matmat_kernel<STAT_SQDIST><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, p);
-      break;
-    case STAT_L1:
-      pairwise_matmat_kernel<STAT_L1><<<grid, NT, 0, s>>>(xr, xc, v, out, nr, nc, d, m, p);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (nr <= 0) return (int)cudaErrorInvalidValue;
+  return launch_matmat(xr, xc, v, out, nr, nc, d, m, 0, nr - 1, stat, epi, a,
+                       b, degree, bf16, device, stream);
+}
+
+// out (slab_len x M, row-major): row i = entry(stat(X[min(start_row + i,
+// n - 1)], X)) @ V, with X (n x d) and V (n x M) row-major; returns
+// cudaGetLastError().
+int pairwise_matmat_multi_slab_f32(const float* x, const float* v, float* out,
+                                   long long n, long long start_row,
+                                   long long slab_len, int d, long long m,
+                                   int stat, int epi, float a, float b,
+                                   int degree, int bf16, int device,
+                                   void* stream) {
+  if (n <= 0 || start_row < 0) return (int)cudaErrorInvalidValue;
+  return launch_matmat(x, x, v, out, slab_len, n, d, m, start_row, n - 1,
+                       stat, epi, a, b, degree, bf16, device, stream);
 }
 
 const char* pairwise_error_string(int code) {

@@ -1,14 +1,19 @@
 """The pairwise kernels: CUDA wrappers, their plain PyTorch versions, and
 launch counters (port of ``repro.kernels.pairwise.kernel``).
 
-Two kernels, hand-written in CUDA C++ (``csrc/pairwise.cu``):
+Three kernels, hand-written in CUDA C++ (``csrc/pairwise.cu``):
 
 - ``pairwise_block(spec, Xr, Xc)`` — the explicit block
   ``entry_fn(stat(Xr, Xc))`` (replaces ``pairwise_block_padded``);
 - ``pairwise_matmat_multi(spec, Xr, Xc, Vs)`` — ``[K(Xr, Xc) @ V for V in
   Vs]`` with K built tile by tile on chip and never written out (replaces
   ``pairwise_matmat_multi_padded``).  The right-hand sides are concatenated
-  column-wise into one operand, so one launch serves every V.
+  column-wise into one operand, so one launch serves every V;
+- ``pairwise_matmat_multi_slab(spec, X, start_row, slab_len, Vs)`` — the
+  same on the row slab ``X[start_row : start_row + slab_len]`` of the
+  shared X, addressed inside the launch with no row copy (replaces
+  ``pairwise_matmat_multi_slab``, the sharded sweep's per-shard launch).
+  Rows at or past n read the last row (clamp padding the caller masks).
 
 Each takes any shapes: the kernels mask their own ragged edges, so nothing
 is padded to 128.  Dispatch is by the device of the tensors: CPU tensors run
@@ -56,6 +61,25 @@ def pairwise_matmat_multi_plain(spec: KernelSpec, Xr: torch.Tensor,
     return tuple(K @ V.to(dt).to(torch.float32) for V in Vs)
 
 
+def slab_rows(n: int, start_row: int, slab_len: int,
+              device=None) -> torch.Tensor:
+    """The data rows a slab reads: ``start_row + i`` clamped to n − 1."""
+    rows = start_row + torch.arange(slab_len, dtype=torch.int64,
+                                    device=device)
+    return torch.clamp(rows, max=n - 1)
+
+
+def pairwise_matmat_multi_slab_plain(spec: KernelSpec, X: torch.Tensor,
+                                     start_row: int, slab_len: int,
+                                     Vs: Sequence[torch.Tensor],
+                                     edges: Optional[torch.Tensor] = None
+                                     ) -> Tuple[torch.Tensor, ...]:
+    """[K(X[rows], X) @ V for V in Vs] with ``rows = slab_rows(...)``: the
+    clamped rows gathered, then ``pairwise_matmat_multi_plain``."""
+    rows = slab_rows(X.shape[0], start_row, slab_len, X.device)
+    return pairwise_matmat_multi_plain(spec, X[rows], X, Vs, edges)
+
+
 # ---------------------------------------------------------------------------
 # argument checks shared by both paths
 # ---------------------------------------------------------------------------
@@ -96,6 +120,16 @@ def _check_rhs(Xc: torch.Tensor, Vs: Sequence[torch.Tensor]) -> None:
         if V.device != Xc.device:
             raise ValueError(f"right-hand side on {V.device} but points on "
                              f"{Xc.device}")
+
+
+def _check_slab(X: torch.Tensor, start_row, slab_len) -> Tuple[int, int]:
+    start_row, slab_len = int(start_row), int(slab_len)
+    if start_row < 0 or slab_len < 0:
+        raise ValueError(f"slab start {start_row} and length {slab_len} must "
+                         f"be ≥ 0")
+    if X.shape[0] == 0:
+        raise ValueError("a slab needs n ≥ 1 data rows")
+    return start_row, slab_len
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +235,46 @@ def pairwise_matmat_multi_cuda(spec: KernelSpec, Xr: torch.Tensor,
 pairwise_matmat_multi_cuda.launches = 0
 
 
+def pairwise_matmat_multi_slab_cuda(spec: KernelSpec, X: torch.Tensor,
+                                    start_row: int, slab_len: int,
+                                    Vs: Sequence[torch.Tensor],
+                                    edges: Optional[torch.Tensor] = None
+                                    ) -> Tuple[torch.Tensor, ...]:
+    """Launch the slab kernel once for all ``Vs``: rows ``start_row + i``
+    (clamped to n − 1) of X against all of X.  Raises on anything it does
+    not take."""
+    ep = _epilogue(spec)
+    _check_points(X, X, edges)
+    start_row, slab_len = _check_slab(X, start_row, slab_len)
+    Vs = tuple(Vs)
+    _check_rhs(X, Vs)
+    _check_cuda(X)
+    n, d = X.shape
+    widths = [int(V.shape[1]) for V in Vs]
+    M = sum(widths)
+    if d == 0:
+        raise ValueError("the CUDA kernel needs d ≥ 1 features")
+    if slab_len == 0 or M == 0:
+        return tuple(torch.zeros((slab_len, m), dtype=torch.float32,
+                                 device=X.device) for m in widths)
+    V = Vs[0] if len(Vs) == 1 else torch.cat(Vs, dim=1)
+    _check_cuda(V)
+    out = torch.empty((slab_len, M), dtype=torch.float32, device=X.device)
+    from repro_torch.kernels.pairwise import build
+    lib = build.load_library()
+    code = lib.pairwise_matmat_multi_slab_f32(
+        _ptr(X), _ptr(V), _ptr(out), n, start_row, slab_len, d, M,
+        _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
+        int(spec.precision == "bf16_f32acc"), X.device.index or 0,
+        _stream(X.device))
+    _raise_on(lib, code, "pairwise_matmat_multi_slab")
+    pairwise_matmat_multi_slab_cuda.launches += 1
+    return tuple(torch.split(out, widths, dim=1))
+
+
+pairwise_matmat_multi_slab_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # dispatch by device
 # ---------------------------------------------------------------------------
@@ -228,12 +302,32 @@ def pairwise_matmat_multi(spec: KernelSpec, Xr: torch.Tensor,
     return pairwise_matmat_multi_cuda(spec, Xr, Xc, Vs, edges)
 
 
+def pairwise_matmat_multi_slab(spec: KernelSpec, X: torch.Tensor,
+                               start_row: int, slab_len: int,
+                               Vs: Sequence[torch.Tensor],
+                               edges: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, ...]:
+    """[K(X[slab], X) @ V for V in Vs]: the plain version on CPU tensors, one
+    CUDA launch on CUDA tensors."""
+    if X.device.type == "cpu":
+        _check_points(X, X, edges)
+        start_row, slab_len = _check_slab(X, start_row, slab_len)
+        _check_rhs(X, Vs)
+        return pairwise_matmat_multi_slab_plain(spec, X, start_row, slab_len,
+                                                Vs, edges)
+    return pairwise_matmat_multi_slab_cuda(spec, X, start_row, slab_len, Vs,
+                                           edges)
+
+
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last reset."""
     return {"pairwise_block": pairwise_block_cuda.launches,
-            "pairwise_matmat_multi": pairwise_matmat_multi_cuda.launches}
+            "pairwise_matmat_multi": pairwise_matmat_multi_cuda.launches,
+            "pairwise_matmat_multi_slab":
+                pairwise_matmat_multi_slab_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     pairwise_block_cuda.launches = 0
     pairwise_matmat_multi_cuda.launches = 0
+    pairwise_matmat_multi_slab_cuda.launches = 0

@@ -4,9 +4,7 @@
 Arbitrary shapes go straight to the kernels, which mask their own ragged
 edges: nothing is padded to the 128-wide TPU tiles.  Inputs are made f32 and
 contiguous here; the device of the inputs picks the route (plain version on
-the CPU, CUDA kernel on the card, see ``kernel``).  The slab launch
-``kernel_matmat_multi_slab`` belongs to the multi-device sweep and is not
-ported yet.
+the CPU, CUDA kernel on the card, see ``kernel``).
 """
 from __future__ import annotations
 
@@ -39,6 +37,21 @@ def kernel_matmat_multi_rows(spec: KernelSpec, Xr: torch.Tensor,
     fusion the sweep engine and ``cross`` use."""
     return _k.pairwise_matmat_multi(spec, _f32(Xr), _f32(Xc),
                                     tuple(_f32(V) for V in Vs), edges)
+
+
+def kernel_matmat_multi_slab(spec: KernelSpec, X: torch.Tensor, start_row,
+                             slab_len: int, Vs: Sequence[torch.Tensor],
+                             edges: Optional[torch.Tensor] = None):
+    """[K(X[start:start+slab_len], X) @ V for V in Vs] without gathering.
+
+    The sharded sweep's per-shard launch: the slab is addressed inside the
+    launch, so no rank materializes a row copy of X.  Rows at indices ≥ n
+    (a tail slab) are duplicates of the last row; callers mask them (the
+    sweep engine's validity mask does).
+    """
+    return _k.pairwise_matmat_multi_slab(spec, _f32(X), int(start_row),
+                                         int(slab_len),
+                                         tuple(_f32(V) for V in Vs), edges)
 
 
 def kernel_matmat_multi(spec: KernelSpec, X: torch.Tensor,

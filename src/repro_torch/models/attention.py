@@ -4,7 +4,7 @@ cross-attention, which are ROADMAP A11).
 
 Layouts are the reference's: activations (B, S, d_model), heads in
 (B, S, H, D).  The reference's sharding constraints have no counterpart
-here (multi-device work is ROADMAP A10).
+here (the model-stack sharding rules are ROADMAP A10-rest).
 
 ``attn_impl``: the reference chooses between an XLA einsum path ("xla") and
 the Pallas flash kernel ("pallas"); both compute the same function.  Here

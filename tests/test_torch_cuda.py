@@ -102,6 +102,33 @@ def test_ragged_shapes_and_feature_chunks(cuda_device, nr, nc, d, m, name):
     assert scaled(out, plain) <= 1e-5
 
 
+@pytest.mark.parametrize("start,length", [(0, 70), (65, 200), (250, 130)])
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_slab_matches_plain_and_b1_rows(cuda_device, name, prec, start,
+                                        length):
+    """B4 at a head, a middle and a clamped tail slab of n = 300: against
+    its plain version, and row for row bit for bit against B1's output (the
+    clamp rows against B1's last row); one launch per call."""
+    rng = np.random.default_rng(4)
+    n = 300
+    X = _rand(rng, n, D, dev=cuda_device)
+    Vs = [_rand(rng, n, 3, dev=cuda_device),
+          _rand(rng, n, 130, dev=cuda_device)]
+    spec = specs.suggested_spec(name, D).with_precision(prec)
+    before = kernel.launch_counts()["pairwise_matmat_multi_slab"]
+    outs = kernel.pairwise_matmat_multi_slab(spec, X, start, length, Vs)
+    assert kernel.launch_counts()["pairwise_matmat_multi_slab"] == before + 1
+    plain = kernel.pairwise_matmat_multi_slab_plain(spec, X, start, length,
+                                                    Vs)
+    full = kernel.pairwise_matmat_multi_cuda(spec, X, X, Vs)
+    rows = kernel.slab_rows(n, start, length, cuda_device)
+    for o, p, f in zip(outs, plain, full):
+        assert o.shape == (length, p.shape[1])
+        assert scaled(o, p) <= TOL[prec]
+        assert torch.equal(o, f[rows])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     X = torch.zeros((8, 4), device=cuda_device)
     spec = specs.rbf(1.0)

@@ -56,6 +56,8 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = _all_modules()
     for m in ("repro_torch.kernels.pairwise.kernel",
+              "repro_torch.distributed.sharding", "repro_torch.core.cur",
+              "repro_torch.core.eig",
               "repro_torch.kernels.flash_attention.kernel",
               "repro_torch.configs.base", "repro_torch.configs.gemma3_12b",
               "repro_torch.models.attention", "repro_torch.models.model",
@@ -89,6 +91,19 @@ def test_source_imports_no_jax_and_no_reference(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_the_distributed_package_is_checked_and_reports_trivial_meshes():
+    """``repro_torch/distributed/`` is inside the scans above; without a
+    process group there is no mesh, and no mesh is width 1."""
+    from repro_torch.distributed import sharding
+    paths = [str(p.relative_to(REPO)) for p in
+             (PKG / "distributed").rglob("*.py")]
+    assert "src/repro_torch/distributed/sharding.py" in paths
+    if not torch.distributed.is_initialized():
+        assert sharding.data_parallel_mesh("cpu") is None
+    assert sharding.data_size(None) == 1 and sharding.data_axes(None) == ()
+    assert sharding.shard_index(None) == 0
+
+
 def test_default_device_is_cuda_or_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -117,6 +132,10 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
         tkernel.pairwise_block_cuda(spec, X, X)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.pairwise_matmat_multi_cuda(spec, X, X, [V])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tkernel.pairwise_matmat_multi_slab_cuda(spec, X, 1, 3, [V])
+    with pytest.raises(ValueError, match="≥ 0"):
+        tkernel.pairwise_matmat_multi_slab(spec, X, -1, 3, [V])
     X64 = X.double()
     for fn in (tkernel.pairwise_block, tkernel.pairwise_block_cuda):
         with pytest.raises(TypeError, match="float32"):
@@ -128,7 +147,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
     with pytest.raises(ValueError, match="does not match"):
         tkernel.pairwise_matmat_multi(spec, X, X, [torch.zeros((4, 2))])
     assert tkernel.launch_counts() == {"pairwise_block": 0,
-                                       "pairwise_matmat_multi": 0}
+                                       "pairwise_matmat_multi": 0,
+                                       "pairwise_matmat_multi_slab": 0}
 
 
 def test_user_spec_runs_on_cpu_and_raises_on_the_kernel_path():
@@ -144,6 +164,8 @@ def test_user_spec_runs_on_cpu_and_raises_on_the_kernel_path():
         tkernel.pairwise_block_cuda(cauchy, K.X, K.X)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tkernel.pairwise_matmat_multi_cuda(cauchy, K.X, K.X, [K.X])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkernel.pairwise_matmat_multi_slab_cuda(cauchy, K.X, 0, 4, [K.X])
 
 
 def test_build_flags_and_location():

@@ -2,7 +2,10 @@
 
 Same inputs, made with numpy, go through ``repro.kernels.pairwise`` and
 ``repro_torch.kernels.pairwise`` for every spec × precision, on shapes that
-are not multiples of the 128-wide tiles.  The JAX side runs its Pallas
+are not multiples of the 128-wide tiles — the slab launch (B4) at a head, a
+middle and a clamped tail slab of n = 533, compared on the rows below n
+(past n the reference reads zero-padded points, the port clamps to the
+last row; the sweep masks those rows either way).  The JAX side runs its Pallas
 kernels in interpret mode (``use_pallas=True``, as the reference's own tests
 do off-TPU); the port's wrappers run their plain versions because the
 tensors lie on the CPU.
@@ -280,8 +283,76 @@ def test_cpu_tensors_take_the_plain_version(data, name):
     plain = tkernel.pairwise_matmat_multi_plain(tspec, _t(Xr), _t(Xc),
                                                 [_t(V) for V in Vs])
     assert all(torch.equal(o, p) for o, p in zip(outs, plain))
+    X = _t(Xc)
+    slab = tkernel.pairwise_matmat_multi_slab(tspec, X, 30, 50,
+                                              [_t(V) for V in Vs])
+    slab_plain = tkernel.pairwise_matmat_multi_slab_plain(
+        tspec, X, 30, 50, [_t(V) for V in Vs])
+    assert all(torch.equal(o, p) for o, p in zip(slab, slab_plain))
     assert tkernel.launch_counts() == {"pairwise_block": 0,
-                                       "pairwise_matmat_multi": 0}
+                                       "pairwise_matmat_multi": 0,
+                                       "pairwise_matmat_multi_slab": 0}
+
+
+SLAB_N = 533
+SLABS = {"head": (0, 200), "middle": (150, 230), "tail": (400, 200)}
+
+
+@pytest.fixture(scope="module")
+def slab_data():
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(SLAB_N, D)).astype(np.float32)
+    Vs = (rng.normal(size=(SLAB_N, 3)).astype(np.float32),
+          rng.normal(size=(SLAB_N, 130)).astype(np.float32))
+    return X, Vs
+
+
+@pytest.mark.parametrize("where", list(SLABS))
+@pytest.mark.parametrize("name,prec", CASES)
+def test_slab_matches_pallas(slab_data, name, prec, where):
+    X, Vs = slab_data
+    start, length = SLABS[where]
+    jspec, tspec = _specs(name, prec)
+    want = jops.kernel_matmat_multi_slab(
+        jspec, jnp.asarray(X), start, length,
+        tuple(jnp.asarray(V) for V in Vs), use_pallas=True, interpret=True)
+    got = tops.kernel_matmat_multi_slab(tspec, _t(X), start, length,
+                                        [_t(V) for V in Vs])
+    rows = min(length, SLAB_N - start)
+    for g, w, V in zip(got, want, Vs):
+        assert tuple(g.shape) == (length, V.shape[1])
+        assert scaled(g[:rows], np.asarray(w)[:rows]) <= TOL[prec]
+    if prec == "bf16_f32acc":
+        f32 = tspec.with_precision("f32")
+        exact = tops.kernel_matmat_multi_slab(f32, _t(X), start, length,
+                                              [_t(V) for V in Vs])
+        assert max(scaled(g, e) for g, e in zip(got, exact)) \
+            <= TOL_BF16_VS_F32
+
+
+@pytest.mark.parametrize("where", list(SLABS))
+def test_plain_slab_is_b1_rows(slab_data, where):
+    """The plain B4 slab is the plain B1 output's rows start + i, clamped to
+    n − 1; the one-hot gather rides along exactly."""
+    X, Vs = slab_data
+    start, length = SLABS[where]
+    _, tspec = _specs("rbf", "f32")
+    onehot = np.zeros((SLAB_N, 2), np.float32)
+    onehot[[7, SLAB_N - 1], [0, 1]] = 1.0
+    rhs = [_t(V) for V in Vs] + [_t(onehot)]
+    got = tkernel.pairwise_matmat_multi_slab_plain(tspec, _t(X), start,
+                                                   length, rhs)
+    rows = tkernel.slab_rows(SLAB_N, start, length)
+    assert rows.tolist() == [min(start + i, SLAB_N - 1)
+                             for i in range(length)]
+    full = tkernel.pairwise_matmat_multi_plain(tspec, _t(X)[rows], _t(X),
+                                               rhs)
+    assert all(torch.equal(g, f) for g, f in zip(got, full))
+    b1 = tkernel.pairwise_matmat_multi_plain(tspec, _t(X), _t(X), rhs)
+    assert max(scaled(g, b[rows]) for g, b in zip(got, b1)) <= 1e-6
+    blk = tkernel.pairwise_block_plain(tspec, _t(X)[rows],
+                                       _t(X)[[7, SLAB_N - 1]])
+    assert torch.equal(got[2], blk)
 
 
 def test_kernel_matmat_squeezes_vectors(data):
