@@ -6,8 +6,9 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile the three CUDA libraries (pairwise, landmark, flash)
-   from ``src/repro_torch/.../csrc`` side by side, one nvcc each;
+2. build: compile the three CUDA libraries (pairwise, landmark, flash --
+   the last from two sources, ``flash.cu`` and ``flash_wgmma.cu``) from
+   ``src/repro_torch/.../csrc`` side by side, one nvcc each;
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
@@ -59,18 +60,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    pattern), a 32,768-token context (prefill_32k's length), 2 requests and
    16 generated tokens, random weights from a seeded generator: one warm-up
    and one timed run; prefill ms, decode ms per token, tokens per second,
-   peak memory; B6 launches (12 per prefill, 0 in decode); every token in
+   peak memory; B6 launches (12 per prefill, all of them on the tensor-core
+   kernel, 0 in decode); every token in
    [0, vocab) and every logit finite; device time by kernel class of one
    prefill and 4 decode steps (``torch.profiler``, outside the counted
    run) with the idle share over the same call's unprofiled wall time;
    then B6 timed at the global and the local layer's shape and held, row
    by row on 1,024 sampled query rows, to its plain version and to an f64
-   computation in bf16, and to its plain version in f32, and the library
-   yardstick ``scaled_dot_product_attention`` timed at the global shape
-   (the smoke model's card-against-CPU check lives in
-   ``tests/test_torch_cuda.py``).  B6 is also
-   held to its plain version at every shape of the reference's flash tests
-   (``phase_parity_flash``, f32 and bf16);
+   computation in bf16 (the tensor-core kernel), and to its plain version
+   in f32 (the CUDA-core kernel), and the library yardstick
+   ``scaled_dot_product_attention`` timed at the global shape (the smoke
+   model's card-against-CPU check lives in ``tests/test_torch_cuda.py``).
+   B6 is also held to its plain version at every shape of the reference's
+   flash tests in f32 and bf16, and in bf16 at the tensor-core kernel's
+   edge cases (ragged lengths, head dims 32–256, Dv ≠ D, decode, chunked
+   prefill, non-causal with and without a window), each bf16 call one
+   tensor-core launch and each f32 call none (``phase_parity_flash``);
 8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    own path and on each of the five paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
@@ -87,6 +92,7 @@ import dataclasses
 import datetime
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -112,6 +118,7 @@ from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.configs import gemma3_12b  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.flash_attention import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
@@ -182,6 +189,23 @@ TOL_FLASH_ROW_F32 = 1e-5
 FLASH_SHAPES = ((1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 32),
                 (1, 4, 1, 256, 256, 64), (2, 4, 2, 100, 100, 32),
                 (1, 2, 2, 1, 256, 64), (1, 4, 2, 64, 256, 32))
+# the tensor-core kernel's edge cases, bf16: (B, Hq, Hkv, Sq, Sk, D, Dv),
+# causal, window -- lengths off its 128-row / 64-key tiles, every head width
+# it templates (32 pads to 64), Dv ≠ D, decode, chunked prefill, non-causal
+FLASH_TC_EDGES = (
+    ((1, 2, 1, 100, 100, 64, 64), True, None),
+    ((1, 2, 1, 1000, 1000, 64, 64), True, None),
+    ((1, 2, 1, 1000, 1000, 64, 64), True, 200),
+    ((1, 2, 1, 300, 300, 32, 32), True, None),
+    ((1, 2, 1, 300, 300, 128, 128), True, None),
+    ((1, 2, 1, 300, 300, 256, 256), True, None),
+    ((1, 2, 1, 300, 300, 64, 128), True, None),
+    ((1, 2, 1, 300, 300, 128, 64), True, 100),
+    ((2, 4, 2, 1, 1000, 256, 256), True, None),
+    ((2, 4, 2, 1, 1000, 256, 256), True, 64),
+    ((1, 4, 2, 100, 1000, 128, 128), True, None),
+    ((1, 2, 1, 100, 1000, 256, 256), False, None),
+    ((1, 2, 1, 100, 1000, 256, 256), False, 100))
 
 
 class SmokeFailure(AssertionError):
@@ -268,7 +292,7 @@ def no_launches(**counts) -> dict:
     """The full launch-count dict: 0 for every kernel not named."""
     zero = {"pairwise_block": 0, "pairwise_matmat_multi": 0,
             "pairwise_matmat_multi_slab": 0, "landmark_read": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc": 0}
     assert set(counts) <= set(zero), counts
     return {**zero, **counts}
 
@@ -300,8 +324,43 @@ def phase_build() -> None:
         log(f"  {lib.name}: nvcc {lib.build_seconds()} s -> "
             f"{lib.library_path()}")
         for ln in lib.build_log().splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if any(w in ln for w in ("registers", "spill", "Compiling",
+                                     "warning")):
                 log(f"  ptxas: {ln.strip()}")
+    check_wgmma_report(fa_build.LIBRARY.build_log())
+
+
+def ptxas_spills(report: str, name: str) -> dict:
+    """Spill bytes (stores + loads) per entry function of an ``-Xptxas -v``
+    report whose mangled name contains ``name``."""
+    spills, entry = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1) if name in m.group(1) else None
+            if entry:
+                spills[entry] = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and entry:
+            spills[entry] += int(m.group(1)) + int(m.group(2))
+    return spills
+
+
+def check_wgmma_report(report: str) -> None:
+    """The tensor-core flash kernel must build without spills and without
+    ptxas's C7512 note (wgmma serialized for want of registers): either
+    once cost it more than half its speed at the served shape."""
+    spills = ptxas_spills(report, "flash_wgmma_kernel")
+    check(len(spills) == 3, f"ptxas reported {len(spills)} instantiations "
+          f"of flash_wgmma_kernel, expected 3 (head widths 64, 128, 256)")
+    check(all(b == 0 for b in spills.values()),
+          f"flash_wgmma_kernel spills: {spills}")
+    c7512 = [ln.strip() for ln in report.splitlines() if "C7512" in ln]
+    check(not c7512, f"ptxas serialized wgmma: {c7512}")
+    log(f"  ptxas: flash_wgmma_kernel x{len(spills)}: 0 bytes of spills, "
+        f"no C7512 note")
 
 
 def _parity_case(spec, Xr, Xc, Vs, edges, label) -> dict:
@@ -1006,7 +1065,10 @@ def _b1_line(m: dict) -> dict:
 
 
 def _b2_line(m: dict) -> dict:
-    """B2 at the panel shape of the blocked error (671 × 50,000)."""
+    """B2 at the panel shape of the blocked error (671 × 50,000).  The
+    library yardstick ``torch.mm(Xr, Xc.T)`` computes the linear spec, so
+    B2 is also timed under the linear spec at that panel: like for like,
+    ``linear_spec_ms`` against ``library_ms``."""
     X, spec = m["X"], m["spec"]
     b = sweep_lib.resolved_block_size(N, N, None)
     Xr = X[:b].contiguous()
@@ -1040,8 +1102,9 @@ def _b2_line(m: dict) -> dict:
     nbytes = 4 * (b * D + N * D + b * N)
     bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     log(f"B2 panel shape ({b} x {N}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms, linear spec {lin_ms:.4f} ms vs torch.mm "
-        f"{lib_ms:.4f} ms, laplacian (l1dist) {ms_l1:.4f} ms (plain "
+        f"bound {bound:.4f} ms; like for like, the linear spec {lin_ms:.4f} "
+        f"ms vs torch.mm {lib_ms:.4f} ms ({lin_ms / lib_ms:.2f}x); "
+        f"laplacian (l1dist) {ms_l1:.4f} ms (plain "
         f"{plain_ms_l1:.4f} ms, bound {bound_l1:.4f} ms), max abs err "
         f"{err:.3g}")
     return {"name": "pairwise_block", "route": "cuda",
@@ -1052,8 +1115,11 @@ def _b2_line(m: dict) -> dict:
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
             "shape": {"nr": b, "nc": N, "d": D, "spec": "rbf",
                       "precision": "f32"},
-            "library_call": "torch.mm(Xr, Xc.T) (the linear spec)",
-            "linear_spec_ms": lin_ms, "ms_laplacian_l1dist": ms_l1,
+            "library_call": "torch.mm(Xr, Xc.T) (the linear spec: compare "
+                            "with linear_spec_ms)",
+            "linear_spec_ms": lin_ms,
+            "linear_spec_over_library": lin_ms / lib_ms,
+            "ms_laplacian_l1dist": ms_l1,
             "plain_ms_laplacian_l1dist": plain_ms_l1,
             "bound_ms_laplacian_l1dist": bound_l1}
 
@@ -1301,17 +1367,21 @@ def phase_attention_policy() -> dict:
 # flash attention (B6) and the served model
 # ---------------------------------------------------------------------------
 
-def _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed, qk_scale=0.5):
+def _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed, qk_scale=0.5,
+                  Dv=None):
     g = gen(seed)
     q = torch.randn((B, Hq, Sq, D), generator=g, device=DEV) * qk_scale
     k = torch.randn((B, Hkv, Sk, D), generator=g, device=DEV) * qk_scale
-    v = torch.randn((B, Hkv, Sk, D), generator=g, device=DEV)
+    v = torch.randn((B, Hkv, Sk, Dv or D), generator=g, device=DEV)
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _check_flash(out, plain, label) -> float:
+def _check_flash(out, plain, label) -> str:
     """B6's gates: f32 ≤ TOL_F32 scale-normalized; bf16 within the
-    reference's rtol = atol = TOL_FLASH_BF16.  Returns the scaled error."""
+    reference's rtol = atol = TOL_FLASH_BF16 and every (b, h, row) within
+    TOL_FLASH_ROW_BF16 in its own relative error (where the softmax is
+    flat the outputs are small and the atol alone would pass a dropped or
+    doubled key tile).  Returns the errors as text."""
     check(out.dtype == plain.dtype and out.shape == plain.shape,
           f"{label}: {out.dtype} {tuple(out.shape)} vs {plain.dtype} "
           f"{tuple(plain.shape)}")
@@ -1320,18 +1390,36 @@ def _check_flash(out, plain, label) -> float:
     err = scaled_err(o32, p32)
     if out.dtype == torch.float32:
         check(err <= TOL_F32, f"{label}: {err:.3g} > {TOL_F32}")
-    else:
-        excess = float(((o32 - p32).abs() - TOL_FLASH_BF16
-                        * (1.0 + p32.abs())).max())
-        check(excess <= 0.0, f"{label}: outside rtol = atol = "
-              f"{TOL_FLASH_BF16} by {excess:.3g}")
-    return err
+        return f"{err:.3g}"
+    excess = float(((o32 - p32).abs() - TOL_FLASH_BF16
+                    * (1.0 + p32.abs())).max())
+    check(excess <= 0.0, f"{label}: outside rtol = atol = "
+          f"{TOL_FLASH_BF16} by {excess:.3g}")
+    rows = _check_rows(out, plain, TOL_FLASH_ROW_BF16, f"{label} rows")
+    return f"{err:.3g} (rows {rows['max']:.3g})"
+
+
+def _flash_case(q, k, v, causal, window, label) -> str:
+    """One B6 call against its plain version; bf16 must take the
+    tensor-core kernel (one launch), f32 the CUDA-core kernel (none)."""
+    tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
+    out = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+    plain = fa_kernel.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    want = 1 if q.dtype == torch.bfloat16 else 0
+    got = fa_kernel.launch_counts()["flash_attention_tc"] - tc0
+    check(got == want, f"{label}: {got} tensor-core launches, expected "
+          f"{want}")
+    return _check_flash(out, plain, label)
 
 
 def phase_parity_flash() -> None:
     """B6 against its plain version at every shape of the reference's
     flash tests (causal; the sliding windows 16, 64, 200; the block-shape
-    sweep's 512-long case), f32 and bf16."""
+    sweep's 512-long case), f32 (CUDA-core kernel) and bf16 (tensor-core
+    kernel), then the tensor-core kernel's edge cases in bf16."""
     cases = [(shape, None) for shape in FLASH_SHAPES]
     cases += [((1, 2, 2, 256, 256, 32), w) for w in (16, 64, 200)]
     cases += [((1, 2, 2, 512, 512, 64), None)]
@@ -1339,16 +1427,20 @@ def phase_parity_flash() -> None:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(*shape, dtype, seed=41)
-            out = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
-                                                 window=window)
-            plain = fa_kernel.flash_attention_plain(q, k, v, causal=True,
-                                                    window=window)
-            torch.cuda.synchronize()
-            errs[str(dtype).split(".")[-1]] = _check_flash(
-                out, plain, f"flash {shape} window {window} {dtype}")
+            errs[str(dtype).split(".")[-1]] = _flash_case(
+                q, k, v, True, window, f"flash {shape} window {window} "
+                f"{dtype}")
         log(f"parity flash_attention (B, Hq, Hkv, Sq, Sk, D) = {shape}, "
-            f"window {window}: " + " ".join(f"{k}={v:.3g}"
+            f"window {window}: " + " ".join(f"{k}={v}"
                                             for k, v in errs.items()))
+    for (B, Hq, Hkv, Sq, Sk, D, Dv), causal, window in FLASH_TC_EDGES:
+        q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16,
+                                seed=44, Dv=Dv)
+        label = (f"flash bf16 (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+                 f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, causal {causal}, window "
+                 f"{window}")
+        err = _flash_case(q, k, v, causal, window, label)
+        log(f"parity {label}: {err} (tensor cores)")
 
 
 def serve_config():
@@ -1365,26 +1457,26 @@ def _instrumented(model):
     call) and the B6 launches of prefill and of each decode step counted.
     Decode steps are not synchronized, as in a plain ``generate``: their
     logits' finiteness is kept on the device and read after the run."""
-    rec = {"prefill_ms": [], "b6_prefill": [], "b6_decode": [],
-           "finite": []}
+    rec = {"prefill_ms": [], "b6_prefill": [], "b6_decode": [], "finite": []}
+
+    def since(c0):
+        return {k: n - c0[k] for k, n in fa_kernel.launch_counts().items()}
 
     def prefill(*args, **kw):
         torch.cuda.synchronize()
-        c0 = fa_kernel.launch_counts()["flash_attention"]
+        c0 = fa_kernel.launch_counts()
         t0 = time.perf_counter()
         logits, cache = model.prefill(*args, **kw)
         torch.cuda.synchronize()
         rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
-        rec["b6_prefill"].append(
-            fa_kernel.launch_counts()["flash_attention"] - c0)
+        rec["b6_prefill"].append(since(c0))
         rec["finite"].append(torch.isfinite(logits).all())
         return logits, cache
 
     def decode_step(*args, **kw):
-        c0 = fa_kernel.launch_counts()["flash_attention"]
+        c0 = fa_kernel.launch_counts()
         logits, cache = model.decode_step(*args, **kw)
-        rec["b6_decode"].append(
-            fa_kernel.launch_counts()["flash_attention"] - c0)
+        rec["b6_decode"].append(since(c0))
         rec["finite"].append(torch.isfinite(logits).all())
         return logits, cache
 
@@ -1438,13 +1530,17 @@ def phase_serve_gemma3() -> dict:
         f" in decode), peak memory {peak_gb:.2f} GB")
     log(f"serve_gemma3 launches {json.dumps(launches)}; B6 per prefill "
         f"{rec['b6_prefill']}, per decode step {rec['b6_decode']}")
-    check(launches == no_launches(flash_attention=cfg.n_layers),
+    n = cfg.n_layers
+    check(launches == no_launches(flash_attention=n, flash_attention_tc=n),
           f"the serving path should launch B6 once per layer of its one "
-          f"prefill and nothing else: {launches}")
-    check(rec["b6_prefill"] == [cfg.n_layers]
-          and rec["b6_decode"] == [0] * (n_gen - 1),
-          f"B6 per prefill {rec['b6_prefill']}, per decode step "
-          f"{rec['b6_decode']}")
+          f"prefill, each on the tensor-core kernel, and nothing else: "
+          f"{launches}")
+    none = {"flash_attention": 0, "flash_attention_tc": 0}
+    check(rec["b6_prefill"] == [{"flash_attention": n,
+                                 "flash_attention_tc": n}]
+          and rec["b6_decode"] == [none] * (n_gen - 1),
+          f"B6 per prefill {rec['b6_prefill']} (all {n} on the tensor "
+          f"cores), per decode step {rec['b6_decode']} (none)")
     check(tuple(out.shape) == (B, n_gen) and bool(
         ((out >= 0) & (out < cfg.vocab_size)).all()),
         f"tokens {tuple(out.shape)} outside [0, {cfg.vocab_size})")
@@ -1458,7 +1554,7 @@ def phase_serve_gemma3() -> dict:
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_kernel" in low:
+    if "flash_kernel" in low or "flash_wgmma_kernel" in low:
         return "B6 flash_attention"
     if any(t in low for t in ("svd", "geqr", "orgqr", "ormqr", "syevj",
                               "potrf", "lapack", "cusolver")):
@@ -1608,9 +1704,10 @@ def _check_rows(got, ref, tol, label) -> dict:
 
 def _flash_line(serve_res: dict) -> dict:
     """B6 at the served model's global and local layer shapes: timed in
-    bf16; held row by row on FLASH_ROWS sampled query rows to the plain
-    version and to f64 in bf16, and to the plain version in f32 on the same
-    inputs (bf16 values, exact in f32)."""
+    bf16 (the tensor-core kernel); held row by row on FLASH_ROWS sampled
+    query rows to the plain version and to f64 in bf16, and to the plain
+    version in f32 (the CUDA-core kernel) on the same inputs (bf16 values,
+    exact in f32)."""
     cfg = serve_config()
     B, S = SERVE_BATCH, SERVE_CONTEXT
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1620,9 +1717,13 @@ def _flash_line(serve_res: dict) -> dict:
     rows = torch.sort(torch.randperm(S, generator=gen(43), device=DEV)[
         :FLASH_ROWS]).values
     res = {}
-    for name, window, reps in (("global", None, 3), ("local", cfg.window, 5)):
+    for name, window, reps in (("global", None, 5), ("local", cfg.window, 10)):
+        tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
         ms, out = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
             q, k, v, causal=True, window=window), reps=reps, warmup=1)
+        tc = fa_kernel.launch_counts()["flash_attention_tc"] - tc0
+        check(tc == reps + 1,
+              f"B6 {name}: bf16 calls missed the tensor-core kernel")
         got = out[:, :, rows]
         del out
         plain_ms, plain = cuda_ms(lambda: fa_kernel.flash_attention_plain(
@@ -1668,11 +1769,12 @@ def _flash_line(serve_res: dict) -> dict:
                                  nbytes / PEAK_HBM_BYTES) * 1e3}
         r = res[name]
         log(f"B6 {name} shape (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, D={D}, "
-            f"window {window}, bf16): {ms:.2f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s; {r['bound_ms_fp32'] / ms:.1%} of the FP32 roof, "
-            f"{r['bound_ms_bf16'] / ms:.2%} of the bf16 tensor-core roof), "
-            f"bound {r['bound_ms_bf16']:.2f} ms bf16 / {r['bound_ms_fp32']:.1f}"
-            f" ms FP32; f32 {ms_f32:.2f} ms; plain on {FLASH_ROWS} rows "
+            f"window {window}): bf16 (tensor cores) {ms:.2f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {r['bound_ms_bf16'] / ms:.2%} "
+            f"of the bf16 tensor-core roof, bound {r['bound_ms_bf16']:.2f} "
+            f"ms); f32 (CUDA cores) {ms_f32:.2f} ms "
+            f"({r['bound_ms_fp32'] / ms_f32:.1%} of the FP32 roof, bound "
+            f"{r['bound_ms_fp32']:.1f} ms); plain on {FLASH_ROWS} rows "
             f"{plain_ms:.2f} ms")
         log(f"B6 {name} shape, per-row relative error on {FLASH_ROWS} rows: "
             f"bf16 vs plain {vs_plain['max']:.3g} (median "
@@ -1693,14 +1795,18 @@ def _flash_line(serve_res: dict) -> dict:
     lib_err = float(row_errs(lib_rows, _attention_rows_f64(
         q, k, v, rows, None)).max())
     g = res["global"]
-    log(f"B6 global shape vs the library: {g['ms']:.2f} ms vs SDPA "
-        f"{lib_ms:.3f} ms ({g['ms'] / lib_ms:.1f}x); SDPA per-row relative "
-        f"error vs f64 {lib_err:.3g}")
     loc = res["local"]
+    log(f"B6 global shape vs the library: {g['ms']:.2f} ms vs SDPA "
+        f"{lib_ms:.3f} ms ({g['ms'] / lib_ms:.2f}x); SDPA per-row relative "
+        f"error vs f64 {lib_err:.3g}")
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_wgmma.cu",
+            "source_f32": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
             "launches": serve_res["launches"]["flash_attention"],
+            "launches_tc": serve_res["launches"]["flash_attention_tc"],
             "max_abs_err": g["max_abs_err"], "ms": g["ms"],
             "plain_ms": g["plain_ms_rows"], "bound_ms": g["bound_ms_bf16"],
             "bound_by": "operations", "library_ms": lib_ms,
@@ -1717,6 +1823,9 @@ def _flash_line(serve_res: dict) -> dict:
             "row_err_f32_vs_plain": g["row_err_f32_vs_plain"],
             "row_err_f32_vs_f64": g["row_err_f32_vs_f64"],
             "library_row_err_vs_f64": lib_err,
+            "ms_over_library": g["ms"] / lib_ms,
+            "bf16_roof_share": g["bound_ms_bf16"] / g["ms"],
+            "bf16_roof_share_local": loc["bound_ms_bf16"] / loc["ms"],
             "ms_local": loc["ms"], "ms_f32_local": loc["ms_f32"],
             "plain_ms_local": loc["plain_ms_rows"],
             "bound_ms_local": loc["bound_ms_bf16"],

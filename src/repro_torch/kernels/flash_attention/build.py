@@ -1,4 +1,6 @@
-"""Build and bind the flash-attention CUDA kernel (``csrc/flash.cu``).
+"""Build and bind the flash-attention CUDA kernels: ``csrc/flash.cu`` (the
+CUDA-core kernel, f32 inputs) and ``csrc/flash_wgmma.cu`` (the tensor-core
+kernel, bf16 inputs), one library.
 
 The library is built at first use by the shared helper
 (``repro_torch.kernels.build``) into ``build/kernels/libflash_<hash>.so``;
@@ -11,7 +13,8 @@ from pathlib import Path
 
 from repro_torch.kernels import build as _build
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash.cu", _CSRC / "flash_wgmma.cu")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -22,6 +25,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention.restype = i
     lib.flash_error_string.argtypes = [i]
     lib.flash_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_tc.argtypes = [p, p, p, p,
+                                       ctypes.POINTER(ctypes.c_longlong),
+                                       i, i, i, i, i, i, i, i, i, f, i, p]
+    lib.flash_attention_tc.restype = i
+    lib.flash_tc_error_string.argtypes = [i]
+    lib.flash_tc_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -1,20 +1,32 @@
 """Online-softmax (flash) attention: CUDA wrapper, its plain PyTorch
-version, and a launch counter (port of
+version, and launch counters (port of
 ``repro.kernels.flash_attention.kernel``).
 
-One kernel, hand-written in CUDA C++ (``csrc/flash.cu``), replaces the
-Pallas ``flash_attention_padded`` (body ``_flash_kernel``): causal and
-sliding-window masks, decode right-alignment ``offs = Sk − Sq``, GQA by
-reading kv head ``h // (Hq / Hkv)`` (K and V are never repeated in memory),
-guards for fully masked tiles, and ``acc / max(l, 1e-30)``.  Lengths need
-not be tile multiples: the kernel masks its ragged edges and nothing is
-padded.  Tensors may be strided views (the model passes (B, S, H, D)
-activations transposed to (B, H, S, D)) as long as the feature axis is
-contiguous; the output takes q's layout.
+Two hand-written CUDA C++ kernels replace the Pallas
+``flash_attention_padded`` (body ``_flash_kernel``), and the dtype of the
+inputs picks one -- the only route choice:
 
-``flash_attention_cuda.launches`` counts launches (bumped where the kernel
-is launched and nowhere else).  CPU tensors never reach it: ``ops`` sends
-them to the plain version (``flash_attention_plain``).
+- **bf16** q, k, v run the tensor-core kernel (``csrc/flash_wgmma.cu``):
+  ``wgmma`` bf16 x bf16 -> f32 fed by TMA, P rounded to bf16 for the PV
+  product.  TMA needs 16-byte aligned bases and batch/head/row strides; an
+  input that breaks that raises (``tma_strides``), it never falls back.
+- **f32** q, k, v run the CUDA-core kernel (``csrc/flash.cu``): FP32 FMAs
+  throughout, because the f32 gate (1e-5 against the plain version) rules
+  out bf16 or TF32 operands.
+
+Both compute the reference's causal and sliding-window masks, decode
+right-alignment ``offs = Sk − Sq``, GQA by reading kv head ``h // (Hq /
+Hkv)`` (K and V are never repeated in memory), guards for fully masked
+tiles, and ``acc / max(l, 1e-30)``.  Lengths need not be tile multiples
+and nothing is padded.  Tensors may be strided views (the model passes
+(B, S, H, D) activations transposed to (B, H, S, D)) as long as the
+feature axis is contiguous; the output takes q's layout.
+
+``flash_attention_cuda.launches`` counts every launch and
+``flash_attention_cuda.launches_tc`` the tensor-core kernel's (each bumped
+where its kernel is launched and nowhere else); ``launch_counts()`` reads
+both.  CPU tensors never reach them: ``ops`` sends them to the plain
+version (``flash_attention_plain``).
 """
 from __future__ import annotations
 
@@ -30,8 +42,11 @@ from repro_torch.kernels.flash_attention.ref import \
 
 #: dtypes the kernel reads q, k, v in (one dtype for all three) and writes
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-#: widest head the kernel takes (D and Dv); wider heads raise
+#: widest head the kernels take (D and Dv); wider heads raise
 MAX_HEAD_DIM = 256
+#: query rows per block of the tensor-core kernel (its grid's y extent is
+#: ceil(Sq / TC_BLOCK_Q) <= 65,535)
+TC_BLOCK_Q = 128
 
 
 def softmax_scale(D: int) -> float:
@@ -79,6 +94,32 @@ def _check(q, k, v, window) -> None:
                              f"axis ({name} has strides {X.stride()})")
 
 
+def tma_strides(X: torch.Tensor, name: str) -> tuple:
+    """The element strides of X's batch, head and row axes for a TMA tensor
+    map, or ValueError naming what TMA cannot take: a bf16 base address
+    that is not 16-byte aligned, or a stride of an axis longer than 1 that
+    is not a positive multiple of 8 elements (16 bytes).  An axis of length
+    1 is never stepped, so its stride is replaced by a packed one."""
+    if X.data_ptr() % 16:
+        raise ValueError(f"the tensor-core kernel loads {name} by TMA, which "
+                         f"needs a 16-byte aligned base (address "
+                         f"{X.data_ptr():#x})")
+    out = []
+    packed = -(-X.shape[3] // 8) * 8
+    for ax in (2, 1, 0):
+        st = X.stride(ax)
+        if X.shape[ax] == 1:
+            st = packed
+        elif st <= 0 or st % 8:
+            raise ValueError(f"the tensor-core kernel loads {name} by TMA, "
+                             f"which needs batch, head and row strides that "
+                             f"are positive multiples of 16 bytes ({name} "
+                             f"has strides {X.stride()})")
+        out.append(st)
+        packed *= X.shape[ax]
+    return tuple(reversed(out))
+
+
 def _out_like(q: torch.Tensor, Dv: int) -> torch.Tensor:
     """The output in q's memory layout when the head dims agree (so a
     (B, S, H, D) activation viewed as (B, H, S, D) gets a (B, S, H, Dv)
@@ -92,23 +133,46 @@ def _out_like(q: torch.Tensor, Dv: int) -> torch.Tensor:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel; raises on anything it does not take."""
+    """Launch the kernel of q's dtype (bf16: tensor cores, f32: CUDA cores);
+    raises on anything it does not take."""
     _check(q, k, v, window)
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        if -(-Sq // TC_BLOCK_Q) > 65535:
+            raise ValueError(f"the tensor-core kernel takes Sq ≤ "
+                             f"{65535 * TC_BLOCK_Q:,} (got {Sq})")
+        in_strides = [st for X, name in ((q, "q"), (k, "k"), (v, "v"))
+                      for st in tma_strides(X, name)]
     out = _out_like(q, Dv)
     if B == 0 or Hq == 0 or Sq == 0:
         return out
     from repro_torch.kernels.flash_attention import build
     lib = build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if tc:
+        strides = (ctypes.c_longlong * 12)(
+            *in_strides, *(out.stride(i) for i in range(3)))
+        code = lib.flash_attention_tc(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            strides, B, Hq, Hkv, Sq, Sk, D, Dv, int(bool(causal)),
+            -1 if window is None else int(window), softmax_scale(D),
+            q.device.index or 0, ctypes.c_void_p(stream))
+        if code != 0:
+            msg = lib.flash_tc_error_string(code).decode()
+            raise RuntimeError(f"flash_attention (tensor cores) launch "
+                               f"failed: error {code} ({msg})")
+        flash_attention_cuda.launches += 1
+        flash_attention_cuda.launches_tc += 1
+        return out
     strides = (ctypes.c_longlong * 12)(
         *(X.stride(i) for X in (q, k, v, out) for i in range(3)))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        strides, B, Hq, Hkv, Sq, Sk, D, Dv,
-        int(q.dtype == torch.bfloat16), int(bool(causal)),
+        strides, B, Hq, Hkv, Sq, Sk, D, Dv, 0, int(bool(causal)),
         -1 if window is None else int(window), softmax_scale(D),
         q.device.index or 0, ctypes.c_void_p(stream))
     if code != 0:
@@ -120,12 +184,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
 
 
 def launch_counts() -> dict:
-    """Launches of the CUDA kernel since the last reset."""
-    return {"flash_attention": flash_attention_cuda.launches}
+    """Launches since the last reset: of both routes (``flash_attention``)
+    and of the tensor-core kernel alone (``flash_attention_tc``)."""
+    return {"flash_attention": flash_attention_cuda.launches,
+            "flash_attention_tc": flash_attention_cuda.launches_tc}
 
 
 def reset_launch_counts() -> None:
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_tc = 0

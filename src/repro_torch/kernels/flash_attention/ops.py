@@ -1,10 +1,11 @@
 """Public entry point of flash attention (port of
 ``repro.kernels.flash_attention.ops``).
 
-The device of q picks the route: the plain version on the CPU, the CUDA
-kernel on the card (see ``kernel``), which raises on what it does not take.
+The device of q picks the route: the plain version on the CPU, a CUDA
+kernel on the card (see ``kernel``: bf16 inputs run the tensor-core kernel,
+f32 inputs the CUDA-core one), which raises on what it does not take.
 Nothing is padded to the TPU's 128-row tiles and there are no block-size
-knobs: the kernel masks its own ragged edges.
+knobs: the kernels mask their own ragged edges.
 """
 from __future__ import annotations
 

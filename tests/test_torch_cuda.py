@@ -9,7 +9,8 @@ a machine with only PyTorch:
 Tolerances, scale-normalized against the plain PyTorch versions on the same
 card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates); the landmark
 read and flash attention with bf16 inputs within the reference's
-``_tol(bf16)`` (rtol = atol = 2e-2).
+``_tol(bf16)`` (rtol = atol = 2e-2).  Flash attention runs the CUDA-core
+kernel for f32 inputs and the tensor-core kernel for bf16 inputs.
 """
 from __future__ import annotations
 
@@ -297,6 +298,81 @@ def test_flash_attention_takes_strided_views(cuda_device):
     with pytest.raises(ValueError, match="feature axis"):
         fa_kernel.flash_attention_cuda(q.transpose(2, 3).contiguous()
                                        .transpose(2, 3), k, v)
+
+
+# the tensor-core kernel's edge cases (bf16): (B, Hq, Hkv, Sq, Sk, D, Dv),
+# causal, window
+TC_EDGES = [((1, 2, 1, 100, 100, 64, 64), True, None),
+            ((1, 2, 1, 1000, 1000, 64, 64), True, 200),
+            ((1, 2, 1, 300, 300, 32, 32), True, None),
+            ((1, 2, 1, 300, 300, 128, 128), True, None),
+            ((1, 2, 1, 300, 300, 256, 256), True, None),
+            ((1, 2, 1, 300, 300, 64, 128), True, None),
+            ((1, 2, 1, 300, 300, 128, 64), True, 100),
+            ((2, 4, 2, 1, 1000, 256, 256), True, None),
+            ((2, 4, 2, 1, 1000, 256, 256), True, 64),
+            ((1, 4, 2, 100, 1000, 128, 128), True, None),
+            ((1, 2, 1, 100, 1000, 256, 256), False, None),
+            ((1, 2, 1, 100, 1000, 256, 256), False, 100)]
+
+
+@pytest.mark.parametrize("shape,causal,window", TC_EDGES)
+def test_flash_tensor_core_edge_cases(cuda_device, shape, causal, window):
+    """bf16 goes to the tensor-core kernel (one launch of it per call) and
+    agrees with the plain version at ragged lengths, every head width,
+    Dv ≠ D, decode, chunked prefill and without causality: within
+    rtol = atol = 2e-2, and every (b, h, row) within 1e-2 in its own
+    relative error (where the softmax is flat the outputs are small and
+    the atol alone would pass a dropped or doubled key tile)."""
+    B, Hq, Hkv, Sq, Sk, D, Dv = shape
+    rng = np.random.default_rng(7)
+    q = (_rand(rng, B, Hq, Sq, D, dev=cuda_device) * 0.5).to(torch.bfloat16)
+    k = (_rand(rng, B, Hkv, Sk, D, dev=cuda_device) * 0.5).to(torch.bfloat16)
+    v = _rand(rng, B, Hkv, Sk, Dv, dev=cuda_device).to(torch.bfloat16)
+    tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.launch_counts()["flash_attention_tc"] == tc0 + 1
+    plain = fa_kernel.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+    _flash_close(out, plain)
+    o, p = out.double(), plain.double()
+    row_err = (o - p).norm(dim=-1) / p.norm(dim=-1).clamp_min(1e-300)
+    assert float(row_err.max()) <= 1e-2, float(row_err.max())
+
+
+def test_flash_routes_by_dtype(cuda_device):
+    """bf16 launches the tensor-core kernel, f32 the CUDA-core one; both
+    count in ``flash_attention``, only bf16 in ``flash_attention_tc``."""
+    q, k, v = _flash_inputs((1, 4, 2, 70, 70, 64), cuda_device,
+                            torch.float32)
+    fa_kernel.reset_launch_counts()
+    fa_ops.flash_attention(q, k, v)
+    assert fa_kernel.launch_counts() == {"flash_attention": 1,
+                                         "flash_attention_tc": 0}
+    fa_ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    torch.cuda.synchronize()
+    assert fa_kernel.launch_counts() == {"flash_attention": 2,
+                                         "flash_attention_tc": 1}
+
+
+def test_flash_tensor_core_refuses_what_tma_cannot_load(cuda_device):
+    """A bf16 view with a misaligned base or a row stride that is not a
+    multiple of 16 bytes raises; nothing falls back to the CUDA-core kernel
+    or the plain version."""
+    flat = torch.zeros(1 + 2 * 64 * 64, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(1, 2, 64, 64)
+    ok = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16,
+                     device=cuda_device)
+    odd = torch.zeros((1, 2, 64, 36), dtype=torch.bfloat16,
+                      device=cuda_device)
+    fa_kernel.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        fa_ops.flash_attention(shifted, ok, ok)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa_ops.flash_attention(odd, odd, odd)
+    assert fa_kernel.launch_counts() == {"flash_attention": 0,
+                                         "flash_attention_tc": 0}
 
 
 def test_smoke_model_on_the_card_matches_the_cpu(cuda_device):

@@ -10,6 +10,15 @@ reference's ``ref.attention`` oracle, and the port's
 
 Tolerances: f32 ≤ 1e-5 scale-normalized (max |port − ref| / max |ref|);
 bf16 within rtol = atol = 2e-2 (the reference's ``_tol(bf16)``).
+
+The card's bf16 route runs a tensor-core kernel that rounds P to bf16 for
+the PV product (the reference keeps f32 p).  ``_tc_emulation`` repeats that
+arithmetic in plain torch -- online softmax in f32 per 64-key tile, P
+rounded to bf16 before the PV product, f32 accumulation, the output rounded
+to bf16 -- and is held to the reference at every shape above within the bf16
+gate, and to an f64 oracle at a served-width case within the card's 1e-2
+per-row relative gate: the precision contract is checked here before any
+chip time.
 """
 from __future__ import annotations
 
@@ -146,6 +155,24 @@ def test_strided_views_and_the_launch_counter():
     assert torch.equal(out, tfa_ops.flash_attention(q, k, v, causal=True))
 
 
+def test_tma_strides_of_the_tensor_core_route():
+    """The strides the wrapper hands to TMA: batch, head and row strides in
+    elements, a packed one for an axis of length 1, and ValueError for a
+    misaligned base or a stride that is not a multiple of 16 bytes."""
+    act = torch.zeros((2, 70, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert tfa_kernel.tma_strides(act, "q") == (70 * 4 * 64, 64, 4 * 64)
+    one = torch.zeros((1, 2, 1, 32), dtype=torch.bfloat16)
+    assert tfa_kernel.tma_strides(one, "q") == (64, 32, 32)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tfa_kernel.tma_strides(torch.zeros((1, 2, 3, 36),
+                                           dtype=torch.bfloat16), "k")
+    flat = torch.zeros(1 + 2 * 3 * 64, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 3, 64)
+    assert shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tfa_kernel.tma_strides(shifted, "v")
+
+
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = (torch.as_tensor(a) for a in _inputs(1, 2, 1, 8, 8, 16, 4))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -160,4 +187,95 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
                                         torch.cat([v, v], 1))
     with pytest.raises(ValueError, match="window"):
         tfa_kernel.flash_attention_cuda(q, k, v, window=0)
-    assert tfa_kernel.launch_counts() == {"flash_attention": 0}
+    assert tfa_kernel.launch_counts() == {"flash_attention": 0,
+                                          "flash_attention_tc": 0}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's precision contract, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tc_emulation(q, k, v, causal=True, window=None, q_pos=None, bk=64):
+    """What ``csrc/flash_wgmma.cu`` computes, in plain torch: s = q·kᵀ in f32
+    (products of bf16 values are exact in f32) times the f32 scale; per
+    ``bk``-key tile the reference's online softmax in f32 (m from −inf,
+    m_safe, alpha, l += the f32 p); P rounded to bf16 (RNE) for the PV
+    product, accumulated in f32; acc / max(l, 1e-30) rounded to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kr = torch.repeat_interleave(k.float(), G, dim=1)
+    vr = torch.repeat_interleave(v.float(), G, dim=1)
+    scale = torch.tensor(tfa_kernel.softmax_scale(D), dtype=torch.float32)
+    s_all = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    if q_pos is None:
+        q_pos = torch.arange(Sq) + (Sk - Sq)
+    row = q_pos[:, None]
+    m = torch.full((B, Hq, Sq, 1), float("-inf"))
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, v.shape[3]))
+    for j0 in range(0, Sk, bk):
+        col = torch.arange(j0, min(j0 + bk, Sk))[None, :]
+        mask = torch.ones((Sq, col.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= col <= row
+        if window is not None:
+            mask &= (row - col) < window
+        s = torch.where(mask, s_all[..., j0:j0 + bk], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            vr[:, :, j0:j0 + bk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+_TC_CASES = [(shape, None) for shape in FLASH_SHAPES] + \
+    [((1, 2, 2, 256, 256, 32), w) for w in (16, 64, 200)]
+
+
+@pytest.mark.parametrize("shape,window", _TC_CASES)
+def test_tensor_core_arithmetic_fits_the_bf16_gate(shape, window):
+    """bf16 P in the PV product, emulated, against the Pallas kernel in
+    interpret mode and ``ref.attention`` at every reference shape and
+    window, within the reference's rtol = atol = 2e-2."""
+    seed = 0 if window is None else 1
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(*shape, seed=seed), "bf16")
+    emu = _tc_emulation(tq, tk, tv, causal=True, window=window)
+    assert emu.dtype == torch.bfloat16 and tuple(emu.shape) == tuple(tq.shape)
+    _assert_close(emu, jfa_ops.flash_attention(jq, jk, jv, causal=True,
+                                               window=window),
+                  "bf16", f"emulation window {window} vs Pallas (interpret)")
+    _assert_close(emu, jfa_ref.attention(jq, jk, jv, causal=True,
+                                         window=window),
+                  "bf16", f"emulation window {window} vs ref.attention")
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+def test_tensor_core_arithmetic_at_served_width(window):
+    """One kv head, 2 query heads, S = 4,096, D = 256 with unit-variance q
+    and k (what qk-norm gives): 64 sampled rows of the emulation against an
+    f64 oracle within the card's per-row relative gate of 1e-2."""
+    S, D, n_rows = 4096, 256, 64
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.normal(size=(1, 2, S, D)), dtype=torch.bfloat16)
+    k = torch.as_tensor(rng.normal(size=(1, 1, S, D)), dtype=torch.bfloat16)
+    v = torch.as_tensor(rng.normal(size=(1, 1, S, D)), dtype=torch.bfloat16)
+    rows = torch.as_tensor(np.sort(rng.choice(S, n_rows, replace=False)))
+    emu = _tc_emulation(q[:, :, rows], k, v, causal=True, window=window,
+                        q_pos=rows)
+    s = torch.einsum("bhqd,bkd->bhqk", q[:, :, rows].double(),
+                     k[:, 0].double()) / np.sqrt(D)
+    col = torch.arange(S)[None, :]
+    mask = col <= rows[:, None]
+    if window is not None:
+        mask &= (rows[:, None] - col) < window
+    s = torch.where(mask, s, float("-inf"))
+    exact = torch.einsum("bhqk,bkd->bhqd", torch.softmax(s, dim=-1),
+                         v[:, 0].double())
+    rel = (emu.double() - exact).norm(dim=-1) / exact.norm(dim=-1)
+    assert float(rel.max()) <= 1e-2, float(rel.max())

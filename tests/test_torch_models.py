@@ -347,7 +347,8 @@ def test_flash_path_and_unstacked_params():
     assert float(aux) == 0.0
     e = scaled(tl, jl)
     assert e <= TOL["float32"], f"forward {e:.3g}"
-    assert tfa_kernel.launch_counts() == {"flash_attention": 0}
+    assert tfa_kernel.launch_counts() == {"flash_attention": 0,
+                                          "flash_attention_tc": 0}
 
 
 def test_prepare_casts_matmul_weights_once():
