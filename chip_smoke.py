@@ -6,9 +6,13 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile the three CUDA libraries (pairwise, landmark, flash --
-   the last from two sources, ``flash.cu`` and ``flash_wgmma.cu``) from
-   ``src/repro_torch/.../csrc`` side by side, one nvcc each;
+2. build: compile the three CUDA libraries (pairwise from
+   ``pairwise_wgmma.cu``, landmark, flash -- the last from two sources,
+   ``flash.cu`` and ``flash_wgmma.cu``) from ``src/repro_torch/.../csrc``
+   side by side, one nvcc each; every instantiation of the tensor-core
+   kernels (``flash_wgmma_kernel``, ``pairwise_block_tc``,
+   ``pairwise_matmat_tc``) must build with 0 bytes of spills and without
+   ptxas's C7512 note;
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
@@ -75,7 +79,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    flash tests in f32 and bf16, and in bf16 at the tensor-core kernel's
    edge cases (ragged lengths, head dims 32–256, Dv ≠ D, decode, chunked
    prefill, non-causal with and without a window), each bf16 call one
-   tensor-core launch and each f32 call none (``phase_parity_flash``);
+   tensor-core launch and each f32 call none, and with Sq > Sk (causal)
+   the rows that see no key exactly 0 on both routes
+   (``phase_parity_flash``);
 8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
    own path and on each of the five paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
@@ -122,6 +128,7 @@ from repro_torch.kernels.flash_attention import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
+from repro_torch.kernels.pairwise import build as pw_build  # noqa: E402
 from repro_torch.kernels.pairwise import kernel, signsplit, specs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -129,6 +136,7 @@ from repro_torch.models import model as tmodel  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 TOL_F32 = 1e-5          # f32 kernel vs plain, scale-normalized
@@ -207,6 +215,10 @@ FLASH_TC_EDGES = (
     ((1, 2, 1, 100, 1000, 256, 256), False, None),
     ((1, 2, 1, 100, 1000, 256, 256), False, 100))
 
+# causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
+FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
+                    ((2, 4, 2, 200, 60, 32, 32), 24))
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -247,6 +259,45 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 0):
 def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a − b| / max |b|."""
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def passes(spec) -> dict:
+    """The tensor-core passes a pairwise launch under ``spec`` runs, as the
+    built library reports them: the statistic's cross term (0 for l1dist,
+    on the CUDA cores) and the sweep's contraction."""
+    lib = pw_build.load_library()
+    stat = kernel._STAT_IDS[spec.stat]
+    bf16 = int(spec.precision == "bf16_f32acc")
+    return {"statistic": int(lib.pairwise_passes(stat, bf16, 0)),
+            "contraction": int(lib.pairwise_passes(stat, bf16, 1))}
+
+
+def route_bound(spec, nr: int, nc: int, d: int, M: int, nbytes: int,
+                stat_builds: int = 1) -> tuple:
+    """(ms, "bytes" or "operations"): the least time of a pairwise launch on
+    the route it takes.  Its tensor-core passes (``passes``) at the rate of
+    their type (TF32 under f32, bf16 under bf16_f32acc), an l1dist
+    statistic's ~3 flops a feature (sub, abs, add) on the FP32 CUDA cores,
+    which run beside the tensor cores, so the larger counts, and the bytes
+    moved.  ``stat_builds`` > 1 counts the statistic as often as the sweep
+    kernel builds it (the design's floor rather than the work's)."""
+    p = passes(spec)
+    peak = PEAK_BF16_TC_FLOPS if spec.precision == "bf16_f32acc" \
+        else PEAK_TF32_TC_FLOPS
+    ops = max((p["contraction"] * 2 * nr * nc * M + p["statistic"] * 2 * d
+               * nr * nc * stat_builds) / peak,
+              3 * d * nr * nc * stat_builds / PEAK_FP32_FLOPS
+              if spec.stat == "l1dist" else 0.0)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(ops, t_bytes) * 1e3, "operations" if ops >= t_bytes else "bytes"
+
+
+def scratch_bytes(spec, nr: int, nc: int, d: int, M: int, same: bool) -> int:
+    """The scratch a pairwise launch allocates (operand forms of the points
+    and, for a sweep, Vᵀ's parts), from the library's own formula."""
+    return int(pw_build.load_library().pairwise_workspace_bytes(
+        nr, nc, d, M, kernel._STAT_IDS[spec.stat],
+        int(spec.precision == "bf16_f32acc"), int(same)))
 
 
 def clusters(n: int, seed: int) -> torch.Tensor:
@@ -327,7 +378,12 @@ def phase_build() -> None:
             if any(w in ln for w in ("registers", "spill", "Compiling",
                                      "warning")):
                 log(f"  ptxas: {ln.strip()}")
-    check_wgmma_report(fa_build.LIBRARY.build_log())
+    check_wgmma_report(fa_build.LIBRARY.build_log(), "flash_wgmma_kernel", 3,
+                       "head widths 64, 128, 256")
+    for name in ("pairwise_block_tc", "pairwise_matmat_tc"):
+        check_wgmma_report(pw_build.LIBRARY.build_log(), name, 10,
+                           "dot and sqdist x 2 precisions x 2 k-step "
+                           "counts, l1dist x 2 precisions")
 
 
 def ptxas_spills(report: str, name: str) -> dict:
@@ -348,19 +404,18 @@ def ptxas_spills(report: str, name: str) -> dict:
     return spills
 
 
-def check_wgmma_report(report: str) -> None:
-    """The tensor-core flash kernel must build without spills and without
-    ptxas's C7512 note (wgmma serialized for want of registers): either
-    once cost it more than half its speed at the served shape."""
-    spills = ptxas_spills(report, "flash_wgmma_kernel")
-    check(len(spills) == 3, f"ptxas reported {len(spills)} instantiations "
-          f"of flash_wgmma_kernel, expected 3 (head widths 64, 128, 256)")
-    check(all(b == 0 for b in spills.values()),
-          f"flash_wgmma_kernel spills: {spills}")
+def check_wgmma_report(report: str, name: str, count: int,
+                       what: str) -> None:
+    """A tensor-core kernel must build without spills and without ptxas's
+    C7512 note (wgmma serialized for want of registers): either once cost
+    the flash kernel more than half its speed at the served shape."""
+    spills = ptxas_spills(report, name)
+    check(len(spills) == count, f"ptxas reported {len(spills)} "
+          f"instantiations of {name}, expected {count} ({what})")
+    check(all(b == 0 for b in spills.values()), f"{name} spills: {spills}")
     c7512 = [ln.strip() for ln in report.splitlines() if "C7512" in ln]
     check(not c7512, f"ptxas serialized wgmma: {c7512}")
-    log(f"  ptxas: flash_wgmma_kernel x{len(spills)}: 0 bytes of spills, "
-        f"no C7512 note")
+    log(f"  ptxas: {name} x{len(spills)}: 0 bytes of spills, no C7512 note")
 
 
 def _parity_case(spec, Xr, Xc, Vs, edges, label) -> dict:
@@ -945,22 +1000,34 @@ def _b4_line(m: dict, sh: dict) -> dict:
     M = sum(int(V.shape[1]) for V in Vs)
     flops = 2 * length * N * M + 2 * D * length * N
     nbytes = 4 * (N * D + N * M + length * M)
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound_fp32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound, bound_by = route_bound(spec, length, N, D, M, nbytes)
+    builds = int(pw_build.load_library().pairwise_statistic_builds(M))
+    design_floor, _ = route_bound(spec, length, N, D, M, nbytes, builds)
+    p = passes(spec)
+    scratch = scratch_bytes(spec, length, N, D, M, False)
     log(f"B4 slab shape ({length} x {N} from row {start}, M = {M}): "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the FP32 "
-        f"roof); vs plain {rel:.3g} (max abs {err:.3g}); rows = B1's bit "
-        f"for bit: {same}")
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms on the "
+        f"TF32 tensor cores ({p['contraction']} contraction + "
+        f"{p['statistic']} statistic passes; {bound / ms:.1%} of it; "
+        f"{builds} statistic builds: design floor {design_floor:.3f} ms; "
+        f"FP32 roof {bound_fp32:.3f} ms), scratch {scratch / 1e6:.1f} MB; "
+        f"vs plain {rel:.3g} (max abs {err:.3g}); rows = B1's bit for bit: "
+        f"{same}")
     return {"name": "pairwise_matmat_multi_slab", "route": "cuda",
-            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
+            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise_wgmma.cu",
             "replaces": "src/repro/kernels/pairwise/kernel.py:184",
             "launches": sh["launches"]["pairwise_matmat_multi_slab"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "library_call": "none (no single torch call computes it)",
             "shape": {"start_row": start, "slab_len": length, "n": N,
                       "d": D, "M": M, "spec": "rbf", "precision": "f32"},
-            "rows_equal_b1": same, "scaled_err_vs_plain": rel}
+            "rows_equal_b1": same, "scaled_err_vs_plain": rel,
+            "bound_ms_fp32": bound_fp32,
+            "contraction_passes": p["contraction"],
+            "statistic_passes": p["statistic"], "statistic_builds": builds,
+            "design_floor_ms": design_floor, "scratch_bytes": scratch}
 
 
 def _b1_line(m: dict) -> dict:
@@ -1032,27 +1099,36 @@ def _b1_line(m: dict) -> dict:
     del outs_s, plain_s
 
     M = sum(int(V.shape[1]) for V in Vs)
-    # B3's own bound: the l1dist statistic is ~3 flops per feature (sub,
-    # abs, add) on the FP32 CUDA cores, beside the contraction
-    bound_l1 = (2 * N * N * M + 3 * D * N * N) / PEAK_FP32_FLOPS * 1e3
     flops = 2 * N * N * M + 2 * D * N * N
     nbytes = 4 * (2 * N * D + N * M + N * M)
-    bound_f32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    bound_bf16 = max(flops / PEAK_BF16_TC_FLOPS,
-                     nbytes / PEAK_HBM_BYTES) * 1e3
-    log(f"B1 main shape: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound f32 "
-        f"{bound_f32:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{bound_f32 / ms:.1%} of the FP32 roof); bf16_f32acc {ms16:.3f} ms "
+    bound_fp32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound, bound_by = route_bound(spec, N, N, D, M, nbytes)
+    bound_bf16, _ = route_bound(spec16, N, N, D, M, nbytes)
+    bound_l1, _ = route_bound(lap, N, N, D, M, nbytes)
+    builds = int(pw_build.load_library().pairwise_statistic_builds(M))
+    design_floor, _ = route_bound(spec, N, N, D, M, nbytes, builds)
+    p, p16 = passes(spec), passes(spec16)
+    scratch = scratch_bytes(spec, N, N, D, M, True)
+    scratch16 = scratch_bytes(spec16, N, N, D, M, True)
+    log(f"B1 main shape: {p['contraction']} TF32 contraction passes + "
+        f"{p['statistic']} statistic passes: bound {bound:.3f} ms; x "
+        f"{builds} statistic builds: design floor {design_floor:.3f} ms; "
+        f"FP32 roof {bound_fp32:.3f} ms; scratch {scratch / 1e6:.1f} MB "
+        f"(bf16_f32acc {scratch16 / 1e6:.1f} MB, {p16['contraction']} + "
+        f"{p16['statistic']} bf16 passes)")
+    log(f"B1 main shape: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s of useful work, "
+        f"{bound / ms:.1%} of the bound); bf16_f32acc {ms16:.3f} ms "
         f"(tensor-core bound {bound_bf16:.3f} ms, rows vs plain {e16:.3g}); "
         f"laplacian (l1dist) {ms_l1:.3f} ms (rows vs plain {e_l1:.3g}, "
         f"plain {plain_ms_l1:.3f} ms, bound {bound_l1:.3f} ms); softmax "
         f"Gram (exp_affine) {ms_soft:.3f} ms (rows vs plain {e_s:.3g})")
     return {"name": "pairwise_matmat_multi", "route": "cuda",
-            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
+            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise_wgmma.cu",
             "replaces": "src/repro/kernels/pairwise/kernel.py:127",
             "launches": m["launches"]["pairwise_matmat_multi"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_f32, "bound_by": "operations",
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
             "shape": {"nr": N, "nc": N, "d": D, "M": M, "spec": "rbf",
                       "precision": "f32"},
@@ -1061,7 +1137,13 @@ def _b1_line(m: dict) -> dict:
             "plain_ms_laplacian_l1dist": plain_ms_l1,
             "bound_ms_laplacian_l1dist": bound_l1,
             "ms_exp_affine": ms_soft,
-            "bound_ms_bf16_tensor_cores": bound_bf16}
+            "bound_ms_fp32": bound_fp32,
+            "bound_ms_bf16_tensor_cores": bound_bf16,
+            "contraction_passes": p["contraction"],
+            "statistic_passes": p["statistic"],
+            "passes_bf16_f32acc": p16, "statistic_builds": builds,
+            "design_floor_ms": design_floor, "scratch_bytes": scratch,
+            "scratch_bytes_bf16_f32acc": scratch16}
 
 
 def _b2_line(m: dict) -> dict:
@@ -1072,7 +1154,8 @@ def _b2_line(m: dict) -> dict:
     X, spec = m["X"], m["spec"]
     b = sweep_lib.resolved_block_size(N, N, None)
     Xr = X[:b].contiguous()
-    ms, out = cuda_ms(lambda: kernel.pairwise_block_cuda(spec, Xr, X), reps=5)
+    ms, out = cuda_ms(lambda: kernel.pairwise_block_cuda(spec, Xr, X),
+                      reps=20, warmup=2)
     plain_ms, plain = cuda_ms(
         lambda: kernel.pairwise_block_plain(spec, Xr, X), reps=5, warmup=1)
     err = float((out - plain).abs().max())
@@ -1091,37 +1174,78 @@ def _b2_line(m: dict) -> dict:
     plain_ms_l1, plain_l1 = cuda_ms(
         lambda: kernel.pairwise_block_plain(lap, Xr, X), reps=5, warmup=1)
     check(scaled_err(out_l1, plain_l1) <= TOL_F32, "B2 laplacian vs plain")
-    bound_l1 = max(3 * D * b * N / PEAK_FP32_FLOPS,
-                   4 * (b * D + N * D + b * N) / PEAK_HBM_BYTES) * 1e3
+    bound_l1, _ = route_bound(lap, b, N, D, 0, 4 * (b * D + N * D + b * N))
+    # like for like, each timed over 20 back-to-back calls after 2 warm-ups
+    # (at ~0.07 ms a call, 5 calls left the two within each other's spread)
     lin = specs.linear()
     lin_ms, lin_out = cuda_ms(
-        lambda: kernel.pairwise_block_cuda(lin, Xr, X), reps=5, warmup=1)
-    lib_ms, lib_out = cuda_ms(lambda: torch.mm(Xr, X.T), reps=5, warmup=1)
+        lambda: kernel.pairwise_block_cuda(lin, Xr, X), reps=20, warmup=2)
+    lib_ms, lib_out = cuda_ms(lambda: torch.mm(Xr, X.T), reps=20, warmup=2)
     check(scaled_err(lin_out, lib_out) <= TOL_F32, "B2 linear vs torch.mm")
+    # device time alone, kernel by kernel (B2's call is its prep kernel and
+    # the block kernel)
+    dev_lin = _kernel_device_ms(lambda: kernel.pairwise_block_cuda(lin, Xr, X))
+    dev_lib = _kernel_device_ms(lambda: torch.mm(Xr, X.T))
+    log(f"B2 linear spec, device ms by kernel: {json.dumps(dev_lin)}; "
+        f"torch.mm: {json.dumps(dev_lib)}")
+    # the operation-bound case: the softmax Gram (exp_affine) at the
+    # attention_policy panel, 1,024 x 32,768, d = 256
+    _, Ka, _ = _qkv(POLICY_N, seed=21)
+    soft = tsa.softmax_gram_operator(Ka).spec
+    bs = sweep_lib.resolved_block_size(POLICY_N, POLICY_N, None)
+    Kr = Ka[:bs].contiguous()
+    ms_s, out_s = cuda_ms(lambda: kernel.pairwise_block_cuda(soft, Kr, Ka),
+                          reps=5, warmup=1)
+    plain_ms_s, plain_s = cuda_ms(
+        lambda: kernel.pairwise_block_plain(soft, Kr, Ka), reps=5, warmup=1)
+    e_s = scaled_err(out_s, plain_s)
+    check(e_s <= TOL_F32, f"B2 exp_affine panel vs plain: {e_s:.3g}")
+    del out_s, plain_s, Ka, Kr
+    flops_s = 2 * ATT_D * bs * POLICY_N
+    nbytes_s = 4 * (bs * ATT_D + POLICY_N * ATT_D + bs * POLICY_N)
+    bound_s_fp32 = max(flops_s / PEAK_FP32_FLOPS,
+                       nbytes_s / PEAK_HBM_BYTES) * 1e3
+    bound_s, by_s = route_bound(soft, bs, POLICY_N, ATT_D, 0, nbytes_s)
+    log(f"B2 exp_affine panel ({bs} x {POLICY_N}, d = {ATT_D}): {ms_s:.4f} "
+        f"ms, plain {plain_ms_s:.4f} ms, bound {bound_s:.4f} ms ({by_s}, "
+        f"{passes(soft)['statistic']} TF32 passes; FP32 roof "
+        f"{bound_s_fp32:.4f} ms), "
+        f"vs plain {e_s:.3g}")
     flops = 2 * D * b * N
     nbytes = 4 * (b * D + N * D + b * N)
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound_fp32 = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound, bound_by = route_bound(spec, b, N, D, 0, nbytes)
     log(f"B2 panel shape ({b} x {N}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms; like for like, the linear spec {lin_ms:.4f} "
+        f"bound {bound:.4f} ms ({bound_by}); like for like, the linear spec "
+        f"{lin_ms:.4f} "
         f"ms vs torch.mm {lib_ms:.4f} ms ({lin_ms / lib_ms:.2f}x); "
         f"laplacian (l1dist) {ms_l1:.4f} ms (plain "
         f"{plain_ms_l1:.4f} ms, bound {bound_l1:.4f} ms), max abs err "
         f"{err:.3g}")
     return {"name": "pairwise_block", "route": "cuda",
-            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise.cu",
+            "source": "src/repro_torch/kernels/pairwise/csrc/pairwise_wgmma.cu",
             "replaces": "src/repro/kernels/pairwise/kernel.py:241",
             "launches": m["launches"]["pairwise_block"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": {"nr": b, "nc": N, "d": D, "spec": "rbf",
                       "precision": "f32"},
+            "bound_ms_fp32": bound_fp32,
             "library_call": "torch.mm(Xr, Xc.T) (the linear spec: compare "
                             "with linear_spec_ms)",
             "linear_spec_ms": lin_ms,
             "linear_spec_over_library": lin_ms / lib_ms,
+            "device_ms_linear": dev_lin, "device_ms_library": dev_lib,
             "ms_laplacian_l1dist": ms_l1,
             "plain_ms_laplacian_l1dist": plain_ms_l1,
-            "bound_ms_laplacian_l1dist": bound_l1}
+            "bound_ms_laplacian_l1dist": bound_l1,
+            "ms_exp_affine": ms_s, "plain_ms_exp_affine": plain_ms_s,
+            "bound_ms_exp_affine": bound_s,
+            "bound_ms_exp_affine_fp32": bound_s_fp32,
+            "exp_affine_shape": {"nr": bs, "nc": POLICY_N, "d": ATT_D,
+                                 "spec": "softmax_gram (exp_affine)"},
+            "statistic_passes": passes(spec)["statistic"],
+            "scratch_bytes": scratch_bytes(spec, b, N, D, 0, False)}
 
 
 # ---------------------------------------------------------------------------
@@ -1352,12 +1476,11 @@ def phase_attention_policy() -> dict:
                               reps=5, warmup=1)
     e = scaled_err(blk, plain)
     check(e <= TOL_F32, f"B2 exp_affine panel vs plain: {e:.3g}")
-    flops = 2 * ATT_D * b * n
     nbytes = 4 * (b * ATT_D + n * ATT_D + b * n)
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound, bound_by = route_bound(spec, b, n, ATT_D, 0, nbytes)
     log(f"B2 exp_affine panel ({b} x {n}, d={ATT_D}): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (operations), vs plain "
-        f"{e:.3g}")
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, TF32 tensor "
+        f"cores), vs plain {e:.3g}")
     res["b2_panel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "shape": {"nr": b, "nc": n, "d": ATT_D,
                                  "spec": "softmax_gram (exp_affine)"}}
@@ -1441,6 +1564,24 @@ def phase_parity_flash() -> None:
                  f"{window}")
         err = _flash_case(q, k, v, causal, window, label)
         log(f"parity {label}: {err} (tensor cores)")
+    # causal with Sq > Sk: the first Sq − Sk rows see no key (the first
+    # 128-row block of the tensor-core kernel sees no key tile) and are 0
+    for (B, Hq, Hkv, Sq, Sk, D, Dv), window in FLASH_EMPTY_ROWS:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=45,
+                                    Dv=Dv)
+            label = (f"flash {dtype} (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+                     f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}")
+            out = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                 window=window)
+            check(bool((out[:, :, :Sq - Sk] == 0).all()),
+                  f"{label}: a row that sees no key is not 0")
+            errs[str(dtype).split(".")[-1]] = _flash_case(
+                q, k, v, True, window, label)
+        log(f"parity flash, rows without keys (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+            f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}: exactly 0; "
+            + " ".join(f"{k}={v}" for k, v in errs.items()))
 
 
 def serve_config():
@@ -1563,6 +1704,31 @@ def _kernel_class(name: str) -> str:
                               "sm90")):
         return "matmul (cuBLAS)"
     return "other (elementwise, reductions, copies)"
+
+
+def _kernel_device_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn()`` launches
+    (``torch.profiler`` over ``reps`` calls after one warm-up); {} where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            name = re.sub(r"\(anonymous namespace\)::", "", e.key)
+            out[name.split("(")[0][:60]] = us / 1e3 / reps
+    return out
 
 
 def _device_profile(fn) -> dict:

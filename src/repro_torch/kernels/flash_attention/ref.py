@@ -41,6 +41,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask &= (row - col) < window
     s = torch.where(mask[None, None], s, float("-inf"))
-    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    # a row that sees no key has an all −inf row and max −inf: it returns 0,
+    # as the reference's kernel body does (m_safe, and max(l, 1e-30))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(mask[None, None], torch.exp(s - m_safe),
+                    torch.zeros((), dtype=_F32, device=q.device))
+    p = p /torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.to(_F32)).to(q.dtype)

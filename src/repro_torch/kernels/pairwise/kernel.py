@@ -1,7 +1,8 @@
 """The pairwise kernels: CUDA wrappers, their plain PyTorch versions, and
 launch counters (port of ``repro.kernels.pairwise.kernel``).
 
-Three kernels, hand-written in CUDA C++ (``csrc/pairwise.cu``):
+Three kernels, hand-written in CUDA C++ for Hopper's tensor cores
+(``csrc/pairwise_wgmma.cu``):
 
 - ``pairwise_block(spec, Xr, Xc)`` — the explicit block
   ``entry_fn(stat(Xr, Xc))`` (replaces ``pairwise_block_padded``);
@@ -25,6 +26,10 @@ the kernel is launched and nowhere else).
 ``edges`` (a sign-split table) selects the sign-split form of the l1
 statistic in the plain version; the CUDA kernels sum |x_k − y_k| directly,
 which is the same function on data inside the plan.
+
+Each CUDA launch also takes a scratch buffer the wrapper allocates
+(``_workspace``): the points in the kernels' operand form (TF32 parts or
+bf16, with their squared norms) and, for a sweep, Vᵀ's parts.
 """
 from __future__ import annotations
 
@@ -162,6 +167,15 @@ def _raise_on(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def _workspace(lib, nr: int, nc: int, d: int, M: int, spec: KernelSpec,
+               same: bool, device: torch.device) -> torch.Tensor:
+    """The scratch bytes one launch needs (its size from the library)."""
+    nbytes = lib.pairwise_workspace_bytes(
+        nr, nc, d, M, _STAT_IDS[spec.stat],
+        int(spec.precision == "bf16_f32acc"), int(same))
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+
+
 def _ptr(X: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(X.data_ptr())
 
@@ -185,10 +199,11 @@ def pairwise_block_cuda(spec: KernelSpec, Xr: torch.Tensor, Xc: torch.Tensor,
         return out
     from repro_torch.kernels.pairwise import build
     lib = build.load_library()
+    ws = _workspace(lib, nr, nc, d, 0, spec, False, Xr.device)
     code = lib.pairwise_block_f32(
         _ptr(Xr), _ptr(Xc), _ptr(out), nr, nc, d, _STAT_IDS[spec.stat],
         ep.id, ep.a, ep.b, ep.degree, int(spec.precision == "bf16_f32acc"),
-        Xr.device.index or 0, _stream(Xr.device))
+        _ptr(ws), ws.numel(), Xr.device.index or 0, _stream(Xr.device))
     _raise_on(lib, code, "pairwise_block")
     pairwise_block_cuda.launches += 1
     return out
@@ -222,11 +237,15 @@ def pairwise_matmat_multi_cuda(spec: KernelSpec, Xr: torch.Tensor,
     out = torch.empty((nr, M), dtype=torch.float32, device=Xr.device)
     from repro_torch.kernels.pairwise import build
     lib = build.load_library()
+    # keys that are the rows are prepped once; this one decision sizes the
+    # scratch and is passed to the library, which checks both
+    same = Xr.data_ptr() == Xc.data_ptr() and nr == nc
+    ws = _workspace(lib, nr, nc, d, M, spec, same, Xr.device)
     code = lib.pairwise_matmat_multi_f32(
-        _ptr(Xr), _ptr(Xc), _ptr(V), _ptr(out), nr, nc, d, M,
+        _ptr(Xr), _ptr(Xc), _ptr(V), _ptr(out), nr, nc, d, M, int(same),
         _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
-        int(spec.precision == "bf16_f32acc"), Xr.device.index or 0,
-        _stream(Xr.device))
+        int(spec.precision == "bf16_f32acc"), _ptr(ws), ws.numel(),
+        Xr.device.index or 0, _stream(Xr.device))
     _raise_on(lib, code, "pairwise_matmat_multi")
     pairwise_matmat_multi_cuda.launches += 1
     return tuple(torch.split(out, widths, dim=1))
@@ -262,11 +281,12 @@ def pairwise_matmat_multi_slab_cuda(spec: KernelSpec, X: torch.Tensor,
     out = torch.empty((slab_len, M), dtype=torch.float32, device=X.device)
     from repro_torch.kernels.pairwise import build
     lib = build.load_library()
+    ws = _workspace(lib, slab_len, n, d, M, spec, False, X.device)
     code = lib.pairwise_matmat_multi_slab_f32(
         _ptr(X), _ptr(V), _ptr(out), n, start_row, slab_len, d, M,
         _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
-        int(spec.precision == "bf16_f32acc"), X.device.index or 0,
-        _stream(X.device))
+        int(spec.precision == "bf16_f32acc"), _ptr(ws), ws.numel(),
+        X.device.index or 0, _stream(X.device))
     _raise_on(lib, code, "pairwise_matmat_multi_slab")
     pairwise_matmat_multi_slab_cuda.launches += 1
     return tuple(torch.split(out, widths, dim=1))

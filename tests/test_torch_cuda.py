@@ -142,6 +142,49 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                    X[:, :0].contiguous())
 
 
+def test_library_checks_scratch_and_reports_passes(cuda_device):
+    """The library reports the tensor-core passes it runs (f32: four split-
+    TF32 passes of the statistic and of the contraction; bf16_f32acc: one;
+    l1dist's statistic is on the CUDA cores) and refuses a scratch buffer
+    smaller than the launch needs, or same != 0 for keys that are not the
+    rows."""
+    from repro_torch.kernels.pairwise import build
+    lib = build.load_library()
+    ids = kernel._STAT_IDS
+    assert [lib.pairwise_passes(ids["sqdist"], 0, w) for w in (0, 1)] == [4, 4]
+    assert [lib.pairwise_passes(ids["dot"], 1, w) for w in (0, 1)] == [1, 1]
+    assert lib.pairwise_passes(ids["l1dist"], 0, 0) == 0
+    assert lib.pairwise_statistic_builds(1064) == 9
+    rng = np.random.default_rng(3)
+    n, d, m = 100, 16, 5
+    spec = specs.rbf(1.0)
+    ep = kernel._epilogue(spec)
+    X, V = _rand(rng, n, d, dev=cuda_device), _rand(rng, n, m, dev=cuda_device)
+    Y = X.clone()
+    out = torch.empty((n, m), device=cuda_device)
+
+    def launch(xc, same, nbytes):
+        ws = torch.empty((max(nbytes, 1),), dtype=torch.uint8,
+                         device=cuda_device)
+        code = lib.pairwise_matmat_multi_f32(
+            kernel._ptr(X), kernel._ptr(xc), kernel._ptr(V), kernel._ptr(out),
+            n, n, d, m, same, ids[spec.stat], ep.id, ep.a, ep.b, ep.degree, 0,
+            kernel._ptr(ws), nbytes, cuda_device.index or 0,
+            kernel._stream(cuda_device))
+        torch.cuda.synchronize()
+        return code, lib.pairwise_error_string(code).decode()
+
+    need = lib.pairwise_workspace_bytes(n, n, d, m, ids[spec.stat], 0, 1)
+    assert "smaller" in launch(X, 1, need - 1)[1]
+    need2 = lib.pairwise_workspace_bytes(n, n, d, m, ids[spec.stat], 0, 0)
+    assert "not the rows" in launch(Y, 1, need2)[1]
+    assert launch(X, 1, need)[0] == 0
+    want = kernel.pairwise_matmat_multi_cuda(spec, X, X, [V])[0]
+    assert torch.equal(out, want)
+    assert launch(Y, 0, need2)[0] == 0
+    assert torch.equal(out, want)
+
+
 def test_fast_model_with_error_is_one_fused_launch(cuda_device):
     """The slice on the card: one fused launch, the reference's count
     model, and the same model as the plain versions on the CPU."""
@@ -182,6 +225,58 @@ def test_exp_affine_epilogue_matches_plain_versions(cuda_device, prec):
     (out,) = kernel.pairwise_matmat_multi(spec, Xr, Xc, [V])
     (plain,) = kernel.pairwise_matmat_multi_plain(spec, Xr, Xc, [V])
     assert scaled(out, plain) <= TOL[prec]
+
+
+@pytest.mark.parametrize("d", [1, 8, 16, 33, 72, 256])
+@pytest.mark.parametrize("nr,nc,m", [(1, 130, 1), (129, 1001, 5),
+                                     (70, 257, 129), (200, 300, 257),
+                                     (130, 700, 1064)])
+def test_tensor_core_tiles_at_every_shape(cuda_device, d, nr, nc, m):
+    """The tensor-core kernels at feature widths off the 8-wide TF32 step
+    and across 128-byte chunks, one row, ragged key counts and right-hand
+    sides of 1 to 1,064 columns: f32 against the plain versions (≤ 1e-5),
+    the one-hot gather through B1 equal to B2's entries bit for bit, B4's
+    rows equal to B1's.  The tensor cores flush subnormal inputs, so an
+    entry below 2^-104 (whose TF32 parts reach below 2^-126) may come back
+    short by less than 2^-126: that is the contract checked there."""
+    rng = np.random.default_rng(d + nr)
+    # points of variance 16 / d: the suggested parameters keep entries O(1)
+    # at d = 16 (at d = 256 unit-variance rbf entries all underflow)
+    sd = (16.0 / d) ** 0.5
+    Xr, Xc = (_rand(rng, n, d, dev=cuda_device) * sd for n in (nr, nc))
+    gidx = torch.as_tensor(rng.choice(nc, min(nc, 17), replace=False),
+                           device=cuda_device)
+    Vs = [sweep_lib.one_hot_columns(gidx, nc, cuda_device),
+          _rand(rng, nc, m, dev=cuda_device)]
+    for spec in (specs.suggested_spec("rbf", d), specs.suggested_spec(
+            "polynomial", d), specs.suggested_spec("laplacian", d)):
+        blk = kernel.pairwise_block(spec, Xr, Xc)
+        assert scaled(blk, kernel.pairwise_block_plain(spec, Xr, Xc)) <= 1e-5
+        outs = kernel.pairwise_matmat_multi(spec, Xr, Xc, Vs)
+        plain = kernel.pairwise_matmat_multi_plain(spec, Xr, Xc, Vs)
+        assert outs[1].shape == (nr, m)
+        assert scaled(outs[1], plain[1]) <= 1e-5
+        direct = kernel.pairwise_block(spec, Xr, Xc[gidx])
+        gap = (outs[0] - direct).abs()
+        assert bool(torch.where(direct.abs() >= 2.0 ** -104, gap == 0,
+                                gap < 2.0 ** -126).all())
+        slab = kernel.pairwise_matmat_multi_slab(spec, Xc, nc // 3, nc, Vs)
+        full = kernel.pairwise_matmat_multi(spec, Xc, Xc, Vs)
+        rows = kernel.slab_rows(nc, nc // 3, nc, cuda_device)
+        for o, f in zip(slab, full):
+            assert torch.equal(o, f[rows])
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_block_kernel_under_exp_affine_at_head_width_256(cuda_device, prec):
+    """B2's operation-bound case: the softmax Gram at d = 256 (eight
+    128-byte feature chunks a tile), ragged in both dimensions."""
+    rng = np.random.default_rng(5)
+    K = _rand(rng, 1400, 256, dev=cuda_device) * 0.4
+    spec = tsa.softmax_gram_operator(K).spec.with_precision(prec)
+    Kr = K[:300].contiguous()
+    assert scaled(kernel.pairwise_block(spec, Kr, K),
+                  kernel.pairwise_block_plain(spec, Kr, K)) <= TOL[prec]
 
 
 def _read_inputs(m, c, d, dv, dev, dtype):
@@ -338,6 +433,25 @@ def test_flash_tensor_core_edge_cases(cuda_device, shape, causal, window):
     o, p = out.double(), plain.double()
     row_err = (o - p).norm(dim=-1) / p.norm(dim=-1).clamp_min(1e-300)
     assert float(row_err.max()) <= 1e-2, float(row_err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", [((1, 2, 1, 300, 100, 64), None),
+                                          ((2, 4, 2, 200, 60, 32), 24)])
+def test_flash_rows_without_keys_are_zero(cuda_device, shape, window, dtype):
+    """Causal with Sq > Sk: the first Sq − Sk query rows see no key and come
+    back exactly 0 on both routes, as the plain version and the reference's
+    kernel give them (at Sq − Sk = 200 the tensor-core kernel's first
+    128-row block sees no key tile at all)."""
+    B, Hq, Hkv, Sq, Sk, D = shape
+    q, k, v = _flash_inputs(shape, cuda_device, dtype, seed=9)
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    plain = fa_kernel.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+    assert not bool(torch.isnan(out).any())
+    assert bool((out[:, :, :Sq - Sk] == 0).all())
+    assert bool((plain[:, :, :Sq - Sk] == 0).all())
+    _flash_close(out, plain)
 
 
 def test_flash_routes_by_dtype(cuda_device):
