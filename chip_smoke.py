@@ -7,19 +7,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32 off;
 2. build: compile the three CUDA libraries (pairwise from
-   ``pairwise_wgmma.cu``, landmark, flash -- the last from two sources,
-   ``flash.cu`` and ``flash_wgmma.cu``) from ``src/repro_torch/.../csrc``
-   side by side, one nvcc each; every instantiation of the tensor-core
-   kernels (``flash_wgmma_kernel``, ``pairwise_block_tc``,
-   ``pairwise_matmat_tc``) must build with 0 bytes of spills and without
-   ptxas's C7512 note;
+   ``pairwise_wgmma.cu``; landmark from ``landmark_wgmma.cu`` and
+   ``landmark_split.cu``; flash from ``flash.cu`` and ``flash_wgmma.cu``)
+   from ``src/repro_torch/.../csrc`` side by side, one nvcc each; every
+   instantiation of the tensor-core kernels (``flash_wgmma_kernel``,
+   ``pairwise_block_tc``, ``pairwise_matmat_tc``, ``landmark_read_tc``)
+   must build with 0 bytes of spills and without ptxas's C7512 note, and
+   the landmark library's other kernels without spills;
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
    sketched attention), and the one-hot gather exact; the slab launch (B4)
    the same way at a head, a middle and a clamped tail slab, its rows bit
-   for bit equal to B1's; the landmark read (B5) at the reference's test
-   shapes in f32 and bf16, with the U1 sign flip exact;
+   for bit equal to B1's; the landmark read (B5) on both of its routes
+   (tensor cores, split across the landmarks) at the reference's test
+   shapes in f32 and bf16, two identical calls bit-equal and the U1 sign
+   flip exact;
 4. main path: the fast SPSD model (paper Algorithm 1) at the documented
    large-n setting (``examples/quickstart.py`` ``large_n_demo``: n = 50,000
    points, d = 16, 32 Gaussian clusters, RBF σ = 3, c = n/250 = 200,
@@ -46,11 +49,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gemma3-12b global layer at ``long_500k`` (``src/repro/configs``:
    context n = 524,288, head_dim 256, landmark_c 512, landmark_theta 4,
    strided landmarks, f32) — ``build_landmark_state``, the landmark read
-   over all n queries and at a decode shape (16 queries), one B5 launch
-   each, ``sketched_attention`` fast and Nyström; errors against exact
-   softmax attention on 1,024 sampled rows, fast ≤ Nyström + 1e-3; B5
-   against its plain version at the main shape (f32 ≤ 1e-5, bf16 inputs
-   within rtol = atol = 2e-2) and at the decode shape (≤ 1e-5);
+   over all n queries (one B5 launch, tensor-core route) and at a decode
+   shape (16 queries; one B5 launch, split route), ``sketched_attention``
+   fast and Nyström; errors against exact softmax attention on 1,024
+   sampled rows, fast ≤ Nyström + 1e-3; B5 against its plain version at
+   the main shape (f32 ≤ 1e-5 and its error against f64 on 4,096 rows,
+   bf16 inputs within rtol = atol = 2e-2) and at the decode shape
+   (≤ 1e-5), two identical calls bit-equal at both; its bound from the
+   route's passes; ``landmark_decode`` over all queries, and both routes
+   timed side by side at 16 … 16,384 queries;
 6. attention_policy: landmarks chosen by ``uniform_adaptive2`` and
    ``leverage`` over the context's softmax Gram at n = 32,768 through a
    ``CountingOperator`` (sweeps, gathers and entries equal the count model;
@@ -126,6 +133,7 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash_attention import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.landmark_attention import build as lm_build  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.pairwise import build as pw_build  # noqa: E402
@@ -164,6 +172,8 @@ C_COLS, S_COLS, PROBES = N // 250, 4 * (N // 250), 64
 # layer at long_500k (src/repro/configs/gemma3_12b.py, configs/base.py)
 ATT_N, ATT_D, ATT_C, ATT_THETA = 524_288, 256, 512, 4
 ATT_DECODE_M = 16       # 2 query heads per kv head x batch 8
+# B5's two routes timed side by side at these query counts
+READ_ROUTE_M = (16, 64, 128, 256, 512, 1024, 4096, 16384)
 ATT_ERR_ROWS, ATT_ERR_CHUNK = 1024, 256
 POLICY_N = 32_768       # context of the policy phase
 
@@ -343,6 +353,7 @@ def no_launches(**counts) -> dict:
     """The full launch-count dict: 0 for every kernel not named."""
     zero = {"pairwise_block": 0, "pairwise_matmat_multi": 0,
             "pairwise_matmat_multi_slab": 0, "landmark_read": 0,
+            "landmark_read_tc": 0, "landmark_read_split": 0,
             "flash_attention": 0, "flash_attention_tc": 0}
     assert set(counts) <= set(zero), counts
     return {**zero, **counts}
@@ -384,6 +395,16 @@ def phase_build() -> None:
         check_wgmma_report(pw_build.LIBRARY.build_log(), name, 10,
                            "dot and sqdist x 2 precisions x 2 k-step "
                            "counts, l1dist x 2 precisions")
+    lm_log = lm_build.LIBRARY.build_log()
+    check_wgmma_report(lm_log, "landmark_read_tc", 3,
+                       "f32 -> f32, f32 -> bf16, bf16 -> bf16")
+    # B5's other kernels (prep, split partials, reduction): no spills either
+    rest = {k: v for k, v in ptxas_spills(lm_log, "").items()
+            if "landmark_read_tc" not in k}
+    check(len(rest) == 10 and all(b == 0 for b in rest.values()),
+          f"landmark library spills: {rest}")
+    log(f"  ptxas: landmark prep/split/reduce x{len(rest)}: 0 bytes of "
+        f"spills")
 
 
 def ptxas_spills(report: str, name: str) -> dict:
@@ -566,8 +587,10 @@ def phase_parity_slab() -> None:
         f"{k}={v:.3g}" for k, v in errs.items()) + ", rows = B1's bit for bit")
 
 
-def _read_case(m, c, d, dv, dtype, seed=3):
-    """B5 against its plain version at one shape; returns the error."""
+def _read_case(m, c, d, dv, dtype, route, seed=3):
+    """B5 on one route against its plain version at one shape: the route's
+    launches, identical bits from two identical calls, the U1 sign flip
+    exact; returns the error."""
     rng = np.random.default_rng(seed)
 
     def t(x):
@@ -578,14 +601,20 @@ def _read_case(m, c, d, dv, dtype, seed=3):
     UV = t(rng.normal(size=(c, dv))).to(dtype)
     U1 = t(np.abs(rng.normal(size=(c,))) + 0.5)
     off = t([0.3])
-    out = lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off)
-    plain = lm_kernel.landmark_read_plain(Q, kl, UV, U1, off)
-    flipped = lm_kernel.landmark_read_cuda(Q, kl, UV, -U1, off)
+    key = f"landmark_read_{route}"
+    before = lm_kernel.launch_counts()[key]
+    out = lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off, route=route)
+    again = lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off, route=route)
+    flipped = lm_kernel.landmark_read_cuda(Q, kl, UV, -U1, off, route=route)
     torch.cuda.synchronize()
-    label = f"landmark_read ({m}, {c}, {d}, {dv}) {dtype}"
+    plain = lm_kernel.landmark_read_plain(Q, kl, UV, U1, off)
+    label = f"landmark_read {route} ({m}, {c}, {d}, {dv}) {dtype}"
+    check(lm_kernel.launch_counts()[key] == before + 3,
+          f"{label}: not launched on its route")
     check(out.dtype == dtype and tuple(out.shape) == (m, dv),
           f"{label}: {out.dtype} {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    check(torch.equal(again, out), f"{label}: two identical calls differ")
     check(torch.equal(flipped, -out), f"{label}: U1 sign flip not exact")
     return _check_read(out, plain, label)
 
@@ -606,14 +635,17 @@ def _check_read(out, plain, label) -> float:
 
 
 def phase_parity_read() -> None:
-    """B5 at the reference's test_landmark_read_vs_ref shapes."""
+    """B5 on both routes at the reference's test_landmark_read_vs_ref
+    shapes, f32 and bf16."""
     for m, c, d, dv in ((128, 16, 64, 64), (200, 32, 32, 16),
                         (64, 8, 128, 128), (1, 16, 64, 64)):
-        errs = {str(dt).split(".")[-1]: _read_case(m, c, d, dv, dt)
+        errs = {f"{route}/{str(dt).split('.')[-1]}":
+                _read_case(m, c, d, dv, dt, route)
+                for route in lm_kernel.ROUTES
                 for dt in (torch.float32, torch.bfloat16)}
         log(f"parity landmark_read (m, c, d, dv) = ({m}, {c}, {d}, {dv}): "
             + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
-            + ", U1 sign flip exact")
+            + ", repeat calls bit-equal, U1 sign flip exact")
 
 
 def _main_calls(op, idx, S, Z):
@@ -1318,9 +1350,11 @@ def phase_attention_long() -> dict:
         f"strided, f32): times ms {json.dumps(times)}")
     log(f"attention_long launches {json.dumps(launches)}, peak memory "
         f"{peak_gb:.2f} GB")
-    check(launches == no_launches(landmark_read=2),
-          f"the path should launch B5 twice (one read over all n queries, "
-          f"one decode read) and no pairwise kernel: {launches}")
+    check(launches == no_launches(landmark_read=2, landmark_read_tc=1,
+                                  landmark_read_split=1),
+          f"the path should launch B5 twice (one read over all n queries on "
+          f"the tensor cores, one decode read split across the landmarks) "
+          f"and no pairwise kernel: {launches}")
     st = out["state"]
     for name, t, shape in (("read", out["read"], (n, ATT_D)),
                            ("decode", out["decode"], (ATT_DECODE_M, ATT_D)),
@@ -1341,10 +1375,14 @@ def phase_attention_long() -> dict:
     check(errs["fast"] <= errs["nystrom"] + 1e-3,
           f"fast {errs['fast']:.5f} > nystrom {errs['nystrom']:.5f} + 1e-3")
 
-    # B5 at the main shape against its plain version
+    # B5 at the main shape against its plain version (the tensor-core
+    # route), twice bit for bit
     args = (Q, st.k_land, st.UV, st.U1, st.scale.reshape(1))
     ms, got = cuda_ms(lambda: lm_kernel.landmark_read_cuda(*args), reps=5,
                       warmup=1)
+    again = _one_read("tc", lambda: lm_kernel.landmark_read_cuda(*args))
+    check(torch.equal(again, got), "B5 main shape: two calls differ")
+    del again
     plain_ms, plain = cuda_ms(lambda: lm_kernel.landmark_read_plain(*args),
                               reps=3, warmup=1)
     err = float((got - plain).abs().max())
@@ -1354,50 +1392,147 @@ def phase_attention_long() -> dict:
     e64_k = scaled_err(got[sub].double(), exact64)
     e64_p = scaled_err(plain[sub].double(), exact64)
     check(rel <= TOL_F32, f"B5 main shape vs plain: {rel:.3g} > {TOL_F32}")
+    del plain
     # bf16 inputs at the main shape
     args16 = (Q.bfloat16(), st.k_land.bfloat16(), st.UV.bfloat16(),
               *args[3:])
     ms16, got16 = cuda_ms(lambda: lm_kernel.landmark_read_cuda(*args16),
                           reps=5, warmup=1)
+    again16 = _one_read("tc", lambda: lm_kernel.landmark_read_cuda(*args16))
+    check(torch.equal(again16, got16), "B5 main shape bf16: two calls differ")
     rel16 = _check_read(got16, lm_kernel.landmark_read_plain(*args16),
                         "B5 main shape bf16")
-    del args16, got16
-    # the decode shape: the path's own read and the timed one
+    del args16, got16, again16
+    # the decode shape (the split route: two launches a read): the path's
+    # own read and the timed one, twice bit for bit, the sign flip exact
     ms_dec, got_dec = cuda_ms(lambda: lm_kernel.landmark_read_cuda(
         Qd, *args[1:]), reps=50, warmup=5)
+    again_dec = _one_read("split", lambda: lm_kernel.landmark_read_cuda(
+        Qd, *args[1:]))
+    check(torch.equal(again_dec, got_dec), "B5 decode: two calls differ")
+    flip_dec = lm_kernel.landmark_read_cuda(Qd, *args[1:3], -args[3],
+                                            args[4])
+    check(torch.equal(flip_dec, -got_dec), "B5 decode: U1 flip not exact")
     plain_dec = lm_kernel.landmark_read_plain(Qd, *args[1:])
     rel_dec = max(_check_read(got_dec, plain_dec, "B5 decode shape"),
                   _check_read(out["decode"], plain_dec, "B5 decode (path)"))
+    ms_dec16, _ = cuda_ms(lambda: lm_kernel.landmark_read_cuda(
+        Qd.bfloat16(), args[1].bfloat16(), args[2].bfloat16(), *args[3:]),
+        reps=50, warmup=5)
+    # landmark_decode over every query: one read through the entry point
+    ms_decode_all, _ = cuda_ms(lambda: tsa.landmark_decode(st, Q), reps=3,
+                               warmup=1)
+    # where the routes cross: both timed at growing query counts
+    crossover = {}
+    for mq in READ_ROUTE_M:
+        crossover[mq] = {r: cuda_ms(lambda: lm_kernel.landmark_read_cuda(
+            Q[:mq], *args[1:], route=r), reps=20, warmup=2)[0]
+            for r in lm_kernel.ROUTES}
+    # device time by kernel (torch.profiler), apart from the host's share
+    dev = {"main": _kernel_device_ms(
+               lambda: lm_kernel.landmark_read_cuda(*args), reps=3),
+           "main_bf16": _kernel_device_ms(
+               lambda: lm_kernel.landmark_read_cuda(
+                   Q.bfloat16(), args[1].bfloat16(), args[2].bfloat16(),
+                   *args[3:]), reps=3),
+           "decode": _kernel_device_ms(
+               lambda: lm_kernel.landmark_read_cuda(Qd, *args[1:]),
+               reps=20)}
+    log("B5 device ms by kernel: " + json.dumps(dev))
     m, c, d, dv = n, ATT_C, ATT_D, ATT_D
+    b32 = _read_bound(m, c, d, dv, "tc", bf16=False)
+    b16 = _read_bound(m, c, d, dv, "tc", bf16=True)
+    bdec = _read_bound(ATT_DECODE_M, c, d, dv, "split", bf16=False)
     flops = 2 * m * c * (d + dv + 1)
-    nbytes = 4 * (m * d + c * d + c * dv + c + m * dv)
-    bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    dflops = 2 * ATT_DECODE_M * c * (d + dv + 1)
-    dbytes = 4 * (ATT_DECODE_M * d + c * d + c * dv + c + ATT_DECODE_M * dv)
-    bound_dec = max(dflops / PEAK_FP32_FLOPS, dbytes / PEAK_HBM_BYTES) * 1e3
-    log(f"B5 main shape (m={m}, c={c}, d={d}, dv={dv}): {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s, {bound / ms:.1%} of the FP32 roof); vs plain {rel:.3g} "
-        f"(max abs {err:.3g}); vs f64 on {sub.stop} rows: kernel {e64_k:.3g}, "
-        f"plain {e64_p:.3g}; bf16 inputs {ms16:.3f} ms (vs plain "
-        f"{rel16:.3g}); decode (m={ATT_DECODE_M}) {ms_dec:.4f} ms (bound "
-        f"{bound_dec:.4f} ms, vs plain {rel_dec:.3g})")
+    log(f"B5 main shape (m={m}, c={c}, d={d}, dv={dv}), tensor cores: "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b32['bound_ms']:.3f}"
+        f" ms ({b32['bound_by']}; {b32['passes']}; the design's floor "
+        f"{b32['floor_ms']:.3f}, the FP32 roof {b32['bound_ms_fp32']:.3f}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the work; vs plain {rel:.3g} "
+        f"(max abs {err:.3g}); vs f64 on {sub.stop} rows: kernel "
+        f"{e64_k:.3g}, plain {e64_p:.3g}; bf16 inputs {ms16:.3f} ms (bound "
+        f"{b16['bound_ms']:.3f}, {b16['bound_by']}; vs plain {rel16:.3g}); "
+        f"decode (m={ATT_DECODE_M}, split) {ms_dec:.4f} ms, bf16 "
+        f"{ms_dec16:.4f} (bound {bdec['bound_ms']:.5f} ms, "
+        f"{bdec['bound_by']}; vs plain {rel_dec:.3g}); landmark_decode over "
+        f"all queries {ms_decode_all:.3f} ms; repeat calls bit-equal")
+    log("B5 routes by query count (ms, tc / split): " + ", ".join(
+        f"m={k}: {v['tc']:.4f} / {v['split']:.4f}"
+        for k, v in crossover.items()))
+    src = "src/repro_torch/kernels/landmark_attention/csrc/"
     line = {"name": "landmark_read", "route": "cuda",
-            "source": "src/repro_torch/kernels/landmark_attention/csrc/"
-                      "landmark.cu",
+            "source": src + "landmark_wgmma.cu",
+            "split_source": src + "landmark_split.cu",
             "replaces": "src/repro/kernels/landmark_attention/kernel.py:49",
             "launches": launches["landmark_read"],
+            "launches_tc": launches["landmark_read_tc"],
+            "launches_split": launches["landmark_read_split"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+            "library_ms": None,
             "library_call": "none (no single PyTorch call computes it)",
             "shape": {"m": m, "c": c, "d": d, "dv": dv, "dtype": "float32"},
             "scaled_err_vs_plain": rel, "scaled_err_vs_f64": e64_k,
+            "plain_scaled_err_vs_f64": e64_p,
             "ms_bf16": ms16, "scaled_err_bf16_vs_plain": rel16,
-            "ms_decode": ms_dec, "bound_ms_decode": bound_dec,
+            "ms_decode": ms_dec, "ms_decode_bf16": ms_dec16,
+            "kernels_per_decode_read": len(dev["decode"]) or None,
+            "bound_ms_decode": bdec["bound_ms"],
             "scaled_err_decode_vs_plain": rel_dec,
-            "decode_shape": {"m": ATT_DECODE_M, "c": c, "d": d, "dv": dv}}
+            "decode_shape": {"m": ATT_DECODE_M, "c": c, "d": d, "dv": dv},
+            "ms_landmark_decode_all_queries": ms_decode_all,
+            "by_shape": {
+                k: {**b, "ms": t, "device_ms": sum(dev[k].values()) or None,
+                    "device_ms_by_kernel": dev[k]}
+                for k, b, t in (("main", b32, ms), ("main_bf16", b16, ms16),
+                                ("decode", bdec, ms_dec))},
+            "route_ms_by_m": crossover}
     return dict(times=times, errs=errs, launches=launches, line=line,
                 peak_gb=peak_gb)
+
+
+def _one_read(route: str, fn) -> torch.Tensor:
+    """One call of ``fn``, checked to have launched one read on ``route``."""
+    key = f"landmark_read_{route}"
+    c0 = lm_kernel.launch_counts()[key]
+    out = fn()
+    check(lm_kernel.launch_counts()[key] == c0 + 1,
+          f"the read did not take the {route} route")
+    return out
+
+
+def _read_bound(m: int, c: int, d: int, dv: int, route: str,
+                bf16: bool) -> dict:
+    """B5's least time on ``route``: the tensor-core passes the built
+    library reports (``landmark_passes``) at the TF32 or bf16 rate, the
+    denominator's FMAs on the FP32 cores beside them, or the split route's
+    FP32 FMAs; against the bytes (each input read once, the output written
+    once).  ``floor_ms`` counts the scores as often as the route builds
+    them (once per 128-column chunk of UV on the tensor cores, per 64-column
+    slice on the split route); ``bound_ms_fp32`` is the FP32-core roof."""
+    es = 2 if bf16 else 4
+    nbytes = es * (m * d + c * d + c * dv + m * dv) + 4 * c
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    fp32 = 2 * m * c * (d + dv + 1) / PEAK_FP32_FLOPS
+    if route == "tc":
+        ps = lm_kernel.landmark_passes(bf16, "scores")
+        pv = lm_kernel.landmark_passes(bf16, "values")
+        peak = PEAK_BF16_TC_FLOPS if bf16 else PEAK_TF32_TC_FLOPS
+        den = 2 * m * c / PEAK_FP32_FLOPS
+        ops = max(2 * m * c * (d * ps + dv * pv) / peak, den)
+        builds = -(-dv // lm_kernel.TC_COLS)
+        floor = max(2 * m * c * (d * ps * builds + dv * pv) / peak, den)
+        passes = {"scores": ps, "values": pv}
+    else:
+        ops = fp32
+        builds = -(-dv // lm_kernel.SPLIT_COLS)
+        floor = 2 * m * c * (d * builds + dv + 1) / PEAK_FP32_FLOPS
+        passes = {"scores": 0, "values": 0}
+    return {"route": route, "passes": passes,
+            "bound_ms": max(ops, t_bytes) * 1e3,
+            "bound_by": "operations" if ops >= t_bytes else "bytes",
+            "floor_ms": max(floor, t_bytes) * 1e3,
+            "bound_ms_fp32": max(fp32, t_bytes) * 1e3}
 
 
 def _policy_model(name: str, n: int, c: int) -> dict:

@@ -1,24 +1,54 @@
 """The fused landmark-attention read: CUDA wrapper, its plain PyTorch
-version, and a launch counter (port of
+version, and launch counters (port of
 ``repro.kernels.landmark_attention.kernel``).
 
-One kernel, hand-written in CUDA C++ (``csrc/landmark.cu``), replaces the
-Pallas ``landmark_read_padded``:
+Two hand-written CUDA C++ routes replace the Pallas ``landmark_read_padded``
+(body ``_landmark_kernel``), both computing
 
     out = (exp(Q k_landᵀ/√d − off) @ UV) / sgnfloor(exp(…) @ U1, 1e-6)
 
-It takes any m (rows are masked in the kernel, nothing is padded to 128)
-and keeps the (m, c) score panel on chip.  Dispatch is by the device of the
-tensors: CPU tensors run the plain version (``landmark_read_plain``, the
-oracle of ``ref``); CUDA tensors launch the kernel through
-``landmark_read_cuda`` or raise — there is no fallback.
-``landmark_read_cuda.launches`` counts the launches (bumped where the kernel
-is launched and nowhere else).
+with the (m, c) score panel kept on chip:
+
+- **tensor cores** (``csrc/landmark_wgmma.cu``, one counted call = two prep
+  kernels and the read): ``wgmma`` fed by TMA, 128 query rows × 128 UV
+  columns a block walking every 64-landmark tile.  f32 inputs in split TF32
+  (3 + 3 passes), bf16 inputs in bf16 with P rounded to bf16 for P·UV;
+  den = P·U1 on the CUDA cores from the same rounded P;
+- **split across the landmarks** (``csrc/landmark_split.cu``, two
+  launches): 16 rows × 64 UV columns × a run of 64-landmark chunks a block,
+  FP32 FMAs on the CUDA cores, partial num/den in a workspace, then a
+  reduction over the runs in a fixed order (no atomics).
+
+``landmark_read_cuda`` picks the route (``tensor_core_route``) from block
+counts against the SMs (132 on the H100 SXM, read from the device).  The
+tensor-core grid has ceil(m/128)·ceil(dv/128) blocks, one an SM, each
+walking all c landmarks: at a decode step it is 2 blocks and the card is
+idle.  The split route spreads the landmarks over blocks instead, one
+64-landmark chunk a block, ceil(m/16)·ceil(dv/64)·ceil(c/64) blocks of
+CUDA-core work at two blocks an SM; it is taken while that grid is at most
+two waves (≤ 4 × 132 blocks).  Past that its time grows with m while the
+tensor-core route's stays one block's walk until its own grid fills the
+card.  At c = 512, dv = 256 the split route takes m ≤ 256 (a decode step,
+m = 16: 8 chunks × 4 column slices = 32 blocks); both routes timed side by
+side in ``chip_smoke.py`` cross between m = 256 and 512.  The tensor-core
+route also needs Q's rows and address 16-byte aligned (TMA); other Q go
+split, at any m (their runs then hold several chunks each).  Both
+routes take any m, c, d, dv (ragged edges masked in the kernels, nothing
+padded), read ``offset`` on the card (no sync), keep the sign-preserving
+floor, and give identical bits for identical calls; negating U1 negates the
+output exactly.
+
+Dispatch is by the device of the tensors: CPU tensors run the plain version
+(``landmark_read_plain``, the oracle of ``ref``); CUDA tensors launch a
+route through ``landmark_read_cuda`` or raise — there is no fallback.
+``landmark_read_cuda.launches`` counts the reads, ``.launches_tc`` and
+``.launches_split`` each route's (bumped where the route launches and
+nowhere else).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,8 +56,51 @@ from repro_torch.kernels.landmark_attention.ref import inv_sqrt_d
 from repro_torch.kernels.landmark_attention.ref import \
     landmark_read as landmark_read_plain  # noqa: F401  (the plain version)
 
-#: dtypes the kernel reads Q, k_land and UV in, and writes out in
+#: dtypes the kernels read Q, k_land and UV in, and write out in
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the tensor-core route's block: query rows, UV columns
+TC_ROWS, TC_COLS = 128, 128
+#: the split route's block: query rows, landmarks of a chunk, UV columns
+SPLIT_ROWS, SPLIT_CHUNK, SPLIT_COLS = 16, 64, 64
+ROUTES = ("tc", "split")
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tma_loadable(Q: torch.Tensor) -> bool:
+    """Q's rows and address are 16-byte aligned (what TMA loads)."""
+    return (Q.shape[1] * Q.element_size()) % 16 == 0 and \
+        Q.data_ptr() % 16 == 0
+
+
+def tensor_core_route(m: int, c: int, dv: int, sms: int) -> bool:
+    """The split route's grid at one 64-landmark chunk a block,
+    ceil(m/16)·ceil(dv/64)·ceil(c/64) blocks, would take more than two
+    waves of two blocks on each of the ``sms`` SMs."""
+    return _cdiv(m, SPLIT_ROWS) * _cdiv(dv, SPLIT_COLS) * \
+        _cdiv(c, SPLIT_CHUNK) > 4 * sms
+
+
+def split_runs(m: int, c: int, dv: int, sms: int) -> Tuple[int, int]:
+    """(chunks a run, runs) of the split route: enough landmark runs that
+    the grid holds about two blocks an SM, each run of whole 64-landmark
+    chunks."""
+    chunks = _cdiv(c, SPLIT_CHUNK)
+    blocks = _cdiv(m, SPLIT_ROWS) * _cdiv(dv, SPLIT_COLS)
+    want = max(1, min(chunks, _cdiv(2 * sms, blocks)))
+    per = _cdiv(chunks, want)
+    return per, _cdiv(chunks, per)
+
+
+def landmark_passes(bf16: bool, product: str) -> int:
+    """The tensor-core passes of the read, as the built library reports
+    them: of the scores Q·k_landᵀ (``product="scores"``) or of the
+    numerator P·UV (``"values"``); 3 and 3 for f32 inputs (split TF32), 1
+    and 1 for bf16."""
+    from repro_torch.kernels.landmark_attention import build
+    which = {"scores": 0, "values": 1}[product]
+    return int(build.load_library().landmark_passes(int(bool(bf16)), which))
 
 
 def _check(Q, k_land, UV, U1, offset, out_dtype) -> None:
@@ -76,43 +149,75 @@ def _check(Q, k_land, UV, U1, offset, out_dtype) -> None:
 def landmark_read_cuda(Q: torch.Tensor, k_land: torch.Tensor,
                        UV: torch.Tensor, U1: torch.Tensor,
                        offset: torch.Tensor, eps: float = 1e-6,
-                       out_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
-    """Launch the kernel; raises on anything it does not take.  ``offset``
-    is a one-element f32 tensor on the card, read there (no sync);
-    ``out_dtype`` defaults to Q's."""
+                       out_dtype: Optional[torch.dtype] = None,
+                       route: Optional[str] = None) -> torch.Tensor:
+    """Launch one route of the read; raises on anything it does not take.
+    ``offset`` is a one-element f32 tensor on the card, read there (no
+    sync); ``out_dtype`` defaults to Q's.  ``route`` ("tc" or "split")
+    forces a route, to hold the two against each other; by default the
+    shape picks it (``tensor_core_route``, ``tma_loadable``)."""
     out_dtype = Q.dtype if out_dtype is None else out_dtype
     _check(Q, k_land, UV, U1, offset, out_dtype)
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} (got {route!r})")
     m, d = Q.shape
     c, dv = UV.shape
+    if route == "tc" and not tma_loadable(Q):
+        raise ValueError("the tensor-core route needs Q's rows and address "
+                         "16-byte aligned (TMA)")
     out = torch.empty((m, dv), dtype=out_dtype, device=Q.device)
     if m == 0 or dv == 0:
         return out
+    sms = torch.cuda.get_device_properties(Q.device).multi_processor_count
+    if route is None:
+        route = "tc" if tma_loadable(Q) and \
+            tensor_core_route(m, c, dv, sms) else "split"
     from repro_torch.kernels.landmark_attention import build
     lib = build.load_library()
-    stream = torch.cuda.current_stream(Q.device).cuda_stream
-    code = lib.landmark_read(
-        ctypes.c_void_p(Q.data_ptr()), ctypes.c_void_p(k_land.data_ptr()),
-        ctypes.c_void_p(UV.data_ptr()), ctypes.c_void_p(U1.data_ptr()),
-        ctypes.c_void_p(offset.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        m, c, d, dv, int(Q.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), inv_sqrt_d(d), eps,
-        Q.device.index or 0, ctypes.c_void_p(stream))
+    bf16 = int(Q.dtype == torch.bfloat16)
+    if route == "tc":
+        nbytes = lib.landmark_tc_workspace_bytes(c, d, dv, bf16)
+    else:
+        per, runs = split_runs(m, c, dv, sms)
+        nbytes = lib.landmark_split_workspace_bytes(m, dv, runs)
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=Q.device)
+    ptrs = [ctypes.c_void_p(X.data_ptr())
+            for X in (Q, k_land, UV, U1, offset, out, ws)]
+    tail = (int(out_dtype == torch.bfloat16), inv_sqrt_d(d), eps,
+            Q.device.index or 0,
+            ctypes.c_void_p(torch.cuda.current_stream(Q.device).cuda_stream))
+    if route == "tc":
+        code = lib.landmark_read_tc(*ptrs, ws.numel(), m, c, d, dv, bf16,
+                                    *tail)
+    else:
+        code = lib.landmark_read_split(*ptrs, ws.numel(), m, c, d, dv, per,
+                                       bf16, *tail)
     if code != 0:
         msg = lib.landmark_error_string(code).decode()
-        raise RuntimeError(f"landmark_read launch failed: CUDA error {code} "
-                           f"({msg})")
+        raise RuntimeError(f"landmark_read ({route}) launch failed: error "
+                           f"{code} ({msg})")
     landmark_read_cuda.launches += 1
+    if route == "tc":
+        landmark_read_cuda.launches_tc += 1
+    else:
+        landmark_read_cuda.launches_split += 1
     return out
 
 
 landmark_read_cuda.launches = 0
+landmark_read_cuda.launches_tc = 0
+landmark_read_cuda.launches_split = 0
 
 
 def launch_counts() -> dict:
-    """Launches of the CUDA kernel since the last reset."""
-    return {"landmark_read": landmark_read_cuda.launches}
+    """Reads launched since the last reset (``landmark_read``), and of each
+    route (``landmark_read_tc``, ``landmark_read_split``)."""
+    return {"landmark_read": landmark_read_cuda.launches,
+            "landmark_read_tc": landmark_read_cuda.launches_tc,
+            "landmark_read_split": landmark_read_cuda.launches_split}
 
 
 def reset_launch_counts() -> None:
     landmark_read_cuda.launches = 0
+    landmark_read_cuda.launches_tc = 0
+    landmark_read_cuda.launches_split = 0

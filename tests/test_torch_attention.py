@@ -134,7 +134,9 @@ def test_landmark_read_sign_flip_is_exact():
     a = tlm_ops.landmark_read(Q, kl, UV, U1, off)
     assert torch.equal(tlm_ops.landmark_read(Q, kl, -UV, -U1, off), a)
     assert torch.equal(tlm_ops.landmark_read(Q, kl, UV, -U1, off), -a)
-    assert tlm_kernel.launch_counts() == {"landmark_read": 0}
+    assert tlm_kernel.launch_counts() == {"landmark_read": 0,
+                                          "landmark_read_tc": 0,
+                                          "landmark_read_split": 0}
 
 
 def test_denominator_floor_keeps_sign_of_zero_and_nan():

@@ -312,6 +312,58 @@ def test_landmark_read_matches_plain_version(cuda_device, m, c, d, dv,
     assert torch.equal(flipped, -out)
 
 
+def _default_route(Q, kl, dv) -> str:
+    """The route the wrapper takes for Q and dv (its own rule)."""
+    sms = torch.cuda.get_device_properties(Q.device).multi_processor_count
+    return "tc" if lm_kernel.tma_loadable(Q) and \
+        lm_kernel.tensor_core_route(Q.shape[0], kl.shape[0], dv, sms) \
+        else "split"
+
+
+@pytest.mark.parametrize("m", [1, 16, 127, 128, 129, 256, 257, 4096])
+@pytest.mark.parametrize("c,d,dv", [(512, 256, 256), (130, 40, 300),
+                                    (100, 100, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", [None, "tc", "split"])
+def test_landmark_read_routes_at_their_edges(cuda_device, m, c, d, dv, dtype,
+                                            route):
+    """Both routes of B5 (None: the one the shape picks) at the query
+    counts around their tiles (16-row split blocks, 128-row tensor-core
+    blocks) and the threshold (at the main width between 256 and 257), at a
+    ragged shape with dv > 256, and with d not a multiple of 32 and c not
+    a multiple of 64: the route by the counters, identical bits for
+    identical calls, the U1 sign flip exact, and the plain-version gates
+    (f32 ≤ 1e-5 scale-normalized, bf16 within rtol = atol = 2e-2).  bf16
+    rows of 200 bytes cannot be loaded by TMA: the tensor-core route
+    refuses them and the default takes the split route."""
+    args = _read_inputs(m, c, d, dv, cuda_device, dtype)
+    Q, kl, UV, U1, off = args
+    lm_kernel.reset_launch_counts()
+    if route == "tc" and not lm_kernel.tma_loadable(Q):
+        with pytest.raises(ValueError, match="16-byte"):
+            lm_kernel.landmark_read_cuda(*args, route=route)
+        assert lm_kernel.launch_counts()["landmark_read"] == 0
+        return
+    want = route or _default_route(Q, kl, dv)
+    out = lm_kernel.landmark_read_cuda(*args, route=route)
+    again = lm_kernel.landmark_read_cuda(*args, route=route)
+    flipped = lm_kernel.landmark_read_cuda(Q, kl, UV, -U1, off, route=route)
+    torch.cuda.synchronize()
+    other = "split" if want == "tc" else "tc"
+    assert lm_kernel.launch_counts() == {"landmark_read": 3,
+                                         f"landmark_read_{want}": 3,
+                                         f"landmark_read_{other}": 0}
+    assert torch.equal(out, again)
+    assert torch.equal(flipped, -out)
+    plain = lm_kernel.landmark_read_plain(*args)
+    assert out.dtype == dtype and out.shape == plain.shape == (m, dv)
+    if dtype == torch.float32:
+        assert scaled(out, plain) <= 1e-5
+    else:
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
 def test_landmark_decode_runs_the_kernel(cuda_device):
     rng = np.random.default_rng(4)
     K = _rand(rng, 512, 32, dev=cuda_device) * 0.4
@@ -321,7 +373,9 @@ def test_landmark_decode_runs_the_kernel(cuda_device):
     q = _rand(rng, 5, 32, dev=cuda_device) * 0.4
     lm_kernel.reset_launch_counts()
     out = tsa.landmark_decode(st, q)
-    assert lm_kernel.launch_counts() == {"landmark_read": 1}
+    assert lm_kernel.launch_counts() == {"landmark_read": 1,
+                                         "landmark_read_tc": 0,
+                                         "landmark_read_split": 1}
     plain = lm_kernel.landmark_read_plain(q, st.k_land, st.UV, st.U1,
                                           st.scale)
     assert scaled(out, plain) <= 1e-5

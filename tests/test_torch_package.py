@@ -223,6 +223,8 @@ def test_landmark_wrapper_refuses_what_the_kernel_does_not_take():
     U1, off = torch.zeros(3), torch.zeros(1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         lm_kernel.landmark_read_cuda(Q, kl, UV, U1, off)
-    assert lm_kernel.launch_counts() == {"landmark_read": 0}
+    assert lm_kernel.launch_counts() == {"landmark_read": 0,
+                                         "landmark_read_tc": 0,
+                                         "landmark_read_split": 0}
     out = lm_kernel.landmark_read_plain(Q, kl, UV, U1, off)
     assert tuple(out.shape) == (4, 5) and bool(torch.isfinite(out).all())
