@@ -89,11 +89,43 @@ Phases, in order; any failed check raises and the script exits non-zero:
    tensor-core launch and each f32 call none, and with Sq > Sk (causal)
    the rows that see no key exactly 0 on both routes
    (``phase_parity_flash``);
-8. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the five paths (every count reset just before
+8. serve_kernel: kernel-model serving at the main path's size and model
+   on the reference serving CLI's problem (``synth_problem``: X ~ N(0,
+   I_16), y = tanh(X w) + 0.1·noise; n = 50,000, RBF σ = 3, c = 200,
+   s = 800 Gaussian, uniform selection, α = 1, 8 KPCA components,
+   n_features = c, seed 0): ``build_artifact`` (one B1 launch and nothing
+   else; its device time by class; C within 1e-5 of the plain version's
+   entries, U within 1e-4 of the build on the plain operator with the same
+   draws), ``save_artifact`` and a warm
+   ``load_or_rebuild`` (every array bit for bit), ``serve_kernel_model``
+   on a mixed batch of 32 trace requests in f32 (≤ 1e-5 of
+   ``dense_oracle`` in f64, one B1 launch per bucket) and in bf16_f32acc
+   (within 5e-2 of f32), a ``KernelServer`` (max_batch 32, max_wait 5 ms)
+   with 8 closed-loop client threads over the 192-query trace (p50, p99,
+   req/s, rows/s; cross launches = buckets), and 4 appended batches of 64
+   rows (one B1 launch each, metered as ``append_sweeps``; ``append_rows``
+   and ``save_delta`` timed apart) — the counted path; then B1 timed alone
+   at a full bucket (2,048 × 200, M = 209: back to back, a call with a
+   synchronize, and its kernels' device time) and at the append shape
+   (64 × 200, V = I, bit for bit equal to B2's entries), each against its
+   plain version; then the CLI in two fresh processes
+   (``python -m repro_torch.launch.serve_kernel --build``, then ``--serve
+   --require-warm --append-batches 4 --append-rows 64``, which must print
+   ``serve ok``: trace parity against ``dense_krr_oracle`` ≤ 1e-5, cross
+   launches = buckets, 4 append sweeps and nothing else, grown-corpus
+   parity ≤ 1e-5, the delta chain restored bit for bit);
+9. spsd_ragged: ``fast_model_ragged`` at the README's settings (RBF
+   σ = 1.5, c = 32, s = 128, Gaussian, waste 0.25) over 8 letters
+   datasets of 5,000 to 20,000 points: one B1 launch per item, the padded
+   heights ``bucket_by_size``'s, each item's C and U bit for bit those of
+   the unbatched ``fast_model`` on the same padded item and draws, C within
+   1e-5 of the plain version's entries and U within 1e-4 of ``fast_model``
+   on the plain operator;
+10. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
+   own path and on each of the seven paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error;
-9. the card line again, then the last line
+11. the card line again, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It exits non-zero without a CUDA device, and in a directory without the
@@ -109,6 +141,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -138,7 +171,9 @@ from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: 
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.pairwise import build as pw_build  # noqa: E402
 from repro_torch.kernels.pairwise import kernel, signsplit, specs  # noqa: E402
+from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve_kernel as sk_launch  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -224,6 +259,26 @@ FLASH_TC_EDGES = (
     ((1, 4, 2, 100, 1000, 128, 128), True, None),
     ((1, 2, 1, 100, 1000, 256, 256), False, None),
     ((1, 2, 1, 100, 1000, 256, 256), False, 100))
+
+# the kernel-model serving configuration: the reference's serving CLI
+# problem (synth_problem: X ~ N(0, I_d), y = tanh(X w) + 0.1 noise) at the
+# main path's size and model (large_n_demo): n = 50,000, d = 16, RBF σ = 3,
+# c = 200, s = 800 (Gaussian), uniform selection, α = 1, 8 KPCA components,
+# n_features = c, seed 0; the CLI's batching defaults; 192 trace queries of
+# 5-64 rows; appends of 4 batches x 64 rows (bench_serve --append's b)
+SK_N, SK_C, SK_S, SK_SIGMA, SK_SEED = N, C_COLS, S_COLS, SIGMA, 0
+SK_COMPONENTS, SK_QUERIES, SK_CLIENTS = 8, 192, 8
+SK_SERVER_PASSES = 3                # timed passes of the trace (median's)
+SK_MAX_BATCH, SK_MAX_WAIT_MS = 32, 5.0
+SK_BUCKET_ROWS = 32 * 64          # a full bucket: 32 requests of 64 rows
+SK_APPEND_BATCHES, SK_APPEND_ROWS = 4, 64
+TOL_SERVE = 1e-5                  # served answers vs the dense oracles
+TOL_U = 1e-4                      # U vs the plain operator's, scale-
+                                  # normalized: the port's fast-model tests'
+# the ragged fast model at the README's settings ("Ragged auto-bucketing")
+# over 8 letters datasets of 5,000 to 20,000 points
+RAGGED_SIZES = tuple(int(v) for v in np.linspace(5_000, 20_000, 8))
+RAGGED_C, RAGGED_S, RAGGED_SIGMA, RAGGED_WASTE = 32, 128, 1.5, 0.25
 
 # causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
 FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
@@ -1832,6 +1887,8 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_kernel" in low or "flash_wgmma_kernel" in low:
         return "B6 flash_attention"
+    if any(t in low for t in ("pairwise_", "prep_points", "prep_rhs")):
+        return "B1/B2 pairwise (prep + main)"
     if any(t in low for t in ("svd", "geqr", "orgqr", "ormqr", "syevj",
                               "potrf", "lapack", "cusolver")):
         return "SVD and QR (cuSOLVER)"
@@ -2137,6 +2194,491 @@ def _flash_line(serve_res: dict) -> dict:
             "local_window": cfg.window}
 
 
+# ---------------------------------------------------------------------------
+# kernel-model serving (serve_kernel) and the ragged fast model
+# ---------------------------------------------------------------------------
+
+def _sk_params() -> dict:
+    """The serving CLI's build parameters for the serve_kernel path."""
+    return {"n": SK_N, "d": D, "c": SK_C, "s": SK_S, "alpha": 1.0,
+            "n_components": SK_COMPONENTS, "kernel": "rbf",
+            "spec_params": {"sigma": SK_SIGMA}, "seed": SK_SEED,
+            "use_pallas": True}
+
+
+def _sk_build(X, y, use_kernel: bool = True):
+    """``build_artifact`` on the serving problem, draws from the seed."""
+    return tserve.build_artifact(
+        X, y, specs.rbf(SK_SIGMA), SK_C, SK_S, alpha=1.0,
+        n_components=SK_COMPONENTS,
+        generator=torch.Generator().manual_seed(SK_SEED),
+        use_kernel=use_kernel, device=DEV)
+
+
+def _sk_server(art, queries) -> dict:
+    """A ``KernelServer`` at the CLI's batching defaults with SK_CLIENTS
+    closed-loop client threads over ``queries`` (client k sends requests
+    k, k + SK_CLIENTS, ...); one warm-up pass, then SK_SERVER_PASSES timed
+    passes.  Each flush is timed from the worker's side, so a request's
+    latency splits into its wait before the flush that answers it (the
+    collector's window and earlier flushes) and that flush's time."""
+    op = CountingOperator(art.landmark_operator())
+    server = sk_launch.KernelServer(
+        art, sk_launch.BatchPolicy(max_batch=SK_MAX_BATCH,
+                                   max_wait_s=SK_MAX_WAIT_MS / 1e3), op=op)
+    lats, answers, flushes = [], {}, []
+    inner = server._flush
+
+    def timed_flush(batch):
+        t = time.perf_counter()
+        inner(batch)
+        flushes.append((t, time.perf_counter(), [p.t_enqueue for p in batch]))
+
+    server._flush = timed_flush
+
+    def client(k: int) -> None:
+        for i in range(k, len(queries), SK_CLIENTS):
+            p = server.submit(*queries[i])
+            answers[i] = p.wait(timeout=120.0)
+            lats.append(p.latency_s)
+
+    def one_pass():
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SK_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+
+    passes = []
+    try:
+        one_pass()
+        for _ in range(SK_SERVER_PASSES):
+            b0 = server.buckets_served
+            lats.clear()
+            flushes.clear()
+            t0 = time.perf_counter()
+            one_pass()
+            wall_s = time.perf_counter() - t0
+            check(len(lats) == len(queries), f"served {len(lats)} of "
+                  f"{len(queries)} requests")
+            waits = [t - e for t, _, es in flushes for e in es]
+            spans = [t1 - t for t, t1, _ in flushes]
+            passes.append({
+                "p50_ms": sk_launch.percentile_ms(lats, 50),
+                "p99_ms": sk_launch.percentile_ms(lats, 99),
+                "req_per_s": len(queries) / wall_s, "wall_ms": wall_s * 1e3,
+                "wait_p50_ms": sk_launch.percentile_ms(waits, 50),
+                "wait_p99_ms": sk_launch.percentile_ms(waits, 99),
+                "flush_p50_ms": sk_launch.percentile_ms(spans, 50),
+                "flush_p99_ms": sk_launch.percentile_ms(spans, 99),
+                "flushes": len(flushes),
+                "buckets": server.buckets_served - b0})
+    finally:
+        server.stop()
+    check(len(answers) == len(queries), f"served {len(answers)} of "
+          f"{len(queries)} requests")
+    check(op.counts["cross_sweeps"] == server.buckets_served,
+          f"{op.counts['cross_sweeps']} cross launches for "
+          f"{server.buckets_served} buckets")
+    rows = sum(len(q) for q, _ in queries)
+    mid = sorted(passes, key=lambda r: r["p99_ms"])[len(passes) // 2]
+    for i, r in enumerate(passes):
+        log(f"serve_kernel server pass {i}: p50 {r['p50_ms']:.2f} ms, p99 "
+            f"{r['p99_ms']:.2f} ms, {r['req_per_s']:.1f} req/s; wait before "
+            f"the flush p50 {r['wait_p50_ms']:.2f} / p99 "
+            f"{r['wait_p99_ms']:.2f} ms, flush p50 {r['flush_p50_ms']:.2f} / "
+            f"p99 {r['flush_p99_ms']:.2f} ms over {r['flushes']} flushes, "
+            f"{r['buckets']} buckets")
+    return {"p50_ms": mid["p50_ms"], "p99_ms": mid["p99_ms"],
+            "req_per_s": mid["req_per_s"],
+            "rows_per_s": rows * mid["req_per_s"] / len(queries),
+            "passes": passes, "buckets": mid["buckets"],
+            "flushes": mid["flushes"],
+            "buckets_all_passes": server.buckets_served,
+            "cross_sweeps_all_passes": op.counts["cross_sweeps"],
+            "answers": [answers[i] for i in range(len(queries))]}
+
+
+def _sk_appends(art, y) -> dict:
+    """SK_APPEND_BATCHES appended batches in process: ``init_state``, then
+    per batch ``append_rows`` (the one thin launch and the f64 refresh)
+    and ``save_delta`` (the commit), each timed; the meter reads one
+    ``append_sweeps`` tick of b·c entries a batch and nothing else."""
+    op = CountingOperator(art.landmark_operator())
+    init_ms, state = _wall_ms(lambda: tserve.init_state(art, y))
+    append_ms, commit_ms = [], []
+    batches = sk_launch.synth_batches(_sk_params(), SK_APPEND_BATCHES,
+                                      SK_APPEND_ROWS)
+    with tempfile.TemporaryDirectory(prefix="serve_kernel_append_") as d:
+        for g, (Xb, yb) in enumerate(batches, 1):
+            ms, (art, state, stats, delta) = _wall_ms(
+                lambda: tserve.append_rows(art, state, Xb, yb, op=op))
+            append_ms.append(ms)
+            commit_ms.append(_wall_ms(
+                lambda: tserve.save_delta(d, g, delta))[0])
+            check(stats.generation == g, f"generation {stats.generation}")
+    want = {"append_sweeps": SK_APPEND_BATCHES, "entries":
+            SK_APPEND_BATCHES * SK_APPEND_ROWS * SK_C, "sweeps": 0,
+            "fulls": 0, "cross_sweeps": 0}
+    check({k: op.counts[k] for k in want} == want,
+          f"append meter {op.counts}")
+    log(f"serve_kernel appends in process ({SK_APPEND_BATCHES} x "
+        f"{SK_APPEND_ROWS} rows): init_state {init_ms:.1f} ms; append_rows "
+        f"{[round(v, 2) for v in append_ms]} ms; save_delta "
+        f"{[round(v, 2) for v in commit_ms]} ms")
+    return {"init_state_ms": init_ms, "append_rows_ms": append_ms,
+            "save_delta_ms": commit_ms, "grown": art,
+            "meter": {k: op.counts[k] for k in want}}
+
+
+def _run_cli(args: list, what: str) -> tuple:
+    """``python -m repro_torch.launch.serve_kernel`` in a fresh process;
+    returns (stdout, wall ms).  Fails unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_kernel", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for ln in res.stdout.splitlines():
+        log(f"  cli {what}: {ln}")
+    check(res.returncode == 0, f"serve_kernel --{what} exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    return res.stdout, wall_ms
+
+
+def _parse(pattern: str, text: str, what: str):
+    m = re.search(pattern, text)
+    check(m is not None, f"the CLI printed no {what}")
+    return m.groups()
+
+
+def _sk_cli() -> dict:
+    """The two CLI legs in two fresh processes: --build, then a warm
+    --serve with the append leg."""
+    _sync()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="serve_kernel_cli_") as d:
+        common = ["--dir", d, "--device", DEV]
+        out_b, build_wall = _run_cli(
+            ["--build", *common, "--n", str(SK_N), "--d", str(D), "--c",
+             str(SK_C), "--s", str(SK_S), "--sigma", str(SK_SIGMA),
+             "--queries", str(SK_QUERIES)], "build")
+        out_s, serve_wall = _run_cli(
+            ["--serve", *common, "--require-warm", "--append-batches",
+             str(SK_APPEND_BATCHES), "--append-rows", str(SK_APPEND_ROWS)],
+            "serve")
+    check("serve ok" in out_s.splitlines()[-1:], "the CLI did not print "
+          "serve ok")
+    (gap,) = _parse(r"replayed \d+ queries: parity (\S+)", out_s, "parity")
+    sweeps, buckets = _parse(r"launches: (\d+) cross sweeps over (\d+) "
+                             r"buckets", out_s, "launches")
+    p50, p99 = _parse(r"latency: p50 (\S+) ms  p99 (\S+) ms", out_s,
+                      "latency")
+    (app_p50,) = _parse(r"append: absorbed .* p50 (\S+) ms", out_s,
+                        "append latency")
+    (meter,) = _parse(r"append: meter (\{.*\})", out_s, "append meter")
+    (grown,) = _parse(r"grown-corpus parity (\S+)", out_s, "grown parity")
+    (bitwise,) = _parse(r"delta-chain restore bitwise (\S+)", out_s,
+                        "restore")
+    (build_ms,) = _parse(r"built in (\S+) ms", out_b, "build time")
+    (trace_ms,) = _parse(r"\((\S+) ms with the oracles\)", out_b,
+                         "trace time")
+    peaks = re.findall(r"peak device memory (\S+) GB", out_b + out_s)
+    meter = json.loads(meter)
+    res = {"trace_parity": float(gap), "cross_sweeps": int(sweeps),
+           "buckets": int(buckets), "p50_ms": float(p50),
+           "p99_ms": float(p99), "append_p50_ms": float(app_p50),
+           "append_meter": meter, "grown_parity": float(grown),
+           "restore_bitwise": bitwise == "True",
+           "build_ms": float(build_ms), "trace_with_oracles_ms":
+           float(trace_ms),
+           "peak_gb_build": float(peaks[0]) if peaks else None,
+           "peak_gb_serve": float(peaks[-1]) if peaks else None,
+           "build_process_ms": build_wall, "serve_process_ms": serve_wall}
+    check(res["trace_parity"] <= TOL_SERVE, f"CLI parity {gap}")
+    check(res["cross_sweeps"] == res["buckets"], "CLI launches != buckets")
+    check(meter == {"append_sweeps": SK_APPEND_BATCHES, "sweeps": 0,
+                    "fulls": 0, "cross_sweeps": 0},
+          f"the append leg touched the kernel beyond its launches: {meter}")
+    check(res["grown_parity"] <= TOL_SERVE, f"grown parity {grown}")
+    check(res["restore_bitwise"], "the delta chain did not restore bitwise")
+    log(f"serve_kernel CLI latency: p50 {res['p50_ms']:.2f} ms, p99 "
+        f"{res['p99_ms']:.2f} ms over {SK_QUERIES} queries")
+    log(f"serve_kernel CLI append p50 {res['append_p50_ms']:.2f} ms "
+        f"({SK_APPEND_BATCHES} x {SK_APPEND_ROWS} rows)")
+    return res
+
+
+def _sk_cross(art) -> dict:
+    """B1 alone at one full bucket (SK_BUCKET_ROWS query rows against the
+    artifact's c landmarks, every head: M = 1 + 8 + c) and at the append
+    shape (SK_APPEND_ROWS rows, V = I_c)."""
+    spec = art.spec
+    XL = art.X_landmarks
+    heads = tuple(art.heads[t] for t in tserve.TASKS)
+    M = sum(int(h.shape[1]) for h in heads)
+    rng = np.random.default_rng(9)
+    Xq = torch.as_tensor(rng.standard_normal((SK_BUCKET_ROWS, D)),
+                         dtype=torch.float32, device=DEV)
+
+    def cross():
+        return kernel.pairwise_matmat_multi_cuda(spec, Xq, XL, heads)
+
+    ms, outs = cuda_ms(cross, reps=50, warmup=5)
+    plain_ms, plain = cuda_ms(
+        lambda: kernel.pairwise_matmat_multi_plain(spec, Xq, XL, heads),
+        reps=50, warmup=5)
+    err = max(scaled_err(o, p) for o, p in zip(outs, plain))
+    abs_err = max(float((o - p).abs().max()) for o, p in zip(outs, plain))
+    check(err <= TOL_F32, f"B1 at the bucket shape vs plain: {err:.3g}")
+    # one call's latency (a synchronize after each) against the card's time
+    lat = [_wall_ms(cross)[0] for _ in range(50)]
+    dev_ms = _kernel_device_ms(cross, reps=20)
+    device_ms = sum(dev_ms.values())
+    nbytes = 4 * (SK_BUCKET_ROWS * D + SK_C * D + SK_C * M
+                  + SK_BUCKET_ROWS * M)
+    bound, bound_by = route_bound(spec, SK_BUCKET_ROWS, SK_C, D, M, nbytes)
+    scratch = scratch_bytes(spec, SK_BUCKET_ROWS, SK_C, D, M, False)
+
+    # the append launch: B1 with the identity, held to B2's entries bit for
+    # bit (ROADMAP C2) and to the plain version
+    Xn = torch.as_tensor(sk_launch.synth_batches(_sk_params(), 1,
+                                                 SK_APPEND_ROWS)[0][0],
+                         device=DEV)
+    eye = (torch.eye(SK_C, device=DEV),)
+    app_ms, (G,) = cuda_ms(
+        lambda: kernel.pairwise_matmat_multi_cuda(spec, Xn, XL, eye),
+        reps=50, warmup=5)
+    app_plain_ms, (Gp,) = cuda_ms(
+        lambda: kernel.pairwise_matmat_multi_plain(spec, Xn, XL, eye),
+        reps=50, warmup=5)
+    direct = kernel.pairwise_block_cuda(spec, Xn, XL)
+    _sync()
+    gap_b2 = float((G - direct).abs().max())
+    gap_plain = float((G - Gp).abs().max())
+    check(float(direct.abs().min()) >= 2.0 ** -104 and gap_b2 == 0.0,
+          f"the append launch is not B2's entries bit for bit ({gap_b2})")
+    check(scaled_err(G, Gp) <= TOL_F32, f"append vs plain {gap_plain}")
+    app_bytes = 4 * (SK_APPEND_ROWS * D + SK_C * D + SK_C * SK_C
+                     + SK_APPEND_ROWS * SK_C)
+    app_bound, app_by = route_bound(spec, SK_APPEND_ROWS, SK_C, D, SK_C,
+                                    app_bytes)
+    res = {"cross_ms": ms, "cross_plain_ms": plain_ms,
+           "cross_bound_ms": bound, "cross_bound_by": bound_by,
+           "cross_err": err, "cross_max_abs_err": abs_err,
+           "cross_latency_ms": float(np.median(lat)),
+           "cross_device_ms": device_ms, "cross_device_kernels": dev_ms,
+           "cross_shape": {"nr": SK_BUCKET_ROWS, "nc": SK_C, "d": D, "M": M},
+           "cross_scratch_bytes": scratch,
+           "append_ms": app_ms, "append_plain_ms": app_plain_ms,
+           "append_bound_ms": app_bound, "append_bound_by": app_by,
+           "append_gap_vs_b2": gap_b2, "append_gap_vs_plain": gap_plain,
+           "append_shape": {"nr": SK_APPEND_ROWS, "nc": SK_C, "d": D,
+                            "M": SK_C}}
+    log(f"B1 at the bucket shape ({SK_BUCKET_ROWS} x {SK_C}, d {D}, M {M}):"
+        f" {ms:.4f} ms back to back, {res['cross_latency_ms']:.4f} ms a "
+        f"call with a synchronize, {device_ms:.4f} ms on the card "
+        f"({json.dumps(dev_ms)}); plain {plain_ms:.4f} ms, bound "
+        f"{bound:.5f} ms ({bound_by}); vs plain {err:.3g}; scratch "
+        f"{scratch} bytes")
+    log(f"B1 at the append shape ({SK_APPEND_ROWS} x {SK_C}, V = I): "
+        f"{app_ms:.4f} ms, plain {app_plain_ms:.4f} ms, bound "
+        f"{app_bound:.5f} ms ({app_by}); vs B2 {gap_b2:.3g} (bit for bit), "
+        f"vs plain {gap_plain:.3g} (max abs)")
+    return res
+
+
+def phase_serve_kernel() -> dict:
+    """Kernel-model serving: build, warm boot, a mixed batch in f32 and
+    bf16, and a KernelServer over the trace (the counted path); B1 timed
+    alone at the bucket and append shapes; the CLI in two processes."""
+    X, y = sk_launch.synth_problem(SK_N, D, SK_SEED)
+    queries = sk_launch.trace_queries(SK_QUERIES, D, SK_SEED)
+    # warm-ups of the build, under the profiler: its device time by class
+    prof = _device_profile(lambda: _sk_build(X, y))
+    _sync()
+    reset_counts()
+    build_ms, art = _wall_ms(lambda: _sk_build(X, y))
+    build_launches = read_counts()
+
+    def cold():
+        raise SmokeFailure("the warm boot rebuilt the artifact")
+
+    with tempfile.TemporaryDirectory(prefix="serve_kernel_") as store:
+        save_ms, _ = _wall_ms(lambda: tserve.save_artifact(store, art))
+        boot_ms, (warm, rec) = _wall_ms(
+            lambda: tserve.load_or_rebuild(store, cold, device=DEV))
+    mixed = [tserve.QueryRequest(q, t) for q, t in queries[:SK_MAX_BATCH]]
+    n_buckets = len(tserve.plan_buckets(mixed))
+    qop = CountingOperator(warm.landmark_operator())
+    mixed_ms, res32 = _wall_ms(
+        lambda: tserve.serve_kernel_model(warm, mixed, op=qop))
+    bop = CountingOperator(warm.landmark_operator(precision="bf16_f32acc"))
+    res16 = tserve.serve_kernel_model(warm, mixed, op=bop)
+    srv = _sk_server(warm, queries)
+    app = _sk_appends(warm, y)
+    launches = read_counts()
+
+    log(f"serve_kernel (n={SK_N}, d={D}, c={SK_C}, s={SK_S}, rbf σ "
+        f"{SK_SIGMA}): build {build_ms:.1f} ms, save {save_ms:.1f} ms, "
+        f"warm boot {boot_ms:.1f} ms ({[e.kind for e in rec.events]}); "
+        f"build launches {json.dumps(build_launches)}")
+    if "error" not in prof:
+        log(f"serve_kernel build on the card: busy {prof['busy_ms']:.1f} of "
+            f"{prof['wall_ms']:.1f} ms wall, by class "
+            f"{json.dumps(prof['by_class_ms'])}")
+    log(f"serve_kernel launches {json.dumps(launches)}")
+    expect = 1 + 2 * n_buckets + srv["buckets_all_passes"] \
+        + SK_APPEND_BATCHES
+    check(launches == no_launches(pairwise_matmat_multi=expect),
+          f"serve_kernel should launch B1 once per build, bucket, server "
+          f"bucket and appended batch ({expect}) and nothing else: "
+          f"{launches}")
+    check(build_launches == no_launches(pairwise_matmat_multi=1),
+          f"build_artifact should be one B1 launch: {build_launches}")
+    # the build's launch (50,000 rows, M = c + s with the C gather) held
+    # against its plain version: C entry by entry, and U against the build
+    # on the plain operator with the same draws
+    plain = _sk_build(X, y, use_kernel=False)
+    check(torch.equal(plain.landmark_indices, art.landmark_indices),
+          "the plain build drew other landmarks")
+    build_c_err = scaled_err(art.C, kernel.pairwise_block_plain(
+        art.spec, torch.as_tensor(X, device=DEV), art.X_landmarks))
+    build_u_err = scaled_err(art.U, plain.U)
+    del plain
+    check(build_c_err <= TOL_F32, f"build C vs plain {build_c_err:.3g}")
+    check(build_u_err <= TOL_U, f"build U vs plain {build_u_err:.3g}")
+    log(f"serve_kernel build vs its plain version: C {build_c_err:.3g}, "
+        f"U {build_u_err:.3g}")
+    check(rec.warm, f"boot events {rec.events}")
+    for f in ("X_landmarks", "C", "U", "woodbury_M", "kpca_eigvals",
+              "landmark_indices"):
+        check(torch.equal(getattr(warm, f), getattr(art, f)),
+              f"warm boot changed {f}")
+    for t in tserve.TASKS:
+        check(torch.equal(warm.heads[t], art.heads[t]),
+              f"warm boot changed head {t}")
+    check(qop.counts["cross_sweeps"] == n_buckets == bop.counts[
+        "cross_sweeps"] and bop.last_route == "fused_rows+bf16_f32acc",
+        f"mixed batch: {qop.counts} {bop.counts} {bop.last_route}")
+    gaps = {t: 0.0 for t in tserve.TASKS}
+    gaps16 = dict(gaps)
+    for r, r16, q in zip(res32, res16, mixed):
+        want = tserve.dense_oracle(warm, q.X, q.task)
+        gaps[q.task] = max(gaps[q.task], tserve.parity_gap(r.out, want))
+        gaps16[q.task] = max(gaps16[q.task],
+                             tserve.parity_gap(r16.out, r.out))
+    for t in tserve.TASKS:
+        check(gaps[t] <= TOL_SERVE, f"{t} vs dense_oracle {gaps[t]:.3g}")
+        check(gaps16[t] <= TOL_BF16_F32, f"{t} bf16 vs f32 {gaps16[t]:.3g}")
+    grown = app.pop("grown")
+    Xq = np.random.default_rng(12).standard_normal((17, D))
+    app["grown_gaps"] = {t: tserve.parity_gap(
+        grown.landmark_operator().cross(Xq, (grown.heads[t],))[0],
+        tserve.dense_oracle(grown, Xq, t)) for t in ("kpca", "features")}
+    check(max(app["grown_gaps"].values()) <= TOL_SERVE,
+          f"grown corpus vs dense_oracle {app['grown_gaps']}")
+    del grown
+    srv_gap = max(tserve.parity_gap(a.out, r.out) for a, r in zip(
+        srv["answers"][:SK_MAX_BATCH], res32))
+    check(srv_gap <= 1e-6, f"server answers vs the batch's {srv_gap:.3g}")
+    log(f"serve_kernel mixed batch of {len(mixed)} requests, {n_buckets} "
+        f"buckets: {mixed_ms:.2f} ms; vs dense_oracle (f64) "
+        f"{json.dumps(gaps)}; bf16_f32acc vs f32 {json.dumps(gaps16)}")
+    log(f"serve_kernel server ({SK_CLIENTS} clients, {SK_QUERIES} queries, "
+        f"max_batch {SK_MAX_BATCH}, max_wait {SK_MAX_WAIT_MS} ms; the "
+        f"median of {SK_SERVER_PASSES} passes by p99): p50 "
+        f"{srv['p50_ms']:.2f} ms, p99 {srv['p99_ms']:.2f} ms, "
+        f"{srv['req_per_s']:.1f} req/s, {srv['rows_per_s']:.0f} rows/s, "
+        f"{srv['buckets']} buckets in {srv['flushes']} flushes")
+    # the build's host share: the Gaussian sketch drawn from a CPU generator
+    draw_ms, _ = _wall_ms(lambda: sk.GaussianSketch.draw(
+        SK_N, SK_S, generator=torch.Generator().manual_seed(SK_SEED),
+        device=DEV))
+    log(f"serve_kernel build's sketch draw ({SK_N} x {SK_S} from a CPU "
+        f"generator, moved to the card): {draw_ms:.1f} ms")
+    kern = _sk_cross(warm)
+    del warm, art, res32, res16
+    cli = _sk_cli()
+    srv.pop("answers")
+    return {"launches": launches, "build_ms": build_ms, "save_ms": save_ms,
+            "sketch_draw_ms": draw_ms, "appends": app,
+            "warm_boot_ms": boot_ms, "build_launches": build_launches,
+            "build_C_err_vs_plain": build_c_err,
+            "build_U_err_vs_plain": build_u_err,
+            "build_profile": prof, "mixed_batch_ms": mixed_ms,
+            "mixed_buckets": n_buckets, "parity_vs_dense_oracle": gaps,
+            "bf16_vs_f32": gaps16, "server": srv, **kern, "cli": cli}
+
+
+def phase_ragged() -> dict:
+    """``fast_model_ragged`` at the README's settings over RAGGED_SIZES
+    (the letters data): one B1 launch per item; each item's C and U equal
+    the unbatched ``fast_model`` on the same padded item and draws bit for
+    bit, and are held against the plain version (C entry by entry, U
+    against ``fast_model`` on the plain operator); the padded heights
+    those of ``bucket_by_size``."""
+    sizes = list(RAGGED_SIZES)
+    Xs = [letters(n, seed=70 + i) for i, n in enumerate(sizes)]
+    buckets = spsd.bucket_by_size(sizes, RAGGED_WASTE)
+    n_pad = {i: max(sizes[j] for j in b) for b in buckets for i in b}
+    g = gen(71)
+    idx = [torch.randperm(n, generator=g, device=DEV)[:RAGGED_C]
+           for n in sizes]
+    S = [sk.GaussianSketch.draw(n_pad[i], RAGGED_S, generator=g, device=DEV)
+         for i in range(len(sizes))]
+    heights = []
+
+    def make_op(Xp):
+        heights.append(int(Xp.shape[0]))
+        return RBFKernel(Xp, sigma=RAGGED_SIGMA, device=DEV)
+
+    _sync()
+    reset_counts()
+    ms, outs = _wall_ms(lambda: spsd.fast_model_ragged(
+        Xs, make_op, RAGGED_C, RAGGED_S, waste=RAGGED_WASTE,
+        s_sketch="gaussian", idx=idx, S=S))
+    launches = read_counts()
+    check(launches == no_launches(pairwise_matmat_multi=len(sizes)),
+          f"ragged: one B1 launch per item: {launches}")
+    check(heights == [n_pad[i] for b in buckets for i in b],
+          f"padded heights {heights} are not bucket_by_size's {buckets}")
+    spec = specs.rbf(RAGGED_SIGMA)
+    c_err, u_err = [], []
+
+    def one(i, use_kernel):
+        return spsd.fast_model(
+            RBFKernel(spsd.pad_rows(Xs[i], n_pad[i]), sigma=RAGGED_SIGMA,
+                      use_kernel=use_kernel, device=DEV),
+            RAGGED_C, RAGGED_S, s_sketch="gaussian", n_valid=sizes[i],
+            idx=idx[i], S=S[i])
+
+    for i, (X, o) in enumerate(zip(Xs, outs)):
+        fast = one(i, True)
+        check(tuple(o.C.shape) == (sizes[i], RAGGED_C)
+              and torch.equal(o.C, fast.C[:sizes[i]])
+              and torch.equal(o.U, fast.U),
+              f"ragged item {i} differs from the unbatched model")
+        check(bool(torch.isfinite(o.U).all()), f"ragged item {i}: U")
+        c_err.append(scaled_err(o.C, kernel.pairwise_block_plain(
+            spec, X, X[idx[i]])))
+        u_err.append(scaled_err(o.U, one(i, False).U))
+        check(c_err[-1] <= TOL_F32, f"ragged item {i}: C vs plain "
+              f"{c_err[-1]:.3g}")
+        check(u_err[-1] <= TOL_U, f"ragged item {i}: U vs the plain "
+              f"operator's {u_err[-1]:.3g}")
+    log(f"ragged: {len(sizes)} items n = {sizes}, buckets {buckets} "
+        f"(padded to {sorted(set(n_pad.values()))}), {ms:.1f} ms, "
+        f"launches {launches['pairwise_matmat_multi']}; each item equal to "
+        f"the unbatched model bit for bit; vs the plain version C "
+        f"{max(c_err):.3g}, U {max(u_err):.3g} (worst item)")
+    return {"ms": ms, "launches": launches, "buckets": buckets,
+            "sizes": sizes, "C_err_vs_plain": c_err, "U_err_vs_plain": u_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2157,11 +2699,14 @@ def main() -> int:
     pol = phase_attention_policy()
     srv = phase_serve_gemma3()
     b6 = _flash_line(srv)
+    skm = phase_serve_kernel()
+    rag = phase_ragged()
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
              "attention_policy": pol["launches"],
-             "serve_gemma3": srv["launches"]}
+             "serve_gemma3": srv["launches"],
+             "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -2175,6 +2720,23 @@ def main() -> int:
         "all_reduce_bytes": sh["infos"][0]["all_reduce_bytes"],
         "blocked_err_rel": sh["err_b_rel"], "cur_U_err": sh["cur_U_err"],
         "eig_rel": sh["eig_rel"], "misalignment": sh["misalignment"]}
+    b1["serve_kernel"] = {
+        **{k: skm[k] for k in (
+            "build_ms", "save_ms", "warm_boot_ms", "build_launches",
+            "build_C_err_vs_plain", "build_U_err_vs_plain",
+            "sketch_draw_ms", "appends",
+            "mixed_batch_ms", "mixed_buckets", "parity_vs_dense_oracle",
+            "bf16_vs_f32", "server", "cli", "cross_ms", "cross_plain_ms",
+            "cross_bound_ms", "cross_bound_by", "cross_err",
+            "cross_max_abs_err", "cross_latency_ms", "cross_device_ms",
+            "cross_device_kernels", "cross_shape", "cross_scratch_bytes",
+            "append_ms", "append_plain_ms", "append_bound_ms",
+            "append_bound_by", "append_gap_vs_b2", "append_gap_vs_plain",
+            "append_shape")},
+        "build_device_ms_by_class": skm["build_profile"].get("by_class_ms"),
+        "ragged": {k: rag[k] for k in ("ms", "buckets", "sizes",
+                                       "C_err_vs_plain", "U_err_vs_plain")},
+        "ragged_launches": rag["launches"]["pairwise_matmat_multi"]}
     b6["serve_gemma3"] = {k: srv[k] for k in (
         "prefill_ms", "decode_ms_per_token", "generate_ms", "tokens_per_s",
         "decode_tokens_per_s", "peak_gb", "b6_prefill")}

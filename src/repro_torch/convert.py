@@ -5,10 +5,13 @@ spec and the random draws.  The model stack has weights and decode caches.
 These helpers build the port's objects from numpy arrays (as the
 reference's arrays convert with ``np.asarray``), so both sides compute the
 same thing from the same numbers, and hand the port's caches back in the
-reference's layout for comparison.
+reference's layout for comparison.  A served kernel model's state is its
+artifact: ``artifact_from_reference`` takes the reference's artifact tree
+or a store the reference committed.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -20,6 +23,7 @@ from repro_torch.core.sketched_attention import LandmarkState
 from repro_torch.core.spsd import SPSDApprox
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pairwise import specs
+from repro_torch.serve import artifact as art_lib
 
 
 def operator_from_reference(X: np.ndarray, spec_name: str,
@@ -72,6 +76,21 @@ def landmark_state_from_reference(k_land, UV, U1, scale, device=None):
 
     return LandmarkState(k_land=f32(k_land), UV=f32(UV), U1=f32(U1),
                          scale=f32(scale).reshape(()))
+
+
+def artifact_from_reference(tree_or_dir, device=None):
+    """The reference's ``KernelModelArtifact`` as the port's: from its tree
+    (``repro.serve.artifact_to_tree``'s dict, leaves as numpy) or from a
+    store directory the reference committed (the checkpoint layout is
+    shared; the latest step is restored, a delta chain replayed)."""
+    if isinstance(tree_or_dir, (str, os.PathLike)):
+        artifact = art_lib.load_artifact(os.fspath(tree_or_dir),
+                                         device=device)
+        if artifact is None:
+            raise FileNotFoundError(
+                f"no committed artifact in {tree_or_dir}")
+        return artifact
+    return art_lib.artifact_from_tree(tree_or_dir, device=device)
 
 
 # ---------------------------------------------------------------------------

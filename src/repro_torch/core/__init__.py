@@ -14,8 +14,9 @@ from repro_torch.core.instrument import CountingOperator  # noqa: F401
 from repro_torch.core.kernelop import (DenseSPSD, LinearKernel,  # noqa: F401
                                        PairwiseKernel, RBFKernel,
                                        SPSDOperator, as_operator)
-from repro_torch.core.spsd import (SPSDApprox, fast_model,  # noqa: F401
-                                   fast_model_from_C, fast_model_with_error,
-                                   relative_error)
+from repro_torch.core.spsd import (SPSDApprox, bucket_by_size,  # noqa: F401
+                                   fast_model, fast_model_batched,
+                                   fast_model_from_C, fast_model_ragged,
+                                   fast_model_with_error, relative_error)
 from repro_torch.core.sweep import (mesh_data_size,  # noqa: F401
                                     sweep_operator, sweep_panels)

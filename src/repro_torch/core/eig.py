@@ -25,15 +25,16 @@ class EigResult(NamedTuple):
     eigenvectors: torch.Tensor   # (n, k) orthonormal
 
 
-def approx_eigh(C: torch.Tensor, U: torch.Tensor, k: int) -> EigResult:
-    """Lemma 10: eigendecomposition of C U Cᵀ in O(nc²).
+def approx_eigh(C: torch.Tensor, U: torch.Tensor, k: int,
+                dtype: torch.dtype = _F32) -> EigResult:
+    """Lemma 10: eigendecomposition of C U Cᵀ in O(nc²), in ``dtype``.
 
     C = U_C Σ_C V_Cᵀ;  Z = (Σ_C V_Cᵀ) U (Σ_C V_Cᵀ)ᵀ = V_Z Λ V_Zᵀ;
     then C U Cᵀ = (U_C V_Z) Λ (U_C V_Z)ᵀ.
     """
-    Uc, sc, Vct = torch.linalg.svd(C.to(_F32), full_matrices=False)
+    Uc, sc, Vct = torch.linalg.svd(C.to(dtype), full_matrices=False)
     SV = sc[:, None] * Vct
-    M = SV @ U.to(_F32) @ SV.T
+    M = SV @ U.to(dtype) @ SV.T
     M = 0.5 * (M + M.T)
     lam, Vz = torch.linalg.eigh(M)                   # ascending
     lam, Vz = torch.flip(lam, dims=(0,)), torch.flip(Vz, dims=(1,))

@@ -14,7 +14,11 @@ model:
   launch (route 'fused…'); ``last_route`` holds the route verbatim;
 - ``bf16_sweeps``: sweeps and cross launches under a non-f32 policy;
 - ``cross_sweeps``: query-side rectangular launches (n_q·n entries each);
-  ``append_sweeps`` stays 0 until the append-row path is ported;
+- ``append_sweeps``: the thin launches of the append-row path
+  (``append_cross``, ``repro_torch.serve.incremental``), n_q·n entries
+  each, metered apart from ``cross_sweeps`` so that both the serving
+  invariant (cross launches = query buckets) and the maintenance one (one
+  launch per appended batch) can be asserted;
 - ``blocks`` / ``columns`` / ``diags`` / ``fulls``: direct-access calls,
   counted at their exact extent.
 """
@@ -50,6 +54,13 @@ class CountingOperator(SPSDOperator):
     @property
     def device(self):
         return self.inner.device
+
+    def rebind(self, inner: SPSDOperator) -> "CountingOperator":
+        """Swap the wrapped operator without resetting the meters (a
+        serving replica's counter follows a re-sketched artifact); per-call
+        counts read ``self.n`` at call time."""
+        self.inner = inner
+        return self
 
     # -- direct access (counted exactly) ------------------------------------
 
@@ -112,6 +123,17 @@ class CountingOperator(SPSDOperator):
         self.counts["cross_sweeps"] += 1
         self.counts["entries"] += int(len(Xq)) * self.n
         out = self.inner.cross(Xq, Vs)
+        self._attribute(getattr(self.inner, "_last_sweep_route",
+                                "dense_rows"))
+        return out
+
+    def append_cross(self, Xq, Vs):
+        """The append-row maintenance launch: ``cross``'s shape, one
+        ``append_sweeps`` tick and n_q·n entries per call."""
+        self.counts["append_sweeps"] += 1
+        self.counts["entries"] += int(len(Xq)) * self.n
+        inner_call = getattr(self.inner, "append_cross", self.inner.cross)
+        out = inner_call(Xq, Vs)
         self._attribute(getattr(self.inner, "_last_sweep_route",
                                 "dense_rows"))
         return out

@@ -21,12 +21,18 @@ sides.  Draws left to the generator are taken in the order idx, Z, S.
 ``mesh=`` (a ``DeviceMesh`` with a ``data`` dim, see
 ``repro_torch.distributed.sharding``) shards every sweep a model or metric
 makes; every rank gets the same inputs and draws and returns the full
-result.  ``fast_model_batched`` and ``fast_model_ragged`` (with
-``bucket_by_size``) are not ported yet.
+result.
+
+``fast_model_batched`` runs Algorithm 1 over a batch of kernels of one
+size, and ``fast_model_ragged`` over datasets of mixed sizes, grouped by
+``bucket_by_size`` and zero-padded to their bucket's height.  Where the
+reference vmaps one batched operator, the port loops over a sequence of
+operators, one ``fast_model`` call (and on the card one fused launch) per
+item, with explicit per-item draws.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -325,6 +331,148 @@ def fast_model_with_error(
     RZ = KZ.to(_F32) - approx.matmat(Z).to(_F32)
     err = torch.sum(RZ * RZ) / torch.sum(KZ * KZ)
     return approx, err
+
+
+def _per_item(draws, count: int, name: str) -> list:
+    """One draw per item: ``draws`` as a list, or ``count`` Nones."""
+    if draws is None:
+        return [None] * count
+    draws = list(draws)
+    if len(draws) != count:
+        raise ValueError(f"{name} has {len(draws)} entries for {count} "
+                         f"items")
+    return draws
+
+
+def fast_model_batched(
+    Ks,
+    c: int,
+    s: int,
+    s_sketch: str = "leverage",
+    enforce_subset: bool = True,
+    scale: bool = False,
+    streaming: Optional[bool] = None,
+    block_size: Optional[int] = None,
+    n_valid=None,
+    selection="uniform",
+    idx=None,
+    S=None,
+    generator: Optional[torch.Generator] = None,
+) -> SPSDApprox:
+    """Algorithm 1 over a batch of kernels of one size n.
+
+    ``Ks`` is a sequence of operators (the port's form of the reference's
+    batched operator pytree; each may be a ``CountingOperator``) or a
+    (B, n, n) tensor, one ``DenseSPSD`` per slice.  Each item runs
+    ``fast_model`` on its own, in order.  ``idx`` and ``S`` give per-item
+    draws (a sequence of B entries, each as ``fast_model`` takes it);
+    draws left to ``generator`` are taken item by item.  Returns an
+    ``SPSDApprox`` whose fields are stacked along a leading batch axis.
+
+    Ragged batches: zero-pad each kernel's data to the common n and pass
+    ``n_valid`` (B true sizes).  Sampling is restricted to valid rows, C's
+    padding rows are zeroed and projection sketches are row-masked
+    (``sketch.MaskedSketch``), so SᵀKS never sees a padding entry.
+    """
+    if isinstance(Ks, torch.Tensor):
+        ops = [DenseSPSD(K) for K in Ks]
+    else:
+        ops = [as_operator(K) for K in Ks]
+    B = len(ops)
+    if B == 0:
+        raise ValueError("fast_model_batched needs at least one item")
+    if len({op.n for op in ops}) != 1:
+        raise ValueError(f"items of a batch share one n (got "
+                         f"{sorted({op.n for op in ops})}); pad them, or "
+                         f"use fast_model_ragged")
+    nvs = _per_item(None if n_valid is None else
+                    [int(v) for v in n_valid], B, "n_valid")
+    idxs, Ss = _per_item(idx, B, "idx"), _per_item(S, B, "S")
+    g = generator_or_default(generator)
+    outs = [fast_model(op, c, s, s_sketch=s_sketch,
+                       enforce_subset=enforce_subset, scale=scale,
+                       streaming=streaming, block_size=block_size,
+                       n_valid=nv, selection=selection, idx=i, S=Si,
+                       generator=g)
+            for op, nv, i, Si in zip(ops, nvs, idxs, Ss)]
+    return SPSDApprox(C=torch.stack([o.C for o in outs]),
+                      U=torch.stack([o.U for o in outs]),
+                      P_indices=torch.stack([o.P_indices for o in outs]))
+
+
+def bucket_by_size(sizes, waste: float = 0.25) -> List[List[int]]:
+    """Greedy size-bucketing for ragged batches: index groups whose padded
+    height stays within ``(1 + waste)×`` each member's true size.
+
+    Items are visited in descending size order (ties in input order) and
+    join the current bucket while its padded height (its largest member)
+    costs them at most a ``waste`` fraction of padding rows; otherwise a
+    new bucket opens.
+    """
+    order = sorted(range(len(sizes)), key=lambda i: -int(sizes[i]))
+    buckets, cur, cap = [], [], 0
+    for i in order:
+        n_i = int(sizes[i])
+        if cur and cap > n_i * (1.0 + waste):
+            buckets.append(cur)
+            cur = []
+        if not cur:
+            cap = n_i
+        cur.append(i)
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def pad_rows(X, n_pad: int) -> torch.Tensor:
+    """``X`` (n, d) as f32 with zero rows appended up to ``n_pad``."""
+    X = torch.as_tensor(X, dtype=_F32)
+    pad = torch.zeros((n_pad - X.shape[0], X.shape[1]), dtype=_F32,
+                      device=X.device)
+    return torch.cat([X, pad], dim=0)
+
+
+def fast_model_ragged(
+    Xs: Sequence,
+    make_operator,
+    c: int,
+    s: int,
+    waste: float = 0.25,
+    idx=None,
+    S=None,
+    generator: Optional[torch.Generator] = None,
+    **kwargs,
+) -> List[SPSDApprox]:
+    """Algorithm 1 over a ragged list of datasets with automatic bucketing.
+
+    ``Xs`` is a list of (n_i, d) arrays; ``make_operator`` maps one item's
+    data, zero-padded to its bucket's height, to its operator (e.g.
+    ``lambda Xp: RBFKernel(Xp, sigma=1.5)``).  Items are grouped by
+    ``bucket_by_size(sizes, waste)`` and each bucket runs one
+    ``fast_model_batched`` call with the true sizes as ``n_valid``.
+    ``idx`` and ``S`` are per-item draws in the order of ``Xs`` (a
+    projection sketch at the item's padded height); draws left to
+    ``generator`` are taken item by item in bucket order.  Extra
+    ``kwargs`` (``s_sketch``, ``selection``, …) pass through.  Returns
+    per-item ``SPSDApprox`` with C trimmed to each item's n, ordered like
+    ``Xs``.
+    """
+    sizes = [int(X.shape[0]) for X in Xs]
+    idxs, Ss = _per_item(idx, len(Xs), "idx"), _per_item(S, len(Xs), "S")
+    g = generator_or_default(generator)
+    out: List[Optional[SPSDApprox]] = [None] * len(Xs)
+    for bucket in bucket_by_size(sizes, waste):
+        n_pad = max(sizes[i] for i in bucket)
+        bat = fast_model_batched(
+            [make_operator(pad_rows(Xs[i], n_pad)) for i in bucket], c, s,
+            n_valid=[sizes[i] for i in bucket],
+            idx=None if idx is None else [idxs[i] for i in bucket],
+            S=None if S is None else [Ss[i] for i in bucket],
+            generator=g, **kwargs)
+        for j, i in enumerate(bucket):
+            out[i] = SPSDApprox(C=bat.C[j][: sizes[i]], U=bat.U[j],
+                                P_indices=bat.P_indices[j])
+    return out
 
 
 # ---------------------------------------------------------------------------

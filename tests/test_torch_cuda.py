@@ -578,3 +578,115 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda_device):
     assert outs["cpu"][1:] == (0, 0)
     assert outs["cuda"][1:] == (cfg.n_layers, cfg.n_layers)
     assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the serving path's launches: B1 at the cross and append shapes
+# ---------------------------------------------------------------------------
+
+#: head widths of a bucket: KRR alone (1), KRR + KPCA (9), all three tasks
+#: with a 200-wide feature head (209)
+CROSS_WIDTHS = {1: (1,), 9: (1, 8), 209: (1, 8, 200)}
+
+
+def _serving_points(rng, n, dev):
+    """The serving problem's points (X ~ N(0, I_16)); RBF σ = 3."""
+    return _rand(rng, n, D, dev=dev)
+
+
+@pytest.mark.parametrize("n_q", [5, 17, 33, 64, 2048])
+@pytest.mark.parametrize("c", [48, 200])
+@pytest.mark.parametrize("M", sorted(CROSS_WIDTHS))
+def test_cross_launch_at_serving_shapes_row_by_row(cuda_device, n_q, c, M):
+    """``PairwiseKernel.cross`` over c landmarks, one B1 launch for every
+    head: each row's error against the plain version is at most 1e-5 of
+    that row's Σ_j |K_ij|·|V_jk| (the size of the sum's terms), so a row
+    whose answer cancels to a small value is held to its own terms."""
+    rng = np.random.default_rng(n_q + c + M)
+    X_land = _serving_points(rng, c, cuda_device)
+    Xq = _serving_points(rng, n_q, cuda_device)
+    heads = [_rand(rng, c, m, dev=cuda_device) for m in CROSS_WIDTHS[M]]
+    op = PairwiseKernel(X_land, specs.rbf(3.0), device=cuda_device)
+    before = kernel.launch_counts()["pairwise_matmat_multi"]
+    outs = op.cross(Xq, heads)
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == before + 1
+    K = kernel.pairwise_block_plain(op.spec, Xq, X_land)
+    for out, V, plain in zip(outs, heads, kernel.pairwise_matmat_multi_plain(
+            op.spec, Xq, X_land, heads)):
+        assert tuple(out.shape) == (n_q, V.shape[1])
+        terms = (K.abs() @ V.abs()).amax(dim=1)
+        row_err = (out - plain).abs().amax(dim=1) / terms
+        assert float(row_err.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("b,c", [(5, 48), (16, 48), (64, 200)])
+def test_append_launch_is_the_block_under_the_c2_contract(cuda_device, b, c):
+    """The append path's launch, B1 with the identity as right-hand side,
+    metered as one ``append_sweeps`` tick of b·c entries: G equals B2's
+    entries of the same points bit for bit where they are ≥ 2^-104, else
+    within 2^-126 (ROADMAP C2; RBF σ = 3 at d = 16 keeps these far above
+    it), and the plain version to ≤ 1e-5."""
+    rng = np.random.default_rng(b * c)
+    X_land = _serving_points(rng, c, cuda_device)
+    Xn = _serving_points(rng, b, cuda_device)
+    op = CountingOperator(PairwiseKernel(X_land, specs.rbf(3.0),
+                                         device=cuda_device))
+    eye = torch.eye(c, device=cuda_device)
+    (G,) = op.append_cross(Xn, (eye,))
+    assert op.counts["append_sweeps"] == 1 and op.counts["cross_sweeps"] == 0
+    assert op.counts["entries"] == b * c
+    direct = kernel.pairwise_block(op.inner.spec, Xn, X_land)
+    gap = (G - direct).abs()
+    assert bool(torch.where(direct.abs() >= 2.0 ** -104, gap == 0,
+                            gap < 2.0 ** -126).all())
+    assert float(direct.abs().min()) >= 2.0 ** -104
+    (plain,) = kernel.pairwise_matmat_multi_plain(op.inner.spec, Xn, X_land,
+                                                  (eye,))
+    assert scaled(G, plain) <= 1e-5
+
+
+def test_serving_path_on_the_card(cuda_device, tmp_path):
+    """Build, serve, append and warm-boot on the card at a small size: one
+    B1 launch per build, per bucket and per appended batch; answers within
+    1e-5 of the dense f64 oracles before and after the appends; the delta
+    chain restored bit for bit."""
+    from repro_torch import serve as tserve
+    from repro_torch.launch import serve_kernel as tsk
+    params = {"n": 600, "d": D, "c": 48, "s": 96, "alpha": 1.0,
+              "n_components": 8, "kernel": "rbf",
+              "spec_params": {"sigma": 3.0}, "seed": 0, "use_pallas": True}
+    kernel.reset_launch_counts()
+    art = tsk.build_from_params(params, device=cuda_device)
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == 1
+    X, y = tsk.synth_problem(600, D, 0)
+    rng = np.random.default_rng(1)
+    reqs = [tserve.QueryRequest(rng.standard_normal((n, D)), t)
+            for n, t in ((5, "krr"), (64, "kpca"), (33, "features"),
+                         (17, "krr"))]
+    kernel.reset_launch_counts()
+    res = tserve.serve_kernel_model(art, reqs)
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == \
+        len(tserve.plan_buckets(reqs))
+    head = tserve.dense_krr_head(art, y)
+    for r, q in zip(res, reqs):
+        want = tserve.dense_krr_oracle(art, q.X, head=head) \
+            if q.task == "krr" else tserve.dense_oracle(art, q.X, q.task)
+        assert tserve.parity_gap(r.out, want) <= 1e-5, q.task
+    d = str(tmp_path)
+    tserve.save_artifact(d, art)
+    m = tserve.IncrementalMaintainer(art, y, directory=d, X=X)
+    kernel.reset_launch_counts()
+    ys = [y[:, None]]
+    for Xb, yb in tsk.synth_batches(params, 2, 64):
+        m.append(Xb, yb)
+        ys.append(yb[:, None])
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == 2
+    Xq = rng.standard_normal((19, D)).astype(np.float32)
+    (got,) = m.artifact.landmark_operator().cross(
+        torch.as_tensor(Xq, device=cuda_device), (m.artifact.heads["krr"],))
+    want = tserve.dense_krr_oracle(m.artifact, Xq, np.concatenate(ys))
+    assert tserve.parity_gap(got, want) <= 1e-5
+    restored = tserve.load_artifact(d, device=cuda_device)
+    assert torch.equal(restored.C, m.artifact.C)
+    assert all(torch.equal(restored.heads[t], m.artifact.heads[t])
+               for t in tserve.TASKS)

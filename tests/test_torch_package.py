@@ -61,7 +61,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
               "repro_torch.kernels.flash_attention.kernel",
               "repro_torch.configs.base", "repro_torch.configs.gemma3_12b",
               "repro_torch.models.attention", "repro_torch.models.model",
-              "repro_torch.models.transformer", "repro_torch.launch.serve"):
+              "repro_torch.models.transformer", "repro_torch.launch.serve",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+              "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+              "repro_torch.serve", "repro_torch.serve.artifact",
+              "repro_torch.serve.engine", "repro_torch.serve.incremental",
+              "repro_torch.launch.serve_kernel"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
