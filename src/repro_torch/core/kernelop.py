@@ -250,6 +250,14 @@ class PairwiseKernel(SPSDOperator):
     def diag(self):
         return pairwise_specs.diag(self.spec, self.X)
 
+    def stat_operator(self) -> "PairwiseKernel":
+        """Operator over the raw pairwise statistic (identity entry
+        function): what per-spec bandwidth calibration quantiles
+        (``repro_torch.kernels.pairwise.calibrate``).  Shares this
+        operator's data, routing and device."""
+        return PairwiseKernel(self.X, pairwise_specs.stat_only(self.spec),
+                              self.use_kernel, device=self.device)
+
     # -- fused-sweep capability (sweep.sweep_operator routes through these) --
 
     def supports_fused_matmat(self) -> bool:

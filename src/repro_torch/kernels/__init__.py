@@ -1,5 +1,9 @@
 """The port's hand-written CUDA kernels, one library per source
-(``pairwise``: B1/B2, ``landmark``: B5, ``flash``: B6)."""
+(``pairwise``: B1/B2, ``landmark``: B5, ``flash``: B6).
+
+``rbf_ops`` binds the ``rbf`` spec onto the pairwise kernels
+(``repro_torch.kernels.rbf_sketch.ops``), as the reference re-exports it."""
+from repro_torch.kernels.rbf_sketch import ops as rbf_ops  # noqa: F401
 
 
 def libraries():

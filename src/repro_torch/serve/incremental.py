@@ -263,7 +263,7 @@ def append_rows(
     G32 = G.to(_F32)
     G64 = _host(G32)
 
-    y64 = np.asarray(y_new, np.float64)
+    y64 = _host(torch.as_tensor(y_new))    # host, device or array input
     if y64.ndim == 1:
         y64 = y64[:, None]
     if y64.shape[0] != b:

@@ -690,3 +690,103 @@ def test_serving_path_on_the_card(cuda_device, tmp_path):
     assert torch.equal(restored.C, m.artifact.C)
     assert all(torch.equal(restored.heads[t], m.artifact.heads[t])
                for t in tserve.TASKS)
+
+
+@pytest.mark.parametrize("stat", ["sqdist", "l1dist", "dot"])
+@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (37, 129, 16), (300, 77, 5),
+                                   (1000, 513, 40), (5000, 128, 16)])
+@pytest.mark.parametrize("offset", [0.0, 8.0])
+def test_statistic_only_block_at_ragged_edges(cuda_device, stat, n, m, d,
+                                              offset):
+    """B2 with the identity epilogue over the raw statistic (calibration's
+    n × m gather) against its plain version; under sqdist and l1dist no
+    entry is negative, the self-pairs included.  With the points offset far
+    from the origin the sqdist combine ‖x‖² + ‖y‖² − 2x·y cancels most:
+    there both versions round at the scale of the norms, so the kernel is
+    held to the f64 statistic within twice the plain version's own error
+    against it, plus 4 f32 ulps of the largest entry."""
+    rng = np.random.default_rng(7)
+    X = _rand(rng, n, d, dev=cuda_device) + offset
+    m = min(m, n)
+    idx = torch.as_tensor(rng.choice(n, size=m, replace=False),
+                          device=cuda_device)
+    Xa = X[idx]
+    spec = specs.stat_only(stat)
+    before = kernel.launch_counts()["pairwise_block"]
+    out = kernel.pairwise_block(spec, X, Xa)
+    assert kernel.launch_counts()["pairwise_block"] == before + 1
+    assert out.shape == (n, m)
+    plain = kernel.pairwise_block_plain(spec, X, Xa)
+    norms = float((X.double() ** 2).sum(1).max()) * 2.0
+    if stat == "sqdist" and offset:
+        X64, A64 = X.double(), Xa.double()
+        exact = torch.clamp((X64 ** 2).sum(1)[:, None] + (A64 ** 2).sum(1)
+                            - 2.0 * X64 @ A64.T, min=0.0)
+        err_k = float((out.double() - exact).abs().max())
+        err_p = float((plain.double() - exact).abs().max())
+        ulp = torch.finfo(torch.float32).eps * float(exact.abs().max())
+        print(f"sqdist offset {offset} n={n} m={m} d={d}: vs f64 kernel "
+              f"{err_k:.3g}, plain {err_p:.3g}, bound {2 * err_p + 4 * ulp:.3g}")
+        assert err_k <= 2 * err_p + 4 * ulp
+    else:
+        assert scaled(out, plain) <= 1e-5
+    if stat != "dot":
+        assert bool((out >= 0).all())
+        self_pairs = out[idx, torch.arange(m, device=cuda_device)]
+        assert float(self_pairs.max()) <= 1e-6 * norms
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_calibrate_on_the_card_matches_the_cpu(cuda_device, name):
+    """One B2 launch (none for linear), parameters ≤ 1e-5 of the CPU's."""
+    from repro_torch.kernels.pairwise import calibrate
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(3000, D)).astype(np.float32)
+    idx = rng.choice(3000, size=128, replace=False)
+    spec = specs.suggested_spec(name, D)
+    before = kernel.launch_counts()["pairwise_block"]
+    got = calibrate.calibrate_sigma(X, spec=spec, anchor_idx=idx)
+    launched = kernel.launch_counts()["pairwise_block"] - before
+    want = calibrate.calibrate_sigma(X, spec=spec, anchor_idx=idx,
+                                     device="cpu")
+    assert launched == int(calibrate.calibration_rule(name).needs_stat)
+    for (k, a), (_, b) in zip(got.params, want.params):
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b)), (k, a, b)
+
+
+def test_rbf_ops_are_the_pairwise_launches(cuda_device):
+    """Each wrapper is the launch it binds, bit for bit, counted as B2/B1."""
+    from repro_torch.kernels import rbf_ops
+    from repro_torch.kernels.rbf_sketch import kernel as rbf_kernel
+    rng = np.random.default_rng(9)
+    Xr, Xc = _rand(rng, 70, D, dev=cuda_device), _rand(rng, 130, D,
+                                                      dev=cuda_device)
+    V = _rand(rng, 130, 9, dev=cuda_device)
+    spec = specs.rbf(1.3)
+    c0 = kernel.launch_counts()
+    blk = rbf_ops.rbf_block(Xr, Xc, 1.3)
+    (mm,) = rbf_ops.rbf_matmat_multi_rows(Xr, Xc, [V], 1.3)
+    pad = rbf_kernel.rbf_matmat_padded(Xr, Xc, V, 1.3)
+    c1 = kernel.launch_counts()
+    assert c1["pairwise_block"] - c0["pairwise_block"] == 1
+    assert c1["pairwise_matmat_multi"] - c0["pairwise_matmat_multi"] == 2
+    assert torch.equal(blk, kernel.pairwise_block_cuda(spec, Xr, Xc))
+    (ref,) = kernel.pairwise_matmat_multi_cuda(spec, Xr, Xc, [V])
+    assert torch.equal(mm, ref) and torch.equal(pad, ref)
+
+
+def test_append_takes_targets_on_the_card(cuda_device):
+    """``append_rows`` with ``y_new`` a CUDA tensor (the contract checks'
+    append on the card) equals the append with host targets."""
+    from repro_torch import serve as tserve
+    from repro_torch.analysis import trace_check
+    size = trace_check.TraceSize(device="cuda")
+    art, y = trace_check._artifact_problem(size)
+    rng = np.random.default_rng(3)
+    Xb = torch.as_tensor(rng.standard_normal((16, size.d)),
+                         dtype=torch.float32, device=cuda_device)
+    yb = rng.standard_normal(16).astype(np.float32)
+    a1, *_ = tserve.append_rows(art, tserve.init_state(art, y), Xb, yb)
+    a2, *_ = tserve.append_rows(art, tserve.init_state(art, y), Xb,
+                                torch.as_tensor(yb, device=cuda_device))
+    assert torch.equal(a1.heads["krr"], a2.heads["krr"])
