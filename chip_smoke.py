@@ -82,6 +82,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
    in f32 (the CUDA-core kernel), and the library yardstick
    ``scaled_dot_product_attention`` timed at the global shape (the smoke
    model's card-against-CPU check lives in ``tests/test_torch_cuda.py``).
+7b. serve_moe: the same serving loop for qwen2-moe-a2.7b at full width
+   (d_model 2,048, 16 × 128 heads MHA, 60 routed experts top-4 + 4 shared
+   of width 1,408, capacity factor 1.25, vocab 151,936, bf16 compute), cut
+   to 12 of 24 layers, a 32,768-token context, 2 requests, 16 tokens
+   (warm-up: a 512-token prompt, 2 tokens); the same gates (B6 12 times a
+   prefill on the tensor cores, none in decode) and device time by class,
+   the expert GEMMs (the kernels under ``aten::bmm``) and the dispatch's
+   sort / gather / scatter apart; then one MoE layer at T = 4,096 tokens
+   with nothing dropped held to an f32 per-token evaluation of the same routing
+   (≤ 5e-2) and bit-equal across two calls, and B6 timed at the model's
+   prefill shape (D = Dv = 128, group 1), rows against the plain version
+   and SDPA beside it;
+7c. serve_mla: deepseek-v3-671b at full width (MLA q_lora 1,536, kv_lora
+   512, nope 128, rope 64, v 128; 256 experts top-8 + 1 shared; the dense
+   prefix at d_ff 18,432; bf16 params; the MTP head initialized), cut to 4
+   of 61 layers (the 3 dense prefix layers and 1 MoE layer), an
+   8,192-token context, 2 requests, 16 tokens, absorbed decode; the same
+   gates (4 B6 launches a prefill at D = 192 / Dv = 128), one MoE layer at
+   T = 512, B6 at the MLA shape;
+7d. serve_dense_configs: yi-6b, yi-9b, minitron-4b and chameleon-34b (256
+   seeded patch embeddings, early fusion) at full width, each cut to 2
+   layers, 1 request, a 4,096-token context, 4 tokens: 2 B6 launches a
+   prefill, none in decode, tokens in range, logits finite; B6 timed at
+   yi's shape (D = 128, group 8).  ``phase_parity_flash`` holds B6 at these
+   head shapes on both routes (D = Dv = 128 at groups 8 and 1, D = 192 /
+   Dv = 128, also causal with Sq > Sk);
    B6 is also held to its plain version at every shape of the reference's
    flash tests in f32 and bf16, and in bf16 at the tensor-core kernel's
    edge cases (ragged lengths, head dims 32–256, Dv ≠ D, decode, chunked
@@ -144,7 +170,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``rbf_sketch`` wrapper bit for bit the B2 or B1 launch it binds, and
    counted as that launch;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the nine paths (every count reset just before
+   own path and on each of the twelve paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -318,6 +344,41 @@ RAGGED_C, RAGGED_S, RAGGED_SIGMA, RAGGED_WASTE = 32, 128, 1.5, 0.25
 CAL_ANCHORS, CAL_ANCHORS_WIDE = 128, 512
 CAL_B1_ROWS = 1024      # B1 rows held to the plain version per calibrated spec
 TOL_CAL = 1e-5          # calibrated parameters vs the plain panel's, relative
+
+# the MoE serving configuration: qwen2-moe-a2.7b at full width
+# (src/repro/configs/qwen2_moe_a2_7b.py: d_model 2,048, 16 x 128 heads MHA,
+# 60 routed experts top-4 + 4 shared of width 1,408, vocab 151,936, bf16
+# compute, f32 params), cut to 12 of 24 layers (the f32 params at init are
+# ~30 GB), a 32,768-token context (prefill_32k's length), 2 requests and 16
+# generated tokens; one MoE layer checked at T = 4,096 tokens
+MOE_LAYERS, MOE_CONTEXT, MOE_BATCH, MOE_GEN = 12, 32_768, 2, 16
+MOE_CHECK_T = 4096
+# the MLA serving configuration: deepseek-v3-671b at full width
+# (src/repro/configs/deepseek_v3_671b.py: d_model 7,168, 128 heads, MLA
+# q_lora 1,536, kv_lora 512, nope 128, rope 64, v 128, 256 routed experts
+# top-8 + 1 shared of width 2,048, the dense prefix at d_ff 18,432, vocab
+# 129,280, bf16 params, MTP), cut to 4 of 61 layers (the 3 dense prefix
+# layers and the first MoE layer: ~31 GB of bf16 params), an 8,192-token
+# context, 2 requests and 16 tokens, absorbed decode; one MoE layer checked
+# at T = 512 tokens (nothing dropped means C = T: (E·T, d) is 1.9 GB)
+MLA_LAYERS, MLA_CONTEXT, MLA_BATCH, MLA_GEN = 4, 8_192, 2, 16
+MLA_CHECK_T = 512
+MLA_FLASH_ROWS = 256    # B6's plain version on 256 rows: a 2.1 GB panel
+# the other dense configs at full width, each cut to 2 layers, 1 request,
+# a 4,096-token context and 4 tokens; chameleon takes 256 patch embeddings
+DENSE_ARCHS = ("yi-6b", "yi-9b", "minitron-4b", "chameleon-34b")
+DENSE_LAYERS, DENSE_CONTEXT, DENSE_BATCH, DENSE_GEN = 2, 4096, 1, 4
+DENSE_PATCHES = 256
+WARM_LEN = 512          # the warm-up prompt of those paths (2 tokens)
+TOL_MOE = 5e-2          # a bf16 MoE layer vs its f32 per-token evaluation
+# B6 at the new models' head shapes, both routes: (B, Hq, Hkv, Sq, Sk, D,
+# Dv) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128, MLA's D = 192 /
+# Dv = 128 (the HD = 256 instance), also causal with Sq > Sk
+FLASH_MODEL_SHAPES = ((1, 32, 4, 300, 300, 128, 128),
+                      (1, 16, 16, 300, 300, 128, 128),
+                      (1, 8, 8, 300, 300, 192, 128),
+                      (2, 16, 16, 1000, 1000, 192, 128),
+                      (1, 8, 8, 300, 100, 192, 128))
 
 # causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
 FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
@@ -1834,6 +1895,23 @@ def phase_parity_flash() -> None:
         log(f"parity flash, rows without keys (B, Hq, Hkv, Sq, Sk, D, Dv) = "
             f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}: exactly 0; "
             + " ".join(f"{k}={v}" for k, v in errs.items()))
+    # the MoE, MLA and dense configs' head shapes on both routes
+    for B, Hq, Hkv, Sq, Sk, D, Dv in FLASH_MODEL_SHAPES:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=46,
+                                    Dv=Dv)
+            label = (f"flash {dtype} (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+                     f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}")
+            if Sq > Sk:
+                out = fa_kernel.flash_attention_cuda(q, k, v, causal=True)
+                check(bool((out[:, :, :Sq - Sk] == 0).all()),
+                      f"{label}: a row that sees no key is not 0")
+            errs[str(dtype).split(".")[-1]] = _flash_case(
+                q, k, v, True, None, label)
+        log(f"parity flash, model head shape (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+            f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}: "
+            + " ".join(f"{k}={v}" for k, v in errs.items()))
 
 
 def serve_config():
@@ -1876,33 +1954,51 @@ def _instrumented(model):
     return model._replace(prefill=prefill, decode_step=decode_step), rec
 
 
-def phase_serve_gemma3() -> dict:
-    cfg = serve_config()
-    B, S, n_gen = SERVE_BATCH, SERVE_CONTEXT, SERVE_GEN
+def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
+              n_patch: int = 0, warm_len: int = 0, describe: str = "",
+              profile: bool = True) -> dict:
+    """One model served end to end through ``serve.generate``: init from a
+    seeded generator and ``prepare``; a warm-up (the full run, or a
+    ``warm_len``-token prompt and 2 tokens); then the counted, timed run
+    (every launch count reset just before it and read just after); B6 once
+    per layer of its one prefill, all on the tensor-core kernel, none in
+    decode; every token in [0, vocab) and every logit finite; then, outside
+    the counted run, the device time of one prefill and 4 decode steps by
+    kernel class.  ``n_patch`` seeded patch embeddings are fused into the
+    leading prompt positions (early fusion)."""
     t0 = time.perf_counter()
     model = tmodel.build_model(cfg)
-    params = model.prepare(model.init(gen(30), DEV))
+    params = model.prepare(model.init(gen(seed), DEV))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(32),
-                            device=DEV)
-    log(f"serve_gemma3: {cfg.name} with {cfg.n_layers} layers "
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen(
+        seed + 2), device=DEV)
+    patches = None
+    if n_patch:
+        patches = torch.randn((B, n_patch, cfg.d_model),
+                              generator=gen(seed + 3), device=DEV).to(
+                                  cfg.cdtype)
+    log(f"{tag}: {cfg.name} with {cfg.n_layers} layers "
         f"{cfg.layer_pattern}, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, window {cfg.window}, landmark c {cfg.landmark_c}"
-        f" θ {cfg.landmark_theta}, {n_params:,} params held in bf16 "
-        f"(init + cast {init_s:.1f} s); batch {B}, context {S}, gen {n_gen}")
+        f"{cfg.vocab_size}{describe}, {n_params:,} params held in "
+        f"{cfg.dtype} (init + cast {init_s:.1f} s); batch {B}, context {S}, "
+        f"gen {n_gen}" + (f", {n_patch} patch embeddings" if n_patch else ""))
+
+    def run(m, p, length, steps):
+        return serve.generate(m, params, p[:, :length], steps,
+                              generator=torch.Generator().manual_seed(
+                                  seed + 1), patches=patches)
+
     warm, _ = _instrumented(model)
-    serve.generate(warm, params, prompts, n_gen,
-                   generator=torch.Generator().manual_seed(31))
+    run(warm, prompts, warm_len or S, 2 if warm_len else n_gen)
     timed, rec = _instrumented(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = serve.generate(timed, params, prompts, n_gen,
-                         generator=torch.Generator().manual_seed(31))
+    out = run(timed, prompts, S, n_gen)
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
@@ -1915,34 +2011,182 @@ def phase_serve_gemma3() -> dict:
            "tokens_per_s": B * n_gen / (total_ms / 1e3),
            "decode_tokens_per_s": B / (decode_ms / 1e3),
            "peak_gb": peak_gb, "launches": launches,
-           "b6_prefill": rec["b6_prefill"], "b6_decode": rec["b6_decode"]}
-    log(f"serve_gemma3 timed run: prefill {res['prefill_ms']:.1f} ms, decode"
+           "b6_prefill": rec["b6_prefill"], "b6_decode": rec["b6_decode"],
+           "params": n_params, "init_s": init_s}
+    log(f"{tag} timed run: prefill {res['prefill_ms']:.1f} ms, decode"
         f" {decode_ms:.2f} ms per token (generate minus prefill over "
         f"{n_gen - 1} steps), generate {total_ms:.1f} ms, "
         f"{res['tokens_per_s']:.2f} tokens/s ({res['decode_tokens_per_s']:.1f}"
         f" in decode), peak memory {peak_gb:.2f} GB")
-    log(f"serve_gemma3 launches {json.dumps(launches)}; B6 per prefill "
+    log(f"{tag} launches {json.dumps(launches)}; B6 per prefill "
         f"{rec['b6_prefill']}, per decode step {rec['b6_decode']}")
     n = cfg.n_layers
     check(launches == no_launches(flash_attention=n, flash_attention_tc=n),
-          f"the serving path should launch B6 once per layer of its one "
-          f"prefill, each on the tensor-core kernel, and nothing else: "
+          f"{tag}: the serving path should launch B6 once per layer of its "
+          f"one prefill, each on the tensor-core kernel, and nothing else: "
           f"{launches}")
     none = {"flash_attention": 0, "flash_attention_tc": 0}
     check(rec["b6_prefill"] == [{"flash_attention": n,
                                  "flash_attention_tc": n}]
           and rec["b6_decode"] == [none] * (n_gen - 1),
-          f"B6 per prefill {rec['b6_prefill']} (all {n} on the tensor "
-          f"cores), per decode step {rec['b6_decode']} (none)")
+          f"{tag}: B6 per prefill {rec['b6_prefill']} (all {n} on the "
+          f"tensor cores), per decode step {rec['b6_decode']} (none)")
     check(tuple(out.shape) == (B, n_gen) and bool(
         ((out >= 0) & (out < cfg.vocab_size)).all()),
-        f"tokens {tuple(out.shape)} outside [0, {cfg.vocab_size})")
-    check(bool(torch.stack(rec["finite"]).all()), "a logit was not finite")
-    log(f"serve_gemma3 tokens row 0: {out[0].tolist()}")
-    res["profile"] = _profile_serve(model, params, prompts)
-    del params, model, warm, timed
-    torch.cuda.empty_cache()
+        f"{tag}: tokens {tuple(out.shape)} outside [0, {cfg.vocab_size})")
+    check(bool(torch.stack(rec["finite"]).all()),
+          f"{tag}: a logit was not finite")
+    log(f"{tag} tokens row 0: {out[0].tolist()}")
+    if profile:
+        res["profile"] = _profile_serve(tag, model, params, prompts, n_gen,
+                                        seed + 1, patches)
+    res["model"], res["params_tree"] = model, params
     return res
+
+
+def _drop_model(res: dict) -> None:
+    """Free a served model's weights before the next phase."""
+    res.pop("model", None)
+    res.pop("params_tree", None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma3() -> dict:
+    cfg = serve_config()
+    res = _serve_lm("serve_gemma3", cfg, SERVE_BATCH, SERVE_CONTEXT,
+                    SERVE_GEN, 30,
+                    describe=f", window {cfg.window}, landmark c "
+                             f"{cfg.landmark_c} θ {cfg.landmark_theta}")
+    _drop_model(res)
+    return res
+
+
+def moe_config():
+    """qwen2-moe-a2.7b at full width, cut in depth."""
+    return dataclasses.replace(tconfigs.get_config("qwen2-moe-a2.7b"),
+                               n_layers=MOE_LAYERS)
+
+
+def mla_config():
+    """deepseek-v3-671b at full width: the 3 dense prefix layers and the
+    first MoE layer, absorbed MLA decode."""
+    return dataclasses.replace(tconfigs.get_config("deepseek-v3-671b"),
+                               n_layers=MLA_LAYERS, mla_absorb=True)
+
+
+def _moe_describe(cfg) -> str:
+    return (f", {cfg.n_experts} experts top-{cfg.moe_top_k} + "
+            f"{cfg.n_shared_experts} shared of width {cfg.moe_d_ff}, "
+            f"capacity factor {cfg.capacity_factor}"
+            + (f", {cfg.first_k_dense} dense prefix layers at d_ff "
+               f"{cfg.dense_d_ff}" if cfg.first_k_dense else ""))
+
+
+def _moe_layer_check(tag: str, cfg, moe_params, T: int) -> dict:
+    """One MoE layer at full width on T seeded tokens in bf16, with the
+    capacity raised until nothing can drop (cf = E/k, so C = T), against an
+    f32 per-token dense evaluation of the same routing on the card (each
+    expert's rows through its f32 weights, weighted and summed, plus the
+    shared MLP in f32), scale-normalized ≤ TOL_MOE; two calls bit-equal."""
+    from repro_torch.models import moe as tmoe
+    ccfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.moe_top_k)
+    x = torch.randn((1, T, cfg.d_model), generator=gen(61),
+                    device=DEV).to(cfg.cdtype)
+    xf = x.reshape(T, cfg.d_model)
+    w, idx, _ = tmoe._route(moe_params, ccfg, xf)
+    _, _, keep = tmoe._assign(ccfg, idx, tmoe.capacity(ccfg, T))
+    check(bool(keep.all()), f"{tag} MoE layer: an assignment dropped")
+    ms, out = cuda_ms(lambda: tmoe.moe_ffn(moe_params, ccfg, x)[0], reps=3,
+                      warmup=1)
+    again = tmoe.moe_ffn(moe_params, ccfg, x)[0]
+    check(torch.equal(out, again), f"{tag} MoE layer: two calls differ")
+    x32 = xf.float()
+    ref = torch.zeros((T, cfg.d_model), dtype=torch.float32, device=DEV)
+    for e in range(cfg.n_experts):
+        rows, j = torch.nonzero(idx == e, as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = x32[rows]
+        h = torch.nn.functional.silu(xe @ moe_params["wi_gate"][e].float()) \
+            * (xe @ moe_params["wi_up"][e].float())
+        ref.index_add_(0, rows, (h @ moe_params["wo"][e].float())
+                       * w[rows, j][:, None])
+    if cfg.n_shared_experts:
+        sh = moe_params["shared"]
+        ref += (torch.nn.functional.silu(x32 @ sh["wi_gate"].float())
+                * (x32 @ sh["wi_up"].float())) @ sh["wo"].float()
+    err = scaled_err(out.reshape(T, -1).float(), ref)
+    check(err <= TOL_MOE, f"{tag} MoE layer vs f32 per-token: {err:.3g} > "
+          f"{TOL_MOE}")
+    log(f"{tag} MoE layer at T = {T} (capacity {tmoe.capacity(ccfg, T)}, "
+        f"nothing dropped): {ms:.2f} ms, vs the f32 per-token evaluation "
+        f"{err:.3g} (limit {TOL_MOE}), two calls bit-equal")
+    return {"T": T, "ms": ms, "err_vs_f32_per_token": err}
+
+
+def phase_serve_moe() -> dict:
+    cfg = moe_config()
+    res = _serve_lm("serve_moe", cfg, MOE_BATCH, MOE_CONTEXT, MOE_GEN, 70,
+                    warm_len=WARM_LEN, describe=_moe_describe(cfg))
+    res["moe_layer"] = _moe_layer_check(
+        "serve_moe", cfg, res["params_tree"]["stack"]["scanned"][0][0]["moe"],
+        MOE_CHECK_T)
+    _drop_model(res)
+    res["b6_shape"] = _flash_at_shape(
+        "qwen2-moe (MHA, group 1)", MOE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+        MOE_CONTEXT, cfg.head_dim, cfg.head_dim, FLASH_ROWS, "serve_moe")
+    return res
+
+
+def phase_serve_mla() -> dict:
+    cfg = mla_config()
+    res = _serve_lm(
+        "serve_mla", cfg, MLA_BATCH, MLA_CONTEXT, MLA_GEN, 80,
+        warm_len=WARM_LEN,
+        describe=f", MLA q_lora {cfg.q_lora_rank} kv_lora "
+                 f"{cfg.kv_lora_rank} nope {cfg.qk_nope_dim} rope "
+                 f"{cfg.qk_rope_dim} v {cfg.v_head_dim} (absorbed decode), "
+                 + _moe_describe(cfg)[2:] + ", MTP initialized, unused")
+    check("mtp" in res["params_tree"], "serve_mla: no MTP parameters")
+    res["moe_layer"] = _moe_layer_check(
+        "serve_mla", cfg,
+        res["params_tree"]["stack"]["scanned"][0][0]["moe"], MLA_CHECK_T)
+    _drop_model(res)
+    dq = cfg.qk_nope_dim + cfg.qk_rope_dim
+    res["b6_shape"] = _flash_at_shape(
+        "deepseek-v3 MLA (D 192, Dv 128)", MLA_BATCH, cfg.n_heads,
+        cfg.n_heads, MLA_CONTEXT, dq, cfg.v_head_dim, MLA_FLASH_ROWS,
+        "serve_mla")
+    return res
+
+
+def phase_serve_dense_configs() -> dict:
+    """yi-6b, yi-9b, minitron-4b and chameleon-34b (with seeded patch
+    embeddings) at full width, each cut to DENSE_LAYERS layers; the path's
+    launch counts are each config's summed (reset just before each counted
+    run and read just after)."""
+    out = {"configs": {}, "launches": no_launches()}
+    for name in DENSE_ARCHS:
+        cfg = dataclasses.replace(tconfigs.get_config(name),
+                                  n_layers=DENSE_LAYERS)
+        n_patch = DENSE_PATCHES if cfg.family == "vlm" else 0
+        res = _serve_lm(f"serve_dense {name}", cfg, DENSE_BATCH,
+                        DENSE_CONTEXT, DENSE_GEN, 90, n_patch=n_patch,
+                        warm_len=WARM_LEN, profile=False,
+                        describe=f", mlp {cfg.mlp_variant}"
+                                 + (", qk-norm" if cfg.qk_norm else ""))
+        _drop_model(res)
+        out["configs"][name] = res
+        for k, v in res["launches"].items():
+            out["launches"][k] += v
+    yi = tconfigs.get_config("yi-6b")
+    out["b6_shape"] = _flash_at_shape(
+        "yi (GQA, group 8)", DENSE_BATCH, yi.n_heads, yi.n_kv_heads,
+        DENSE_CONTEXT, yi.head_dim, yi.head_dim, FLASH_ROWS,
+        "serve_dense_configs")
+    return out
 
 
 def _kernel_class(name: str) -> str:
@@ -1954,6 +2198,9 @@ def _kernel_class(name: str) -> str:
     if any(t in low for t in ("svd", "geqr", "orgqr", "ormqr", "syevj",
                               "potrf", "lapack", "cusolver")):
         return "SVD and QR (cuSOLVER)"
+    if any(t in low for t in ("sort", "searchsorted", "scatter", "gather",
+                              "index")):
+        return "sort / gather / scatter"
     if any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                               "sm90")):
         return "matmul (cuBLAS)"
@@ -2018,6 +2265,17 @@ def _device_profile(fn) -> dict:
     busy = sum(by_class.values())
     if busy <= 0.0:
         return {"error": "the profiler recorded no device time"}
+    # the kernels launched under aten::bmm, split out of the matmuls: in a
+    # prefill only the MoE's expert GEMMs call it (the projections are 2-d
+    # matmuls); in decode the attention's einsum reads do too
+    bmm = sum(getattr(e, "device_time_total", 0.0) for e in
+              prof.key_averages()
+              if e.key == "aten::bmm" and e.device_type != DeviceType.CUDA
+              ) / 1e3
+    if bmm > 0.0:
+        mm = "matmul (cuBLAS)"
+        by_class[mm] = by_class.get(mm, 0.0) - bmm
+        by_class["of which aten::bmm"] = bmm
     top.sort(reverse=True)
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -2026,21 +2284,26 @@ def _device_profile(fn) -> dict:
                     for ms, n, k in top[:8]]}
 
 
-def _profile_serve(model, params, prompts) -> dict:
+def _profile_serve(tag, model, params, prompts, n_gen, seed,
+                   patches=None) -> dict:
     """One prefill and 4 decode steps, each run unprofiled and then under
     the profiler (outside the counted run)."""
     state = {}
+    S = prompts.shape[1]
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
 
     def prefill():
         state["logits"], state["cache"] = model.prefill(
-            params, {"tokens": prompts}, SERVE_CONTEXT + SERVE_GEN,
-            generator=torch.Generator().manual_seed(31))
+            params, batch, S + n_gen,
+            generator=torch.Generator().manual_seed(seed))
 
     def decode():
         tok = torch.argmax(state["logits"], dim=-1)
         for i in range(4):
             logits, _ = model.decode_step(params, state["cache"],
-                                          tok[:, None], SERVE_CONTEXT + i)
+                                          tok[:, None], S + i)
             tok = torch.argmax(logits, dim=-1)
 
     prof = {"prefill": _device_profile(prefill),
@@ -2048,9 +2311,9 @@ def _profile_serve(model, params, prompts) -> dict:
     state.clear()
     for what, p in prof.items():
         if "error" in p:
-            log(f"serve_gemma3 {what} profile: not measured ({p['error']})")
+            log(f"{tag} {what} profile: not measured ({p['error']})")
             continue
-        log(f"serve_gemma3 {what} profile: device busy {p['busy_ms']:.1f} ms"
+        log(f"{tag} {what} profile: device busy {p['busy_ms']:.1f} ms"
             f" of {p['wall_ms']:.1f} ms unprofiled wall (idle share "
             f"{p['idle_share']:.1%}; {p['profiled_wall_ms']:.1f} ms wall "
             f"under the profiler); by class " + json.dumps(
@@ -2254,6 +2517,70 @@ def _flash_line(serve_res: dict) -> dict:
             "row_err_local_vs_f64": loc["row_err_vs_f64"],
             "row_err_f32_local_vs_plain": loc["row_err_f32_vs_plain"],
             "local_window": cfg.window}
+
+
+def _flash_at_shape(label: str, B: int, Hq: int, Hkv: int, S: int, D: int,
+                    Dv: int, n_rows: int, path: str) -> dict:
+    """B6 at a served model's prefill shape, bf16 (the tensor-core kernel):
+    timed (one launch a call), held row by row on ``n_rows`` sampled query
+    rows to its plain version (≤ TOL_FLASH_ROW_BF16), its bound (the causal
+    half's flops over the bf16 tensor-core peak, or the bytes), and SDPA
+    timed where one of its fused backends takes the shape (else None)."""
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, seed=47,
+                            qk_scale=1.0, Dv=Dv)
+    rows = torch.sort(torch.randperm(S, generator=gen(48), device=DEV)[
+        :n_rows]).values
+    tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
+    ms, out = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+        q, k, v, causal=True), reps=3, warmup=1)
+    check(fa_kernel.launch_counts()["flash_attention_tc"] - tc0 == 4,
+          f"B6 {label}: bf16 calls missed the tensor-core kernel")
+    got = out[:, :, rows]
+    del out
+    plain_ms, plain = cuda_ms(lambda: fa_kernel.flash_attention_plain(
+        q[:, :, rows], k, v, causal=True, q_pos=rows), reps=1, warmup=1)
+    errs = _check_rows(got, plain, TOL_FLASH_ROW_BF16,
+                       f"B6 {label} rows vs plain")
+    max_abs = float((got.float() - plain.float()).abs().max())
+    del got, plain
+    flops = _flash_flops(B, Hq, S, D, Dv)
+    nbytes = 2 * (B * Hq * S * D + B * Hkv * S * (D + Dv) + B * Hq * S * Dv)
+    bound_ms = max(flops / PEAK_BF16_TC_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    lib_ms = lib_note = None
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=Hq != Hkv), reps=3,
+                warmup=1)
+    except RuntimeError as exc:      # no fused backend takes the shape
+        lib_note = str(exc).splitlines()[0][:160]
+    del q, k, v
+    torch.cuda.empty_cache()
+    res = {"label": label, "path": path,
+           "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
+                     "causal": True, "dtype": "bfloat16"},
+           "ms": ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if flops / PEAK_BF16_TC_FLOPS
+           >= nbytes / PEAK_HBM_BYTES else "bytes",
+           "bf16_roof_share": bound_ms / ms, "plain_ms_rows": plain_ms,
+           "plain_rows": n_rows, "row_err_vs_plain": errs["max"],
+           "row_err_vs_plain_median": errs["median"],
+           "max_abs_err": max_abs, "library_ms": lib_ms}
+    if lib_note:
+        res["library_note"] = lib_note
+    log(f"B6 {label} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, D={D}, Dv={Dv}, "
+        f"causal, bf16): {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.1%} of the bf16 tensor-core roof, bound "
+        f"{bound_ms:.2f} ms); SDPA "
+        + (f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x)" if lib_ms else
+           f"not measured ({lib_note})")
+        + f"; rows vs plain {errs['max']:.3g} (median {errs['median']:.3g})"
+        f" on {n_rows} rows, plain {plain_ms:.2f} ms")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3060,6 +3387,9 @@ def main() -> int:
     pol = phase_attention_policy()
     srv = phase_serve_gemma3()
     b6 = _flash_line(srv)
+    moe = phase_serve_moe()
+    mla = phase_serve_mla()
+    dense = phase_serve_dense_configs()
     skm = phase_serve_kernel()
     rag = phase_ragged()
     cal = phase_calibrate()
@@ -3068,7 +3398,9 @@ def main() -> int:
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
              "attention_policy": pol["launches"],
-             "serve_gemma3": srv["launches"],
+             "serve_gemma3": srv["launches"], "serve_moe": moe["launches"],
+             "serve_mla": mla["launches"],
+             "serve_dense_configs": dense["launches"],
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
              "calibrate": cal["launches"], "contracts": con["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
@@ -3101,9 +3433,20 @@ def main() -> int:
         "ragged": {k: rag[k] for k in ("ms", "buckets", "sizes",
                                        "C_err_vs_plain", "U_err_vs_plain")},
         "ragged_launches": rag["launches"]["pairwise_matmat_multi"]}
-    b6["serve_gemma3"] = {k: srv[k] for k in (
-        "prefill_ms", "decode_ms_per_token", "generate_ms", "tokens_per_s",
-        "decode_tokens_per_s", "peak_gb", "b6_prefill")}
+    served = ("prefill_ms", "decode_ms_per_token", "generate_ms",
+              "tokens_per_s", "decode_tokens_per_s", "peak_gb", "b6_prefill")
+    b6["serve_gemma3"] = {k: srv[k] for k in served}
+    for name, r in (("serve_moe", moe), ("serve_mla", mla)):
+        b6[name] = {**{k: r[k] for k in served}, "moe_layer": r["moe_layer"],
+                    "prefill_device_ms_by_class": r["profile"]["prefill"].get(
+                        "by_class_ms"),
+                    "decode_device_ms_by_class": r["profile"][
+                        "decode_4_steps"].get("by_class_ms")}
+    b6["serve_dense_configs"] = {
+        name: {k: r[k] for k in served}
+        for name, r in dense["configs"].items()}
+    b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
+                          dense["b6_shape"]]
     b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],

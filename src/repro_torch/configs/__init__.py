@@ -3,9 +3,12 @@
 ``get_config(name)`` / ``get_smoke(name)`` return the published config (or
 its reduced smoke twin); ``config_for_shape`` applies per-cell variants
 (gemma3 + long_500k turns on the paper's landmark decode on the global
-layers).  The port serves the dense attention family; its registry holds
-gemma3-12b, and every other architecture of the reference is still to port
-(ROADMAP A11).
+layers).  The registry holds the seven decoder-only attention archs the port
+serves: the dense ones (gemma3-12b, yi-6b, yi-9b, minitron-4b,
+chameleon-34b with early fusion) and the MoE ones (qwen2-moe-a2.7b,
+deepseek-v3-671b with MLA).  The recurrent archs (xlstm-125m,
+recurrentgemma-2b) and the encoder-decoder (whisper-large-v3) are still to
+port (ROADMAP A11-rest.3-4), as are ``shapes_for`` / ``cells`` (A11-rest.6).
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
 }
 
 ARCHS: List[str] = list(_MODULES)
@@ -30,8 +39,8 @@ ARCHS: List[str] = list(_MODULES)
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(
-            f"arch {name!r} is not in the port (ported: {ARCHS}); the rest "
-            "of the reference's model registry is ROADMAP A11")
+            f"arch {name!r} is not in the port (ported: {ARCHS}); the "
+            "recurrent and encoder-decoder archs are ROADMAP A11-rest.3-4")
     return importlib.import_module(_MODULES[name])
 
 

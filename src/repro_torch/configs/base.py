@@ -3,9 +3,11 @@
 
 ``ModelConfig`` is the single source of truth a model is built from; its
 fields are the reference's, so a reference config carries over field by
-field.  ``cdtype``/``pdtype`` are torch dtypes here.  ``ShapeConfig`` names
-one of the four assigned input shapes.  The reference's ``input_specs``
-(shape stand-ins for the JAX dry run) has no counterpart.
+field.  ``cdtype``/``pdtype`` are torch dtypes here; the parameter
+arithmetic (``param_count``, ``active_param_count``) is the reference's,
+line for line.  ``ShapeConfig`` names one of the four assigned input
+shapes.  The reference's ``input_specs`` (shape stand-ins for the JAX dry
+run) is not ported yet (ROADMAP A11-rest.6).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_k_dense: int = 0
     dense_d_ff: int = 0
-    moe_impl: str = "gather"
+    moe_impl: str = "gather"              # gather | shard_map (one device:
+                                          # the gather path, as the reference)
 
     # --- MLA (deepseek) ---
     use_mla: bool = False
@@ -102,6 +105,72 @@ class ModelConfig:
     @property
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks)."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d                                    # embed
+        if not self.tie_embeddings:
+            total += v * d                               # unembed
+        for i, kind in enumerate(
+                [self.layer_pattern[j % len(self.layer_pattern)]
+                 for j in range(self.n_layers)]):
+            total += self._mixer_params(kind) + self._mlp_params(i)
+            total += 2 * d                               # two norms
+        if self.is_encdec:
+            # decoder self+cross blocks
+            for _ in range(self.n_dec_layers):
+                total += 2 * self._mixer_params("attn") + self._mlp_params(0)
+                total += 3 * d
+        return int(total)
+
+    def _mixer_params(self, kind: str) -> int:
+        d, h, kv, hd = (self.d_model, self.n_heads, self.n_kv_heads,
+                        self.head_dim)
+        if kind in ("attn", "local", "global", "xattn"):
+            if self.use_mla:
+                qp = d * self.q_lora_rank + self.q_lora_rank * h * (
+                    self.qk_nope_dim + self.qk_rope_dim)
+                kvp = d * (self.kv_lora_rank + self.qk_rope_dim)
+                kvp += self.kv_lora_rank * h * (self.qk_nope_dim
+                                                + self.v_head_dim)
+                op = h * self.v_head_dim * d
+                return qp + kvp + op
+            return d * h * hd + 2 * d * kv * hd + h * hd * d
+        if kind == "mlstm":
+            dq = h * hd
+            return d * 2 * dq + 2 * dq * hd * 0 + 3 * d * dq + dq * d
+        if kind == "slstm":
+            return 4 * d * h * hd + 4 * h * hd * hd // max(h, 1)
+        if kind == "rglru":
+            w = self.lru_width or d
+            return 2 * d * w + w * self.rglru_conv_width + 2 * w * w + w * d
+        return 0
+
+    def _mlp_params(self, layer_idx: int) -> int:
+        d = self.d_model
+        if self.n_experts and layer_idx >= self.first_k_dense:
+            e = self.n_experts * 3 * d * self.moe_d_ff
+            e += self.n_shared_experts * 3 * d * self.moe_d_ff
+            e += d * self.n_experts                      # router
+            return e
+        ff = self.dense_d_ff if (self.n_experts
+                                 and layer_idx < self.first_k_dense) \
+            else self.d_ff
+        if ff == 0:
+            return 0
+        mult = 3 if self.mlp_variant in ("swiglu", "geglu") else 2
+        return mult * d * ff
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k + shared only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        total = self.param_count()
+        inactive = (self.n_experts - self.moe_top_k) * 3 * d * self.moe_d_ff
+        n_moe_layers = self.n_layers - self.first_k_dense
+        return int(total - n_moe_layers * inactive)
 
 
 @dataclasses.dataclass(frozen=True)

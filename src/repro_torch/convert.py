@@ -120,12 +120,16 @@ def _unstack(tree, r: int):
 
 def model_params_from_reference(params, cfg, device=None) -> dict:
     """The reference LM's params pytree (leaves as numpy, or anything
-    ``np.asarray`` takes) as the port's params, in the reference's dtypes.
+    ``np.asarray`` takes) as the port's params, in the reference's dtypes
+    (bf16 leaves, as deepseek's ``param_dtype`` makes them, stay bf16).
 
     The reference stores its superblocks stacked on a leading ``reps`` axis
     when ``cfg.scan_layers`` (its ``init_stack`` vmaps them) and as a list
     of per-rep tuples otherwise; the port holds a list of per-rep lists
-    either way.
+    either way.  Everything else carries over as it is: the prefix blocks
+    (deepseek's dense first layers), the MoE banks ((E, d, ff) / (E, ff, d),
+    the f32 router, the shared MLP), MLA's projections and the ``"mtp"``
+    sub-tree.
     """
     from repro_torch.models.transformer import stack_layout
     device = resolve_device(device)
@@ -154,7 +158,9 @@ def _tree_to_numpy(tree):
 def cache_to_reference(cache: dict, cfg) -> dict:
     """The port's decode cache in the reference's layout, as numpy (bf16
     widened to f32): ``{"prefix": (...), "scanned": (per pattern slot, each
-    leaf stacked on a leading reps axis), "remainder": (...)}``."""
+    leaf stacked on a leading reps axis), "remainder": (...)}``; each
+    layer's entry keeps its names (``k``/``v``, the landmark factors, or
+    MLA's latent ``ckv`` and ``krope``)."""
     from repro_torch.models.transformer import stack_layout
     _, pattern, reps, _ = stack_layout(cfg)
     scanned = None

@@ -5,6 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --smoke --batch 4 --prompt-len 64 --gen 32 --landmark
 
+``--arch`` takes every architecture of the port's registry
+(``repro_torch.configs.ARCHS``: gemma3-12b, the yi, minitron and chameleon
+dense configs, qwen2-moe-a2.7b and deepseek-v3-671b).
+
 Prefill builds the decode cache (for landmark configs also the fast-model
 factors of every global layer: Algorithm 1 on the softmax Gram, O(s²c) per
 head); each decode step reads it and updates it in place.  The model runs on
@@ -19,7 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
 
@@ -27,11 +31,17 @@ from repro_torch.models.model import Model, build_model
 def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
              max_len: Optional[int] = None, *,
              landmark_draws: Optional[Dict[int, dict]] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """prompts: (B, S) int -> (B, gen) greedy continuations."""
+             generator: Optional[torch.Generator] = None,
+             patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """prompts: (B, S) int -> (B, gen) greedy continuations.  ``patches``
+    (B, n_patch, d_model) replace the leading prompt positions at prefill
+    (early fusion)."""
     B, S = prompts.shape
     max_len = max_len or (S + gen)
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len,
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
+    logits, cache = model.prefill(params, batch, max_len,
                                   landmark_draws=landmark_draws,
                                   generator=generator)
     tok = torch.argmax(logits, dim=-1)
@@ -45,7 +55,7 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True, choices=ARCHS)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=64)

@@ -1,2 +1,2 @@
-"""Model stack of the port: layers, attention, transformer blocks and the
-decoder-only LM (dense attention family)."""
+"""Model stack of the port: layers, attention (GQA, sliding window, MLA,
+landmark decode), the MoE FFN, transformer blocks and the decoder-only LM."""

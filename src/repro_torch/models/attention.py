@@ -1,6 +1,6 @@
-"""Attention mixers of the dense family: GQA / MQA / sliding window /
-landmark decode (port of ``repro.models.attention``, without MLA and
-cross-attention, which are ROADMAP A11).
+"""Attention mixers: GQA / MQA / sliding window / MLA / landmark decode
+(port of ``repro.models.attention``, without cross-attention, which comes
+with the encoder-decoder: ROADMAP A11-rest.4).
 
 Layouts are the reference's: activations (B, S, d_model), heads in
 (B, S, H, D).  The reference's sharding constraints have no counterpart
@@ -10,19 +10,23 @@ here (the model-stack sharding rules are ROADMAP A10-rest).
 the Pallas flash kernel ("pallas"); both compute the same function.  Here
 both values name one path, ``kernels.flash_attention.ops.flash_attention``:
 the CUDA kernel (B6) on the card, its plain PyTorch version on the CPU.  The
-field is kept so configs carry over.
+field is kept so configs carry over.  MLA's full attention goes through
+the same call, with q and k of width qk_nope + qk_rope and v of v_head_dim.
 
 Decode caches (one per layer):
 
 - full / global : {"k": (B, Smax, KV, D), "v": ...}         (pos passed in)
 - local         : ring buffer {"k": (B, W, KV, D), "v": ...}
+- MLA           : {"ckv": (B, Smax, R), "krope": (B, Smax, Dr)} — the
+                  latent cache; decode attends in the latent space
+                  (``mla_absorb``) or materializes K and V from it
 - landmark      : the paper's fast-model factors per head:
                   {"k_land": (B, KV, c, D), "uv": (B, KV, c, Dv),
                    "u1": (B, KV, c), "offset": (B, KV)}
 
-``attention_decode`` writes the new token's k and v into the cache in place
-and returns the same dict (the reference returns an updated copy, which its
-jitted serve loop donates).
+``attention_decode`` writes the new token's k and v (or latents) into the
+cache in place and returns the same dict (the reference returns an updated
+copy, which its jitted serve loop donates).
 """
 from __future__ import annotations
 
@@ -42,10 +46,8 @@ _F32 = torch.float32
 NEG = -1e30
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention is not in the port yet (ROADMAP A11)")
+def _is_mla(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.use_mla and kind in ("attn", "global")
 
 
 # ---------------------------------------------------------------------------
@@ -54,12 +56,22 @@ def _unsupported(cfg: ModelConfig) -> None:
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
                    device=None) -> dict:
-    _unsupported(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def w(shape):
         return L.dense_init(generator, shape, cfg.pdtype, device=device)
 
+    if cfg.use_mla:
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return {
+            "wq_a": w((d, cfg.q_lora_rank)),
+            "q_norm": L.init_rmsnorm(cfg.q_lora_rank, cfg.pdtype, device),
+            "wq_b": w((cfg.q_lora_rank, h, dn + dr)),
+            "wkv_a": w((d, cfg.kv_lora_rank + dr)),
+            "kv_norm": L.init_rmsnorm(cfg.kv_lora_rank, cfg.pdtype, device),
+            "wkv_b": w((cfg.kv_lora_rank, h, dn + dv)),
+            "wo": w((h, dv, d)),
+        }
     p = {"wq": w((d, h, hd)), "wk": w((d, kv, hd)), "wv": w((d, kv, hd)),
          "wo": w((h, hd, d))}
     if cfg.qk_norm:
@@ -131,9 +143,55 @@ def attend_full(params: dict, cfg: ModelConfig, q: torch.Tensor,
 def attention_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, kind: str = "attn"
                    ) -> torch.Tensor:
-    _unsupported(cfg)
+    if cfg.use_mla:
+        return mla_attend_full(params, cfg,
+                               *_mla_project(params, cfg, x, positions))
     q, k, v = _qkv(params, cfg, x, positions, _theta(cfg, kind))
     return attend_full(params, cfg, q, k, v, kind)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek): low-rank q and a latent kv cache
+# ---------------------------------------------------------------------------
+
+def _mla_project(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """-> q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated, the latent
+    ckv (B, S, R) and the shared rope key k_rope (B, S, dr) rotated, all in
+    the compute dtype."""
+    dt = cfg.cdtype
+    dn, R = cfg.qk_nope_dim, cfg.kv_lora_rank
+    ql = L.rmsnorm(params["q_norm"], x @ as_compute(params["wq_a"], dt),
+                   cfg.norm_eps)
+    q = _proj(ql, params["wq_b"], dt)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(q_rope.transpose(1, 2), positions,
+                          cfg.rope_theta).transpose(1, 2)
+    kv_a = x @ as_compute(params["wkv_a"], dt)                 # (B,S,R+dr)
+    ckv = L.rmsnorm(params["kv_norm"], kv_a[..., :R], cfg.norm_eps)
+    k_rope = L.apply_rope(kv_a[..., R:], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_attend_full(params: dict, cfg: ModelConfig, q_nope: torch.Tensor,
+                    q_rope: torch.Tensor, ckv: torch.Tensor,
+                    k_rope: torch.Tensor) -> torch.Tensor:
+    """Causal MLA over the projected parts (``_mla_project``): K and V
+    materialized from the latents, ``krope`` broadcast over the heads, one
+    flash-attention call with q/k of width dn + dr and v of width dv (the
+    softmax scale is 1/√(dn + dr), as the reference's), then the output
+    projection."""
+    dt = cfg.cdtype
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    B, S, H, _ = q_nope.shape
+    kvb = _proj(ckv, params["wkv_b"], dt)                      # (B,S,H,dn+dv)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(B, S, H, dr)],
+                   dim=-1)
+    v = kvb[..., dn:]
+    out = fa_ops.flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True)
+    return _out_proj(out.transpose(1, 2), params["wo"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +201,15 @@ def attention_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                device=None) -> dict:
     """Zero cache for one layer (prefill fills it)."""
-    _unsupported(cfg)
     dt = cfg.cdtype
     kv, hd = cfg.n_kv_heads, cfg.head_dim
 
     def z(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    if _is_mla(cfg, kind):
+        return {"ckv": z((batch, max_len, cfg.kv_lora_rank)),
+                "krope": z((batch, max_len, cfg.qk_rope_dim))}
     if kind == "local" and cfg.window is not None:
         w = min(cfg.window, max_len)
         return {"k": z((batch, w, kv, hd)), "v": z((batch, w, kv, hd))}
@@ -185,8 +245,9 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                      ) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, d); ``pos`` the new token's position.  Returns (y, cache)
     with the cache updated in place."""
-    _unsupported(cfg)
     pos = int(pos)
+    if _is_mla(cfg, kind):
+        return _mla_decode(params, cfg, x, cache, pos), cache
     if kind == "global" and cfg.use_landmark_decode and "k_land" in cache:
         return _landmark_decode(params, cfg, x, cache, pos), cache
     positions = torch.tensor([pos], device=x.device)
@@ -205,6 +266,47 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     vc[:, slot] = v_new[:, 0].to(vc.dtype)
     out = _decode_read(q, kc, vc, cfg, valid)
     return _out_proj(out, params["wo"], cfg.cdtype), cache
+
+
+def _mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                cache: dict, pos: int) -> torch.Tensor:
+    """One MLA decode step; writes the token's latents into the cache.
+
+    ``mla_absorb``: attend in the latent space — q_nope·W_kᵀ against ckv
+    plus q_rope against krope, the softmax and the read of ckv in f32
+    einsums, then W_v.  Otherwise K and V are materialized from the whole
+    latent cache and read as a full-cache decode does (``_decode_read``).
+    Both use the scale 1/√(dn + dr) and mask positions after ``pos``."""
+    dt = cfg.cdtype
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    positions = torch.tensor([pos], device=x.device)
+    q_nope, q_rope, ckv_new, krope_new = _mla_project(params, cfg, x,
+                                                      positions)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+    krope[:, pos] = krope_new[:, 0].to(krope.dtype)
+    wkv_b = as_compute(params["wkv_b"], dt)                    # (R,H,dn+dv)
+    w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
+    S = ckv.shape[1]
+    valid = torch.arange(S, device=x.device) <= pos
+    if cfg.mla_absorb:
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_k)
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat.to(_F32), ckv.to(_F32))
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(_F32),
+                              krope.to(_F32))
+        logits = (s_lat + s_rope) / ((dn + dr) ** 0.5)
+        logits = torch.where(valid[None, None, None, :], logits, NEG)
+        w = torch.softmax(logits, dim=-1)                      # (B,H,1,S)
+        o_lat = torch.einsum("bhst,btr->bshr", w, ckv.to(_F32))
+        out = torch.einsum("bshr,rhk->bshk", o_lat, w_v.to(_F32))
+    else:
+        k_nope = torch.einsum("btr,rhk->bthk", ckv, w_k)
+        v = torch.einsum("btr,rhk->bthk", ckv, w_v)
+        kf = torch.cat([k_nope, krope[:, :, None].expand(
+            k_nope.shape[:3] + (dr,))], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        out = _decode_read(qf, kf, v, cfg, valid[None])
+    return _out_proj(out.to(dt), params["wo"], dt)
 
 
 def _landmark_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Block assembly for attention blocks: residual blocks and stacks (port of
-``repro.models.transformer``).
+"""Block assembly for attention blocks, dense or MoE: residual blocks and
+stacks (port of ``repro.models.transformer``).
 
 A stack is ``prefix`` blocks + ``reps`` superblocks (one pass through
 ``cfg.layer_pattern`` each) + ``remainder`` blocks, as in the reference.
@@ -9,12 +9,16 @@ Python loop walks them.  Caches mirror the parameters:
 ``{"prefix": [...], "scanned": [[... per pattern slot] per rep],
 "remainder": [...]}``.
 
+Prefix blocks are dense (at ``dense_d_ff`` when set: deepseek's first 3);
+the superblocks and the remainder are MoE when ``n_experts > 0``.
+
 Every block has three modes:
-  full    : (x) -> x'
+  full    : (x) -> (x', aux)           aux: the MoE load-balance loss, 0
   prefill : (x) -> (x', cache_entry)   cache sized ``max_len``
   decode  : (x, cache_entry, pos) -> (x', cache_entry)   (updated in place)
 
-MoE and recurrent blocks are ROADMAP A11 and raise ``NotImplementedError``.
+Recurrent blocks (mLSTM, sLSTM, RG-LRU) are not ported yet and raise
+``NotImplementedError`` (ROADMAP A11-rest.3).
 """
 from __future__ import annotations
 
@@ -25,21 +29,27 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 ATTN_KINDS = ("attn", "local", "global")
 REC_KINDS = ("mlstm", "slstm", "rglru")
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind in REC_KINDS:
         raise NotImplementedError(
             f"recurrent blocks ({kind}) are not in the port yet "
-            "(ROADMAP A11)")
+            "(ROADMAP A11-rest.3)")
     if kind not in ATTN_KINDS:
         raise ValueError(kind)
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks are not in the port yet (ROADMAP A11)")
+
+
+def _is_moe_layer(cfg: ModelConfig, in_prefix: bool) -> bool:
+    return cfg.n_experts > 0 and not in_prefix
+
+
+def _has_mlp(cfg: ModelConfig, moe: bool) -> bool:
+    return moe or cfg.d_ff > 0 or cfg.dense_d_ff > 0
 
 
 # ---------------------------------------------------------------------------
@@ -47,40 +57,49 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
-               dense_ff: Optional[int] = None, device=None) -> dict:
-    _check_kind(cfg, kind)
+               moe: bool = False, dense_ff: Optional[int] = None,
+               device=None) -> dict:
+    _check_kind(kind)
     pd = cfg.pdtype
     p = {"norm1": L.init_rmsnorm(cfg.d_model, pd, device),
          "mixer": A.init_attention(generator, cfg, device)}
     if cfg.post_norm:
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model, pd, device)
-    if cfg.d_ff > 0 or cfg.dense_d_ff > 0:
+    if _has_mlp(cfg, moe):
         p["norm2"] = L.init_rmsnorm(cfg.d_model, pd, device)
-        p["mlp"] = L.init_mlp(generator, cfg, d_ff=dense_ff, device=device)
+        if moe:
+            p["moe"] = M.init_moe(generator, cfg, device)
+        else:
+            p["mlp"] = L.init_mlp(generator, cfg, d_ff=dense_ff,
+                                  device=device)
         if cfg.post_norm:
             p["post_norm2"] = L.init_rmsnorm(cfg.d_model, pd, device)
     return p
 
 
 def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  h: torch.Tensor) -> torch.Tensor:
-    """x + post_norm1(h), then the MLP sub-block (if any) with its own
-    residual."""
+                  h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + post_norm1(h), then the MLP or MoE sub-block (if any) with its
+    own residual.  Returns (x', aux): the MoE's load-balance loss, else 0."""
     if cfg.post_norm:
         h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
     x = x + h
-    if "mlp" in params:
-        h = L.mlp(params["mlp"], cfg, L.rmsnorm(params["norm2"], x,
-                                                cfg.norm_eps))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" in params or "moe" in params:
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        if "moe" in params:
+            h, aux = M.moe_ffn(params["moe"], cfg, h)
+        else:
+            h = L.mlp(params["mlp"], cfg, h)
         if cfg.post_norm:
             h = L.rmsnorm(params["post_norm2"], h, cfg.norm_eps)
         x = x + h
-    return x
+    return x, aux
 
 
 def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    _check_kind(cfg, kind)
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_kind(kind)
     h = A.attention_full(params["mixer"], cfg,
                          L.rmsnorm(params["norm1"], x, cfg.norm_eps),
                          positions, kind)
@@ -92,17 +111,28 @@ def block_prefill(params: dict, cfg: ModelConfig, kind: str,
                   draws: Optional[dict] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, dict]:
-    """Returns (x', cache_entry).  q, k and v are projected once and serve
+    """Returns (x', cache_entry).  The projections are made once and serve
     both the attention and the cache (the reference projects them twice;
-    the two are the same computation)."""
-    _check_kind(cfg, kind)
+    the two are the same computation): q, k and v, or under MLA the
+    latents ckv and the rope key, which are MLA's cache."""
+    _check_kind(kind)
     xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    q, k, v = A._qkv(params["mixer"], cfg, xin, positions,
-                     A._theta(cfg, kind))
-    h = A.attend_full(params["mixer"], cfg, q, k, v, kind)
-    del q
-    cache = _attn_prefill_cache(cfg, kind, k, v, max_len, draws, generator)
-    return _residual_mlp(params, cfg, x, h), cache
+    if cfg.use_mla:
+        parts = A._mla_project(params["mixer"], cfg, xin, positions)
+        h = A.mla_attend_full(params["mixer"], cfg, *parts)
+        pad = (0, 0, 0, max_len - x.shape[1])
+        cache = {"ckv": torch.nn.functional.pad(parts[2], pad),
+                 "krope": torch.nn.functional.pad(parts[3], pad)}
+        del parts
+    else:
+        q, k, v = A._qkv(params["mixer"], cfg, xin, positions,
+                         A._theta(cfg, kind))
+        h = A.attend_full(params["mixer"], cfg, q, k, v, kind)
+        del q
+        cache = _attn_prefill_cache(cfg, kind, k, v, max_len, draws,
+                                    generator)
+        del k, v
+    return _residual_mlp(params, cfg, x, h)[0], cache
 
 
 def _attn_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
@@ -132,11 +162,11 @@ def _attn_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
 
 def block_decode(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  cache: dict, pos: int) -> Tuple[torch.Tensor, dict]:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     h, cache = A.attention_decode(
         params["mixer"], cfg, L.rmsnorm(params["norm1"], x, cfg.norm_eps),
         cache, pos, kind)
-    return _residual_mlp(params, cfg, x, h), cache
+    return _residual_mlp(params, cfg, x, h)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -183,18 +213,23 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig,
                device=None) -> dict:
     params = _empty_like_layout(cfg)
     for section, r, _, kind in layer_slots(cfg):
-        dense_ff = (cfg.dense_d_ff or None) if section == "prefix" else None
+        in_prefix = section == "prefix"
+        dense_ff = (cfg.dense_d_ff or None) if in_prefix else None
         _append(params, section, r,
-                init_block(generator, cfg, kind, dense_ff, device))
+                init_block(generator, cfg, kind,
+                           _is_moe_layer(cfg, in_prefix), dense_ff, device))
     return params
 
 
 def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, the sum of the blocks' aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for section, r, i, kind in layer_slots(cfg):
-        x = block_full(_entry(params, section, r, i), cfg, kind, x,
-                       positions)
-    return x
+        x, a = block_full(_entry(params, section, r, i), cfg, kind, x,
+                          positions)
+        aux = aux + a
+    return x, aux
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -225,7 +260,7 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> dict:
     cache = _empty_like_layout(cfg)
     for section, r, _, kind in layer_slots(cfg):
-        _check_kind(cfg, kind)
+        _check_kind(kind)
         _append(cache, section, r,
                 A.init_cache(cfg, kind, batch, max_len, device))
     return cache

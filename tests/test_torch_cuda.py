@@ -26,12 +26,14 @@ from repro_torch.core.instrument import CountingOperator
 from repro_torch.core.kernelop import PairwiseKernel
 from repro_torch.core import sketched_attention as tsa
 from repro_torch.configs import gemma3_12b
+from repro_torch.configs import get_smoke
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel
 from repro_torch.kernels.landmark_attention import ops as lm_ops
 from repro_torch.kernels.pairwise import kernel, specs
 from repro_torch.models import model as tm
+from repro_torch.models import moe as tmoe
 
 NAMES = ("laplacian", "linear", "matern32", "polynomial", "rbf")
 PRECISIONS = ("f32", "bf16_f32acc")
@@ -578,6 +580,117 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda_device):
     assert outs["cpu"][1:] == (0, 0)
     assert outs["cuda"][1:] == (cfg.n_layers, cfg.n_layers)
     assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 5e-2
+
+
+# B6 at the head shapes of the MoE/MLA/dense configs: (B, Hq, Hkv, Sq, Sk, D,
+# Dv) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128; MLA's q/k of
+# 128 + 64 and v of 128 (the HD = 256 instance, zero-filled past D and Dv),
+# also causal with Sq > Sk
+MODEL_HEAD_SHAPES = [(1, 32, 4, 300, 300, 128, 128),
+                     (1, 16, 16, 300, 300, 128, 128),
+                     (1, 8, 8, 300, 300, 192, 128),
+                     (1, 8, 8, 300, 100, 192, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MODEL_HEAD_SHAPES)
+def test_flash_at_the_model_head_shapes(cuda_device, shape, dtype):
+    """Both routes against the plain version (f32 ≤ 1e-5; bf16 within
+    rtol = atol = 2e-2 and every row within 1e-2); the MLA shape with v a
+    strided view of the (B, S, H, nope + v) projection, as the model passes
+    it; rows that see no key exactly 0."""
+    B, Hq, Hkv, Sq, Sk, D, Dv = shape
+    rng = np.random.default_rng(11)
+    q = (_rand(rng, B, Hq, Sq, D, dev=cuda_device) * 0.5).to(dtype)
+    k = (_rand(rng, B, Hkv, Sk, D, dev=cuda_device) * 0.5).to(dtype)
+    if D == Dv:
+        v = _rand(rng, B, Hkv, Sk, Dv, dev=cuda_device).to(dtype)
+    else:
+        kvb = _rand(rng, B, Sk, Hkv, 128 + Dv, dev=cuda_device).to(dtype)
+        v = kvb[..., 128:].transpose(1, 2)
+    counts = fa_kernel.launch_counts()
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    after = fa_kernel.launch_counts()
+    assert after["flash_attention"] == counts["flash_attention"] + 1
+    assert after["flash_attention_tc"] == counts["flash_attention_tc"] + (
+        dtype == torch.bfloat16)
+    assert out.shape == (B, Hq, Sq, Dv)
+    plain = fa_kernel.flash_attention_plain(q, k, v, causal=True)
+    _flash_close(out, plain)
+    if Sq > Sk:
+        assert bool((out[:, :, :Sq - Sk] == 0).all())
+    if dtype == torch.bfloat16:
+        o, p = out.double(), plain.double()
+        keep = p.norm(dim=-1) > 0
+        row_err = (o - p).norm(dim=-1)[keep] / p.norm(dim=-1)[keep]
+        assert float(row_err.max()) <= 1e-2, float(row_err.max())
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device, cf):
+    """qwen2-moe's SMOKE MoE FFN in bf16 at T = 4,096 tokens: the card's
+    output within 5e-2 of the CPU's (scale-normalized), bit-equal across
+    two calls; the stable sort drops the same assignments on both (the
+    plan from the same expert ids is equal entry for entry)."""
+    cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"),
+                              capacity_factor=cf)
+    params = tmoe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    prepared = tm.build_model(cfg).prepare({"moe": params})["moe"]
+    on_card = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else
+                   {kk: vv.to(cuda_device) for kk, vv in v.items()})
+               for k, v in prepared.items()}
+    x = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(2, 2048, cfg.d_model)), dtype=torch.float32).to(torch.bfloat16)
+    cpu_out, cpu_aux = tmoe.moe_ffn(prepared, cfg, x)
+    out, aux = tmoe.moe_ffn(on_card, cfg, x.to(cuda_device))
+    again, _ = tmoe.moe_ffn(on_card, cfg, x.to(cuda_device))
+    assert torch.equal(out, again)
+    assert scaled(out.float().cpu(), cpu_out.float()) <= 5e-2
+    assert abs(float(aux) - float(cpu_aux)) <= 1e-4 * float(cpu_aux)
+    _, idx, _ = tmoe._route(prepared, cfg, x.reshape(-1, cfg.d_model))
+    C = tmoe.capacity(cfg, idx.shape[0])
+    plan_cpu = tmoe._assign(cfg, idx, C)
+    plan_card = tmoe._assign(cfg, idx.to(cuda_device), C)
+    for a, b in zip(plan_cpu, plan_card):
+        assert torch.equal(a, b.cpu())
+    assert bool(plan_cpu[2].all()) == (cf == 1.25)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_moe_and_mla_smoke_models_on_the_card_match_the_cpu(cuda_device,
+                                                            arch):
+    """The SMOKE model in f32 (B6 on its CUDA-core route, TF32 off):
+    prefill and three decode steps on the card against the CPU, ≤ 1e-4;
+    one B6 launch per layer in prefill, none in decode."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = tm.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 36),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to(params, cuda_device))):
+        fa_kernel.reset_launch_counts()
+        lg, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)}, 40)
+        seq = [lg]
+        prefill_launches = fa_kernel.launch_counts()["flash_attention"]
+        for t in range(32, 35):
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                          t)
+            seq.append(lg)
+        torch.cuda.synchronize()
+        outs[dev] = (torch.stack(seq).cpu(), prefill_launches,
+                     fa_kernel.launch_counts()["flash_attention"])
+    assert outs["cpu"][1:] == (0, 0)
+    assert outs["cuda"][1:] == (cfg.n_layers, cfg.n_layers)
+    assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 1e-4
 
 
 # ---------------------------------------------------------------------------

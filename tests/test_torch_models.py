@@ -1,7 +1,12 @@
-"""The port's gemma3-12b serving path held against the JAX reference (CPU).
+"""The port's serving path held against the JAX reference (CPU): gemma3-12b
+in depth (layers, attention, caches), and every ported arch's SMOKE config
+(gemma3-12b, yi-6b, yi-9b, minitron-4b, chameleon-34b with patch
+embeddings, qwen2-moe-a2.7b, deepseek-v3-671b) through prefill and
+teacher-forced decode.  The MoE and MLA modules have their own files
+(``test_torch_moe.py``, ``test_torch_mla.py``).
 
-The reference model (``repro.models``) is built from gemma3-12b's SMOKE
-config and initialized from a JAX key; its params are converted to the
+The reference model (``repro.models``) is built from the SMOKE config and
+initialized from a JAX key; its params are converted to the
 port's (``convert.model_params_from_reference``), and both sides get the
 same numpy inputs: activations made from a seed, and token sequences.
 Decode steps are teacher-forced with the same tokens on both sides; free-
@@ -12,7 +17,8 @@ interpret mode on the JAX side, as the reference's own tests run them.
 
 Tolerances, scale-normalized (max |port − ref| / max |ref|): f32 ≤ 1e-4,
 bf16 ≤ 5e-2 (bf16 intermediates round at different places in the two
-frameworks, and the differences grow over the layers).
+frameworks, and the differences grow over the layers); the MoE load-balance
+aux of ``forward`` ≤ 1e-5.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import config_for_shape as jconfig_for_shape
 from repro.configs import gemma3_12b as jg
@@ -32,6 +39,7 @@ from repro.configs.base import ModelConfig as JModelConfig
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
+from repro.models import moe as JMoE
 from repro.models import transformer as JT
 from repro_torch import configs as tconfigs
 from repro_torch import convert
@@ -42,13 +50,24 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.models import moe as TMoE
 from repro_torch.models import transformer as TT
 
 jsa = importlib.import_module("repro.core.sketched_attention")
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TOL_AUX = 1e-5
+#: a MoE router decision the two sides may take differently: the reference's
+#: k-th and (k+1)-th probabilities within this relative margin.  In bf16 the
+#: router's input carries the roundings of every earlier layer (2^-8 each),
+#: and a near-tie flips one way or the other; in f32 no flip is allowed.
+TIE_MARGIN = {"float32": 0.0, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 B, S_PRE, S_MAX, N_DECODE = 2, 32, 40, 6
+N_PATCH = 6             # chameleon's early-fusion patch embeddings
+#: every arch the port serves, in the port's registry order
+PORTED = ("gemma3-12b", "minitron-4b", "yi-9b", "yi-6b", "deepseek-v3-671b",
+          "qwen2-moe-a2.7b", "chameleon-34b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -76,9 +95,16 @@ def scaled(port, ref) -> float:
     return float(np.abs(p - r).max() / max(np.abs(r).max(), 1e-30))
 
 
-def _configs(dtype="float32", **kw):
-    return (dataclasses.replace(jg.SMOKE, dtype=dtype, **kw),
-            dataclasses.replace(tg.SMOKE, dtype=dtype, **kw))
+def _configs(dtype="float32", arch="gemma3-12b", **kw):
+    return (dataclasses.replace(jconfigs.get_smoke(arch), dtype=dtype, **kw),
+            dataclasses.replace(tconfigs.get_smoke(arch), dtype=dtype, **kw))
+
+
+def _patches(cfg, seed=9):
+    """Early-fusion inputs for a vlm config (none for the others)."""
+    if cfg.family != "vlm":
+        return {}
+    return {"patches": _x((B, N_PATCH, cfg.d_model), seed)}
 
 
 def _params(jcfg, tcfg, seed=0):
@@ -138,14 +164,74 @@ def reference_landmark_draws(cfg, key, batch: int, n: int) -> dict:
     return draws
 
 
+class RoutingHandover:
+    """The reference's MoE routing handed to the port at near-ties.
+
+    The reference's ``_route`` reports each call's expert ids and router
+    probabilities (``jax.debug.callback``, in call order); the port's
+    ``_route`` compares its own top-k sets with them, call by call.  Where
+    a token's set differs, the reference's margin between its k-th and
+    (k+1)-th probability must be within ``TIE_MARGIN`` — else the test
+    fails — and the port takes the reference's experts, weighted by its own
+    probabilities: the routing is teacher-forced there, as decode is with
+    tokens, so the rest of the computation is compared on the same
+    decisions.  ``flips`` counts the tokens handed over."""
+
+    def __init__(self, monkeypatch, dtype: str):
+        self.records, self.flips = [], 0
+        self.tie = TIE_MARGIN[dtype]
+        ref_route, port_route = JMoE._route, TMoE._route
+
+        def record(idx, probs):
+            self.records.append((np.asarray(idx), np.asarray(probs)))
+
+        def jroute(params, cfg, xf):
+            out = ref_route(params, cfg, xf)
+            jax.debug.callback(record, out[1], jax.nn.softmax(
+                xf.astype(jnp.float32) @ params["router"], axis=-1),
+                ordered=True)
+            return out
+
+        def troute(params, cfg, xf):
+            w, idx, aux = port_route(params, cfg, xf)
+            jax.effects_barrier()
+            ref_idx, ref_p = self.records.pop(0)
+            bad = np.nonzero((np.sort(ref_idx, 1) != np.sort(
+                idx.numpy(), 1)).any(1))[0]
+            if len(bad):
+                k = cfg.moe_top_k
+                p = -np.sort(-ref_p[bad], 1)
+                margin = (p[:, k - 1] - p[:, k]) / p[:, k - 1]
+                assert (margin <= self.tie).all(), (
+                    f"routing differs beyond a near-tie: margins {margin}")
+                self.flips += len(bad)
+                probs = torch.softmax(xf.float() @ params["router"].float(),
+                                      dim=-1)
+                rows = torch.as_tensor(bad)
+                ridx = torch.as_tensor(ref_idx[bad], dtype=idx.dtype)
+                rw = probs[rows].gather(1, ridx)
+                idx, w = idx.clone(), w.clone()
+                idx[rows] = ridx
+                w[rows] = rw / rw.sum(-1, keepdim=True).clamp_min(1e-9)
+            return w, idx, aux
+
+        monkeypatch.setattr(JMoE, "_route", jroute)
+        monkeypatch.setattr(TMoE, "_route", troute)
+
+
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------
 
 def test_configs_carry_over_from_the_reference():
-    for jc, tc in ((jg.FULL, tg.FULL), (jg.SMOKE, tg.SMOKE)):
-        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
-        assert tc.cdtype == torch.bfloat16 and tc.pdtype == torch.float32
+    assert tconfigs.ARCHS == list(PORTED)
+    for name in PORTED:
+        for jc, tc in ((jconfigs.get_config(name), tconfigs.get_config(name)),
+                       (jconfigs.get_smoke(name), tconfigs.get_smoke(name))):
+            assert dataclasses.asdict(jc) == dataclasses.asdict(tc), name
+            assert tc.cdtype == torch.bfloat16
+            assert tc.pdtype == getattr(torch, jc.param_dtype)
+    assert tconfigs.get_config("deepseek-v3-671b").pdtype == torch.bfloat16
     jl = jconfig_for_shape(jg.FULL, JSHAPES["long_500k"])
     tl = tconfigs.config_for_shape(tg.FULL, tconfigs.SHAPES["long_500k"])
     assert dataclasses.asdict(jl) == dataclasses.asdict(tl)
@@ -154,19 +240,65 @@ def test_configs_carry_over_from_the_reference():
         {k: dataclasses.astuple(v) for k, v in tconfigs.SHAPES.items()}
     assert tconfigs.get_config("gemma3-12b") is tg.FULL
     assert tconfigs.get_smoke("gemma3-12b") is tg.SMOKE
-    for name in ("yi-9b", "no-such-arch"):
+    for name in ("xlstm-125m", "whisper-large-v3", "no-such-arch"):
         with pytest.raises(KeyError, match="A11"):
             tconfigs.get_config(name)
     assert [f.name for f in dataclasses.fields(JModelConfig)] == \
         [f.name for f in dataclasses.fields(TModelConfig)]
 
 
+@pytest.mark.parametrize("arch", PORTED)
+def test_config_arithmetic_matches_the_reference(arch):
+    """``param_count``, ``active_param_count`` and their per-layer terms
+    equal the reference's, for the published config and its SMOKE twin."""
+    for jc, tc in ((jconfigs.get_config(arch), tconfigs.get_config(arch)),
+                   (jconfigs.get_smoke(arch), tconfigs.get_smoke(arch))):
+        assert tc.param_count() == jc.param_count()
+        assert tc.active_param_count() == jc.active_param_count()
+        for i in range(tc.n_layers):
+            assert tc._mlp_params(i) == jc._mlp_params(i)
+        for kind in ("attn", "local", "global"):
+            assert tc._mixer_params(kind) == jc._mixer_params(kind)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_init_trees_match_the_reference(arch):
+    """The port's ``init`` makes the reference's tree (prefix blocks, MoE
+    banks, the MTP head) with its shapes and dtypes, and
+    ``model_params_from_reference`` carries every leaf (bf16 ones too)."""
+    jc, tc = _configs("float32", arch)
+    if arch == "deepseek-v3-671b":
+        jc, tc = (dataclasses.replace(c, param_dtype="bfloat16")
+                  for c in (jc, tc))
+    jp, tp = _params(jc, tc)
+    own = TM.build_model(tc).init(torch.Generator().manual_seed(0), "cpu")
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, path + (i,))
+        else:
+            yield path, tuple(tree.shape), tree.dtype
+
+    assert list(leaves(own)) == list(leaves(tp))
+    assert ("mtp" in own) == jc.mtp
+    if jc.mtp:
+        assert set(own["mtp"]) == set(jp["mtp"])
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jp))
+    assert sum(int(np.prod(s)) for _, s, _ in leaves(own)) == n_ref
+    if jc.n_experts:
+        moe = tp["stack"]["scanned"][0][0]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert moe["wi_gate"].dtype == tc.pdtype
+
+
 def test_unported_families_raise():
-    moe = dataclasses.replace(tg.SMOKE, n_experts=4, moe_top_k=2)
     rec = dataclasses.replace(tg.SMOKE, layer_pattern=("rglru", "local"))
-    for cfg in (moe, rec):
-        with pytest.raises(NotImplementedError, match="A11"):
-            TM.build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        TM.build_model(rec).init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         TM.build_model(dataclasses.replace(tg.SMOKE, is_encdec=True))
 
@@ -299,21 +431,32 @@ def test_attention_decode(kind, dtype):
 # the model: prefill logits and caches, teacher-forced decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("landmark", [False, True],
-                         ids=["full_cache", "landmark"])
+@pytest.mark.parametrize("arch,landmark", [
+    pytest.param("gemma3-12b", False, id="full_cache"),
+    pytest.param("gemma3-12b", True, id="landmark")] + [
+    pytest.param(a, False, id=a) for a in PORTED if a != "gemma3-12b"])
 @pytest.mark.parametrize("dtype", list(TOL))
-def test_prefill_and_decode_match_reference(landmark, dtype):
-    jc, tc = _configs(dtype, use_landmark_decode=landmark)
+def test_prefill_and_decode_match_reference(arch, landmark, dtype,
+                                            monkeypatch):
+    """Prefill logits and every cache (k/v, ring buffers, landmark factors,
+    MLA latents), then teacher-forced decode steps; chameleon's prefill
+    fuses patch embeddings into its leading positions.  MoE archs route
+    through ``RoutingHandover`` (no flip in f32; near-ties only in bf16)."""
+    jc, tc = _configs(dtype, arch, use_landmark_decode=landmark)
+    if jc.n_experts:
+        RoutingHandover(monkeypatch, dtype)
     jp, tp = _params(jc, tc)
     jm, tm = JM.build_model(jc), TM.build_model(tc)
     toks = _tokens(jc, seed=1)
     key = jax.random.PRNGKey(2)
-    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S_PRE])},
-                            key, S_MAX)
+    extra = _patches(jc)
+    jl, jcache = jm.prefill(
+        jp, {"tokens": jnp.asarray(toks[:, :S_PRE]),
+             **{k: jnp.asarray(v) for k, v in extra.items()}}, key, S_MAX)
     draws = reference_landmark_draws(jc, key, B, S_PRE)
     assert bool(draws) == landmark
-    tl, tcache = tm.prefill(tp, {"tokens": torch.as_tensor(toks[:, :S_PRE])},
-                            S_MAX, landmark_draws=draws)
+    tl, tcache = tm.prefill(tp, {"tokens": torch.as_tensor(toks[:, :S_PRE]),
+                                 **extra}, S_MAX, landmark_draws=draws)
     assert tl.dtype == tc.cdtype and tuple(tl.shape) == (B, jc.vocab_size)
     e = scaled(tl, jl)
     assert e <= TOL[dtype], f"prefill logits {e:.3g}"
@@ -330,6 +473,30 @@ def test_prefill_and_decode_match_reference(landmark, dtype):
                                     torch.as_tensor(toks[:, t:t + 1]), t)
         e = scaled(tl, jl)
         assert e <= TOL[dtype], f"decode step at {t}: {e:.3g}"
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_and_aux_match_reference(arch):
+    """``forward``'s logits (f32 ≤ 1e-4) and its aux: the sum of the MoE
+    blocks' load-balance losses (≤ 1e-5 relative; exactly 0 for a dense
+    arch)."""
+    jc, tc = _configs("float32", arch)
+    jp, tp = _params(jc, tc, seed=3)
+    toks = _tokens(jc, seed=5)
+    extra = _patches(jc)
+    jl, jaux = JM.build_model(jc).forward(
+        jp, {"tokens": jnp.asarray(toks),
+             **{k: jnp.asarray(v) for k, v in extra.items()}})
+    tl, taux = TM.build_model(tc).forward(
+        tp, {"tokens": torch.as_tensor(toks), **extra})
+    e = scaled(tl, jl)
+    assert e <= TOL["float32"], f"forward {e:.3g}"
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    if jc.n_experts:
+        assert float(taux) > 0.0
+        assert abs(float(taux) - float(jaux)) <= TOL_AUX * float(jaux)
+    else:
+        assert float(taux) == float(jaux) == 0.0
 
 
 def test_flash_path_and_unstacked_params():
@@ -404,6 +571,34 @@ def test_serve_cli_on_the_cpu(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (2, 4) on cpu" in out and "serve ok" in out
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "gemma3-12b"])
+def test_serve_cli_serves_every_ported_arch(arch, capsys):
+    tserve.main(["--arch", arch, "--smoke", "--batch", "2",
+                 "--prompt-len", "24", "--gen", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4) on cpu" in out and "serve ok" in out
+
+
+def test_generate_fuses_patches():
+    """``generate``'s patch embeddings reach the prefill: the first tokens
+    depend on them, and the same patches give the same tokens."""
+    tc = tconfigs.get_smoke("chameleon-34b")
+    model = TM.build_model(tc)
+    params = model.prepare(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+    prompts = torch.as_tensor(_tokens(tc, seed=6)[:, :S_PRE])
+    patches = [torch.as_tensor(_x((B, N_PATCH, tc.d_model), s)).to(
+        tc.cdtype) for s in (1, 1, 2)]
+    outs = [tserve.generate(model, params, prompts, 3, patches=p)
+            for p in patches]
+    assert torch.equal(outs[0], outs[1])
+    plain = tserve.generate(model, params, prompts, 3)
+    logits = [model.prefill(params, {"tokens": prompts, "patches": p},
+                            S_PRE + 3)[0] for p in (patches[0], patches[2])]
+    assert not torch.equal(logits[0], logits[1])
+    assert tuple(plain.shape) == tuple(outs[2].shape) == (B, 3)
 
 
 def test_generate_takes_the_reference_draws():
