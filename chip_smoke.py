@@ -80,8 +80,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    by row on 1,024 sampled query rows, to its plain version and to an f64
    computation in bf16 (the tensor-core kernel), and to its plain version
    in f32 (the CUDA-core kernel), and the library yardstick
-   ``scaled_dot_product_attention`` timed at the global shape (the smoke
-   model's card-against-CPU check lives in ``tests/test_torch_cuda.py``).
+   ``scaled_dot_product_attention`` timed at the global shape, and at the
+   local shape with an explicit sliding-window mask on the
+   memory-efficient backend (the smoke model's card-against-CPU check
+   lives in ``tests/test_torch_cuda.py``).
 7b. serve_moe: the same serving loop for qwen2-moe-a2.7b at full width
    (d_model 2,048, 16 × 128 heads MHA, 60 routed experts top-4 + 4 shared
    of width 1,408, capacity factor 1.25, vocab 151,936, bf16 compute), cut
@@ -105,9 +107,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    seeded patch embeddings, early fusion) at full width, each cut to 2
    layers, 1 request, a 4,096-token context, 4 tokens: 2 B6 launches a
    prefill, none in decode, tokens in range, logits finite; B6 timed at
-   yi's shape (D = 128, group 8).  ``phase_parity_flash`` holds B6 at these
+   yi's shape (D = 128, group 8);
+7e. serve_recurrent: recurrentgemma-2b at full width and depth (26 layers:
+   (rglru, rglru, local) x 8 + 2 rglru; d_model 2,560, lru_width 2,560,
+   10 heads MQA x 256, window 2,048, d_ff 7,680 geglu, vocab 256,000), 2
+   requests, a 32,768-token context, 16 tokens: 8 B6 launches a prefill
+   (the local layers), none in decode; its 3-layer cut (one superblock) at
+   long_500k's 524,288-token context, 1 request, 8 tokens, beside its
+   32,768-token twin (1 B6 launch a prefill; decode's device time must
+   not grow more than 2x with the context); xlstm-125m at full width and
+   depth (6 mLSTM + 6 sLSTM layers, d_model 768, 4 x 192 heads, vocab
+   50,304), 2 requests, a 4,096-token context, 16 tokens (no B6 launch),
+   and one sLSTM layer's per-token loop timed; each with device ms by
+   class (the recurrences' kernels classed by their profiler ranges: RG-LRU
+   gates + scan and mLSTM chunks, the sLSTM step); then one layer of each
+   mixer at full width, S = 512, the full pass's output and final state
+   against the per-token decode scan (f32 ≤ 1e-5, bf16 ≤ 5e-2), and B6 at
+   recurrentgemma's local shape (B = 2, Hq = 10, Hkv = 1, S = 32,768,
+   D = 256, window 2,048) with SDPA under an explicit window mask beside
+   it (as at gemma3's local shape).  ``phase_parity_flash`` holds B6 at these
    head shapes on both routes (D = Dv = 128 at groups 8 and 1, D = 192 /
-   Dv = 128, also causal with Sq > Sk);
+   Dv = 128, also causal with Sq > Sk, and recurrentgemma's MQA group 10
+   at D = 256 under a window);
    B6 is also held to its plain version at every shape of the reference's
    flash tests in f32 and bf16, and in bf16 at the tensor-core kernel's
    edge cases (ragged lengths, head dims 32–256, Dv ≠ D, decode, chunked
@@ -170,7 +191,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``rbf_sketch`` wrapper bit for bit the B2 or B1 launch it binds, and
    counted as that launch;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the twelve paths (every count reset just before
+   own path and on each of the thirteen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -232,6 +253,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import serve_kernel as sk_launch  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import recurrent as trec  # noqa: E402
+from repro_torch.models import transformer as ttransformer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit),
 # from the port's roofline profiles
@@ -371,14 +394,37 @@ DENSE_LAYERS, DENSE_CONTEXT, DENSE_BATCH, DENSE_GEN = 2, 4096, 1, 4
 DENSE_PATCHES = 256
 WARM_LEN = 512          # the warm-up prompt of those paths (2 tokens)
 TOL_MOE = 5e-2          # a bf16 MoE layer vs its f32 per-token evaluation
-# B6 at the new models' head shapes, both routes: (B, Hq, Hkv, Sq, Sk, D,
-# Dv) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128, MLA's D = 192 /
-# Dv = 128 (the HD = 256 instance), also causal with Sq > Sk
-FLASH_MODEL_SHAPES = ((1, 32, 4, 300, 300, 128, 128),
-                      (1, 16, 16, 300, 300, 128, 128),
-                      (1, 8, 8, 300, 300, 192, 128),
-                      (2, 16, 16, 1000, 1000, 192, 128),
-                      (1, 8, 8, 300, 100, 192, 128))
+# B6 at the served models' head shapes, both routes: (B, Hq, Hkv, Sq, Sk, D,
+# Dv, window) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128, MLA's
+# D = 192 / Dv = 128 (the HD = 256 instance), also causal with Sq > Sk, and
+# recurrentgemma's local layer: MQA (Hkv = 1, group 10) at D = 256, windowed
+FLASH_MODEL_SHAPES = ((1, 32, 4, 300, 300, 128, 128, None),
+                      (1, 16, 16, 300, 300, 128, 128, None),
+                      (1, 8, 8, 300, 300, 192, 128, None),
+                      (2, 16, 16, 1000, 1000, 192, 128, None),
+                      (1, 8, 8, 300, 100, 192, 128, None),
+                      (1, 10, 1, 300, 300, 256, 256, 100),
+                      (2, 10, 1, 1000, 1000, 256, 256, 200))
+# the recurrent serving configurations at full width
+# (src/repro/configs/recurrentgemma_2b.py: 26 layers, (rglru, rglru, local)
+# x 8 + (rglru, rglru), d_model 2,560, lru_width 2,560, conv width 4, 10
+# heads MQA x 256, window 2,048, d_ff 7,680 geglu, vocab 256,000;
+# xlstm_125m.py: 12 layers, mLSTM and sLSTM alternating, d_model 768,
+# 4 x 192 heads, no MLP, mlstm_chunk 256, vocab 50,304), bf16 compute, f32
+# params: recurrentgemma-2b at full depth, a 32,768-token context
+# (prefill_32k's length), 2 requests, 16 tokens; the same cut to 3 layers
+# (one superblock) at long_500k's 524,288-token context, 1 request, 8
+# tokens, beside its 32,768-token twin; xlstm-125m at full depth, 2
+# requests, a 4,096-token context (cut from 32,768: sLSTM is a per-token
+# loop), 16 tokens
+RG_CONTEXT, RG_BATCH, RG_GEN = 32_768, 2, 16
+RG_LONG_LAYERS, RG_LONG_CONTEXT, RG_LONG_BATCH, RG_LONG_GEN = (3, 524_288,
+                                                               1, 8)
+XL_CONTEXT, XL_BATCH, XL_GEN = 4096, 2, 16
+REC_STATE_S = 512       # the full-width state check: one layer a mixer
+TOL_REC_F32 = 1e-5      # full pass vs per-token decode scan, scale-normalized
+TOL_REC_BF16 = 5e-2
+REC_DECODE_GROWTH = 2.0  # decode's device ms at 524,288 over 32,768, at most
 
 # causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
 FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
@@ -1895,22 +1941,23 @@ def phase_parity_flash() -> None:
         log(f"parity flash, rows without keys (B, Hq, Hkv, Sq, Sk, D, Dv) = "
             f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}: exactly 0; "
             + " ".join(f"{k}={v}" for k, v in errs.items()))
-    # the MoE, MLA and dense configs' head shapes on both routes
-    for B, Hq, Hkv, Sq, Sk, D, Dv in FLASH_MODEL_SHAPES:
+    # the MoE, MLA, dense and recurrent configs' head shapes on both routes
+    for B, Hq, Hkv, Sq, Sk, D, Dv, window in FLASH_MODEL_SHAPES:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=46,
                                     Dv=Dv)
             label = (f"flash {dtype} (B, Hq, Hkv, Sq, Sk, D, Dv) = "
-                     f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}")
+                     f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}")
             if Sq > Sk:
-                out = fa_kernel.flash_attention_cuda(q, k, v, causal=True)
+                out = fa_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                                     window=window)
                 check(bool((out[:, :, :Sq - Sk] == 0).all()),
                       f"{label}: a row that sees no key is not 0")
             errs[str(dtype).split(".")[-1]] = _flash_case(
-                q, k, v, True, None, label)
+                q, k, v, True, window, label)
         log(f"parity flash, model head shape (B, Hq, Hkv, Sq, Sk, D, Dv) = "
-            f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}: "
+            f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}: "
             + " ".join(f"{k}={v}" for k, v in errs.items()))
 
 
@@ -1961,8 +2008,8 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
     seeded generator and ``prepare``; a warm-up (the full run, or a
     ``warm_len``-token prompt and 2 tokens); then the counted, timed run
     (every launch count reset just before it and read just after); B6 once
-    per layer of its one prefill, all on the tensor-core kernel, none in
-    decode; every token in [0, vocab) and every logit finite; then, outside
+    per attention layer of its one prefill (none for a recurrent layer),
+    all on the tensor-core kernel, none in decode; every token in [0, vocab) and every logit finite; then, outside
     the counted run, the device time of one prefill and 4 decode steps by
     kernel class.  ``n_patch`` seeded patch embeddings are fused into the
     leading prompt positions (early fusion)."""
@@ -2020,11 +2067,12 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
         f" in decode), peak memory {peak_gb:.2f} GB")
     log(f"{tag} launches {json.dumps(launches)}; B6 per prefill "
         f"{rec['b6_prefill']}, per decode step {rec['b6_decode']}")
-    n = cfg.n_layers
+    n = sum(kind in ttransformer.ATTN_KINDS
+            for *_, kind in ttransformer.layer_slots(cfg))
     check(launches == no_launches(flash_attention=n, flash_attention_tc=n),
-          f"{tag}: the serving path should launch B6 once per layer of its "
-          f"one prefill, each on the tensor-core kernel, and nothing else: "
-          f"{launches}")
+          f"{tag}: the serving path should launch B6 once per attention "
+          f"layer ({n}) of its one prefill, each on the tensor-core kernel, "
+          f"and nothing else: {launches}")
     none = {"flash_attention": 0, "flash_attention_tc": 0}
     check(rec["b6_prefill"] == [{"flash_attention": n,
                                  "flash_attention_tc": n}]
@@ -2189,7 +2237,155 @@ def phase_serve_dense_configs() -> dict:
     return out
 
 
-def _kernel_class(name: str) -> str:
+def _rec_describe(cfg) -> str:
+    return (f", lru_width {cfg.lru_width}, conv width "
+            f"{cfg.rglru_conv_width}, window {cfg.window}, mlp "
+            f"{cfg.mlp_variant}" if "rglru" in cfg.layer_pattern else
+            f", mlstm_chunk {cfg.mlstm_chunk}, no MLP")
+
+
+def _slstm_step_ms(cfg, mixer: dict, B: int, S: int) -> dict:
+    """One sLSTM layer's full pass at the served batch and length (the
+    model's own bf16 input), timed once after a warm-up, as served (the
+    loop replayed from CUDA graphs of ``SLSTM_GRAPH_STEPS`` steps) and as
+    the plain per-token loop (the graph's threshold raised past S): ms per
+    token step of each, and the two outputs bit-equal."""
+    x = torch.randn((B, S, cfg.d_model), generator=gen(101),
+                    device=DEV).to(cfg.cdtype)
+    ms, y = cuda_ms(lambda: trec.slstm_full(mixer, cfg, x), warmup=1)
+    steps = trec.SLSTM_GRAPH_STEPS
+    trec.SLSTM_GRAPH_STEPS = S
+    try:
+        plain_ms, plain = cuda_ms(lambda: trec.slstm_full(mixer, cfg, x),
+                                  warmup=1)
+    finally:
+        trec.SLSTM_GRAPH_STEPS = steps
+    check(bool(torch.isfinite(y).all()), "sLSTM layer: non-finite output")
+    check(torch.equal(y, plain), "sLSTM layer: the graphed loop differs "
+          "from the plain loop")
+    res = {"layer_ms": ms, "ms_per_step": ms / S, "plain_layer_ms": plain_ms,
+           "plain_ms_per_step": plain_ms / S, "graph_steps": steps, "B": B,
+           "S": S}
+    log(f"serve_recurrent sLSTM layer at B = {B}, S = {S}: {ms:.1f} ms "
+        f"({ms / S * 1e3:.1f} us a token step) replayed from CUDA graphs of "
+        f"{steps} steps; the plain loop {plain_ms:.1f} ms "
+        f"({plain_ms / S * 1e3:.1f} us a step); outputs bit-equal")
+    return res
+
+
+def _rec_state_check() -> dict:
+    """One layer of each mixer at full width (RG-LRU at recurrentgemma-2b's,
+    mLSTM and sLSTM at xlstm-125m's), seeded weights, B = 2, S =
+    REC_STATE_S: the full pass's output and final state against the
+    per-token decode scan on the card (the reference's prefill state), f32
+    ≤ TOL_REC_F32 and bf16 ≤ TOL_REC_BF16, scale-normalized."""
+    res = {}
+    for kind, arch in (("rglru", "recurrentgemma-2b"),
+                       ("mlstm", "xlstm-125m"), ("slstm", "xlstm-125m")):
+        for dtype, tol in (("float32", TOL_REC_F32),
+                           ("bfloat16", TOL_REC_BF16)):
+            cfg = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype)
+            p = trec.INIT[kind](gen(102), cfg, DEV)
+            x = torch.randn((2, REC_STATE_S, cfg.d_model), generator=gen(103),
+                            device=DEV).to(cfg.cdtype)
+            y, state = trec.PREFILL[kind](p, cfg, x)
+            scan = trec.INIT_STATE[kind](cfg, 2, DEV)
+            ys = [trec.DECODE[kind](p, cfg, x[:, t:t + 1], scan)[0]
+                  for t in range(REC_STATE_S)]
+            errs = {"output": scaled_err(y.float(), torch.cat(ys, 1).float())}
+            for name in scan:
+                check(state[name].dtype == scan[name].dtype
+                      and state[name].shape == scan[name].shape,
+                      f"{kind} {dtype} state {name}: {state[name].dtype} "
+                      f"{tuple(state[name].shape)} vs {scan[name].dtype} "
+                      f"{tuple(scan[name].shape)}")
+                errs[name] = scaled_err(state[name].float(),
+                                        scan[name].float())
+            worst = max(errs.values())
+            check(worst <= tol, f"{kind} {dtype} full pass vs decode scan: "
+                  f"{errs} > {tol}")
+            res[f"{kind} {dtype}"] = errs
+            log(f"serve_recurrent state check {kind} ({arch} width, {dtype}, "
+                f"S = {REC_STATE_S}): full pass vs per-token decode scan "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (limit {tol})")
+            del p, x, y, state, scan, ys
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_recurrent() -> dict:
+    """recurrentgemma-2b at full depth, its 3-layer cut at long_500k beside
+    its 32,768-token twin, and xlstm-125m at full depth, each served
+    through ``serve.generate``; the path's launch counts are the runs'
+    summed (reset just before each counted run and read just after).  Then
+    the sLSTM loop's ms per step, the full-width state check, and B6 at
+    recurrentgemma's local shape."""
+    rg = tconfigs.get_config("recurrentgemma-2b")
+    xl = tconfigs.get_config("xlstm-125m")
+    rg3 = dataclasses.replace(rg, n_layers=RG_LONG_LAYERS)
+    runs = (("recurrentgemma-2b", rg, RG_BATCH, RG_CONTEXT, RG_GEN, True),
+            ("recurrentgemma-2b 3 layers 32k", rg3, RG_LONG_BATCH,
+             RG_CONTEXT, RG_LONG_GEN, True),
+            ("recurrentgemma-2b 3 layers long_500k", rg3, RG_LONG_BATCH,
+             RG_LONG_CONTEXT, RG_LONG_GEN, True),
+            ("xlstm-125m", xl, XL_BATCH, XL_CONTEXT, XL_GEN, True))
+    out = {"runs": {}, "launches": no_launches()}
+    for name, cfg, B, S, n_gen, profile in runs:
+        res = _serve_lm(f"serve_recurrent {name}", cfg, B, S, n_gen, 100,
+                        warm_len=WARM_LEN, profile=profile,
+                        describe=_rec_describe(cfg))
+        if cfg.name == "xlstm-125m":
+            mixer = res["params_tree"]["stack"]["scanned"][0][1]["mixer"]
+            res["slstm"] = _slstm_step_ms(cfg, mixer, B, S)
+        _drop_model(res)
+        out["runs"][name] = res
+        for k, v in res["launches"].items():
+            out["launches"][k] += v
+    short = out["runs"]["recurrentgemma-2b 3 layers 32k"]
+    long = out["runs"]["recurrentgemma-2b 3 layers long_500k"]
+    busy = [r["profile"]["decode_4_steps"].get("busy_ms")
+            for r in (long, short)]
+    check(None not in busy, "serve_recurrent: no device time in the decode "
+          "profiles of the long-context pair")
+    growth = {"context_ratio": RG_LONG_CONTEXT / RG_CONTEXT,
+              "prefill_ratio": long["prefill_ms"] / short["prefill_ms"],
+              "decode_ratio": long["decode_ms_per_token"]
+              / short["decode_ms_per_token"],
+              "decode_device_ratio": busy[0] / busy[1]}
+    log(f"serve_recurrent long_500k vs its 32k twin (3 layers, B = 1): "
+        f"context x{growth['context_ratio']:.0f}, prefill "
+        f"x{growth['prefill_ratio']:.2f}, decode per token "
+        f"x{growth['decode_ratio']:.2f} on the host clock, its device time "
+        f"x{growth['decode_device_ratio']:.2f} (at most {REC_DECODE_GROWTH})")
+    # the device time, not the host-bound wall time, is what grows if a
+    # decode step reads the context
+    check(growth["decode_device_ratio"] <= REC_DECODE_GROWTH,
+          f"serve_recurrent: decode's device time grew x"
+          f"{growth['decode_device_ratio']:.2f} from 32,768 to 524,288 "
+          f"tokens of context; a recurrent state and a window do not grow")
+    out["long_context"] = growth
+    out["state_check"] = _rec_state_check()
+    out["b6_shape"] = _flash_at_shape(
+        "recurrentgemma local (MQA, group 10, window 2,048)", RG_BATCH,
+        rg.n_heads, rg.n_kv_heads, RG_CONTEXT, rg.head_dim, rg.head_dim,
+        FLASH_ROWS, "serve_recurrent", window=rg.window)
+    return out
+
+
+#: the classes of the kernels launched inside the recurrent mixers'
+#: profiler ranges (their names alone are torch's generic elementwise,
+#: reduction and GEMM kernels)
+REC_CLASSES = {trec.SCAN_RANGE: "recurrence (RG-LRU gates + scan, mLSTM "
+                                "chunks)",
+               trec.SLSTM_RANGE: "sLSTM step (per-token loop)"}
+
+
+def _kernel_class(name: str, rng: str = "") -> str:
+    """A kernel's class by its name, or by the recurrent mixer's profiler
+    range ``rng`` it was launched in."""
+    if rng in REC_CLASSES:
+        return REC_CLASSES[rng]
     low = name.lower()
     if "flash_kernel" in low or "flash_wgmma_kernel" in low:
         return "B6 flash_attention"
@@ -2221,7 +2417,8 @@ def _kernel_device_ms(fn, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2230,6 +2427,42 @@ def _kernel_device_ms(fn, reps: int = 5) -> dict:
             name = re.sub(r"\(anonymous namespace\)::", "", e.key)
             out[name.split("(")[0][:60]] = us / 1e3 / reps
     return out
+
+
+def _in_range(e) -> str:
+    """The recurrent profiler range a CPU event lies in ("" if none)."""
+    while e is not None:
+        if e.name in REC_CLASSES:
+            return e.name
+        e = e.cpu_parent
+    return ""
+
+
+def _ranged_kernels(prof) -> list:
+    """(range, kernel name, device ms) of every device activity launched
+    while a recurrent mixer's profiler range was open on the host: each
+    device activity carries the id of the runtime call that launched it
+    (``cudaLaunchKernel``, ``cudaGraphLaunch``, a copy), and that call
+    lies inside the range's host interval.  This also takes the kernels a
+    CUDA graph replays, which no operator owns."""
+    import bisect
+    from torch.autograd import DeviceType
+    evts = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in evts if e.device_type == DeviceType.CPU
+                   and e.name in REC_CLASSES)
+    starts = [sp[0] for sp in spans]
+    launched = {}
+    for e in evts:
+        if e.device_type != DeviceType.CPU or not e.name.startswith("cu"):
+            continue
+        k = bisect.bisect_right(starts, e.time_range.start) - 1
+        if k >= 0 and e.time_range.start <= spans[k][1]:
+            launched[e.id] = spans[k][2]
+    return [(launched[e.id], e.name, e.time_range.elapsed_us() / 1e3)
+            for e in evts if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.id in launched]
 
 
 def _device_profile(fn) -> dict:
@@ -2254,7 +2487,8 @@ def _device_profile(fn) -> dict:
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     by_class, top = {}, []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2265,13 +2499,19 @@ def _device_profile(fn) -> dict:
     busy = sum(by_class.values())
     if busy <= 0.0:
         return {"error": "the profiler recorded no device time"}
-    # the kernels launched under aten::bmm, split out of the matmuls: in a
-    # prefill only the MoE's expert GEMMs call it (the projections are 2-d
-    # matmuls); in decode the attention's einsum reads do too
-    bmm = sum(getattr(e, "device_time_total", 0.0) for e in
-              prof.key_averages()
-              if e.key == "aten::bmm" and e.device_type != DeviceType.CUDA
-              ) / 1e3
+    # the kernels launched inside a recurrent mixer's profiler range, moved
+    # from their names' classes to the range's
+    for rng, name, ms in _ranged_kernels(prof):
+        by_class[_kernel_class(name)] -= ms
+        cls = _kernel_class(name, rng)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    # the kernels launched under aten::bmm outside those ranges, split out
+    # of the matmuls: in a prefill only the MoE's expert GEMMs call it (the
+    # projections are 2-d matmuls); in decode the attention's einsum reads
+    # do too
+    bmm = sum(e.device_time_total for e in prof.events()
+              if e.name == "aten::bmm" and e.device_type == DeviceType.CPU
+              and not _in_range(e)) / 1e3
     if bmm > 0.0:
         mm = "matmul (cuBLAS)"
         by_class[mm] = by_class.get(mm, 0.0) - bmm
@@ -2482,6 +2722,14 @@ def _flash_line(serve_res: dict) -> dict:
     log(f"B6 global shape vs the library: {g['ms']:.2f} ms vs SDPA "
         f"{lib_ms:.3f} ms ({g['ms'] / lib_ms:.2f}x); SDPA per-row relative "
         f"error vs f64 {lib_err:.3g}")
+    lib_local = _sdpa_windowed(q, k, v, cfg.window, rows)
+    log(f"B6 local shape vs the library: {loc['ms']:.2f} ms vs SDPA with a "
+        f"window mask (memory-efficient backend) "
+        + (f"{lib_local['library_ms']:.2f} ms "
+           f"({loc['ms'] / lib_local['library_ms']:.3f}x); SDPA per-row "
+           f"relative error vs f64 {lib_local['library_row_err_vs_f64']:.3g}"
+           if lib_local["library_ms"] else
+           f"not measured ({lib_local['library_note']})"))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_wgmma.cu",
@@ -2516,64 +2764,102 @@ def _flash_line(serve_res: dict) -> dict:
             "row_err_local_vs_plain": loc["row_err_vs_plain"],
             "row_err_local_vs_f64": loc["row_err_vs_f64"],
             "row_err_f32_local_vs_plain": loc["row_err_f32_vs_plain"],
-            "local_window": cfg.window}
+            "local_window": cfg.window,
+            "library_ms_local": lib_local["library_ms"],
+            "library_local": lib_local}
+
+
+def _sdpa_windowed(q, k, v, window: int, rows) -> dict:
+    """The library yardstick of a windowed causal layer: SDPA with an
+    explicit (S, S) sliding-window mask, forced onto the memory-efficient
+    backend (the math backend would make the (B, H, S, S) scores; the
+    flash backend takes no mask), the kv heads repeated to the query heads;
+    one timed call, and its sampled rows against f64.  Returns the time, or
+    the backend's refusal as the finding."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    G = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    i = torch.arange(q.shape[2], device=DEV)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            ms, out = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask))
+    except RuntimeError as exc:      # the backend refuses the shape
+        return {"library_ms": None,
+                "library_note": str(exc).splitlines()[0][:160]}
+    got = out[:, :, rows]
+    del out, ke, ve, mask
+    err = float(row_errs(got, _attention_rows_f64(q, k, v, rows,
+                                                  window)).max())
+    return {"library_ms": ms, "library_row_err_vs_f64": err,
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "attn_mask=window mask) on "
+                            "SDPBackend.EFFICIENT_ATTENTION"}
 
 
 def _flash_at_shape(label: str, B: int, Hq: int, Hkv: int, S: int, D: int,
-                    Dv: int, n_rows: int, path: str) -> dict:
+                    Dv: int, n_rows: int, path: str,
+                    window: int = None) -> dict:
     """B6 at a served model's prefill shape, bf16 (the tensor-core kernel):
     timed (one launch a call), held row by row on ``n_rows`` sampled query
     rows to its plain version (≤ TOL_FLASH_ROW_BF16), its bound (the causal
-    half's flops over the bf16 tensor-core peak, or the bytes), and SDPA
-    timed where one of its fused backends takes the shape (else None)."""
+    half's flops, or the window's, over the bf16 tensor-core peak, or the
+    bytes), and SDPA timed where one of its fused backends takes the shape
+    (else None; with a window, ``_sdpa_windowed``)."""
     q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, seed=47,
                             qk_scale=1.0, Dv=Dv)
     rows = torch.sort(torch.randperm(S, generator=gen(48), device=DEV)[
         :n_rows]).values
     tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
     ms, out = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
-        q, k, v, causal=True), reps=3, warmup=1)
+        q, k, v, causal=True, window=window), reps=3, warmup=1)
     check(fa_kernel.launch_counts()["flash_attention_tc"] - tc0 == 4,
           f"B6 {label}: bf16 calls missed the tensor-core kernel")
     got = out[:, :, rows]
     del out
     plain_ms, plain = cuda_ms(lambda: fa_kernel.flash_attention_plain(
-        q[:, :, rows], k, v, causal=True, q_pos=rows), reps=1, warmup=1)
+        q[:, :, rows], k, v, causal=True, window=window, q_pos=rows),
+        reps=1, warmup=1)
     errs = _check_rows(got, plain, TOL_FLASH_ROW_BF16,
                        f"B6 {label} rows vs plain")
     max_abs = float((got.float() - plain.float()).abs().max())
     del got, plain
-    flops = _flash_flops(B, Hq, S, D, Dv)
+    flops = _flash_flops(B, Hq, S, D, Dv, window)
     nbytes = 2 * (B * Hq * S * D + B * Hkv * S * (D + Dv) + B * Hq * S * Dv)
     bound_ms = max(flops / PEAK_BF16_TC_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
-    lib_ms = lib_note = None
-    try:
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                          SDPBackend.CUDNN_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
-            lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=Hq != Hkv), reps=3,
-                warmup=1)
-    except RuntimeError as exc:      # no fused backend takes the shape
-        lib_note = str(exc).splitlines()[0][:160]
+    lib = {"library_ms": None}
+    if window is not None:
+        lib = _sdpa_windowed(q, k, v, window, rows)
+    else:
+        try:
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                lib["library_ms"], _ = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=Hq != Hkv),
+                    reps=3, warmup=1)
+        except RuntimeError as exc:      # no fused backend takes the shape
+            lib["library_note"] = str(exc).splitlines()[0][:160]
+    lib_ms, lib_note = lib["library_ms"], lib.get("library_note")
     del q, k, v
     torch.cuda.empty_cache()
     res = {"label": label, "path": path,
            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
-                     "causal": True, "dtype": "bfloat16"},
+                     "causal": True, "window": window, "dtype": "bfloat16"},
            "ms": ms, "bound_ms": bound_ms,
            "bound_by": "operations" if flops / PEAK_BF16_TC_FLOPS
            >= nbytes / PEAK_HBM_BYTES else "bytes",
            "bf16_roof_share": bound_ms / ms, "plain_ms_rows": plain_ms,
            "plain_rows": n_rows, "row_err_vs_plain": errs["max"],
            "row_err_vs_plain_median": errs["median"],
-           "max_abs_err": max_abs, "library_ms": lib_ms}
-    if lib_note:
-        res["library_note"] = lib_note
+           "max_abs_err": max_abs, **lib}
     log(f"B6 {label} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, D={D}, Dv={Dv}, "
-        f"causal, bf16): {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"causal, window {window}, bf16): {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{bound_ms / ms:.1%} of the bf16 tensor-core roof, bound "
         f"{bound_ms:.2f} ms); SDPA "
         + (f"{lib_ms:.3f} ms ({ms / lib_ms:.2f}x)" if lib_ms else
@@ -3390,6 +3676,7 @@ def main() -> int:
     moe = phase_serve_moe()
     mla = phase_serve_mla()
     dense = phase_serve_dense_configs()
+    rec = phase_serve_recurrent()
     skm = phase_serve_kernel()
     rag = phase_ragged()
     cal = phase_calibrate()
@@ -3401,6 +3688,7 @@ def main() -> int:
              "serve_gemma3": srv["launches"], "serve_moe": moe["launches"],
              "serve_mla": mla["launches"],
              "serve_dense_configs": dense["launches"],
+             "serve_recurrent": rec["launches"],
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
              "calibrate": cal["launches"], "contracts": con["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
@@ -3445,8 +3733,20 @@ def main() -> int:
     b6["serve_dense_configs"] = {
         name: {k: r[k] for k in served}
         for name, r in dense["configs"].items()}
+    b6["serve_recurrent"] = {
+        **{name: {k: r[k] for k in served}
+           for name, r in rec["runs"].items()},
+        "prefill_device_ms_by_class": {
+            name: r["profile"]["prefill"].get("by_class_ms")
+            for name, r in rec["runs"].items() if "profile" in r},
+        "decode_device_ms_by_class": {
+            name: r["profile"]["decode_4_steps"].get("by_class_ms")
+            for name, r in rec["runs"].items() if "profile" in r},
+        "slstm": rec["runs"]["xlstm-125m"]["slstm"],
+        "long_context": rec["long_context"],
+        "state_check": rec["state_check"]}
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
-                          dense["b6_shape"]]
+                          dense["b6_shape"], rec["b6_shape"]]
     b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],

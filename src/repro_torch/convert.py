@@ -128,8 +128,9 @@ def model_params_from_reference(params, cfg, device=None) -> dict:
     of per-rep tuples otherwise; the port holds a list of per-rep lists
     either way.  Everything else carries over as it is: the prefix blocks
     (deepseek's dense first layers), the MoE banks ((E, d, ff) / (E, ff, d),
-    the f32 router, the shared MLP), MLA's projections and the ``"mtp"``
-    sub-tree.
+    the f32 router, the shared MLP), MLA's projections, the recurrent
+    mixers' weights (RG-LRU's f32 ``lam``, mLSTM's and sLSTM's gate
+    weights) and the ``"mtp"`` sub-tree.
     """
     from repro_torch.models.transformer import stack_layout
     device = resolve_device(device)
@@ -159,8 +160,9 @@ def cache_to_reference(cache: dict, cfg) -> dict:
     """The port's decode cache in the reference's layout, as numpy (bf16
     widened to f32): ``{"prefix": (...), "scanned": (per pattern slot, each
     leaf stacked on a leading reps axis), "remainder": (...)}``; each
-    layer's entry keeps its names (``k``/``v``, the landmark factors, or
-    MLA's latent ``ckv`` and ``krope``)."""
+    layer's entry keeps its names (``k``/``v``, the landmark factors, MLA's
+    latent ``ckv`` and ``krope``, or a recurrent mixer's state: RG-LRU
+    ``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``)."""
     from repro_torch.models.transformer import stack_layout
     _, pattern, reps, _ = stack_layout(cfg)
     scanned = None

@@ -7,12 +7,16 @@
 
 ``--arch`` takes every architecture of the port's registry
 (``repro_torch.configs.ARCHS``: gemma3-12b, the yi, minitron and chameleon
-dense configs, qwen2-moe-a2.7b and deepseek-v3-671b).
+dense configs, qwen2-moe-a2.7b, deepseek-v3-671b, and the recurrent
+xlstm-125m and recurrentgemma-2b).
 
 Prefill builds the decode cache (for landmark configs also the fast-model
 factors of every global layer: Algorithm 1 on the softmax Gram, O(s²c) per
-head); each decode step reads it and updates it in place.  The model runs on
-the CUDA device unless ``--device`` names another one.
+head; for a recurrent layer its state after the prompt, O(1) in the
+context); each decode step reads it and updates it in place.  xlstm-125m's
+mLSTM takes a prompt whose length is a multiple of ``mlstm_chunk`` (or
+shorter than it).  The model runs on the CUDA device unless ``--device``
+names another one.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """The decoder-only LM (port of ``repro.models.model``): the dense, MoE and
-MLA attention families and chameleon's early fusion.  Serving only: the
+MLA attention families, chameleon's early fusion, and the recurrent
+families (xLSTM's mLSTM/sLSTM stacks, recurrentgemma's RG-LRU with local
+attention).  Serving only: the
 loss and the MTP head's loss come with training (ROADMAP A11-rest.5), the
 encoder-decoder with A11-rest.4.
 
@@ -35,10 +37,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator_or_default, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 
 #: parameter names of the matmul weights, cast by ``prepare``; the rest (norm
-#: scales, and the MoE ``router``, which computes in f32) keep their dtype
+#: scales, and the MoE ``router``, which computes in f32) keep their dtype.
+#: A recurrent mixer's weights go by its kind instead
+#: (``recurrent.COMPUTE_WEIGHTS``): sLSTM's ``wo`` is an f32 gate weight.
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embedding",
                   "unembed", "wq_a", "wq_b", "wkv_a", "wkv_b", "proj")
 
@@ -74,17 +79,42 @@ def _init_lm(generator: Optional[torch.Generator] = None, device=None, *,
     return params
 
 
+def _cast(params, cfg: ModelConfig, names=MATMUL_WEIGHTS):
+    """``params`` with every tensor named in ``names`` in the compute
+    dtype, at any depth."""
+    if isinstance(params, dict):
+        return {k: (L.as_compute(v, cfg.cdtype) if k in names
+                    and isinstance(v, torch.Tensor) else _cast(v, cfg, names))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_cast(v, cfg, names) for v in params]
+    return params
+
+
+def _prepare_stack(stack: dict, cfg: ModelConfig) -> dict:
+    """Each block by its kind: a recurrent mixer casts the weights its
+    kind reads in the compute dtype, the rest of the block the matmul
+    weights by name."""
+    out = T._empty_like_layout(cfg)
+    for section, r, i, kind in T.layer_slots(cfg):
+        block = T._entry(stack, section, r, i)
+        T._append(out, section, r, {
+            k: (_cast(v, cfg, R.COMPUTE_WEIGHTS[kind])
+                if k == "mixer" and kind in T.REC_KINDS else _cast(v, cfg))
+            for k, v in block.items()})
+    return out
+
+
 def _prepare(params, cfg: ModelConfig):
     """The same params with every matmul weight in the compute dtype, cast
     once (the reference casts per call; the numbers are the same).  Norm
-    scales keep their dtype: the norms compute in f32."""
-    if isinstance(params, dict):
-        return {k: (L.as_compute(v, cfg.cdtype) if k in MATMUL_WEIGHTS
-                    and isinstance(v, torch.Tensor) else _prepare(v, cfg))
+    scales keep their dtype: the norms compute in f32.  So do the weights
+    a recurrent mixer reads in f32: RG-LRU's ``lam``, mLSTM's gate weights,
+    every sLSTM weight but ``wo_proj``."""
+    if isinstance(params, dict) and "stack" in params:
+        return {k: (_prepare_stack(v, cfg) if k == "stack" else _cast(v, cfg))
                 for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [_prepare(v, cfg) for v in params]
-    return params
+    return _cast(params, cfg)
 
 
 def _tokens(batch: dict, device) -> torch.Tensor:

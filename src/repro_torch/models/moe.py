@@ -8,7 +8,7 @@ Dispatch is the reference's static-shape, sort-based gather (no dense
      weight is never cast to the compute dtype);
   2. sort the T·k assignments by expert id with a *stable* sort, so the
      same assignments overflow on the CPU and the card;
-  3. bound each expert to C = cf·T·k/E slots (the reference's integer
+  3. bound each expert to C = cf·(T·k)/E slots (the reference's integer
      arithmetic, rounded up to a multiple of 8); the overflow drops;
   4. gather the tokens into an (E, C, d) buffer, run every expert as one
      batched GEMM (``torch.bmm``), and combine each token's k outputs with
@@ -63,7 +63,10 @@ def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor):
     the Switch-style load-balance aux E · Σ_e frac_e · mean_prob_e."""
     logits = xf.to(_F32) @ params["router"].to(_F32)          # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    # a stable descending sort puts the lower expert id first at a tie, as
+    # ``jax.lax.top_k`` does (``torch.topk`` does not)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :cfg.moe_top_k], idx[:, :cfg.moe_top_k]
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
     E = cfg.n_experts
     hard = torch.zeros((xf.shape[0], E), dtype=_F32, device=xf.device)
@@ -74,9 +77,12 @@ def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor):
 
 
 def capacity(cfg: ModelConfig, T: int) -> int:
-    """Slots per expert for T tokens: max(1, int(cf·T·k/E)) rounded up to a
-    multiple of 8 (at decode, T = B and C = 8)."""
-    C = max(1, int(cfg.capacity_factor * T * cfg.moe_top_k
+    """Slots per expert for T tokens: max(1, int(cf·(T·k)/E)) rounded up to
+    a multiple of 8 (at decode, T = B and C = 8).  T·k is formed first, as
+    in the reference: (cf·T)·k rounds differently, and ``int`` can then
+    land on the other side of an integer (cf = 0.7, k = 6, E = 8, T = 1,800:
+    944 against 945)."""
+    C = max(1, int(cfg.capacity_factor * (T * cfg.moe_top_k)
                    / cfg.n_experts))
     return -(-C // 8) * 8
 

@@ -1,5 +1,6 @@
-"""Block assembly for attention blocks, dense or MoE: residual blocks and
-stacks (port of ``repro.models.transformer``).
+"""Block assembly for attention blocks (dense or MoE) and recurrent blocks
+(RG-LRU, mLSTM, sLSTM): residual blocks and stacks (port of
+``repro.models.transformer``).
 
 A stack is ``prefix`` blocks + ``reps`` superblocks (one pass through
 ``cfg.layer_pattern`` each) + ``remainder`` blocks, as in the reference.
@@ -17,8 +18,11 @@ Every block has three modes:
   prefill : (x) -> (x', cache_entry)   cache sized ``max_len``
   decode  : (x, cache_entry, pos) -> (x', cache_entry)   (updated in place)
 
-Recurrent blocks (mLSTM, sLSTM, RG-LRU) are not ported yet and raise
-``NotImplementedError`` (ROADMAP A11-rest.3).
+A recurrent block's cache entry is its mixer's decode state (RG-LRU
+``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).
+Prefill takes it from the mixer's full pass (``recurrent.*_prefill``); the
+reference's per-token decode scan over the prompt is kept as
+``_rec_prefill_state``, the oracle.  mLSTM and sLSTM blocks have no MLP.
 """
 from __future__ import annotations
 
@@ -30,17 +34,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
 
 ATTN_KINDS = ("attn", "local", "global")
 REC_KINDS = ("mlstm", "slstm", "rglru")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in REC_KINDS:
-        raise NotImplementedError(
-            f"recurrent blocks ({kind}) are not in the port yet "
-            "(ROADMAP A11-rest.3)")
-    if kind not in ATTN_KINDS:
+    if kind not in ATTN_KINDS + REC_KINDS:
         raise ValueError(kind)
 
 
@@ -48,7 +49,9 @@ def _is_moe_layer(cfg: ModelConfig, in_prefix: bool) -> bool:
     return cfg.n_experts > 0 and not in_prefix
 
 
-def _has_mlp(cfg: ModelConfig, moe: bool) -> bool:
+def _has_mlp(cfg: ModelConfig, kind: str, moe: bool) -> bool:
+    if kind in ("mlstm", "slstm"):
+        return False                                          # xLSTM blocks
     return moe or cfg.d_ff > 0 or cfg.dense_d_ff > 0
 
 
@@ -61,11 +64,12 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
                device=None) -> dict:
     _check_kind(kind)
     pd = cfg.pdtype
+    init_mixer = R.INIT[kind] if kind in REC_KINDS else A.init_attention
     p = {"norm1": L.init_rmsnorm(cfg.d_model, pd, device),
-         "mixer": A.init_attention(generator, cfg, device)}
+         "mixer": init_mixer(generator, cfg, device)}
     if cfg.post_norm:
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model, pd, device)
-    if _has_mlp(cfg, moe):
+    if _has_mlp(cfg, kind, moe):
         p["norm2"] = L.init_rmsnorm(cfg.d_model, pd, device)
         if moe:
             p["moe"] = M.init_moe(generator, cfg, device)
@@ -100,9 +104,11 @@ def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kind(kind)
-    h = A.attention_full(params["mixer"], cfg,
-                         L.rmsnorm(params["norm1"], x, cfg.norm_eps),
-                         positions, kind)
+    xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if kind in REC_KINDS:
+        h = R.FULL[kind](params["mixer"], cfg, xin)
+    else:
+        h = A.attention_full(params["mixer"], cfg, xin, positions, kind)
     return _residual_mlp(params, cfg, x, h)
 
 
@@ -114,10 +120,14 @@ def block_prefill(params: dict, cfg: ModelConfig, kind: str,
     """Returns (x', cache_entry).  The projections are made once and serve
     both the attention and the cache (the reference projects them twice;
     the two are the same computation): q, k and v, or under MLA the
-    latents ckv and the rope key, which are MLA's cache."""
+    latents ckv and the rope key, which are MLA's cache.  A recurrent
+    block's cache is its mixer's state after the last token, from the full
+    pass (the reference rebuilds it by ``_rec_prefill_state``)."""
     _check_kind(kind)
     xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if cfg.use_mla:
+    if kind in REC_KINDS:
+        h, cache = R.PREFILL[kind](params["mixer"], cfg, xin)
+    elif cfg.use_mla:
         parts = A._mla_project(params["mixer"], cfg, xin, positions)
         h = A.mla_attend_full(params["mixer"], cfg, *parts)
         pad = (0, 0, 0, max_len - x.shape[1])
@@ -160,12 +170,30 @@ def _attn_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
             "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
 
 
+def _rec_prefill_state(mp: dict, cfg: ModelConfig, kind: str,
+                       xin: torch.Tensor) -> dict:
+    """The final recurrent state by a per-token decode scan over the input,
+    as the reference computes it at prefill: one decode step a token, so
+    the plain oracle of the state ``block_prefill`` takes from the full
+    pass."""
+    state = R.INIT_STATE[kind](cfg, xin.shape[0], xin.device)
+    for t in range(xin.shape[1]):
+        R.DECODE[kind](mp, cfg, xin[:, t:t + 1], state)
+    return state
+
+
 def block_decode(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  cache: dict, pos: int) -> Tuple[torch.Tensor, dict]:
+    """The cache entry is updated in place: an attention layer writes the
+    token's k and v (or latents) into it, a recurrent layer replaces its
+    state's tensors."""
     _check_kind(kind)
-    h, cache = A.attention_decode(
-        params["mixer"], cfg, L.rmsnorm(params["norm1"], x, cfg.norm_eps),
-        cache, pos, kind)
+    xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if kind in REC_KINDS:
+        h, cache = R.DECODE[kind](params["mixer"], cfg, xin, cache)
+    else:
+        h, cache = A.attention_decode(params["mixer"], cfg, xin, cache, pos,
+                                      kind)
     return _residual_mlp(params, cfg, x, h)[0], cache
 
 
@@ -262,5 +290,6 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
     for section, r, _, kind in layer_slots(cfg):
         _check_kind(kind)
         _append(cache, section, r,
-                A.init_cache(cfg, kind, batch, max_len, device))
+                R.INIT_STATE[kind](cfg, batch, device) if kind in REC_KINDS
+                else A.init_cache(cfg, kind, batch, max_len, device))
     return cache

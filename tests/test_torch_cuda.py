@@ -582,14 +582,17 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda_device):
     assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 5e-2
 
 
-# B6 at the head shapes of the MoE/MLA/dense configs: (B, Hq, Hkv, Sq, Sk, D,
-# Dv) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128; MLA's q/k of
-# 128 + 64 and v of 128 (the HD = 256 instance, zero-filled past D and Dv),
-# also causal with Sq > Sk
-MODEL_HEAD_SHAPES = [(1, 32, 4, 300, 300, 128, 128),
-                     (1, 16, 16, 300, 300, 128, 128),
-                     (1, 8, 8, 300, 300, 192, 128),
-                     (1, 8, 8, 300, 100, 192, 128)]
+# B6 at the head shapes of the MoE/MLA/dense/recurrent configs: (B, Hq, Hkv,
+# Sq, Sk, D, Dv, window) -- yi's GQA group 8 and qwen2-moe's MHA at D = 128;
+# MLA's q/k of 128 + 64 and v of 128 (the HD = 256 instance, zero-filled
+# past D and Dv), also causal with Sq > Sk; recurrentgemma's local layer,
+# MQA (Hkv = 1, group 10) at D = 256 under a window
+MODEL_HEAD_SHAPES = [(1, 32, 4, 300, 300, 128, 128, None),
+                     (1, 16, 16, 300, 300, 128, 128, None),
+                     (1, 8, 8, 300, 300, 192, 128, None),
+                     (1, 8, 8, 300, 100, 192, 128, None),
+                     (1, 10, 1, 300, 300, 256, 256, 100),
+                     (2, 10, 1, 1000, 1000, 256, 256, 200)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -599,7 +602,7 @@ def test_flash_at_the_model_head_shapes(cuda_device, shape, dtype):
     rtol = atol = 2e-2 and every row within 1e-2); the MLA shape with v a
     strided view of the (B, S, H, nope + v) projection, as the model passes
     it; rows that see no key exactly 0."""
-    B, Hq, Hkv, Sq, Sk, D, Dv = shape
+    B, Hq, Hkv, Sq, Sk, D, Dv, window = shape
     rng = np.random.default_rng(11)
     q = (_rand(rng, B, Hq, Sq, D, dev=cuda_device) * 0.5).to(dtype)
     k = (_rand(rng, B, Hkv, Sk, D, dev=cuda_device) * 0.5).to(dtype)
@@ -609,13 +612,14 @@ def test_flash_at_the_model_head_shapes(cuda_device, shape, dtype):
         kvb = _rand(rng, B, Sk, Hkv, 128 + Dv, dev=cuda_device).to(dtype)
         v = kvb[..., 128:].transpose(1, 2)
     counts = fa_kernel.launch_counts()
-    out = fa_ops.flash_attention(q, k, v, causal=True)
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
     after = fa_kernel.launch_counts()
     assert after["flash_attention"] == counts["flash_attention"] + 1
     assert after["flash_attention_tc"] == counts["flash_attention_tc"] + (
         dtype == torch.bfloat16)
     assert out.shape == (B, Hq, Sq, Dv)
-    plain = fa_kernel.flash_attention_plain(q, k, v, causal=True)
+    plain = fa_kernel.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
     _flash_close(out, plain)
     if Sq > Sk:
         assert bool((out[:, :, :Sq - Sk] == 0).all())
@@ -654,6 +658,104 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device, cf):
     for a, b in zip(plan_cpu, plan_card):
         assert torch.equal(a, b.cpu())
     assert bool(plan_cpu[2].all()) == (cf == 1.25)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_router_ties_on_the_card_match_the_cpu(cuda_device, arch):
+    """A zero token (uniform probabilities) and a built three-way tie route
+    to the same experts on the card as on the CPU, the lower ids first (as
+    the reference's ``jax.lax.top_k``), with the same aux."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    params = tmoe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    router = params["router"].clone()
+    router[:, 1] *= 4.0
+    router[:, 4] = router[:, 1]
+    router[:, 5] = router[:, 1]
+    params["router"] = router
+    x = torch.as_tensor(np.random.default_rng(8).normal(
+        size=(64, cfg.d_model)), dtype=torch.float32)
+    x[0] = 0.0
+    w, idx, aux = tmoe._route(params, cfg, x)
+    on_card = {"router": router.to(cuda_device)}
+    wc, idxc, auxc = tmoe._route(on_card, cfg, x.to(cuda_device))
+    assert torch.equal(idxc.cpu(), idx)
+    assert idx[0].tolist() == [0, 1]
+    r = x @ router
+    others = torch.cat([r[:, :1], r[:, 2:4], r[:, 6:]], dim=1)
+    lead = torch.nonzero(r[:, 1] > others.max(1).values).flatten()
+    assert len(lead) >= 8
+    assert all(idx[t].tolist() == [1, 4] for t in lead)
+    assert scaled(wc.cpu(), w) <= 1e-6
+    assert abs(float(auxc) - float(aux)) <= 1e-6 * float(aux)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
+def test_recurrent_smoke_models_on_the_card_match_the_cpu(cuda_device, arch):
+    """The recurrent SMOKE model in f32 (TF32 off): prefill (the recurrent
+    states from the full pass) and three decode steps on the card against
+    the CPU, ≤ 1e-4, and every cache tensor after them; one B6 launch per
+    local layer in prefill (recurrentgemma's 1, xlstm's none), none in
+    decode."""
+    from repro_torch.models import transformer as ttr
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = tm.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    n_attn = sum(kind in ttr.ATTN_KINDS for *_, kind in ttr.layer_slots(cfg))
+    toks = torch.randint(0, cfg.vocab_size, (2, 36),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to(params, cuda_device))):
+        fa_kernel.reset_launch_counts()
+        lg, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)}, 40)
+        seq = [lg]
+        prefill_launches = fa_kernel.launch_counts()["flash_attention"]
+        for t in range(32, 35):
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                          t)
+            seq.append(lg)
+        torch.cuda.synchronize()
+        outs[dev] = (torch.stack(seq).cpu(), prefill_launches,
+                     fa_kernel.launch_counts()["flash_attention"],
+                     to(cache, "cpu"))
+    assert outs["cpu"][1:3] == (0, 0)
+    assert outs["cuda"][1:3] == (n_attn, n_attn)
+    assert scaled(outs["cuda"][0], outs["cpu"][0]) <= 1e-4
+    for (section, r, i, kind) in ttr.layer_slots(cfg):
+        got = ttr._entry(outs["cuda"][3], section, r, i)
+        ref = ttr._entry(outs["cpu"][3], section, r, i)
+        for name in ref:
+            assert scaled(got[name].float(), ref[name].float()) <= 1e-4, (
+                kind, name)
+
+
+@pytest.mark.parametrize("S", [128, 300])
+def test_slstm_graphed_loop_matches_the_cpu(cuda_device, S):
+    """sLSTM's full pass on the card, where S ≥ 2·SLSTM_GRAPH_STEPS replays
+    the loop from a CUDA graph (S = 300: four blocks and a plain tail of
+    44 steps), against the plain loop on the CPU in f32: output and final
+    state ≤ 1e-5, and two calls bit-equal."""
+    from repro_torch.models import recurrent as trec
+    cfg = dataclasses.replace(get_smoke("xlstm-125m"), dtype="float32")
+    assert S >= 2 * trec.SLSTM_GRAPH_STEPS
+    params = trec.init_slstm(torch.Generator().manual_seed(0), cfg, "cpu")
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    x = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(2, S, cfg.d_model)), dtype=torch.float32)
+    y, state = trec.slstm_prefill(params, cfg, x)
+    yc, statec = trec.slstm_prefill(on_card, cfg, x.to(cuda_device))
+    again, _ = trec.slstm_prefill(on_card, cfg, x.to(cuda_device))
+    assert torch.equal(yc, again)
+    assert scaled(yc.cpu(), y) <= 1e-5
+    for k in state:
+        assert scaled(statec[k].cpu(), state[k]) <= 1e-5, k
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])

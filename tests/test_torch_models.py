@@ -1,9 +1,10 @@
 """The port's serving path held against the JAX reference (CPU): gemma3-12b
 in depth (layers, attention, caches), and every ported arch's SMOKE config
 (gemma3-12b, yi-6b, yi-9b, minitron-4b, chameleon-34b with patch
-embeddings, qwen2-moe-a2.7b, deepseek-v3-671b) through prefill and
-teacher-forced decode.  The MoE and MLA modules have their own files
-(``test_torch_moe.py``, ``test_torch_mla.py``).
+embeddings, qwen2-moe-a2.7b, deepseek-v3-671b, xlstm-125m,
+recurrentgemma-2b) through prefill and teacher-forced decode.  The MoE,
+MLA and recurrent modules have their own files (``test_torch_moe.py``,
+``test_torch_mla.py``, ``test_torch_recurrent.py``).
 
 The reference model (``repro.models``) is built from the SMOKE config and
 initialized from a JAX key; its params are converted to the
@@ -66,8 +67,9 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 B, S_PRE, S_MAX, N_DECODE = 2, 32, 40, 6
 N_PATCH = 6             # chameleon's early-fusion patch embeddings
 #: every arch the port serves, in the port's registry order
-PORTED = ("gemma3-12b", "minitron-4b", "yi-9b", "yi-6b", "deepseek-v3-671b",
-          "qwen2-moe-a2.7b", "chameleon-34b")
+PORTED = ("xlstm-125m", "gemma3-12b", "minitron-4b", "yi-9b", "yi-6b",
+          "deepseek-v3-671b", "qwen2-moe-a2.7b", "chameleon-34b",
+          "recurrentgemma-2b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -240,7 +242,7 @@ def test_configs_carry_over_from_the_reference():
         {k: dataclasses.astuple(v) for k, v in tconfigs.SHAPES.items()}
     assert tconfigs.get_config("gemma3-12b") is tg.FULL
     assert tconfigs.get_smoke("gemma3-12b") is tg.SMOKE
-    for name in ("xlstm-125m", "whisper-large-v3", "no-such-arch"):
+    for name in ("whisper-large-v3", "no-such-arch"):
         with pytest.raises(KeyError, match="A11"):
             tconfigs.get_config(name)
     assert [f.name for f in dataclasses.fields(JModelConfig)] == \
@@ -257,7 +259,7 @@ def test_config_arithmetic_matches_the_reference(arch):
         assert tc.active_param_count() == jc.active_param_count()
         for i in range(tc.n_layers):
             assert tc._mlp_params(i) == jc._mlp_params(i)
-        for kind in ("attn", "local", "global"):
+        for kind in ("attn", "local", "global", "mlstm", "slstm", "rglru"):
             assert tc._mixer_params(kind) == jc._mixer_params(kind)
 
 
@@ -296,9 +298,6 @@ def test_init_trees_match_the_reference(arch):
 
 
 def test_unported_families_raise():
-    rec = dataclasses.replace(tg.SMOKE, layer_pattern=("rglru", "local"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        TM.build_model(rec).init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         TM.build_model(dataclasses.replace(tg.SMOKE, is_encdec=True))
 
@@ -483,6 +482,8 @@ def test_forward_and_aux_match_reference(arch):
     jc, tc = _configs("float32", arch)
     jp, tp = _params(jc, tc, seed=3)
     toks = _tokens(jc, seed=5)
+    if "mlstm" in jc.layer_pattern:        # S a multiple of mLSTM's chunk
+        toks = toks[:, :S_PRE]
     extra = _patches(jc)
     jl, jaux = JM.build_model(jc).forward(
         jp, {"tokens": jnp.asarray(toks),

@@ -9,6 +9,9 @@ dtype) ≤ 1e-6; the dispatch and the whole FFN f32 ≤ 1e-5, bf16 ≤ 5e-2 (the
 reference adds a token's k expert outputs in bf16 in expert order, the port
 in routing order).  The capacity factor 0.5 forces drops, and the test
 asserts that some assignment drops; the combine is bit-equal across calls.
+The capacity is the reference's arithmetic, cf·(T·k)/E (cf = 0.7 with k = 6
+is where ((cf·T)·k)/E lands on another integer), and a tie in the router's
+probabilities goes to the lower expert id, as ``jax.lax.top_k`` does.
 """
 from __future__ import annotations
 
@@ -137,7 +140,7 @@ def test_capacity_and_stable_overflow(arch):
     tc = tconfigs.get_smoke(arch)
     E, k = tc.n_experts, tc.moe_top_k
     for T in (1, 2, 7, 32, 1000, 65_536):
-        C = max(1, int(tc.capacity_factor * T * k / E))
+        C = max(1, int(tc.capacity_factor * (T * k) / E))
         assert TMoE.capacity(tc, T) == -(-C // 8) * 8
     tc = dataclasses.replace(tc, capacity_factor=0.5)
     T = 64
@@ -175,3 +178,93 @@ def test_router_stays_f32_after_prepare():
     assert moe["router"].dtype == torch.float32
     assert moe["wi_gate"].dtype == moe["wo"].dtype == torch.bfloat16
     assert moe["shared"]["wi_up"].dtype == torch.bfloat16
+
+
+def _reference_capacity(cf: float, T: int, k: int, E: int) -> int:
+    """The reference's expression (``repro.models.moe._dispatch_compute``):
+    Tk = T·k first, then cf·Tk/E, then up to a multiple of 8."""
+    Tk = T * k
+    C = max(1, int(cf * Tk / E))
+    return -(-C // 8) * 8
+
+
+def test_capacity_is_the_reference_expression_over_a_grid():
+    """Every (cf, k, E, T) of the grid, cf = 0.7 with k = 6 included (the
+    case where the two orders of the product round to different integers,
+    at T = 1,800 among others)."""
+    base = tconfigs.get_smoke("deepseek-v3-671b")
+    cfs = (0.5, 0.6, 0.7, 0.9, 1.0, 1.1, 1.25, 1.3, 1.5, 2.0)
+    Ts = tuple(range(1, 300)) + (1800, 1810, 4096, 9000, 65_536)
+    differs = 0
+    for cf in cfs:
+        for k in (1, 2, 4, 6, 8):
+            for E in (6, 8, 16, 60, 64, 256):
+                cfg = dataclasses.replace(base, capacity_factor=cf,
+                                          moe_top_k=k, n_experts=E)
+                for T in Ts:
+                    want = _reference_capacity(cf, T, k, E)
+                    assert TMoE.capacity(cfg, T) == want, (cf, k, E, T)
+                    differs += int(cf * T * k / E) != int(cf * (T * k) / E)
+    assert differs > 0          # the grid reaches the rounding difference
+    cfg = dataclasses.replace(base, capacity_factor=0.7, moe_top_k=6)
+    assert TMoE.capacity(cfg, 1800) == 944
+
+
+def test_capacity_probe_matches_reference_moe_ffn():
+    """deepseek's SMOKE MoE at cf 0.7, k = 6 (E = 8), T = 1,800 in f32: both
+    sides bound each expert to 944 slots, drop the same assignments and
+    give the same output (≤ 1e-5)."""
+    kw = {"dtype": "float32", "capacity_factor": 0.7, "moe_top_k": 6}
+    jc = dataclasses.replace(jconfigs.get_smoke("deepseek-v3-671b"), **kw)
+    tc = dataclasses.replace(tconfigs.get_smoke("deepseek-v3-671b"), **kw)
+    jp = JMoE.init_moe(jax.random.PRNGKey(0), jc)
+    tp = convert._tree_to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(7).normal(size=(2, 900, tc.d_model)).astype(
+        np.float32)
+    _, idx, _ = TMoE._route(tp, tc, torch.as_tensor(x).reshape(-1,
+                                                               tc.d_model))
+    C = TMoE.capacity(tc, 1800)
+    assert C == 944
+    _, _, keep = TMoE._assign(tc, idx, C)
+    assert not bool(keep.all())
+    (jo, jaux), (to, taux) = (JMoE.moe_ffn(jp, jc, jnp.asarray(x)),
+                              TMoE.moe_ffn(tp, tc, torch.as_tensor(x)))
+    e = scaled(to, jo)
+    assert e <= TOL["float32"], f"moe_ffn at cf 0.7, k 6: {e:.3g}"
+    assert abs(float(taux) - float(jaux)) <= TOL_ROUTE * float(jaux)
+
+
+def _tied_router(tc, seed=0):
+    """A router whose columns 4 and 5 copy column 1: experts 1, 4 and 5 get
+    the same logit for every token, a three-way tie that leads wherever
+    column 1 (four times the others' scale) points along the token."""
+    r = np.random.default_rng(seed).normal(size=(tc.d_model, tc.n_experts))
+    r = (r * 0.2).astype(np.float32)
+    r[:, 1] *= 4.0
+    r[:, 4] = r[:, 1]
+    r[:, 5] = r[:, 1]
+    return r
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_router_ties_route_to_the_reference_experts(arch):
+    """A zero token (uniform probabilities) and a built partial tie (three
+    equal logits, of which k = 2 are taken) route to the reference's expert
+    ids, the lower ids first, with the reference's weights and aux."""
+    jc, tc, jp, tp = _setup(arch, "float32")
+    router = _tied_router(tc)
+    jp = dict(jp, router=jnp.asarray(router))
+    tp = dict(tp, router=torch.as_tensor(router))
+    x = np.random.default_rng(8).normal(size=(64, tc.d_model)).astype(
+        np.float32)
+    x[0] = 0.0
+    r = x @ router
+    lead = np.nonzero(r[:, 1] > np.delete(r, [1, 4, 5], axis=1).max(1))[0]
+    assert len(lead) >= 8       # tokens where the tie is the top three
+    jw, jidx, jaux = JMoE._route(jp, jc, jnp.asarray(x))
+    tw, tidx, taux = TMoE._route(tp, tc, torch.as_tensor(x))
+    assert np.array_equal(tidx.numpy(), np.asarray(jidx))
+    assert tidx[0].tolist() == [0, 1]
+    assert all(tidx[t].tolist() == [1, 4] for t in lead)
+    assert scaled(tw, jw) <= TOL_ROUTE
+    assert abs(float(taux) - float(jaux)) <= TOL_ROUTE * float(jaux)
