@@ -135,7 +135,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
    prefill, non-causal with and without a window), each bf16 call one
    tensor-core launch and each f32 call none, and with Sq > Sk (causal)
    the rows that see no key exactly 0 on both routes
-   (``phase_parity_flash``);
+   (``phase_parity_flash``; also at whisper's head shape: 20 heads of 64,
+   non-causal at 1,500 frames, the Sq = 1 cross read, causal);
+7f. serve_whisper: whisper-large-v3 at full width and depth (32 encoder +
+   32 decoder layers, d_model 1,280, 20 x 64 heads MHA, d_ff 5,120 gelu,
+   vocab 51,866, frontend_dim 128; bf16 compute, f32 params, seeded
+   weights and frames; the conv frontend stubbed as in the reference), a
+   1-token decoder prompt and a 448-position decoder cache, one model
+   served at two encoder lengths: (a) 16 requests of 1,500 frames (30 s of
+   audio), 32 tokens; (b) decode_32k's encoder length from
+   ``shapes_for`` / ``input_specs``, 32,768 frames, 2 requests (cut from
+   128), 16 tokens.  Each: B6 96 times a prefill (32 encoder layers
+   non-causal, 32 causal decoder self-attentions, 32 non-causal
+   cross-attentions) and 32 times a decode step (the cross-attentions),
+   all on the tensor cores; tokens in range, logits finite; device time by
+   class with the encoder's and the cross-attention's B6 apart (their
+   profiler ranges).  Then a 2 + 2-layer cut at full width, B = 2, 1,500
+   frames: bf16 against f32 on the card, and decode against ``forward``,
+   ≤ 5e-2; and B6 timed alone, non-causal, at the two encoder shapes and
+   the Sq = 1 cross read against 32,768 keys, in the model's layout, held
+   row by row to its plain version and f64 (bf16 ≤ 1e-2; f32 at 1,500
+   frames ≤ 1e-5), with SDPA beside it;
 8. serve_kernel: kernel-model serving at the main path's size and model
    on the reference serving CLI's problem (``synth_problem``: X ~ N(0,
    I_16), y = tanh(X w) + 0.1·noise; n = 50,000, RBF σ = 3, c = 200,
@@ -182,7 +202,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    1,024 sampled rows of that B1 launch's output held to the plain version
    (≤ 5e-5, scale-normalized); B2 timed under each statistic, with
    ``torch.mm`` beside stat[dot] and ``torch.cdist(p=1)`` beside
-   stat[l1dist];
+   stat[l1dist], and its device time per call with 50 calls queued behind
+   a spin kernel (no profiler);
 11. contracts: ``repro_torch.analysis.trace_check`` at n = 50,000 (every
    entry point under the op recorder: no output of ≥ n²/2 = 1.25e9
    elements, the meters equal each policy's declared budget and the
@@ -191,7 +212,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``rbf_sketch`` wrapper bit for bit the B2 or B1 launch it binds, and
    counted as that launch;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the thirteen paths (every count reset just before
+   own path and on each of the fourteen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -405,6 +426,15 @@ FLASH_MODEL_SHAPES = ((1, 32, 4, 300, 300, 128, 128, None),
                       (1, 8, 8, 300, 100, 192, 128, None),
                       (1, 10, 1, 300, 300, 256, 256, 100),
                       (2, 10, 1, 1000, 1000, 256, 256, 200))
+# B6 at whisper's head shape (20 heads of 64, MHA), both routes: (B, Hq,
+# Hkv, Sq, Sk, D, Dv), causal -- the encoder's bidirectional self-attention
+# at 1,500 frames (not a multiple of the 128-row query block), the cross
+# read (Sq = 1, non-causal) and the prompt's cross-attention against a
+# ragged encoder length, and the decoder's causal self-attention
+FLASH_ENCDEC_SHAPES = (((1, 20, 20, 1500, 1500, 64, 64), False),
+                       ((2, 20, 20, 1, 1500, 64, 64), False),
+                       ((2, 20, 20, 7, 1000, 64, 64), False),
+                       ((2, 20, 20, 300, 300, 64, 64), True))
 # the recurrent serving configurations at full width
 # (src/repro/configs/recurrentgemma_2b.py: 26 layers, (rglru, rglru, local)
 # x 8 + (rglru, rglru), d_model 2,560, lru_width 2,560, conv width 4, 10
@@ -425,6 +455,21 @@ REC_STATE_S = 512       # the full-width state check: one layer a mixer
 TOL_REC_F32 = 1e-5      # full pass vs per-token decode scan, scale-normalized
 TOL_REC_BF16 = 5e-2
 REC_DECODE_GROWTH = 2.0  # decode's device ms at 524,288 over 32,768, at most
+
+# the encoder-decoder serving configuration: whisper-large-v3 at full width
+# and depth (src/repro/configs/whisper_large_v3.py: 32 encoder + 32 decoder
+# layers, d_model 1,280, 20 x 64 heads MHA, d_ff 5,120 gelu, vocab 51,866,
+# frontend_dim 128; bf16 compute, f32 params), the conv frontend stubbed as
+# the reference stubs it (seeded 128-mel frame embeddings), a 1-token
+# decoder prompt, whisper's 448-position decoder cache.  Run (a), whisper's
+# own serving shape: 16 requests of 1,500 frames (30 s of audio after the
+# conv stem; the reference's _encdec_cache enc_len), 32 tokens.  Run (b),
+# the repo's decode_32k cell (input_specs: its seq_len is the encoder's):
+# 32,768 frames, 2 requests (cut from 128), 16 tokens
+WH_DEC_LEN = 448
+WH_RUNS = (("30 s", 16, 1500, 32), ("decode_32k", 2, None, 16))
+WH_CHECK_LAYERS, WH_CHECK_B, WH_CHECK_S, WH_CHECK_STEPS = 2, 2, 1500, 4
+TOL_WH = 5e-2           # bf16 vs f32 logits, decode vs forward, scale-norm.
 
 # causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
 FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
@@ -1959,6 +2004,19 @@ def phase_parity_flash() -> None:
         log(f"parity flash, model head shape (B, Hq, Hkv, Sq, Sk, D, Dv) = "
             f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, window {window}: "
             + " ".join(f"{k}={v}" for k, v in errs.items()))
+    # whisper's head shape, non-causal (encoder, cross) and causal
+    for (B, Hq, Hkv, Sq, Sk, D, Dv), causal in FLASH_ENCDEC_SHAPES:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, seed=49,
+                                    qk_scale=1.0, Dv=Dv)
+            label = (f"flash {dtype} (B, Hq, Hkv, Sq, Sk, D, Dv) = "
+                     f"{(B, Hq, Hkv, Sq, Sk, D, Dv)}, causal {causal}")
+            errs[str(dtype).split(".")[-1]] = _flash_case(
+                q, k, v, causal, None, label)
+        log(f"parity flash, whisper head shape (B, Hq, Hkv, Sq, Sk, D, Dv) "
+            f"= {(B, Hq, Hkv, Sq, Sk, D, Dv)}, causal {causal}: "
+            + " ".join(f"{k}={v}" for k, v in errs.items()))
 
 
 def serve_config():
@@ -2004,15 +2062,11 @@ def _instrumented(model):
 def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
               n_patch: int = 0, warm_len: int = 0, describe: str = "",
               profile: bool = True) -> dict:
-    """One model served end to end through ``serve.generate``: init from a
-    seeded generator and ``prepare``; a warm-up (the full run, or a
-    ``warm_len``-token prompt and 2 tokens); then the counted, timed run
-    (every launch count reset just before it and read just after); B6 once
-    per attention layer of its one prefill (none for a recurrent layer),
-    all on the tensor-core kernel, none in decode; every token in [0, vocab) and every logit finite; then, outside
-    the counted run, the device time of one prefill and 4 decode steps by
-    kernel class.  ``n_patch`` seeded patch embeddings are fused into the
-    leading prompt positions (early fusion)."""
+    """One decoder-only model served end to end (``_serve_run``): init from
+    a seeded generator and ``prepare``; B6 once per attention layer of its
+    one prefill (none for a recurrent layer), none in decode.  ``n_patch``
+    seeded patch embeddings are fused into the leading prompt positions
+    (early fusion)."""
     t0 = time.perf_counter()
     model = tmodel.build_model(cfg)
     params = model.prepare(model.init(gen(seed), DEV))
@@ -2032,11 +2086,36 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
         f"{cfg.vocab_size}{describe}, {n_params:,} params held in "
         f"{cfg.dtype} (init + cast {init_s:.1f} s); batch {B}, context {S}, "
         f"gen {n_gen}" + (f", {n_patch} patch embeddings" if n_patch else ""))
+    n = sum(kind in ttransformer.ATTN_KINDS
+            for *_, kind in ttransformer.layer_slots(cfg))
+    res = _serve_run(tag, model, params, prompts, n_gen, seed,
+                     b6_prefill=n, b6_decode=0, warm_len=warm_len,
+                     profile=profile, patches=patches)
+    res.update(params=n_params, init_s=init_s)
+    return res
+
+
+def _serve_run(tag: str, model, params, prompts, n_gen: int, seed: int, *,
+               b6_prefill: int, b6_decode: int, warm_len: int = 0,
+               profile: bool = True, patches=None, frames=None,
+               max_len=None) -> dict:
+    """``prompts`` served end to end through ``serve.generate``: a warm-up
+    (the full run, or a ``warm_len``-token prompt and 2 tokens); then the
+    counted, timed run (every launch count reset just before it and read
+    just after); B6 ``b6_prefill`` times in its one prefill and
+    ``b6_decode`` times a decode step, all on the tensor-core kernel, and
+    nothing else; every token in [0, vocab) and every logit finite; then,
+    outside the counted run, the device time of one prefill and 4 decode
+    steps by kernel class.  ``patches`` (early fusion) and ``frames`` (an
+    encoder-decoder's encoder input) go into the prefill batch."""
+    cfg = model.cfg
+    B, S = prompts.shape
 
     def run(m, p, length, steps):
         return serve.generate(m, params, p[:, :length], steps,
+                              max_len=max_len,
                               generator=torch.Generator().manual_seed(
-                                  seed + 1), patches=patches)
+                                  seed + 1), patches=patches, frames=frames)
 
     warm, _ = _instrumented(model)
     run(warm, prompts, warm_len or S, 2 if warm_len else n_gen)
@@ -2058,8 +2137,7 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
            "tokens_per_s": B * n_gen / (total_ms / 1e3),
            "decode_tokens_per_s": B / (decode_ms / 1e3),
            "peak_gb": peak_gb, "launches": launches,
-           "b6_prefill": rec["b6_prefill"], "b6_decode": rec["b6_decode"],
-           "params": n_params, "init_s": init_s}
+           "b6_prefill": rec["b6_prefill"], "b6_decode": rec["b6_decode"]}
     log(f"{tag} timed run: prefill {res['prefill_ms']:.1f} ms, decode"
         f" {decode_ms:.2f} ms per token (generate minus prefill over "
         f"{n_gen - 1} steps), generate {total_ms:.1f} ms, "
@@ -2067,18 +2145,19 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
         f" in decode), peak memory {peak_gb:.2f} GB")
     log(f"{tag} launches {json.dumps(launches)}; B6 per prefill "
         f"{rec['b6_prefill']}, per decode step {rec['b6_decode']}")
-    n = sum(kind in ttransformer.ATTN_KINDS
-            for *_, kind in ttransformer.layer_slots(cfg))
+    n = b6_prefill + b6_decode * (n_gen - 1)
     check(launches == no_launches(flash_attention=n, flash_attention_tc=n),
-          f"{tag}: the serving path should launch B6 once per attention "
-          f"layer ({n}) of its one prefill, each on the tensor-core kernel, "
-          f"and nothing else: {launches}")
-    none = {"flash_attention": 0, "flash_attention_tc": 0}
-    check(rec["b6_prefill"] == [{"flash_attention": n,
-                                 "flash_attention_tc": n}]
-          and rec["b6_decode"] == [none] * (n_gen - 1),
-          f"{tag}: B6 per prefill {rec['b6_prefill']} (all {n} on the "
-          f"tensor cores), per decode step {rec['b6_decode']} (none)")
+          f"{tag}: the serving path should launch B6 {b6_prefill} times in "
+          f"its one prefill and {b6_decode} times a decode step, each on "
+          f"the tensor-core kernel, and nothing else: {launches}")
+    check(rec["b6_prefill"] == [{"flash_attention": b6_prefill,
+                                 "flash_attention_tc": b6_prefill}]
+          and rec["b6_decode"] == [{"flash_attention": b6_decode,
+                                    "flash_attention_tc": b6_decode}]
+          * (n_gen - 1),
+          f"{tag}: B6 per prefill {rec['b6_prefill']} (all {b6_prefill} on "
+          f"the tensor cores), per decode step {rec['b6_decode']} "
+          f"({b6_decode})")
     check(tuple(out.shape) == (B, n_gen) and bool(
         ((out >= 0) & (out < cfg.vocab_size)).all()),
         f"{tag}: tokens {tuple(out.shape)} outside [0, {cfg.vocab_size})")
@@ -2086,8 +2165,10 @@ def _serve_lm(tag: str, cfg, B: int, S: int, n_gen: int, seed: int, *,
           f"{tag}: a logit was not finite")
     log(f"{tag} tokens row 0: {out[0].tolist()}")
     if profile:
+        extra = {k: v for k, v in (("patches", patches), ("frames", frames))
+                 if v is not None}
         res["profile"] = _profile_serve(tag, model, params, prompts, n_gen,
-                                        seed + 1, patches)
+                                        seed + 1, extra, max_len)
     res["model"], res["params_tree"] = model, params
     return res
 
@@ -2373,22 +2454,267 @@ def phase_serve_recurrent() -> dict:
     return out
 
 
+def whisper_config():
+    """whisper-large-v3 at full width and depth."""
+    return tconfigs.get_config("whisper-large-v3")
+
+
+def _whisper_inputs(cfg, B: int, S: int, seed: int):
+    """Seeded frames and a 1-token decoder prompt of the shapes and dtypes
+    ``input_specs`` gives a prefill of B requests of S frames."""
+    shape = tconfigs.ShapeConfig(f"whisper_{S}", S, B, "prefill")
+    spec = tconfigs.input_specs(cfg, shape)
+    frames = torch.randn(spec["frames"].shape, generator=gen(seed),
+                         device=DEV).to(spec["frames"].dtype)
+    tokens = torch.randint(0, cfg.vocab_size, spec["tokens"].shape,
+                           generator=gen(seed + 1), device=DEV,
+                           dtype=spec["tokens"].dtype)
+    return frames, tokens
+
+
+def _whisper_numerics(seed: int) -> dict:
+    """whisper-large-v3 at full width cut to 2 + 2 layers, B = 2, 1,500
+    frames, one set of seeded f32 weights: the bf16 model (weights cast by
+    ``prepare``) against the f32 one on the card, the prefill logits and 4
+    teacher-forced decode steps (≤ TOL_WH scale-normalized); and each
+    model's decode-step logits against its ``forward``'s teacher-forced
+    logits at the same positions (≤ TOL_WH).  Both models take the same
+    bf16 frames."""
+    base = dataclasses.replace(whisper_config(), n_layers=WH_CHECK_LAYERS,
+                               n_enc_layers=WH_CHECK_LAYERS,
+                               n_dec_layers=WH_CHECK_LAYERS)
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    m16, m32 = tmodel.build_model(base), tmodel.build_model(cfg32)
+    p32 = m32.init(gen(seed), DEV)
+    p16 = m16.prepare(p32)
+    frames, _ = _whisper_inputs(base, WH_CHECK_B, WH_CHECK_S, seed + 1)
+    toks = torch.randint(0, base.vocab_size, (WH_CHECK_B,
+                                              1 + WH_CHECK_STEPS),
+                         generator=gen(seed + 2), device=DEV)
+    res = {}
+    logits = {}
+    for name, m, p, f in (("bf16", m16, p16, frames),
+                          ("f32", m32, p32, frames.float())):
+        lg, cache = m.prefill(p, {"frames": f, "tokens": toks[:, :1]},
+                              WH_DEC_LEN)
+        seq = [lg]
+        for t in range(1, 1 + WH_CHECK_STEPS):
+            lg, cache = m.decode_step(p, cache, toks[:, t:t + 1], t)
+            seq.append(lg)
+        logits[name] = torch.stack(seq, dim=1).float()
+        del cache
+        full, _ = m.forward(p, {"frames": f, "tokens": toks})
+        check(bool(torch.isfinite(logits[name]).all())
+              and bool(torch.isfinite(full).all()),
+              f"whisper 2 + 2 layers {name}: a logit is not finite")
+        res[f"{name}_decode_vs_forward"] = scaled_err(logits[name],
+                                                      full.float())
+    res["bf16_vs_f32"] = scaled_err(logits["bf16"], logits["f32"])
+    res["bf16_vs_f32_prefill"] = scaled_err(logits["bf16"][:, 0],
+                                            logits["f32"][:, 0])
+    worst = max(res.values())
+    check(worst <= TOL_WH, f"whisper 2 + 2 layers: {res} > {TOL_WH}")
+    log(f"serve_whisper numerics (2 + 2 layers at full width, B = "
+        f"{WH_CHECK_B}, {WH_CHECK_S} frames, prefill + {WH_CHECK_STEPS} "
+        f"decode steps): bf16 vs f32 {res['bf16_vs_f32']:.3g} (prefill "
+        f"{res['bf16_vs_f32_prefill']:.3g}); decode vs forward bf16 "
+        f"{res['bf16_decode_vs_forward']:.3g}, f32 "
+        f"{res['f32_decode_vs_forward']:.3g} (limit {TOL_WH})")
+    del m16, m32, p16, p32
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_whisper() -> dict:
+    """whisper-large-v3 at full width and depth served through
+    ``serve.generate`` at two encoder lengths (``WH_RUNS``), one model for
+    both; B6 96 times a prefill (32 encoder layers non-causal, 32 decoder
+    self-attentions causal, 32 cross-attentions non-causal) and 32 times a
+    decode step (the cross-attentions; the self-attention reads its cache
+    directly), all on the tensor cores.  Then the 2 + 2-layer numerics
+    check and B6 timed alone at the encoder shapes and the cross read."""
+    cfg = whisper_config()
+    decode_32k = next(sh for sh in tconfigs.shapes_for(cfg.name)
+                      if sh.name == "decode_32k")
+    spec = tconfigs.input_specs(cfg, decode_32k)
+    check(spec["tokens"].shape == (decode_32k.global_batch, 1),
+          f"whisper decode_32k input specs {spec}")
+    t0 = time.perf_counter()
+    model = tmodel.build_model(cfg)
+    params = model.prepare(model.init(gen(110), DEV))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_pre = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    out = {"runs": {}, "launches": no_launches(), "params": n_params,
+           "init_s": init_s}
+    for name, B, S, n_gen in WH_RUNS:
+        S = S or decode_32k.seq_len
+        tag = f"serve_whisper {name}"
+        cuts = ("none but the weights and the stubbed frontend"
+                if name == "30 s" else
+                f"the weights, the stubbed frontend, batch "
+                f"{decode_32k.global_batch} -> {B}, {n_gen} tokens")
+        log(f"{tag}: {cfg.name}, {cfg.n_enc_layers} encoder + "
+            f"{cfg.n_dec_layers} decoder layers, d_model {cfg.d_model}, "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff "
+            f"{cfg.d_ff} {cfg.mlp_variant}, vocab {cfg.vocab_size}, "
+            f"frontend_dim {cfg.frontend_dim}, {n_params:,} params held in "
+            f"{cfg.dtype} (init + cast {init_s:.1f} s); batch {B}, {S} "
+            f"frames, a 1-token decoder prompt, a {WH_DEC_LEN}-position "
+            f"decoder cache, gen {n_gen}; cuts: {cuts}")
+        frames, prompts = _whisper_inputs(cfg, B, S, 111)
+        res = _serve_run(tag, model, params, prompts, n_gen, 112,
+                         b6_prefill=n_pre, b6_decode=cfg.n_dec_layers,
+                         warm_len=1, frames=frames, max_len=WH_DEC_LEN)
+        res.update(batch=B, frames=S, gen=n_gen, cuts=cuts)
+        del res["model"], res["params_tree"]
+        out["runs"][name] = res
+        for k, v in res["launches"].items():
+            out["launches"][k] += v
+        del frames, prompts
+    del model, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["numerics"] = _whisper_numerics(113)
+    out["b6_shapes"] = _flash_whisper_shapes(cfg, decode_32k.seq_len)
+    return out
+
+
+def _flash_bshd_inputs(B, H, Sq, Sk, D, dtype, seed):
+    """q, k, v as the model hands them to B6: (B, S, H, D) activations
+    viewed as (B, H, S, D); q, k with unit variance, v ~ N(0, 1)."""
+    g = gen(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device=DEV).to(dtype)
+    k = torch.randn((B, Sk, H, D), generator=g, device=DEV).to(dtype)
+    v = torch.randn((B, Sk, H, D), generator=g, device=DEV).to(dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _flash_whisper_shapes(cfg, S_long: int) -> list:
+    """B6 non-causal at whisper's encoder shapes (run (a)'s and run (b)'s)
+    and at run (b)'s decode cross read (Sq = 1 against 32,768 keys), in
+    the model's strided layout, bf16 (the tensor-core kernel): timed, held
+    on FLASH_ROWS sampled query rows (every row of the cross read) to its
+    plain version and to f64 (≤ TOL_FLASH_ROW_BF16), beside
+    ``scaled_dot_product_attention`` on the same tensors; the f32 route
+    (``flash.cu``) at the 1,500-frame shape held to its plain version
+    (≤ TOL_FLASH_ROW_F32).  The bound: 4·B·H·Sq·Sk·D flops over the bf16
+    peak, or the bytes of one read of q, k, v and one write of the output
+    over the HBM rate, whichever is larger."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    H, D = cfg.n_heads, cfg.head_dim
+    (_, B_a, S_a, _), (_, B_b, _, _) = WH_RUNS
+    shapes = (("whisper encoder 30 s", B_a, S_a, S_a, True),
+              ("whisper encoder decode_32k", B_b, S_long, S_long, False),
+              ("whisper cross read decode_32k", B_b, 1, S_long, False))
+    out = []
+    for label, B, Sq, Sk, with_f32 in shapes:
+        q, k, v = _flash_bshd_inputs(B, H, Sq, Sk, D, torch.bfloat16, 120)
+        n_rows = min(FLASH_ROWS, Sq)
+        rows = torch.sort(torch.randperm(Sq, generator=gen(121), device=DEV)[
+            :n_rows]).values
+        reps = 20 if Sq == 1 else 5
+        tc0 = fa_kernel.launch_counts()["flash_attention_tc"]
+        ms, o = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+            q, k, v, causal=False), reps=reps, warmup=2)
+        check(fa_kernel.launch_counts()["flash_attention_tc"] - tc0
+              == reps + 2, f"B6 {label}: bf16 calls missed the tensor-core "
+              f"kernel")
+        got = o[:, :, rows]
+        del o
+        plain_ms, plain = cuda_ms(lambda: fa_kernel.flash_attention_plain(
+            q[:, :, rows], k, v, causal=False), reps=1, warmup=1)
+        exact = _attention_rows_f64(q, k, v, rows, None, causal=False)
+        vs_plain = _check_rows(got, plain, TOL_FLASH_ROW_BF16,
+                               f"B6 {label} bf16 rows vs plain")
+        vs_f64 = _check_rows(got, exact, TOL_FLASH_ROW_BF16,
+                             f"B6 {label} bf16 rows vs f64")
+        max_abs = float((got.float() - plain.float()).abs().max())
+        del got, plain
+        res = {"label": label, "path": "serve_whisper",
+               "shape": {"B": B, "Hq": H, "Hkv": H, "Sq": Sq, "Sk": Sk,
+                         "D": D, "Dv": D, "causal": False, "window": None,
+                         "dtype": "bfloat16", "layout": "(B, S, H, D) "
+                                                        "viewed"},
+               "ms": ms, "plain_ms_rows": plain_ms, "plain_rows": n_rows,
+               "row_err_vs_plain": vs_plain["max"],
+               "row_err_vs_f64": vs_f64["max"], "max_abs_err": max_abs}
+        if with_f32:
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            res["ms_f32"], o = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+                q32, k32, v32, causal=False), reps=3, warmup=1)
+            got = o[:, :, rows]
+            del o
+            plain = fa_kernel.flash_attention_plain(q32[:, :, rows], k32, v32,
+                                                    causal=False)
+            res["row_err_f32_vs_plain"] = _check_rows(
+                got, plain, TOL_FLASH_ROW_F32,
+                f"B6 {label} f32 rows vs plain")["max"]
+            res["row_err_f32_vs_f64"] = float(row_errs(got, exact).max())
+            del q32, k32, v32, got, plain
+        flops = 4.0 * B * H * Sq * Sk * D
+        nbytes = 2 * (2 * B * H * Sq * D + 2 * B * H * Sk * D)
+        res["flops"], res["bytes"] = flops, nbytes
+        t_ops, t_bytes = flops / PEAK_BF16_TC_FLOPS, nbytes / PEAK_HBM_BYTES
+        res["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        res["roof_share"] = res["bound_ms"] / ms
+        try:
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                lib_ms, lib_out = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    reps=reps, warmup=2)
+            res["library_ms"] = lib_ms
+            res["library_row_err_vs_f64"] = float(row_errs(
+                lib_out[:, :, rows], exact).max())
+            del lib_out
+        except RuntimeError as exc:      # no fused backend takes the shape
+            res["library_ms"] = None
+            res["library_note"] = str(exc).splitlines()[0][:160]
+        res["library_call"] = ("F.scaled_dot_product_attention(q, k, v) "
+                               "(flash/cuDNN/efficient backends)")
+        del q, k, v, exact
+        torch.cuda.empty_cache()
+        log(f"B6 {label} (B={B}, H={H}, Sq={Sq}, Sk={Sk}, D={D}, "
+            f"non-causal, bf16): {ms:.4f} ms ({res['roof_share']:.1%} of its "
+            f"bound {res['bound_ms']:.4f} ms, {res['bound_by']}); SDPA "
+            + (f"{res['library_ms']:.4f} ms "
+               f"({ms / res['library_ms']:.2f}x)" if res["library_ms"]
+               else f"not measured ({res['library_note']})")
+            + f"; rows vs plain {vs_plain['max']:.3g}, vs f64 "
+            f"{vs_f64['max']:.3g} on {n_rows} rows, plain {plain_ms:.2f} ms"
+            + (f"; f32 (CUDA cores) {res['ms_f32']:.2f} ms, rows vs plain "
+               f"{res['row_err_f32_vs_plain']:.3g}" if with_f32 else ""))
+        out.append(res)
+    return out
+
+
 #: the classes of the kernels launched inside the recurrent mixers'
 #: profiler ranges (their names alone are torch's generic elementwise,
 #: reduction and GEMM kernels)
 REC_CLASSES = {trec.SCAN_RANGE: "recurrence (RG-LRU gates + scan, mLSTM "
                                 "chunks)",
                trec.SLSTM_RANGE: "sLSTM step (per-token loop)"}
+#: the classes of the B6 launches inside the encoder-decoder's profiler
+#: ranges (the encoder's bidirectional self-attention, every
+#: cross-attention); B6 elsewhere is causal self-attention
+B6_RANGES = {tmodel.ENCODE_RANGE: "B6 encoder self-attention (non-causal)",
+             tmodel.CROSS_RANGE: "B6 cross-attention (non-causal)"}
 
 
 def _kernel_class(name: str, rng: str = "") -> str:
-    """A kernel's class by its name, or by the recurrent mixer's profiler
-    range ``rng`` it was launched in."""
+    """A kernel's class by its name, or by the profiler range ``rng`` it
+    was launched in: every kernel of a recurrent mixer's range, a B6
+    launch in the encoder-decoder's ranges."""
     if rng in REC_CLASSES:
         return REC_CLASSES[rng]
     low = name.lower()
     if "flash_kernel" in low or "flash_wgmma_kernel" in low:
-        return "B6 flash_attention"
+        return B6_RANGES.get(rng, "B6 flash_attention")
     if any(t in low for t in ("pairwise_", "prep_points", "prep_rhs")):
         return "B1/B2 pairwise (prep + main)"
     if any(t in low for t in ("svd", "geqr", "orgqr", "ormqr", "syevj",
@@ -2405,13 +2731,15 @@ def _kernel_class(name: str, rng: str = "") -> str:
 
 def _kernel_device_ms(fn, reps: int = 5) -> dict:
     """Device ms per call of each kernel that ``fn()`` launches
-    (``torch.profiler`` over ``reps`` calls after one warm-up); {} where the
+    (``torch.profiler`` over ``reps`` calls after one warm-up, host and
+    device activities, as ``_device_profile`` traces); {} where the
     profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2429,6 +2757,30 @@ def _kernel_device_ms(fn, reps: int = 5) -> dict:
     return out
 
 
+def _queued_device_ms(fn, reps: int = 50,
+                      spin_cycles: int = 50_000_000) -> float:
+    """Device ms per call of ``fn()`` without the profiler: the ``reps``
+    calls are enqueued behind a spin kernel (``torch.cuda._sleep``, ~30 ms
+    at the H100's clocks), so the events recorded before and after them
+    time the card's work back to back, not the host's per-call work.
+    Fails if the spin ended before the host had enqueued every call (the
+    time would then include the host's)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    queued = not start.query()
+    stop.synchronize()
+    check(queued, "the spin kernel ended before the calls were enqueued: "
+          "the events would time the host")
+    return start.elapsed_time(stop) / reps
+
+
 def _in_range(e) -> str:
     """The recurrent profiler range a CPU event lies in ("" if none)."""
     while e is not None:
@@ -2440,7 +2792,8 @@ def _in_range(e) -> str:
 
 def _ranged_kernels(prof) -> list:
     """(range, kernel name, device ms) of every device activity launched
-    while a recurrent mixer's profiler range was open on the host: each
+    while a recurrent mixer's or the encoder-decoder's profiler range was
+    open on the host (the ranges do not nest): each
     device activity carries the id of the runtime call that launched it
     (``cudaLaunchKernel``, ``cudaGraphLaunch``, a copy), and that call
     lies inside the range's host interval.  This also takes the kernels a
@@ -2450,7 +2803,7 @@ def _ranged_kernels(prof) -> list:
     evts = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in evts if e.device_type == DeviceType.CPU
-                   and e.name in REC_CLASSES)
+                   and (e.name in REC_CLASSES or e.name in B6_RANGES))
     starts = [sp[0] for sp in spans]
     launched = {}
     for e in evts:
@@ -2499,8 +2852,9 @@ def _device_profile(fn) -> dict:
     busy = sum(by_class.values())
     if busy <= 0.0:
         return {"error": "the profiler recorded no device time"}
-    # the kernels launched inside a recurrent mixer's profiler range, moved
-    # from their names' classes to the range's
+    # the kernels launched inside a recurrent mixer's profiler range, and
+    # B6 inside the encoder-decoder's, moved from their names' classes to
+    # the range's
     for rng, name, ms in _ranged_kernels(prof):
         by_class[_kernel_class(name)] -= ms
         cls = _kernel_class(name, rng)
@@ -2525,18 +2879,17 @@ def _device_profile(fn) -> dict:
 
 
 def _profile_serve(tag, model, params, prompts, n_gen, seed,
-                   patches=None) -> dict:
+                   extra=None, max_len=None) -> dict:
     """One prefill and 4 decode steps, each run unprofiled and then under
-    the profiler (outside the counted run)."""
+    the profiler (outside the counted run); ``extra`` joins the prefill
+    batch (patches, frames)."""
     state = {}
     S = prompts.shape[1]
-    batch = {"tokens": prompts}
-    if patches is not None:
-        batch["patches"] = patches
+    batch = {"tokens": prompts, **(extra or {})}
 
     def prefill():
         state["logits"], state["cache"] = model.prefill(
-            params, batch, S + n_gen,
+            params, batch, max_len or S + n_gen,
             generator=torch.Generator().manual_seed(seed))
 
     def decode():
@@ -2574,16 +2927,18 @@ def _leaves(tree):
         yield tree
 
 
-def _attention_rows_f64(q, k, v, rows, window):
-    """Causal attention of the query ``rows`` (also their key positions:
-    Sq = Sk) in f64, one (batch row, kv head) at a time."""
+def _attention_rows_f64(q, k, v, rows, window, causal=True):
+    """Attention of the query ``rows`` in f64, one (batch row, kv head) at
+    a time: causal (the rows are also their key positions: Sq = Sk), with
+    an optional window, or bidirectional."""
     B, Hq, _, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     out = torch.empty((B, Hq, rows.shape[0], v.shape[3]),
                       dtype=torch.float64, device=q.device)
     col = torch.arange(Sk, device=q.device)[None, :]
-    mask = col <= rows[:, None]
+    mask = (col <= rows[:, None]) if causal else torch.ones(
+        (rows.shape[0], Sk), dtype=torch.bool, device=q.device)
     if window is not None:
         mask &= (rows[:, None] - col) < window
     for b in range(B):
@@ -3460,6 +3815,8 @@ def phase_calibrate() -> dict:
             line.update(negative_entries=neg,
                         self_pairs_max=float(self_pairs.max()))
         line["device_ms_by_kernel"] = _kernel_device_ms(
+            lambda: kernel.pairwise_block_cuda(sp, X, Xa), reps=20)
+        line["device_ms"] = _queued_device_ms(
             lambda: kernel.pairwise_block_cuda(sp, X, Xa))
         line["bound_ms"], line["bound_by"] = route_bound(
             sp, N, CAL_ANCHORS, D, 0, nbytes)
@@ -3528,7 +3885,9 @@ def phase_calibrate() -> dict:
             check(np.isfinite(r["err_h"]) and r["err_h"] >= 0,
                   f"calibrate {name}: error {r['err_h']}")
     for k, v in stat_lines.items():
-        log(f"B2 {k} ({N} x {CAL_ANCHORS}, d = {D}): {v['ms']:.4f} ms, plain "
+        log(f"B2 {k} ({N} x {CAL_ANCHORS}, d = {D}): {v['ms']:.4f} ms a "
+            f"call, {v['device_ms']:.4f} ms on the card (calls queued "
+            f"behind a spin kernel), plain "
             f"{v['plain_ms']:.4f} ms, route bound {v['bound_ms']:.4f} ms "
             f"({v['bound_by']}), work roofline "
             f"{v['roofline']['roofline_s'] * 1e3:.5f} ms, vs plain "
@@ -3677,6 +4036,7 @@ def main() -> int:
     mla = phase_serve_mla()
     dense = phase_serve_dense_configs()
     rec = phase_serve_recurrent()
+    wh = phase_serve_whisper()
     skm = phase_serve_kernel()
     rag = phase_ragged()
     cal = phase_calibrate()
@@ -3689,6 +4049,7 @@ def main() -> int:
              "serve_mla": mla["launches"],
              "serve_dense_configs": dense["launches"],
              "serve_recurrent": rec["launches"],
+             "serve_whisper": wh["launches"],
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
              "calibrate": cal["launches"], "contracts": con["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
@@ -3745,8 +4106,24 @@ def main() -> int:
         "slstm": rec["runs"]["xlstm-125m"]["slstm"],
         "long_context": rec["long_context"],
         "state_check": rec["state_check"]}
+    b6["serve_whisper"] = {
+        **{name: {**{k: r[k] for k in served},
+                  "b6_decode_step": r["b6_decode"][0],
+                  "batch": r["batch"], "frames": r["frames"],
+                  "gen": r["gen"], "cuts": r["cuts"],
+                  "prefill_device_ms_by_class": r["profile"]["prefill"].get(
+                      "by_class_ms"),
+                  "prefill_idle_share": r["profile"]["prefill"].get(
+                      "idle_share"),
+                  "decode_device_ms_by_class": r["profile"][
+                      "decode_4_steps"].get("by_class_ms"),
+                  "decode_idle_share": r["profile"]["decode_4_steps"].get(
+                      "idle_share")}
+           for name, r in wh["runs"].items()},
+        "params": wh["params"], "numerics": wh["numerics"]}
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
-                          dense["b6_shape"], rec["b6_shape"]]
+                          dense["b6_shape"], rec["b6_shape"],
+                          *wh["b6_shapes"]]
     b2.update({"ms_exp_affine_policy_panel": pol["b2_panel"]["ms"],
                "plain_ms_exp_affine_policy_panel": pol["b2_panel"]["plain_ms"],
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],

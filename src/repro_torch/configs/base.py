@@ -6,13 +6,14 @@ fields are the reference's, so a reference config carries over field by
 field.  ``cdtype``/``pdtype`` are torch dtypes here; the parameter
 arithmetic (``param_count``, ``active_param_count``) is the reference's,
 line for line.  ``ShapeConfig`` names one of the four assigned input
-shapes.  The reference's ``input_specs`` (shape stand-ins for the JAX dry
-run) is not ported yet (ROADMAP A11-rest.6).
+shapes.  ``input_specs`` gives a ``TensorSpec`` (shape, torch dtype) for
+every model input of a cell, where the reference gives JAX
+``ShapeDtypeStruct`` stand-ins: nothing is allocated.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -190,3 +191,45 @@ SHAPES = {
 
 # archs that can run long_500k (sub-quadratic path exists)
 LONG_CONTEXT_OK = {"xlstm-125m", "recurrentgemma-2b", "gemma3-12b"}
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one model input (nothing allocated)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A ``TensorSpec`` for every model input of this cell.
+
+    train  : {tokens (B, S) i32, labels (B, S) i32}  [+ frontend embeds]
+    prefill: {tokens (B, S) i32}
+    decode : {tokens (B, 1) i32, pos () i32} (the cache is built apart)
+
+    The encoder-decoder takes S precomputed frame embeddings (the stubbed
+    conv frontend) and a decoder of S // 8 tokens to train, one decoder
+    token to prefill; a vlm's train batch prepends 256 patch embeddings.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.is_encdec:
+        s_dec = max(S // 8, 1)
+        frames = TensorSpec((B, S, cfg.frontend_dim), cfg.cdtype)
+        if shape.kind == "train":
+            return {"frames": frames,
+                    "tokens": TensorSpec((B, s_dec), i32),
+                    "labels": TensorSpec((B, s_dec), i32)}
+        if shape.kind == "prefill":
+            return {"frames": frames, "tokens": TensorSpec((B, 1), i32)}
+        return {"tokens": TensorSpec((B, 1), i32),
+                "pos": TensorSpec((), i32)}
+    if cfg.family == "vlm" and shape.kind == "train":
+        return {"tokens": TensorSpec((B, S), i32),
+                "labels": TensorSpec((B, S), i32),
+                "patches": TensorSpec((B, 256, cfg.d_model), cfg.cdtype)}
+    if shape.kind == "train":
+        return {"tokens": TensorSpec((B, S), i32),
+                "labels": TensorSpec((B, S), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": TensorSpec((B, S), i32)}
+    return {"tokens": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}

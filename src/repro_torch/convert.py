@@ -118,32 +118,50 @@ def _unstack(tree, r: int):
     return np.asarray(tree)[r]
 
 
-def model_params_from_reference(params, cfg, device=None) -> dict:
-    """The reference LM's params pytree (leaves as numpy, or anything
-    ``np.asarray`` takes) as the port's params, in the reference's dtypes
-    (bf16 leaves, as deepseek's ``param_dtype`` makes them, stay bf16).
-
-    The reference stores its superblocks stacked on a leading ``reps`` axis
-    when ``cfg.scan_layers`` (its ``init_stack`` vmaps them) and as a list
-    of per-rep tuples otherwise; the port holds a list of per-rep lists
-    either way.  Everything else carries over as it is: the prefix blocks
-    (deepseek's dense first layers), the MoE banks ((E, d, ff) / (E, ff, d),
-    the f32 router, the shared MLP), MLA's projections, the recurrent
-    mixers' weights (RG-LRU's f32 ``lam``, mLSTM's and sLSTM's gate
-    weights) and the ``"mtp"`` sub-tree.
-    """
+def _stack_from_reference(stack: dict, cfg) -> dict:
+    """A reference stack's superblocks as a list of per-rep lists: stacked
+    on a leading ``reps`` axis when ``cfg.scan_layers`` (its ``init_stack``
+    vmaps them), a list of per-rep tuples otherwise."""
     from repro_torch.models.transformer import stack_layout
-    device = resolve_device(device)
     _, _, reps, _ = stack_layout(cfg)
-    stack = params["stack"]
     scanned = stack["scanned"]
     if reps == 0:
         scanned = []
     elif cfg.scan_layers:
         scanned = [_unstack(scanned, r) for r in range(reps)]
-    out = {k: v for k, v in params.items() if k != "stack"}
-    out["stack"] = {"prefix": stack["prefix"], "scanned": scanned,
-                    "remainder": stack["remainder"]}
+    return {"prefix": stack["prefix"], "scanned": scanned,
+            "remainder": stack["remainder"]}
+
+
+def model_params_from_reference(params, cfg, device=None) -> dict:
+    """The reference model's params pytree (leaves as numpy, or anything
+    ``np.asarray`` takes) as the port's params, in the reference's dtypes
+    (bf16 leaves, as deepseek's ``param_dtype`` makes them, stay bf16).
+
+    A stack's superblocks become a list of per-rep lists, however the
+    reference stores them (``_stack_from_reference``).  Everything else
+    carries over as it is: the prefix blocks (deepseek's dense first
+    layers), the MoE banks ((E, d, ff) / (E, ff, d), the f32 router, the
+    shared MLP), MLA's projections, the recurrent mixers' weights (RG-LRU's
+    f32 ``lam``, mLSTM's and sLSTM's gate weights) and the ``"mtp"``
+    sub-tree.  An encoder-decoder's ``encoder`` follows ``cfg.scan_layers``;
+    its ``decoder`` is always stored stacked and its ``xattn`` always
+    vmapped, on a leading axis of ``n_dec_layers``, which becomes a list of
+    per-layer dicts.
+    """
+    device = resolve_device(device)
+    if cfg.is_encdec:
+        from repro_torch.models.model import _dec_cfg, _enc_cfg
+        out = dict(params)
+        out["encoder"] = _stack_from_reference(params["encoder"],
+                                               _enc_cfg(cfg))
+        out["decoder"] = _stack_from_reference(params["decoder"],
+                                               _dec_cfg(cfg))
+        out["xattn"] = [_unstack(params["xattn"], r)
+                        for r in range(cfg.n_dec_layers)]
+        return _tree_to_torch(out, device)
+    out = dict(params)
+    out["stack"] = _stack_from_reference(params["stack"], cfg)
     return _tree_to_torch(out, device)
 
 
@@ -162,7 +180,12 @@ def cache_to_reference(cache: dict, cfg) -> dict:
     leaf stacked on a leading reps axis), "remainder": (...)}``; each
     layer's entry keeps its names (``k``/``v``, the landmark factors, MLA's
     latent ``ckv`` and ``krope``, or a recurrent mixer's state: RG-LRU
-    ``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``)."""
+    ``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).
+    An encoder-decoder's cache is already laid out as the reference's
+    ``_encdec_cache``: ``{"self": {"k", "v"}, "enc_kv": (k, v)}``, stacked
+    on the decoder's layer axis."""
+    if cfg.is_encdec:
+        return _tree_to_numpy(cache)
     from repro_torch.models.transformer import stack_layout
     _, pattern, reps, _ = stack_layout(cfg)
     scanned = None

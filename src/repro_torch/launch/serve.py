@@ -7,13 +7,18 @@
 
 ``--arch`` takes every architecture of the port's registry
 (``repro_torch.configs.ARCHS``: gemma3-12b, the yi, minitron and chameleon
-dense configs, qwen2-moe-a2.7b, deepseek-v3-671b, and the recurrent
-xlstm-125m and recurrentgemma-2b).
+dense configs, qwen2-moe-a2.7b, deepseek-v3-671b, the recurrent
+xlstm-125m and recurrentgemma-2b, and the encoder-decoder
+whisper-large-v3).  For whisper-large-v3 ``--prompt-len`` counts the
+encoder's frames: each request is ``--prompt-len`` seeded frame embeddings
+(the stubbed 128-mel frontend) and a 1-token decoder prompt, the shapes of
+``input_specs``' prefill.
 
 Prefill builds the decode cache (for landmark configs also the fast-model
 factors of every global layer: Algorithm 1 on the softmax Gram, O(s²c) per
 head; for a recurrent layer its state after the prompt, O(1) in the
-context); each decode step reads it and updates it in place.  xlstm-125m's
+context; for the encoder-decoder each decoder layer's encoder K/V); each
+decode step reads it and updates it in place.  xlstm-125m's
 mLSTM takes a prompt whose length is a multiple of ``mlstm_chunk`` (or
 shorter than it).  The model runs on the CUDA device unless ``--device``
 names another one.
@@ -36,15 +41,19 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
              max_len: Optional[int] = None, *,
              landmark_draws: Optional[Dict[int, dict]] = None,
              generator: Optional[torch.Generator] = None,
-             patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+             patches: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """prompts: (B, S) int -> (B, gen) greedy continuations.  ``patches``
     (B, n_patch, d_model) replace the leading prompt positions at prefill
-    (early fusion)."""
+    (early fusion); ``frames`` (B, S_enc, frontend_dim) are an
+    encoder-decoder's encoder input, the prompts its decoder's."""
     B, S = prompts.shape
     max_len = max_len or (S + gen)
     batch = {"tokens": prompts}
     if patches is not None:
         batch["patches"] = patches
+    if frames is not None:
+        batch["frames"] = frames
     logits, cache = model.prefill(params, batch, max_len,
                                   landmark_draws=landmark_draws,
                                   generator=generator)
@@ -62,7 +71,9 @@ def main(argv=None) -> None:
     p.add_argument("--arch", required=True, choices=ARCHS)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--prompt-len", type=int, default=64)
+    p.add_argument("--prompt-len", type=int, default=64,
+                   help="prompt tokens (the encoder's frames for an "
+                        "encoder-decoder)")
     p.add_argument("--gen", type=int, default=32)
     p.add_argument("--landmark", action="store_true",
                    help="use fast-SPSD landmark decode on global layers")
@@ -78,13 +89,20 @@ def main(argv=None) -> None:
     model = build_model(cfg)
     params = model.prepare(model.init(
         torch.Generator(device=device).manual_seed(0), device))
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn(
+            (args.batch, args.prompt_len, cfg.frontend_dim),
+            generator=torch.Generator(device=device).manual_seed(3),
+            device=device).to(cfg.cdtype)
     prompts = torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len),
+        0, cfg.vocab_size,
+        (args.batch, 1 if cfg.is_encdec else args.prompt_len),
         generator=torch.Generator(device=device).manual_seed(1),
         device=device)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, args.gen,
-                   generator=torch.Generator().manual_seed(2))
+                   generator=torch.Generator().manual_seed(2), frames=frames)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -1,6 +1,5 @@
-"""Attention mixers: GQA / MQA / sliding window / MLA / landmark decode
-(port of ``repro.models.attention``, without cross-attention, which comes
-with the encoder-decoder: ROADMAP A11-rest.4).
+"""Attention mixers: GQA / MQA / sliding window / MLA / cross / landmark
+decode (port of ``repro.models.attention``).
 
 Layouts are the reference's: activations (B, S, d_model), heads in
 (B, S, H, D).  The reference's sharding constraints have no counterpart
@@ -12,6 +11,11 @@ both values name one path, ``kernels.flash_attention.ops.flash_attention``:
 the CUDA kernel (B6) on the card, its plain PyTorch version on the CPU.  The
 field is kept so configs carry over.  MLA's full attention goes through
 the same call, with q and k of width qk_nope + qk_rope and v of v_head_dim.
+So do the encoder-decoder's bidirectional encoder self-attention
+(``attend_full(..., causal=False)``) and its cross-attention
+(``cross_attention``: the decoder's queries, no RoPE, against the encoder
+K/V of ``encoder_kv``), which the reference computes with its einsum
+``_sdpa``: both are one non-causal call.
 
 Decode caches (one per layer):
 
@@ -55,13 +59,15 @@ def _is_mla(cfg: ModelConfig, kind: str) -> bool:
 # ---------------------------------------------------------------------------
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
-                   device=None) -> dict:
+                   device=None, cross: bool = False) -> dict:
+    """A self-attention mixer's weights, or with ``cross`` a cross-
+    attention's (always q, k, v, o projections, as the reference's)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def w(shape):
         return L.dense_init(generator, shape, cfg.pdtype, device=device)
 
-    if cfg.use_mla:
+    if cfg.use_mla and not cross:
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         return {
             "wq_a": w((d, cfg.q_lora_rank)),
@@ -130,12 +136,14 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 def attend_full(params: dict, cfg: ModelConfig, q: torch.Tensor,
-                k: torch.Tensor, v: torch.Tensor, kind: str) -> torch.Tensor:
-    """Causal attention of projected q, k, v (B, S, ·, D) and the output
+                k: torch.Tensor, v: torch.Tensor, kind: str,
+                causal: bool = True) -> torch.Tensor:
+    """Attention of projected q (B, Sq, H, D) over k, v (B, Sk, KV, ·),
+    causal or bidirectional, under the kind's window, and the output
     projection.  One flash-attention call: the kernel on the card (views in
     the (B, H, S, D) layout, no copies), the plain version on the CPU."""
     out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True,
+                                 v.transpose(1, 2), causal=causal,
                                  window=_window(cfg, kind))
     return _out_proj(out.transpose(1, 2), params["wo"], cfg.cdtype)
 
@@ -192,6 +200,32 @@ def mla_attend_full(params: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     out = fa_ops.flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
                                  v.transpose(1, 2), causal=True)
     return _out_proj(out.transpose(1, 2), params["wo"], dt)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """The decoder's x (B, S, d) against the encoder's K/V (B, S_enc, KV,
+    D), precomputed by ``encoder_kv``: q projected (qk-norm, no RoPE), one
+    non-causal flash-attention call, then the output projection."""
+    q = _proj(x, params["wq"], cfg.cdtype)
+    if cfg.qk_norm:
+        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    return attend_full(params, cfg, q, enc_k, enc_v, "attn", causal=False)
+
+
+def encoder_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention's K and V (B, S_enc, KV, D) of the encoder
+    output, in the compute dtype (no RoPE)."""
+    dt = cfg.cdtype
+    k = _proj(enc_out, params["wk"], dt)
+    v = _proj(enc_out, params["wv"], dt)
+    if cfg.qk_norm:
+        k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

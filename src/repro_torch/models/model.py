@@ -1,9 +1,8 @@
-"""The decoder-only LM (port of ``repro.models.model``): the dense, MoE and
-MLA attention families, chameleon's early fusion, and the recurrent
-families (xLSTM's mLSTM/sLSTM stacks, recurrentgemma's RG-LRU with local
-attention).  Serving only: the
-loss and the MTP head's loss come with training (ROADMAP A11-rest.5), the
-encoder-decoder with A11-rest.4.
+"""Top-level models (port of ``repro.models.model``): the decoder-only LM
+(the dense, MoE and MLA attention families, chameleon's early fusion, the
+recurrent families: xLSTM's mLSTM/sLSTM stacks, recurrentgemma's RG-LRU
+with local attention) and whisper's encoder-decoder.  Serving only: the
+loss and the MTP head's loss come with training (ROADMAP A11-rest.5).
 
 ``build_model(cfg)`` -> ``Model`` with the serving entry points:
 
@@ -23,12 +22,23 @@ replace the leading n_patch positions in ``forward`` and ``prefill``.
 a dense model).  A config with ``mtp`` gets the reference's ``"mtp"``
 sub-tree at ``init`` (so the trees match); serving never reads it.
 
+The encoder-decoder (``cfg.is_encdec``) takes ``"frames"`` (B, S_enc,
+frontend_dim), precomputed frame embeddings (the stubbed conv frontend),
+beside the decoder's ``"tokens"``.  Its params are the reference's tree
+(``frontend_proj``, the ``encoder`` and ``decoder`` stacks, ``enc_norm``,
+``xattn``: one {"xattn", "xnorm"} per decoder layer, ``embed``,
+``final_norm``); its cache is ``{"self": {"k", "v"}, "enc_kv": (k, v)}``,
+each stacked on a leading axis of ``n_dec_layers`` as the reference's
+``_encdec_cache`` lays it out: the decoder's self-attention cache and the
+cross-attention's encoder K/V, computed once at prefill.
+
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
 ``prefill`` takes the landmark layers' draws (``landmark_draws``, see
 ``transformer.stack_prefill``) or draws them from ``generator``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -36,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator_or_default, resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
@@ -45,7 +56,14 @@ from repro_torch.models import transformer as T
 #: A recurrent mixer's weights go by its kind instead
 #: (``recurrent.COMPUTE_WEIGHTS``): sLSTM's ``wo`` is an f32 gate weight.
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embedding",
-                  "unembed", "wq_a", "wq_b", "wkv_a", "wkv_b", "proj")
+                  "unembed", "wq_a", "wq_b", "wkv_a", "wkv_b", "proj",
+                  "frontend_proj")
+
+#: profiler ranges of the encoder-decoder: the encoder stack, and every
+#: cross-attention (prefill and decode), so a profile can tell their
+#: flash-attention launches from the decoder's causal ones
+ENCODE_RANGE = "encdec.encode"
+CROSS_RANGE = "encdec.cross"
 
 
 class Model(NamedTuple):
@@ -168,11 +186,178 @@ def _lm_decode(params: dict, cache: dict, tokens, pos: int, *,
     return L.unembed(params["embed"], cfg, h)[:, 0], cache
 
 
+# ---------------------------------------------------------------------------
+# whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _sinusoid(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) sinusoidal positions in f32: sin of pos / 10⁴^(2i/d) in the
+    first half, cos in the second (the reference's)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers,
+                               layer_pattern=("attn",), first_k_dense=0)
+
+
+def _dec_cfg(cfg: ModelConfig) -> ModelConfig:
+    # the reference always stores the decoder stacked (``scan_layers``);
+    # the converter reads that
+    return dataclasses.replace(cfg, n_layers=cfg.n_dec_layers,
+                               layer_pattern=("attn",), first_k_dense=0,
+                               scan_layers=True)
+
+
+def _init_encdec(generator: Optional[torch.Generator] = None, device=None,
+                 *, cfg: ModelConfig) -> dict:
+    device = resolve_device(device)
+    g = generator_or_default(generator)
+    pd = cfg.pdtype
+    return {
+        "frontend_proj": L.dense_init(g, (cfg.frontend_dim, cfg.d_model), pd,
+                                      device=device),
+        "encoder": T.init_stack(g, _enc_cfg(cfg), device),
+        "enc_norm": L.init_rmsnorm(cfg.d_model, pd, device),
+        "decoder": T.init_stack(g, _dec_cfg(cfg), device),
+        "xattn": [{"xattn": A.init_attention(g, cfg, device, cross=True),
+                   "xnorm": L.init_rmsnorm(cfg.d_model, pd, device)}
+                  for _ in range(cfg.n_dec_layers)],
+        "embed": L.init_embed(g, cfg, device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, pd, device),
+    }
+
+
+def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames (B, S_enc, frontend_dim) -> the encoder output (B, S_enc,
+    d_model): the frontend projection, the sinusoid added, the
+    bidirectional stack (each layer's q and k also rotated by RoPE, as the
+    reference's), the final norm."""
+    dt, device = cfg.cdtype, _device(params)
+    frames = torch.as_tensor(frames, device=device)
+    with torch.profiler.record_function(ENCODE_RANGE):
+        x = frames.to(dt) @ L.as_compute(params["frontend_proj"], dt)
+        S = x.shape[1]
+        x = x + _sinusoid(S, cfg.d_model, device).to(dt)[None]
+        positions = torch.arange(S, device=device)
+        x, _ = T.stack_full(params["encoder"], _enc_cfg(cfg), x, positions,
+                            causal=False)
+        return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_layers(params: dict):
+    """(self-attention block, cross-attention params) per decoder layer."""
+    return [(rep[0], xp) for rep, xp in zip(params["decoder"]["scanned"],
+                                            params["xattn"])]
+
+
+def _cross(xp: dict, cfg: ModelConfig, h: torch.Tensor, ek: torch.Tensor,
+           ev: torch.Tensor) -> torch.Tensor:
+    """h + the cross-attention of norm(h) against the encoder K/V."""
+    with torch.profiler.record_function(CROSS_RANGE):
+        xnorm = L.rmsnorm(xp["xnorm"], h, cfg.norm_eps)
+        return h + A.cross_attention(xp["xattn"], cfg, xnorm, ek, ev)
+
+
+def _dec_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               enc_out: torch.Tensor, positions: torch.Tensor
+               ) -> torch.Tensor:
+    """The decoder: (causal self-attention block, cross-attention) pairs,
+    each layer projecting its own encoder K/V."""
+    dcfg = _dec_cfg(cfg)
+    for sb, xp in _dec_layers(params):
+        x, _ = T.block_full(sb, dcfg, "attn", x, positions)
+        x = _cross(xp, cfg, x, *A.encoder_kv(xp["xattn"], cfg, enc_out))
+    return x
+
+
+def _encdec_forward(params: dict, batch: dict, *, cfg: ModelConfig):
+    enc_out = _encode(params, cfg, batch["frames"])
+    x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _dec_stack(params, cfg, x, enc_out, positions)
+    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return (L.unembed(params["embed"], cfg, h),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
+                    cfg: ModelConfig,
+                    landmark_draws: Optional[Dict[int, dict]] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Encode the frames; prime the decoder's self-attention cache with the
+    prompt tokens; project each layer's cross-attention K/V once, into the
+    cache.  Returns (the last position's logits, cache).  The decoder has
+    no landmark layer, so ``landmark_draws`` and ``generator`` (taken as
+    the LM's prefill takes them) are unused."""
+    enc_out = _encode(params, cfg, batch["frames"])
+    dcfg = _dec_cfg(cfg)
+    x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
+    positions = torch.arange(x.shape[1], device=x.device)
+    cache = _encdec_cache(cfg, x.shape[0], max_len, x.device,
+                          enc_len=enc_out.shape[1])
+    ek_all, ev_all = cache["enc_kv"]
+    for i, (sb, xp) in enumerate(_dec_layers(params)):
+        x, c = T.block_prefill(sb, dcfg, "attn", x, positions, max_len)
+        cache["self"]["k"][i].copy_(c["k"])
+        cache["self"]["v"][i].copy_(c["v"])
+        del c
+        ek, ev = A.encoder_kv(xp["xattn"], cfg, enc_out)
+        ek_all[i].copy_(ek)
+        ev_all[i].copy_(ev)
+        del ek, ev
+        x = _cross(xp, cfg, x, ek_all[i], ev_all[i])
+    h = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.unembed(params["embed"], cfg, h)[:, 0], cache
+
+
+def _encdec_decode(params: dict, cache: dict, tokens, pos: int, *,
+                   cfg: ModelConfig):
+    """One decoder token: each layer's self-attention reads and updates
+    its slice of the self cache in place (the full-cache decode read),
+    then attends across to the cached encoder K/V."""
+    dcfg = _dec_cfg(cfg)
+    x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
+                                              _device(params)))
+    ek_all, ev_all = cache["enc_kv"]
+    for i, (sb, xp) in enumerate(_dec_layers(params)):
+        c = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
+        x, _ = T.block_decode(sb, dcfg, "attn", x, c, int(pos))
+        x = _cross(xp, cfg, x, ek_all[i], ev_all[i])
+    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], cfg, h)[:, 0], cache
+
+
+def _encdec_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                  enc_len: int = 1500) -> dict:
+    """The zero cache: the decoder's self-attention k/v (n_dec_layers, B,
+    max_len, KV, D) and the encoder K/V (n_dec_layers, B, enc_len, KV, D),
+    in the compute dtype."""
+    device = resolve_device(device)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def z(length):
+        return torch.zeros((cfg.n_dec_layers, batch, length, kv, hd),
+                           dtype=cfg.cdtype, device=device)
+
+    return {"self": {"k": z(max_len), "v": z(max_len)},
+            "enc_kv": (z(enc_len), z(enc_len))}
+
+
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder models are not in the port yet (ROADMAP "
-            "A11-rest.4)")
+        return Model(
+            cfg=cfg,
+            init=functools.partial(_init_encdec, cfg=cfg),
+            prepare=functools.partial(_prepare, cfg=cfg),
+            forward=functools.partial(_encdec_forward, cfg=cfg),
+            prefill=functools.partial(_encdec_prefill, cfg=cfg),
+            decode_step=functools.partial(_encdec_decode, cfg=cfg),
+            cache_shape=functools.partial(_encdec_cache, cfg),
+        )
     return Model(
         cfg=cfg,
         init=functools.partial(_init_lm, cfg=cfg),

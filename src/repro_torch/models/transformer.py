@@ -101,12 +101,26 @@ def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
+def _encoder_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention (the encoder-decoder's encoder): q, k,
+    v rotated at ``rope_theta`` as any self-attention's, one non-causal
+    flash-attention call, no window."""
+    q, k, v = A._qkv(params, cfg, x, positions, cfg.rope_theta)
+    return A.attend_full(params, cfg, q, k, v, "attn", causal=False)
+
+
 def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, causal: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``causal=False`` makes an attention block's mixer bidirectional
+    (``_encoder_attention``), as the reference's encoder runs."""
     _check_kind(kind)
     xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
         h = R.FULL[kind](params["mixer"], cfg, xin)
+    elif not causal:
+        h = _encoder_attention(params["mixer"], cfg, xin, positions)
     else:
         h = A.attention_full(params["mixer"], cfg, xin, positions, kind)
     return _residual_mlp(params, cfg, x, h)
@@ -250,12 +264,13 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig,
 
 
 def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, causal: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, the sum of the blocks' aux losses)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for section, r, i, kind in layer_slots(cfg):
         x, a = block_full(_entry(params, section, r, i), cfg, kind, x,
-                          positions)
+                          positions, causal)
         aux = aux + a
     return x, aux
 

@@ -736,6 +736,66 @@ def test_recurrent_smoke_models_on_the_card_match_the_cpu(cuda_device, arch):
                 kind, name)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-2)])
+def test_encdec_smoke_model_on_the_card_matches_the_cpu(cuda_device, dtype,
+                                                        tol):
+    """whisper's SMOKE model: prefill (seeded frames, a 1-token decoder
+    prompt) and three decode steps on the card against the same params on
+    the CPU, and both caches after them; B6 launches n_enc non-causal
+    encoder calls + n_dec causal self and n_dec non-causal cross calls a
+    prefill and n_dec cross calls a decode step, all on the tensor-core
+    kernel in bf16 and none there in f32."""
+    cfg = dataclasses.replace(get_smoke("whisper-large-v3"), dtype=dtype)
+    model = tm.build_model(cfg)
+    params = model.prepare(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, dev) for v in tree)
+        return tree.to(dev)
+
+    frames = torch.randn((2, 40, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 4),
+                         generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", to(params, cuda_device))):
+        fa_kernel.reset_launch_counts()
+        lg, cache = model.prefill(p, {"frames": frames.to(dev),
+                                      "tokens": toks[:, :1].to(dev)}, 8)
+        seq = [lg]
+        torch.cuda.synchronize()
+        counts = [fa_kernel.launch_counts()]
+        for t in range(1, 4):
+            fa_kernel.reset_launch_counts()
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                          t)
+            seq.append(lg)
+            torch.cuda.synchronize()
+            counts.append(fa_kernel.launch_counts())
+        outs[dev] = (torch.stack(seq).float().cpu(), counts, to(cache, "cpu"))
+    n_pre = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    tc = dtype == "bfloat16"
+    assert outs["cpu"][1] == [{"flash_attention": 0,
+                               "flash_attention_tc": 0}] * 4
+    assert outs["cuda"][1] == [
+        {"flash_attention": n_pre, "flash_attention_tc": n_pre * tc}] + [
+        {"flash_attention": cfg.n_dec_layers,
+         "flash_attention_tc": cfg.n_dec_layers * tc}] * 3
+    assert scaled(outs["cuda"][0], outs["cpu"][0]) <= tol
+    got, ref = outs["cuda"][2], outs["cpu"][2]
+    for name in ("k", "v"):
+        assert scaled(got["self"][name].float(),
+                      ref["self"][name].float()) <= tol, name
+    for i in range(2):
+        assert scaled(got["enc_kv"][i].float(),
+                      ref["enc_kv"][i].float()) <= tol, i
+
+
 @pytest.mark.parametrize("S", [128, 300])
 def test_slstm_graphed_loop_matches_the_cpu(cuda_device, S):
     """sLSTM's full pass on the card, where S ≥ 2·SLSTM_GRAPH_STEPS replays
