@@ -211,8 +211,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ops — the scan cannot see inside a CUDA launch), then every
    ``rbf_sketch`` wrapper bit for bit the B2 or B1 launch it binds, and
    counted as that launch;
+11b. training.  train_grad: B6's autograd Function (the kernel's forward,
+   ``attention_vjp``'s f32 backward) against torch autograd of the plain
+   version at gemma3-12b's global and local train shapes (B 1, Hq 16, Hkv
+   8, S 4,096, D 256; window 1,024), MLA's (Hq 16, S 2,048, D 192 / Dv
+   128) and whisper's encoder (Hq 20, S 1,500, D 64, non-causal), bf16
+   (≤ 5e-2) and f32 (≤ 1e-4), one forward launch on the dtype's route;
+   the forward kernel, ``attention_vjp``, the plain forward + backward
+   and SDPA's forward and backward timed.  train_gemma3: gemma3-12b at
+   full width cut to one pattern period (5 local + 1 global layers), 4
+   steps of ``launch.steps.make_train_step`` (adamw, peak lr 3e-4, 1
+   warm-up step) on SyntheticLM(seed=0) batches of 2 × 4,096 tokens at
+   accum 2: 24 B6 launches a step (forward and remat's recompute), all
+   on the tensor cores, and nothing else; every parameter's gradient
+   finite and nonzero on step 1; the losses finite; step ms (median of
+   steps 2-4), tokens/s, MFU, peak memory, one more step's device time by
+   class (B6, ``attention_vjp`` and the optimizer by their profiler
+   ranges).  train_moe: qwen2-moe-a2.7b at full width, 2 layers, 3 steps
+   of 1 × 4,096 tokens: ``aux`` in the metrics, the router's and experts'
+   gradients finite and nonzero.  train_parity: gemma3-12b's and
+   deepseek-v3's SMOKE configs in f32, the card (B6's f32 kernel) against
+   the CPU (the plain version): the loss ≤ 1e-5, every gradient ≤ 1e-4,
+   3 train steps' losses ≤ 1e-4;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the fourteen paths (every count reset just before
+   own path and on each of the sixteen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -260,7 +282,9 @@ from repro_torch.configs import gemma3_12b  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash_attention import build as fa_build  # noqa: E402
+from repro_torch.kernels.flash_attention import grad as fa_grad  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.landmark_attention import build as lm_build  # noqa: E402
 from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: E402
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
@@ -273,6 +297,9 @@ from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import serve_kernel as sk_launch  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch import optim as topt  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
@@ -474,6 +501,34 @@ TOL_WH = 5e-2           # bf16 vs f32 logits, decode vs forward, scale-norm.
 # causal with Sq > Sk, both routes: (B, Hq, Hkv, Sq, Sk, D, Dv), window
 FLASH_EMPTY_ROWS = (((1, 2, 1, 300, 100, 64, 64), None),
                     ((2, 4, 2, 200, 60, 32, 32), 24))
+
+# training.  B6's gradient (the Function: the kernel forward, attention_vjp
+# backward) against torch autograd of the plain version at the train
+# paths' attention shapes: (label, B, Hq, Hkv, S, D, Dv, causal, window) --
+# gemma3-12b's global and local layers at train_4k's length (one
+# microbatch row), deepseek's MLA (D 192 / Dv 128) at 2,048 tokens, and
+# whisper's encoder (20 x 64 heads, 1,500 frames, non-causal)
+TRAIN_GRAD_SHAPES = (("gemma3 global", 1, 16, 8, 4096, 256, 256, True, None),
+                     ("gemma3 local", 1, 16, 8, 4096, 256, 256, True, 1024),
+                     ("mla", 1, 16, 16, 2048, 192, 128, True, None),
+                     ("whisper encoder", 1, 20, 20, 1500, 64, 64, False,
+                      None))
+TOL_GRAD_F32 = 1e-4     # dq, dk, dv vs the plain version's autograd, f32
+TOL_GRAD_BF16 = 5e-2    # the same in bf16 (bf16 P in the kernel's PV)
+# the train path: gemma3-12b at full width (d_model 3,840, 16/8 heads x
+# 256, d_ff 15,360, vocab 262,144 tied, window 1,024; bf16 compute, f32
+# params), cut to one pattern period (5 local + 1 global layers), train_4k's
+# 4,096 tokens, global batch 2 at accum 2 (cut from train_4k's 256), adamw,
+# peak lr 3e-4 after 1 warm-up step, 4 steps of SyntheticLM(seed=0)
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 6, 4096, 2, 2
+TRAIN_STEPS, TRAIN_PEAK_LR, TRAIN_WARMUP = 4, 3e-4, 1
+# qwen2-moe-a2.7b at full width (60 routed experts top-4 + 4 shared, d_ff
+# 1,408), 2 layers, 4,096 tokens, batch 1, 3 steps
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 2, 3
+# card against CPU: the loss and every gradient of a SMOKE-width model
+TOL_TRAIN_LOSS = 1e-5   # relative
+TOL_TRAIN_GRAD = 1e-4   # scale-normalized, each leaf
+TOL_TRAIN_STEPS = 1e-4  # 3 train steps' losses, relative
 
 
 class SmokeFailure(AssertionError):
@@ -2704,6 +2759,10 @@ REC_CLASSES = {trec.SCAN_RANGE: "recurrence (RG-LRU gates + scan, mLSTM "
 #: cross-attention); B6 elsewhere is causal self-attention
 B6_RANGES = {tmodel.ENCODE_RANGE: "B6 encoder self-attention (non-causal)",
              tmodel.CROSS_RANGE: "B6 cross-attention (non-causal)"}
+#: the classes of every kernel a train step launches inside its profiler
+#: ranges: B6's backward (``attention_vjp``) and the optimizer's update
+TRAIN_CLASSES = {fa_grad.VJP_RANGE: "attention_vjp (B6 backward, f32)",
+                 tsteps.OPT_RANGE: "optimizer (adamw update)"}
 
 
 def _kernel_class(name: str, rng: str = "") -> str:
@@ -2712,6 +2771,8 @@ def _kernel_class(name: str, rng: str = "") -> str:
     launch in the encoder-decoder's ranges."""
     if rng in REC_CLASSES:
         return REC_CLASSES[rng]
+    if rng in TRAIN_CLASSES:
+        return TRAIN_CLASSES[rng]
     low = name.lower()
     if "flash_kernel" in low or "flash_wgmma_kernel" in low:
         return B6_RANGES.get(rng, "B6 flash_attention")
@@ -2782,9 +2843,10 @@ def _queued_device_ms(fn, reps: int = 50,
 
 
 def _in_range(e) -> str:
-    """The recurrent profiler range a CPU event lies in ("" if none)."""
+    """The recurrent or train profiler range a CPU event lies in ("" if
+    none)."""
     while e is not None:
-        if e.name in REC_CLASSES:
+        if e.name in REC_CLASSES or e.name in TRAIN_CLASSES:
             return e.name
         e = e.cpu_parent
     return ""
@@ -2792,8 +2854,8 @@ def _in_range(e) -> str:
 
 def _ranged_kernels(prof) -> list:
     """(range, kernel name, device ms) of every device activity launched
-    while a recurrent mixer's or the encoder-decoder's profiler range was
-    open on the host (the ranges do not nest): each
+    while a recurrent mixer's, the encoder-decoder's or a train step's
+    profiler range was open on the host (the ranges do not nest): each
     device activity carries the id of the runtime call that launched it
     (``cudaLaunchKernel``, ``cudaGraphLaunch``, a copy), and that call
     lies inside the range's host interval.  This also takes the kernels a
@@ -2803,7 +2865,8 @@ def _ranged_kernels(prof) -> list:
     evts = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in evts if e.device_type == DeviceType.CPU
-                   and (e.name in REC_CLASSES or e.name in B6_RANGES))
+                   and (e.name in REC_CLASSES or e.name in B6_RANGES
+                        or e.name in TRAIN_CLASSES))
     starts = [sp[0] for sp in spans]
     launched = {}
     for e in evts:
@@ -4012,6 +4075,436 @@ def phase_contracts() -> dict:
             "rprj03_torch_level": rprj03}
 
 
+# ---------------------------------------------------------------------------
+# training: B6's gradient, the train step at full width, card against CPU
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs a full-length attention call sees at Sq = Sk."""
+    if not causal:
+        return S * S if window is None else sum(
+            min(S, i + window) - max(0, i - window + 1) for i in range(S))
+    if window is None:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def _sdpa_fwd_bwd(q, k, v, do, causal: bool, window) -> dict:
+    """The library yardstick of a backward kernel: SDPA's forward and
+    forward + backward at the same shape in bf16 (flash / cuDNN / efficient
+    backends; a window as an explicit mask on the memory-efficient
+    backend, the kv heads repeated), or the backend's refusal."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    kw, backends = {"is_causal": causal}, [SDPBackend.FLASH_ATTENTION,
+                                           SDPBackend.CUDNN_ATTENTION,
+                                           SDPBackend.EFFICIENT_ATTENTION]
+    if window is not None:
+        G = q.shape[1] // k.shape[1]
+        k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        i = torch.arange(q.shape[2], device=DEV)
+        kw = {"attn_mask": (i[None, :] <= i[:, None])
+              & (i[:, None] - i[None, :] < window)}
+        backends = [SDPBackend.EFFICIENT_ATTENTION]
+    elif q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+
+    def fwd(grad: bool):
+        leaves = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+        return torch.autograd.grad(out, leaves, do) if grad else out
+
+    try:
+        with sdpa_kernel(backends):
+            fwd_ms, _ = cuda_ms(lambda: fwd(False), reps=3, warmup=1)
+            fb_ms, _ = cuda_ms(lambda: fwd(True), reps=3, warmup=1)
+    except RuntimeError as exc:        # no backend takes the shape
+        return {"sdpa_fwd_ms": None, "sdpa_fwd_bwd_ms": None,
+                "sdpa_bwd_ms": None,
+                "sdpa_note": str(exc).splitlines()[0][:160]}
+    return {"sdpa_fwd_ms": fwd_ms, "sdpa_fwd_bwd_ms": fb_ms,
+            "sdpa_bwd_ms": fb_ms - fwd_ms}
+
+
+def _grad_case(label, B, Hq, Hkv, S, D, Dv, causal, window, dtype) -> dict:
+    """B6's Function at one shape and dtype: its dq, dk, dv (the kernel's
+    forward, ``attention_vjp``'s backward) against torch autograd of the
+    plain version on the same inputs and cotangent; one forward launch on
+    the dtype's route; then the forward kernel, ``attention_vjp``, the
+    plain version's forward + backward and (bf16) SDPA's timed."""
+    bf16 = dtype == torch.bfloat16
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, dtype, seed=61,
+                            qk_scale=1.0, Dv=Dv)
+    do = torch.randn((B, Hq, S, Dv), generator=gen(62), device=DEV).to(dtype)
+    tag = f"train_grad {label} {'bf16' if bf16 else 'f32'}"
+    c0 = fa_kernel.launch_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, causal=causal, window=window)
+    check(out.grad_fn is not None, f"{tag}: no autograd node")
+    got = torch.autograd.grad(out, leaves, do)
+    del out
+    c1 = fa_kernel.launch_counts()
+    check(c1["flash_attention"] - c0["flash_attention"] == 1
+          and c1["flash_attention_tc"] - c0["flash_attention_tc"]
+          == int(bf16), f"{tag}: the forward should be one B6 launch on "
+          f"the {'tensor-core' if bf16 else 'CUDA-core'} kernel")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = fa_kernel.flash_attention_plain(*leaves, causal=causal,
+                                            window=window)
+    ref = torch.autograd.grad(plain, leaves, do)
+    del plain, leaves
+    tol = TOL_GRAD_BF16 if bf16 else TOL_GRAD_F32
+    errs, max_abs = {}, 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check(a.dtype == dtype and a.shape == b.shape, f"{tag} {name}: "
+              f"{a.dtype} {tuple(a.shape)}")
+        check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite")
+        errs[name] = scaled_err(a.float(), b.float())
+        max_abs = max(max_abs, float((a.float() - b.float()).abs().max()))
+        check(errs[name] <= tol, f"{tag} {name}: {errs[name]:.3g} > {tol}")
+    del got, ref
+    fwd_ms, o = cuda_ms(lambda: fa_kernel.flash_attention_cuda(
+        q, k, v, causal=causal, window=window), reps=3, warmup=1)
+    vjp_ms, _ = cuda_ms(lambda: fa_grad.attention_vjp(
+        q, k, v, o, do, causal, window), reps=3, warmup=1)
+
+    def plain_fwd_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fa_kernel.flash_attention_plain(*leaves, causal=causal,
+                                              window=window)
+        return torch.autograd.grad(out, leaves, do)
+
+    plain_ms, _ = cuda_ms(plain_fwd_bwd, reps=1, warmup=1)
+    pairs = _visible_pairs(S, causal, window) * B * Hq
+    bwd_flops = 2.0 * pairs * (3 * D + 2 * Dv)
+    # read q, o, dO and write dQ; read k, v and write dK, dV
+    nbytes = q.element_size() * (2 * B * Hq * S * (D + Dv)
+                                 + 2 * B * Hkv * S * (D + Dv))
+    res = {"label": label, "dtype": "bfloat16" if bf16 else "float32",
+           "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D, "Dv": Dv,
+                     "causal": causal, "window": window},
+           "err": errs, "tol": tol, "max_abs_err": max_abs,
+           "fwd_ms": fwd_ms, "vjp_ms": vjp_ms,
+           "plain_fwd_bwd_ms": plain_ms, "bwd_flops": bwd_flops,
+           "vjp_bound_ms_fp32": max(bwd_flops / PEAK_FP32_FLOPS,
+                                    nbytes / PEAK_HBM_BYTES) * 1e3,
+           "bwd_bound_ms_bf16": max(bwd_flops / PEAK_BF16_TC_FLOPS,
+                                    nbytes / PEAK_HBM_BYTES) * 1e3}
+    if bf16:
+        res.update(_sdpa_fwd_bwd(q, k, v, do, causal, window))
+    del q, k, v, do, o
+    torch.cuda.empty_cache()
+    sd = res.get("sdpa_bwd_ms")
+    log(f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, D={D}, Dv={Dv}, causal "
+        f"{causal}, window {window}): dq {errs['dq']:.3g}, dk "
+        f"{errs['dk']:.3g}, dv {errs['dv']:.3g} vs the plain version's "
+        f"autograd (limit {tol}); B6 forward {fwd_ms:.3f} ms, attention_vjp"
+        f" {vjp_ms:.3f} ms (FP32 bound {res['vjp_bound_ms_fp32']:.3f} ms, "
+        f"bf16 tensor-core bound {res['bwd_bound_ms_bf16']:.3f} ms), plain "
+        f"forward + backward {plain_ms:.2f} ms"
+        + (f"; SDPA forward {res['sdpa_fwd_ms']:.3f} ms, backward "
+           f"{sd:.3f} ms (attention_vjp {vjp_ms / sd:.1f}x)" if sd else
+           (f"; SDPA not measured ({res['sdpa_note']})" if bf16 else "")))
+    return res
+
+
+def phase_train_grad() -> dict:
+    """B6's gradient on the card at the train paths' attention shapes, in
+    bf16 and f32 (``TRAIN_GRAD_SHAPES``)."""
+    cases = [_grad_case(*shape, dtype) for shape in TRAIN_GRAD_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    return {"cases": cases,
+            "max_err_bf16": max(max(c["err"].values()) for c in cases
+                                if c["dtype"] == "bfloat16"),
+            "max_err_f32": max(max(c["err"].values()) for c in cases
+                               if c["dtype"] == "float32")}
+
+
+def train_config():
+    """gemma3-12b at full width, one pattern period (5 local + 1 global
+    layers)."""
+    return dataclasses.replace(gemma3_12b.FULL, n_layers=TRAIN_LAYERS)
+
+
+def train_moe_config():
+    """qwen2-moe-a2.7b at full width, 2 layers."""
+    return dataclasses.replace(tconfigs.get_config("qwen2-moe-a2.7b"),
+                               n_layers=TRAIN_MOE_LAYERS)
+
+
+def _grad_check(opt, pick):
+    """``opt`` whose first update records, for the gradient leaves
+    ``pick(grads)`` selects, how many are finite and how many nonzero (one
+    host read, on step 1), then updates as ``opt`` does."""
+    seen = {}
+
+    def update(grads, state, params, lr):
+        if not seen:
+            leaves = topt.optimizers.tree_leaves(pick(grads))
+            ok = torch.stack([torch.stack([torch.isfinite(g).all(),
+                                           (g != 0).any()])
+                              for g in leaves]).sum(0).tolist()
+            seen.update(leaves=len(leaves), finite=ok[0], nonzero=ok[1])
+        return opt.update(grads, state, params, lr)
+
+    return dataclasses.replace(opt, update=update), seen
+
+
+def _train_flops(cfg, params, tokens: int) -> dict:
+    """The step's model FLOPs: 6 x the matmul parameters (every leaf of
+    two or more dims; the tied embedding counts once, as the unembedding)
+    x tokens, plus 12 x tokens x visible keys x heads x head_dim summed
+    over the attention layers; remat's recompute is not counted."""
+    mm = sum(t.numel() for t in topt.optimizers.tree_leaves(params)
+             if t.ndim >= 2)
+    S = TRAIN_SEQ
+    attn = sum(12.0 * tokens * _visible_pairs(S, True, cfg.window if kind
+                                              == "local" else None) / S
+               * cfg.n_heads * cfg.head_dim
+               for *_, kind in ttransformer.layer_slots(cfg))
+    return {"matmul_params": mm, "flops_matmul": 6.0 * mm * tokens,
+            "flops_attention": attn, "flops": 6.0 * mm * tokens + attn}
+
+
+def _train_run(tag: str, cfg, B: int, accum: int, steps: int, seed: int,
+               pick, b6_per_step: int, profile: bool) -> dict:
+    """``steps`` steps of ``make_train_step`` from a seeded init on the
+    card, SyntheticLM(seed=0) batches of TRAIN_SEQ tokens: every count
+    reset just before and read just after; each step timed (host clock,
+    synchronized); B6 ``b6_per_step`` times a step, all on the tensor-core
+    kernel, and nothing else; the picked gradient leaves finite and
+    nonzero on step 1; the losses finite.  Then, outside the counted run,
+    one more step's device time by class."""
+    t0 = time.perf_counter()
+    model = tmodel.build_model(cfg)
+    params = model.init(gen(seed), DEV)
+    opt = tsteps.default_optimizer(cfg)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in topt.optimizers.tree_leaves(params))
+    checked, seen = _grad_check(opt, pick)
+    step_fn = tsteps.make_train_step(model, checked, peak_lr=TRAIN_PEAK_LR,
+                                     warmup=TRAIN_WARMUP, total=steps,
+                                     accum=accum)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=B, seed=0)
+    log(f"{tag}: {cfg.name} with {cfg.n_layers} layers {cfg.layer_pattern}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.head_dim}, d_ff {cfg.d_ff or cfg.moe_d_ff}, vocab "
+        f"{cfg.vocab_size}, {n_params:,} params in {cfg.param_dtype} "
+        f"(compute {cfg.dtype}; init {init_s:.1f} s), optimizer {opt.name};"
+        f" global batch {B} x {TRAIN_SEQ} tokens, accum {accum}, {steps} "
+        f"steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, b6, mets = [], [], []
+    for s in range(steps):
+        c0 = fa_kernel.launch_counts()
+        t1 = time.perf_counter()
+        params, opt_state, met = step_fn(params, opt_state, pipe.batch_at(s))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        b6.append({k: n - c0[k] for k, n in fa_kernel.launch_counts().items()})
+        mets.append(met)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = [{k: float(v) for k, v in m.items()} for m in mets]
+    n = b6_per_step * steps
+    check(launches == no_launches(flash_attention=n, flash_attention_tc=n),
+          f"{tag}: the train path should launch B6 {b6_per_step} times a "
+          f"step (forward and remat's recompute), each on the tensor-core "
+          f"kernel, and nothing else: {launches}")
+    check(b6 == [{"flash_attention": b6_per_step,
+                  "flash_attention_tc": b6_per_step}] * steps,
+          f"{tag}: B6 per step {b6}")
+    check(seen["finite"] == seen["leaves"] and seen["nonzero"] ==
+          seen["leaves"], f"{tag}: on step 1, of {seen['leaves']} gradient"
+          f" leaves {seen['finite']} were finite and {seen['nonzero']} "
+          f"nonzero")
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          f"{tag}: a metric was not finite: {metrics}")
+    med = float(np.median(step_ms[1:]))
+    tokens = B * TRAIN_SEQ
+    res = {"step_ms": step_ms, "step_ms_median_2_on": med,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / (med / 1e3),
+           "peak_gb": peak_gb, "launches": launches, "b6_per_step": b6[0],
+           "params": n_params, "init_s": init_s, "optimizer": opt.name,
+           "grad_check": dict(seen), "metrics": metrics,
+           "losses": [m["loss"] for m in metrics]}
+    log(f"{tag} steps: " + ", ".join(f"{ms:.1f}" for ms in step_ms)
+        + f" ms (median of steps 2-{steps} {med:.1f} ms, "
+        f"{res['tokens_per_s']:,.0f} tokens/s); peak memory {peak_gb:.2f} "
+        f"GB; B6 per step {b6[0]}; step 1 gradients: {seen['finite']} of "
+        f"{seen['leaves']} leaves finite, {seen['nonzero']} nonzero")
+    log(f"{tag} metrics by step: " + json.dumps(
+        [{k: round(v, 5) for k, v in m.items()} for m in metrics]))
+    if profile:
+        p = _device_profile(lambda: step_fn(params, opt_state,
+                                            pipe.batch_at(steps)))
+        res["profile"] = p
+        if "error" in p:
+            log(f"{tag} step profile: not measured ({p['error']})")
+        else:
+            log(f"{tag} step profile: device busy {p['busy_ms']:.1f} ms of "
+                f"{p['wall_ms']:.1f} ms unprofiled wall (idle share "
+                f"{p['idle_share']:.1%}); by class " + json.dumps(
+                    {k: round(v, 2) for k, v in p["by_class_ms"].items()}))
+            for t in p["top"]:
+                log(f"    {t['ms']:9.2f} ms  x{t['count']:<5d} {t['kernel']}")
+    res["flops"] = _train_flops(cfg, params, tokens)
+    del params, opt_state, step_fn, checked, mets
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_gemma3() -> dict:
+    """The slice at full width: gemma3-12b, 6 layers, 4,096 tokens, global
+    batch 2 at accum 2, adamw, 4 steps; every parameter's gradient finite
+    and nonzero on step 1; step ms (median of steps 2-4), tokens/s, MFU
+    (the step's model FLOPs over its time and the bf16 dense peak), peak
+    memory, B6 launches a step, one step's device time by class."""
+    cfg = train_config()
+    per_step = TRAIN_ACCUM * 2 * cfg.n_layers    # forward + recompute
+    res = _train_run("train_gemma3", cfg, TRAIN_BATCH, TRAIN_ACCUM,
+                     TRAIN_STEPS, 60, lambda g: g, per_step, profile=True)
+    f = res["flops"]
+    res["mfu"] = f["flops"] / (res["step_ms_median_2_on"] / 1e3) \
+        / PEAK_BF16_TC_FLOPS
+    res["reduced"] = {"layers": f"{cfg.n_layers} of 48 (one 5:1 pattern "
+                                f"period)",
+                      "global_batch": f"{TRAIN_BATCH} of train_4k's 256 "
+                                      f"(accum {TRAIN_ACCUM})",
+                      "steps": TRAIN_STEPS, "weights": "seeded random"}
+    log(f"train_gemma3: MFU {res['mfu']:.2%} ({f['flops'] / 1e12:.2f} TFLOP "
+        f"a step: 6 x {f['matmul_params']:,} matmul params x "
+        f"{res['tokens_per_step']} tokens + attention "
+        f"{f['flops_attention'] / 1e12:.3f}; over the median step and "
+        f"{PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s); reduced "
+        + json.dumps(res["reduced"]))
+    return res
+
+
+def phase_train_moe() -> dict:
+    """qwen2-moe-a2.7b at full width, 2 layers, 4,096 tokens, batch 1, 3
+    steps: the out-of-place dispatch's backward on the card, ``aux`` in
+    the metrics, the router's and the experts' gradients finite and
+    nonzero on step 1."""
+    cfg = train_moe_config()
+
+    def moe_grads(g):
+        return [ttransformer._entry(g["stack"], sec, r, i)["moe"]
+                for sec, r, i, _ in ttransformer.layer_slots(cfg)]
+
+    res = _train_run("train_moe", cfg, 1, 1, TRAIN_MOE_STEPS, 64, moe_grads,
+                     2 * cfg.n_layers, profile=False)
+    aux = [m["aux"] for m in res["metrics"]]
+    check(all(a > 0 for a in aux), f"train_moe: aux {aux}")
+    res["aux"] = aux
+    return res
+
+
+def _loss_and_grads(model, params, batch):
+    leaves = topt.optimizers.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads
+
+
+def _parity_one(arch: str) -> dict:
+    """One SMOKE model in f32 from the same weights on the CPU (B6's plain
+    version, ``attention_vjp``) and on the card (B6's f32 kernel,
+    ``attention_vjp``): the loss and every gradient leaf, then 3 train
+    steps' losses."""
+    cfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype="float32")
+    model = tmodel.build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(70), "cpu")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64,
+                        global_batch=2, seed=1).batch_at(0)
+
+    def on(device):
+        return topt.optimizers.tree_map(
+            lambda t: t.detach().clone().to(device), init)
+
+    c0 = fa_kernel.launch_counts()
+    card_loss, card_g = _loss_and_grads(model, on(DEV), batch)
+    c1 = fa_kernel.launch_counts()
+    cpu_loss, cpu_g = _loss_and_grads(model, on("cpu"), batch)
+    # twice a stack layer (forward, remat's recompute), once for MTP's block
+    n_b6 = 2 * sum(kind in ttransformer.ATTN_KINDS for *_, kind in
+                   ttransformer.layer_slots(cfg)) + int(cfg.mtp)
+    check(c1["flash_attention"] - c0["flash_attention"] == n_b6
+          and c1["flash_attention_tc"] == c0["flash_attention_tc"],
+          f"train_parity {arch}: the f32 loss should launch the CUDA-core "
+          f"B6 kernel {n_b6} times: {c0} -> {c1}")
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_err <= TOL_TRAIN_LOSS, f"train_parity {arch}: loss "
+          f"{card_loss} on the card, {cpu_loss} on the CPU")
+    grad_err = max(scaled_err(a.cpu(), b) for a, b in zip(card_g, cpu_g))
+    check(grad_err <= TOL_TRAIN_GRAD, f"train_parity {arch}: a gradient "
+          f"leaf differs by {grad_err:.3g} (limit {TOL_TRAIN_GRAD})")
+    losses = {}
+    for device in (DEV, "cpu"):
+        params = on(device)
+        opt = topt.adamw()
+        state = opt.init(params)
+        step = tsteps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
+                                      total=3)
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64,
+                           global_batch=2, seed=2)
+        out = []
+        for s in range(3):
+            params, state, met = step(params, state, pipe.batch_at(s))
+            out.append(float(met["loss"]))
+        losses[device] = out
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
+                                                         losses["cpu"]))
+    check(step_err <= TOL_TRAIN_STEPS, f"train_parity {arch}: step losses "
+          f"{losses[DEV]} on the card, {losses['cpu']} on the CPU")
+    log(f"train_parity {arch} (SMOKE, f32, {len(card_g)} leaves): loss "
+        f"{card_loss:.6f} vs {cpu_loss:.6f} on the CPU ({loss_err:.3g}, "
+        f"limit {TOL_TRAIN_LOSS}); gradients max {grad_err:.3g} (limit "
+        f"{TOL_TRAIN_GRAD}); 3 steps' losses {losses[DEV]} vs "
+        f"{losses['cpu']} ({step_err:.3g}, limit {TOL_TRAIN_STEPS})")
+    return {"loss_err": loss_err, "grad_err": grad_err, "step_err": step_err,
+            "leaves": len(card_g)}
+
+
+def phase_train_parity() -> dict:
+    """Card against CPU: gemma3-12b's SMOKE (6 layers, local + global) and
+    deepseek-v3's (MLA + MoE + MTP)."""
+    return {arch: _parity_one(arch) for arch in ("gemma3-12b",
+                                                 "deepseek-v3-671b")}
+
+
+def _train_line(grad: dict, g3: dict, moe: dict, par: dict) -> dict:
+    """B6's ``train`` entry: the gradient check, attention_vjp beside
+    SDPA's backward, the train paths' numbers."""
+    keep = ("step_ms", "step_ms_median_2_on", "tokens_per_s", "peak_gb",
+            "b6_per_step", "params", "optimizer", "grad_check", "losses")
+    return {
+        "grad_check": [{k: c[k] for k in (
+            "label", "dtype", "shape", "err", "tol", "max_abs_err", "fwd_ms",
+            "vjp_ms", "plain_fwd_bwd_ms", "vjp_bound_ms_fp32",
+            "bwd_bound_ms_bf16", "sdpa_fwd_ms", "sdpa_bwd_ms",
+            "sdpa_fwd_bwd_ms", "sdpa_note") if k in c}
+            for c in grad["cases"]],
+        "max_grad_err_bf16": grad["max_err_bf16"],
+        "max_grad_err_f32": grad["max_err_f32"],
+        "train_gemma3": {**{k: g3[k] for k in keep}, "mfu": g3["mfu"],
+                         "flops": g3["flops"], "reduced": g3["reduced"],
+                         "device_ms_by_class": g3["profile"].get(
+                             "by_class_ms"),
+                         "idle_share": g3["profile"].get("idle_share")},
+        "train_moe": {**{k: moe[k] for k in keep}, "aux": moe["aux"]},
+        "train_parity": par}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4041,6 +4534,10 @@ def main() -> int:
     rag = phase_ragged()
     cal = phase_calibrate()
     con = phase_contracts()
+    tgrad = phase_train_grad()
+    tg3 = phase_train_gemma3()
+    tmoe = phase_train_moe()
+    tpar = phase_train_parity()
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
@@ -4051,7 +4548,8 @@ def main() -> int:
              "serve_recurrent": rec["launches"],
              "serve_whisper": wh["launches"],
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
-             "calibrate": cal["launches"], "contracts": con["launches"]}
+             "calibrate": cal["launches"], "contracts": con["launches"],
+             "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -4121,6 +4619,7 @@ def main() -> int:
                       "idle_share")}
            for name, r in wh["runs"].items()},
         "params": wh["params"], "numerics": wh["numerics"]}
+    b6["train"] = _train_line(tgrad, tg3, tmoe, tpar)
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
                           dense["b6_shape"], rec["b6_shape"],
                           *wh["b6_shapes"]]

@@ -10,8 +10,9 @@ restores in the other:
     <dir>/step_000000100/            # atomic rename after both are fsync'd
 
 Trees are nested dicts, lists and tuples of arrays (torch tensors, numpy
-arrays, or anything ``np.asarray`` takes, a string included).  A leaf's
-path is its keys and indices joined with ``/`` (``"heads/krr"``,
+arrays, or anything ``np.asarray`` takes, a string included); a bf16
+tensor is stored widened to f32.  A leaf's path is its keys and indices
+joined with ``/`` (``"heads/krr"``,
 ``"a/0"``), with dict keys visited in sorted order, as ``jax.tree_util``
 flattens them; a ``None`` is an empty subtree.  Restores return numpy
 arrays on the host; callers move them to their device.
@@ -49,8 +50,11 @@ class CheckpointCorruptionError(RuntimeError):
 
 
 def _to_host(leaf) -> np.ndarray:
+    """A leaf as a host array; a bf16 tensor is widened to f32, exactly
+    (numpy has no bf16), and narrows back exactly on restore."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
 
 

@@ -110,8 +110,13 @@ def _tree_to_torch(tree, device):
 
 
 def _unstack(tree, r: int):
-    """Slice ``r`` of every leaf's leading axis."""
+    """Slice ``r`` of every leaf's leading axis.  Adafactor's statistics
+    of a stacked vector (a row statistic (layers,) beside a column
+    statistic (d,); a stacked matrix's row statistic has two axes) give
+    each layer its row entry and the whole column statistic."""
     if isinstance(tree, dict):
+        if set(tree) == {"r", "c"} and np.ndim(tree["r"]) == 1:
+            return {"r": np.asarray(tree["r"])[r], "c": tree["c"]}
         return {k: _unstack(v, r) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_unstack(v, r) for v in tree]
@@ -201,3 +206,151 @@ def cache_to_reference(cache: dict, cfg) -> dict:
             for i in range(len(pattern)))
     return {"prefix": _tree_to_numpy(cache["prefix"]), "scanned": scanned,
             "remainder": _tree_to_numpy(cache["remainder"])}
+
+
+# ---------------------------------------------------------------------------
+# train state: gradients, optimizer states, reference checkpoints
+# ---------------------------------------------------------------------------
+
+def _stats_shapes(shape: tuple) -> list:
+    """The statistics ``optim.adafactor`` may keep for a parameter of
+    ``shape``: factored over the trailing two dims of a matrix; a vector's
+    unfactored, or factored across its stack of layers."""
+    if len(shape) >= 2 and min(shape[-2:]) >= 2:
+        return [{"r": shape[:-1], "c": shape[:-2] + shape[-1:]}]
+    if len(shape) == 1 and shape[0] >= 2:
+        return [{"v": shape}, {"r": (), "c": shape}]
+    return [{"v": shape}]
+
+
+def _to_port_layout(ref, like):
+    """``ref``, a tree in the reference's layout (numpy leaves; a node at a
+    parameter's place may be a dict of Adafactor statistics), laid out as
+    the port's params ``like``: stacked superblocks (``scan_layers``) and
+    the vmapped cross-attention become per-layer lists.  Shapes are
+    checked leaf by leaf."""
+    if isinstance(like, torch.Tensor):
+        shape = tuple(like.shape)
+        if isinstance(ref, dict):
+            got = {k: tuple(np.shape(v)) for k, v in ref.items()}
+            if got not in _stats_shapes(shape):
+                raise ValueError(
+                    f"statistics {got} do not factor a parameter of shape "
+                    f"{shape} as the port's adafactor does")
+        elif tuple(np.shape(ref)) != shape:
+            raise ValueError(f"leaf of shape {np.shape(ref)} where the "
+                             f"port's parameter is {shape}")
+        return ref
+    if isinstance(like, dict):
+        return {k: _to_port_layout(ref.get(k), v) for k, v in like.items()}
+    if not like:
+        return []
+    if isinstance(ref, dict):                  # vmapped: one entry a layer
+        return [_to_port_layout(_unstack(ref, r), like[r])
+                for r in range(len(like))]
+    if isinstance(like[0], list) and isinstance(ref[0], dict):
+        # superblocks stacked per pattern slot -> per rep, per slot
+        return [[_to_port_layout(_unstack(ref[i], r), like[r][i])
+                 for i in range(len(like[r]))] for r in range(len(like))]
+    return [_to_port_layout(a, b) for a, b in zip(ref, like)]
+
+
+def _restack(trees):
+    """Trees of one structure stacked leaf by leaf on a new leading axis;
+    adafactor's statistics of a vector factored across the layers (a
+    scalar row statistic each) keep one copy of the shared column one."""
+    first = trees[0]
+    if isinstance(first, dict) and set(first) == {"r", "c"} \
+            and np.ndim(first["r"]) == 0:
+        return {"r": np.stack([t["r"] for t in trees]), "c": first["c"]}
+    if isinstance(first, dict):
+        return {k: _restack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return tuple(_restack([t[i] for t in trees])
+                     for i in range(len(first)))
+    return np.stack(trees)
+
+
+def _stack_to_reference(stack, cfg):
+    from repro_torch.models.transformer import stack_layout
+    _, pattern, reps, _ = stack_layout(cfg)
+    scanned = stack["scanned"]
+    if reps == 0:
+        scanned = ()
+    elif cfg.scan_layers:                      # one stacked tree a slot
+        scanned = tuple(_restack([rep[i] for rep in scanned])
+                        for i in range(len(pattern)))
+    else:                                      # a list of per-rep tuples
+        scanned = [tuple(rep) for rep in scanned]
+    return {"prefix": tuple(stack["prefix"]), "scanned": scanned,
+            "remainder": tuple(stack["remainder"])}
+
+
+def params_to_reference(tree, cfg) -> dict:
+    """A tree with the port's params structure (params, a gradient, an
+    optimizer moment; at a parameter's place also a dict of statistics) in
+    the reference's layout, as numpy (bf16 widened to f32): the inverse of
+    ``model_params_from_reference``."""
+    out = dict(_tree_to_numpy(tree))
+    if cfg.is_encdec:
+        from repro_torch.models.model import _dec_cfg, _enc_cfg
+        out["encoder"] = _stack_to_reference(out["encoder"], _enc_cfg(cfg))
+        out["decoder"] = _stack_to_reference(out["decoder"], _dec_cfg(cfg))
+        out["xattn"] = _restack(list(out["xattn"]))
+    else:
+        out["stack"] = _stack_to_reference(out["stack"], cfg)
+    return out
+
+
+def opt_state_from_reference(opt_state, params_like, device=None):
+    """The reference's ``OptState`` (``step``, ``inner``; leaves as
+    anything ``np.asarray`` takes) as the port's, laid out as the port's
+    params ``params_like``: adamw's ``m``/``v``, lion's ``m``, adafactor's
+    ``stats`` (factored ``r``/``c`` or ``v`` per parameter) and bf16
+    ``m``.  The reference's gradient trees have the params' structure and
+    convert with ``model_params_from_reference``."""
+    from repro_torch.optim import OptState
+    device = resolve_device(device)
+    inner = {name: _tree_to_torch(_to_port_layout(sub, params_like), device)
+             for name, sub in opt_state.inner.items()}
+    step = torch.as_tensor(np.array(opt_state.step), device=device)
+    return OptState(step=step.to(torch.int32), inner=inner)
+
+
+def opt_state_to_reference(opt_state, cfg):
+    """The port's ``OptState`` in the reference's layout, as numpy (a bf16
+    moment widened to f32): ``OptState(step, inner)``, which the
+    reference's ``OptState(*...)`` takes."""
+    from repro_torch.optim import OptState
+    return OptState(
+        step=opt_state.step.detach().cpu().numpy(),
+        inner={name: params_to_reference(sub, cfg)
+               for name, sub in opt_state.inner.items()})
+
+
+def _sequences(tree):
+    """A restored checkpoint tree with the reference's sequences back: a
+    dict whose keys are all indices is a tuple, and a NamedTuple's fields
+    (stored under ``.name``) are plain keys."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(k.isdigit() for k in tree):
+        return tuple(_sequences(tree[k]) for k in sorted(tree, key=int))
+    return {k.lstrip("."): _sequences(v) for k, v in tree.items()}
+
+
+def train_state_from_reference_checkpoint(directory: str, step: int,
+                                          params_like, device=None):
+    """(params, opt_state) of the train state the reference's trainer
+    committed (``{"params": params, "opt": OptState}``) at ``step`` in
+    ``directory``, in the port's layout on ``device``: the shared store is
+    read by the port's ``checkpoint.restore_tree``."""
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.optim import OptState
+    device = resolve_device(device)
+    tree = _sequences(restore_tree(os.fspath(directory), step))
+    params = _tree_to_torch(_to_port_layout(tree["params"], params_like),
+                            device)
+    opt = tree["opt"]
+    return params, opt_state_from_reference(
+        OptState(step=opt["step"], inner=opt["inner"]), params_like, device)

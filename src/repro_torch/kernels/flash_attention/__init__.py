@@ -1,1 +1,1 @@
-from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: F401
+from repro_torch.kernels.flash_attention import grad, kernel, ops, ref  # noqa: F401

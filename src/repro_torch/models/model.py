@@ -1,15 +1,15 @@
 """Top-level models (port of ``repro.models.model``): the decoder-only LM
 (the dense, MoE and MLA attention families, chameleon's early fusion, the
 recurrent families: xLSTM's mLSTM/sLSTM stacks, recurrentgemma's RG-LRU
-with local attention) and whisper's encoder-decoder.  Serving only: the
-loss and the MTP head's loss come with training (ROADMAP A11-rest.5).
+with local attention) and whisper's encoder-decoder.
 
-``build_model(cfg)`` -> ``Model`` with the serving entry points:
+``build_model(cfg)`` -> ``Model`` with the entry points:
 
   init(generator, device)                  -> params  (cfg.pdtype)
   prepare(params)                          -> params with matmul weights
                                               in cfg.cdtype, cast once
   forward(params, batch)                   -> (logits, aux)
+  loss(params, batch)                      -> (total, metrics)   train
   prefill(params, batch, max_len, *, landmark_draws, generator)
                                            -> (last_logits, cache)
   decode_step(params, cache, tokens, pos)  -> (logits, cache)
@@ -20,7 +20,15 @@ loss and the MTP head's loss come with training (ROADMAP A11-rest.5).
 replace the leading n_patch positions in ``forward`` and ``prefill``.
 ``forward``'s aux is the sum of the MoE blocks' load-balance losses (0 for
 a dense model).  A config with ``mtp`` gets the reference's ``"mtp"``
-sub-tree at ``init`` (so the trees match); serving never reads it.
+sub-tree at ``init`` (so the trees match); serving never reads it, the
+loss does (deepseek's multi-token prediction of token t + 2).
+
+``loss`` takes a batch with ``"labels"`` (B, S) beside the inputs: the
+mean cross-entropy over the labels ≥ 0 (f32 logsumexp), plus
+``MOE_AUX_WEIGHT`` · aux and ``MTP_WEIGHT`` · the MTP loss where the config
+has them; ``metrics`` has the reference's keys: ``ce``, ``aux`` (LM),
+``mtp`` (with ``cfg.mtp``) and ``loss``.  Training runs on the unprepared
+params (f32 weights cast per call, as the reference does).
 
 The encoder-decoder (``cfg.is_encdec``) takes ``"frames"`` (B, S_enc,
 frontend_dim), precomputed frame embeddings (the stubbed conv frontend),
@@ -65,12 +73,18 @@ MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embedding",
 ENCODE_RANGE = "encdec.encode"
 CROSS_RANGE = "encdec.cross"
 
+MOE_AUX_WEIGHT = 0.01
+MTP_WEIGHT = 0.3
+
+_F32 = torch.float32
+
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable
     prepare: Callable
     forward: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     cache_shape: Callable
@@ -157,12 +171,66 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     return x
 
 
-def _lm_forward(params: dict, batch: dict, *, cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions; f32 logsumexp; labels < 0 are masked."""
+    logits = logits.to(_F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[
+        ..., 0]
+    mask = (labels >= 0).to(_F32)
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _labels(batch: dict, device) -> torch.Tensor:
+    return torch.as_tensor(batch["labels"], dtype=torch.int64, device=device)
+
+
+def _lm_hidden(params: dict, cfg: ModelConfig, batch: dict):
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = T.stack_full(params["stack"], cfg, x, positions)
-    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _lm_forward(params: dict, batch: dict, *, cfg: ModelConfig):
+    h, aux = _lm_hidden(params, cfg, batch)
     return L.unembed(params["embed"], cfg, h), aux
+
+
+def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
+              h: torch.Tensor) -> torch.Tensor:
+    """deepseek MTP: predict t+2 from [norm(h_t); norm(emb(token_{t+1}))]."""
+    mp, device = params["mtp"], h.device
+    tok_next = torch.roll(_tokens(batch, device), -1, dims=1)
+    e = L.embed(params["embed"], cfg, tok_next)
+    z = torch.cat([L.rmsnorm(mp["norm_h"], h, cfg.norm_eps),
+                   L.rmsnorm(mp["norm_e"], e, cfg.norm_eps)], dim=-1)
+    z = z @ L.as_compute(mp["proj"], cfg.cdtype)
+    positions = torch.arange(z.shape[1], device=device)
+    z, _ = T.block_full(mp["block"], cfg, "attn", z, positions)
+    z = L.rmsnorm(mp["final_norm"], z, cfg.norm_eps)
+    labels2 = torch.roll(_labels(batch, device), -1, dims=1)
+    labels2[:, -2:] = -1                                     # no target
+    return softmax_xent(L.unembed(params["embed"], cfg, z), labels2)
+
+
+def _lm_loss(params: dict, batch: dict, *, cfg: ModelConfig):
+    h, aux = _lm_hidden(params, cfg, batch)
+    ce = softmax_xent(L.unembed(params["embed"], cfg, h),
+                      _labels(batch, h.device))
+    total = ce + MOE_AUX_WEIGHT * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mtp = _mtp_loss(params, cfg, batch, h)
+        total = total + MTP_WEIGHT * mtp
+        metrics["mtp"] = mtp
+    metrics["loss"] = total
+    return total, metrics
 
 
 def _lm_prefill(params: dict, batch: dict, max_len: int, *,
@@ -210,6 +278,28 @@ def _dec_cfg(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, n_layers=cfg.n_dec_layers,
                                layer_pattern=("attn",), first_k_dense=0,
                                scan_layers=True)
+
+
+def _scanned_slots(stack: dict, cfg: ModelConfig) -> list:
+    """Each pattern slot's blocks across the superblocks of ``stack``, when
+    the reference stacks them (``cfg.scan_layers``)."""
+    reps = stack["scanned"]
+    if not (cfg.scan_layers and reps):
+        return []
+    return [[rep[i] for rep in reps] for i in range(len(reps[0]))]
+
+
+def stacked_layers(params: dict, cfg: ModelConfig) -> list:
+    """The per-layer sub-trees of ``params`` that the reference holds
+    stacked on a leading layer axis, one list for each stacked tree: each
+    pattern slot's blocks across the superblocks under ``cfg.scan_layers``,
+    and an encoder-decoder's decoder blocks and cross-attentions always
+    (its ``init`` vmaps them).  ``optim.adafactor(stacks=...)`` reads it."""
+    if not cfg.is_encdec:
+        return _scanned_slots(params["stack"], cfg)
+    return (_scanned_slots(params["encoder"], _enc_cfg(cfg))
+            + _scanned_slots(params["decoder"], _dec_cfg(cfg))
+            + [params["xattn"]])
 
 
 def _init_encdec(generator: Optional[torch.Generator] = None, device=None,
@@ -274,14 +364,26 @@ def _dec_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
-def _encdec_forward(params: dict, batch: dict, *, cfg: ModelConfig):
+def _encdec_hidden(params: dict, cfg: ModelConfig, batch: dict
+                   ) -> torch.Tensor:
     enc_out = _encode(params, cfg, batch["frames"])
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
     positions = torch.arange(x.shape[1], device=x.device)
     x = _dec_stack(params, cfg, x, enc_out, positions)
-    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _encdec_forward(params: dict, batch: dict, *, cfg: ModelConfig):
+    h = _encdec_hidden(params, cfg, batch)
     return (L.unembed(params["embed"], cfg, h),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _encdec_loss(params: dict, batch: dict, *, cfg: ModelConfig):
+    h = _encdec_hidden(params, cfg, batch)
+    ce = softmax_xent(L.unembed(params["embed"], cfg, h),
+                      _labels(batch, h.device))
+    return ce, {"ce": ce, "loss": ce}
 
 
 def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
@@ -354,6 +456,7 @@ def build_model(cfg: ModelConfig) -> Model:
             init=functools.partial(_init_encdec, cfg=cfg),
             prepare=functools.partial(_prepare, cfg=cfg),
             forward=functools.partial(_encdec_forward, cfg=cfg),
+            loss=functools.partial(_encdec_loss, cfg=cfg),
             prefill=functools.partial(_encdec_prefill, cfg=cfg),
             decode_step=functools.partial(_encdec_decode, cfg=cfg),
             cache_shape=functools.partial(_encdec_cache, cfg),
@@ -363,6 +466,7 @@ def build_model(cfg: ModelConfig) -> Model:
         init=functools.partial(_init_lm, cfg=cfg),
         prepare=functools.partial(_prepare, cfg=cfg),
         forward=functools.partial(_lm_forward, cfg=cfg),
+        loss=functools.partial(_lm_loss, cfg=cfg),
         prefill=functools.partial(_lm_prefill, cfg=cfg),
         decode_step=functools.partial(_lm_decode, cfg=cfg),
         cache_shape=functools.partial(T.stack_cache, cfg),

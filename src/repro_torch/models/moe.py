@@ -14,6 +14,11 @@ Dispatch is the reference's static-shape, sort-based gather (no dense
      batched GEMM (``torch.bmm``), and combine each token's k outputs with
      its routing weights.
 
+Serving fills one buffer in place and reuses it for the experts' outputs.
+Under grad mode the dispatch is out of place (``index_copy`` into a new
+buffer, the outputs gathered from a fresh tensor), so no tensor autograd
+saved is written; the values are the same bits.
+
 The combine is deterministic: the reference scatter-adds the weighted
 outputs into (T, d) (``out.at[st].add``), which on the card would be an
 atomic ``index_add_`` whose float order changes from run to run.  Here the
@@ -108,6 +113,15 @@ def _assign(cfg: ModelConfig, idx: torch.Tensor, C: int):
     return ar // k, slot, keep
 
 
+def _tracks_grad(params: dict, xf: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether autograd records the dispatch: grad mode is on and its input,
+    its routing weights or an expert bank requires grad.  Only then must the
+    dispatch leave every tensor autograd saved unwritten."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xf, w, params["wi_gate"], params["wi_up"],
+                                  params["wo"]))
+
+
 def _dispatch_compute(params: dict, cfg: ModelConfig, xf: torch.Tensor,
                       w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Sort-based capacity dispatch.  xf: (T, d) -> (T, d) in the compute
@@ -117,16 +131,26 @@ def _dispatch_compute(params: dict, cfg: ModelConfig, xf: torch.Tensor,
     dt = cfg.cdtype
     C = capacity(cfg, T)
     tok, slot, keep = _assign(cfg, idx, C)
-    buf = torch.empty((E * C + 1, d), dtype=dt, device=xf.device)
-    buf[:E * C] = 0
-    buf[slot] = xf[tok].to(dt)           # every drop lands in row E·C
+    # every drop lands in row E·C, which no expert reads
+    train = _tracks_grad(params, xf, w)
+    if train:
+        buf = torch.zeros((E * C + 1, d), dtype=dt,
+                          device=xf.device).index_copy(0, slot,
+                                                       xf[tok].to(dt))
+    else:
+        buf = torch.empty((E * C + 1, d), dtype=dt, device=xf.device)
+        buf[:E * C] = 0
+        buf[slot] = xf[tok].to(dt)
     eb = buf[:E * C].view(E, C, d)                             # (E, C, d)
     gate = F.silu(torch.bmm(eb, as_compute(params["wi_gate"], dt)))
     up = torch.bmm(eb, as_compute(params["wi_up"], dt))
     ob = torch.bmm(gate * up, as_compute(params["wo"], dt))   # (E, C, d)
     del eb, gate, up
-    buf[:E * C] = ob.view(E * C, d)
-    buf[E * C] = 0                         # a dropped assignment adds 0
+    if train:
+        buf = torch.cat([ob.view(E * C, d), ob.new_zeros((1, d))])
+    else:                                  # serving reuses the buffer
+        buf[:E * C] = ob.view(E * C, d)
+        buf[E * C] = 0                     # a dropped assignment adds 0
     del ob
     wk = (w.reshape(-1) * keep.to(_F32)).to(dt)
     vals = (buf[slot] * wk[:, None]).view(T, k, d)

@@ -26,9 +26,11 @@ reference's per-token decode scan over the prompt is kept as
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -263,14 +265,33 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def _remat(cfg: ModelConfig, fn, x: torch.Tensor):
+    """``fn`` under ``cfg.remat`` when the stack's input ``x`` carries a
+    gradient (training): ``"full"`` (the reference's default) recomputes
+    the block in the backward and saves only its input, ``"none"`` saves
+    every activation.  The reference remats each pattern period; a block
+    at a time computes the same function.  Its XLA save policies
+    ``"dots"`` and ``"save_io"`` are not ported.  Serving gets ``fn``."""
+    if not (torch.is_grad_enabled() and x.requires_grad) \
+            or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise NotImplementedError(
+        f"remat={cfg.remat!r} is an XLA save policy the port does not have "
+        f"yet (ROADMAP A, 'remat policies'); use 'full' or 'none'")
+
+
 def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, the sum of the blocks' aux losses)."""
+    """Returns (x, the sum of the blocks' aux losses).  In training each
+    block is rematerialized as ``cfg.remat`` says (``_remat``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(cfg, block_full, x)
     for section, r, i, kind in layer_slots(cfg):
-        x, a = block_full(_entry(params, section, r, i), cfg, kind, x,
-                          positions, causal)
+        x, a = block(_entry(params, section, r, i), cfg, kind, x, positions,
+                     causal)
         aux = aux + a
     return x, aux
 

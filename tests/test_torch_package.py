@@ -66,7 +66,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
               "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
               "repro_torch.serve", "repro_torch.serve.artifact",
               "repro_torch.serve.engine", "repro_torch.serve.incremental",
-              "repro_torch.launch.serve_kernel"):
+              "repro_torch.launch.serve_kernel", "repro_torch.data",
+              "repro_torch.data.pipeline", "repro_torch.optim",
+              "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+              "repro_torch.optim.compress", "repro_torch.launch.steps",
+              "repro_torch.launch.train",
+              "repro_torch.kernels.flash_attention.grad"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
