@@ -215,7 +215,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``attention_vjp``'s f32 backward) against torch autograd of the plain
    version at gemma3-12b's global and local train shapes (B 1, Hq 16, Hkv
    8, S 4,096, D 256; window 1,024), MLA's (Hq 16, S 2,048, D 192 / Dv
-   128) and whisper's encoder (Hq 20, S 1,500, D 64, non-causal), bf16
+   128), whisper's encoder (Hq 20, S 1,500, D 64, non-causal) and
+   recurrentgemma-2b's local layer (MQA: Hq 10, Hkv 1, S 4,096, D 256,
+   window 2,048), bf16
    (≤ 5e-2) and f32 (≤ 1e-4), one forward launch on the dtype's route;
    the forward kernel, ``attention_vjp``, the plain forward + backward
    and SDPA's forward and backward timed.  train_gemma3: gemma3-12b at
@@ -227,14 +229,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    finite and nonzero on step 1; the losses finite; step ms (median of
    steps 2-4), tokens/s, MFU, peak memory, one more step's device time by
    class (B6, ``attention_vjp`` and the optimizer by their profiler
-   ranges).  train_moe: qwen2-moe-a2.7b at full width, 2 layers, 3 steps
-   of 1 × 4,096 tokens: ``aux`` in the metrics, the router's and experts'
-   gradients finite and nonzero.  train_parity: gemma3-12b's and
-   deepseek-v3's SMOKE configs in f32, the card (B6's f32 kernel) against
-   the CPU (the plain version): the loss ≤ 1e-5, every gradient ≤ 1e-4,
-   3 train steps' losses ≤ 1e-4;
+   ranges); then one step of the same model under each remat policy
+   (``full``, ``none``, ``dots``, ``save_io``): step ms, peak
+   memory, B6 launches.  train_moe: qwen2-moe-a2.7b at full width, 2
+   layers, 3 steps of 1 × 4,096 tokens: ``aux`` in the metrics, the
+   router's and experts' gradients finite and nonzero.  train_recurrent:
+   recurrentgemma-2b at full width and depth (26 layers), 4 steps of 2 ×
+   4,096 tokens at accum 2 (32 tensor-core B6 launches a step: 8 local
+   layers, forward and recompute), and xlstm-125m at full width and
+   depth, 3 steps of 2 × 2,048 tokens (cut from 4,096: host-bound on the
+   sLSTM loop, plain under grad; its profiled step at 256 tokens; no B6),
+   with train_gemma3's checks and numbers, the recurrences' device ms by
+   their profiler ranges.  train_parity: gemma3-12b's and
+   deepseek-v3's SMOKE configs at 64 tokens, recurrentgemma-2b's and
+   xlstm-125m's at 128 (2 × ``SLSTM_GRAPH_STEPS``), in f32, the card (B6's
+   f32 kernel) against the CPU (the plain version): the loss ≤ 1e-5,
+   every gradient ≤ 1e-4, 3 train steps' losses ≤ 1e-4, no sLSTM loop
+   replayed from a CUDA graph;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the sixteen paths (every count reset just before
+   own path and on each of the seventeen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -512,7 +525,9 @@ TRAIN_GRAD_SHAPES = (("gemma3 global", 1, 16, 8, 4096, 256, 256, True, None),
                      ("gemma3 local", 1, 16, 8, 4096, 256, 256, True, 1024),
                      ("mla", 1, 16, 16, 2048, 192, 128, True, None),
                      ("whisper encoder", 1, 20, 20, 1500, 64, 64, False,
-                      None))
+                      None),
+                     ("recurrentgemma local", 1, 10, 1, 4096, 256, 256, True,
+                      2048))
 TOL_GRAD_F32 = 1e-4     # dq, dk, dv vs the plain version's autograd, f32
 TOL_GRAD_BF16 = 5e-2    # the same in bf16 (bf16 P in the kernel's PV)
 # the train path: gemma3-12b at full width (d_model 3,840, 16/8 heads x
@@ -525,7 +540,25 @@ TRAIN_STEPS, TRAIN_PEAK_LR, TRAIN_WARMUP = 4, 3e-4, 1
 # qwen2-moe-a2.7b at full width (60 routed experts top-4 + 4 shared, d_ff
 # 1,408), 2 layers, 4,096 tokens, batch 1, 3 steps
 TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 2, 3
+# the recurrent families (seeded weights, adamw, peak lr 3e-4 after 1
+# warm-up step, SyntheticLM(seed=0)): recurrentgemma-2b at full width and
+# depth (26 layers, (rglru, rglru, local) x 8 + 2), 2 x 4,096 tokens at
+# accum 2, 4 steps; xlstm-125m at full width and depth (12 layers of
+# mLSTM, sLSTM), 2 x 2,048 tokens (a step at 4,096 took 63.2 s on the
+# card, host-bound on the sLSTM loop), accum 1, 3 steps, its profiled
+# step at 256 tokens (the profiler's cost grows with the launches, ~80 a
+# token a sLSTM layer: a profiled 4,096-token step took ~23 min)
+RG_TRAIN_BATCH, RG_TRAIN_ACCUM, RG_TRAIN_STEPS = 2, 2, 4
+XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_TRAIN_STEPS = 2, 2048, 3
+XL_PROFILE_SEQ = 256
+# the remat policies timed on train_gemma3's model, one step each after
+# one warm-up step
+REMAT_POLICIES = ("full", "none", "dots", "save_io")
 # card against CPU: the loss and every gradient of a SMOKE-width model
+# (the recurrent ones at 2 x SLSTM_GRAPH_STEPS tokens, where serving would
+# replay the sLSTM loop from CUDA graphs)
+PARITY_ARCHS = (("gemma3-12b", 64), ("deepseek-v3-671b", 64),
+                ("recurrentgemma-2b", 128), ("xlstm-125m", 128))
 TOL_TRAIN_LOSS = 1e-5   # relative
 TOL_TRAIN_GRAD = 1e-4   # scale-normalized, each leaf
 TOL_TRAIN_STEPS = 1e-4  # 3 train steps' losses, relative
@@ -4251,31 +4284,37 @@ def _grad_check(opt, pick):
     return dataclasses.replace(opt, update=update), seen
 
 
-def _train_flops(cfg, params, tokens: int) -> dict:
+def _train_flops(cfg, params, tokens: int, S: int) -> dict:
     """The step's model FLOPs: 6 x the matmul parameters (every leaf of
     two or more dims; the tied embedding counts once, as the unembedding)
     x tokens, plus 12 x tokens x visible keys x heads x head_dim summed
-    over the attention layers; remat's recompute is not counted."""
+    over the attention layers (of S tokens a row); remat's recompute and
+    the recurrences' elementwise work are not counted."""
     mm = sum(t.numel() for t in topt.optimizers.tree_leaves(params)
              if t.ndim >= 2)
-    S = TRAIN_SEQ
     attn = sum(12.0 * tokens * _visible_pairs(S, True, cfg.window if kind
                                               == "local" else None) / S
                * cfg.n_heads * cfg.head_dim
-               for *_, kind in ttransformer.layer_slots(cfg))
+               for *_, kind in ttransformer.layer_slots(cfg)
+               if kind in ttransformer.ATTN_KINDS)
     return {"matmul_params": mm, "flops_matmul": 6.0 * mm * tokens,
             "flops_attention": attn, "flops": 6.0 * mm * tokens + attn}
 
 
 def _train_run(tag: str, cfg, B: int, accum: int, steps: int, seed: int,
-               pick, b6_per_step: int, profile: bool) -> dict:
+               pick, b6_per_step: int, profile: bool, S: int = 0,
+               profile_seq: int = 0, after=None) -> dict:
     """``steps`` steps of ``make_train_step`` from a seeded init on the
-    card, SyntheticLM(seed=0) batches of TRAIN_SEQ tokens: every count
-    reset just before and read just after; each step timed (host clock,
+    card, SyntheticLM(seed=0) batches of S tokens: every count reset just
+    before and read just after; each step timed (host clock,
     synchronized); B6 ``b6_per_step`` times a step, all on the tensor-core
     kernel, and nothing else; the picked gradient leaves finite and
     nonzero on step 1; the losses finite.  Then, outside the counted run,
-    one more step's device time by class."""
+    one more step's device time by class, and ``after(model, params,
+    opt_state, pipe)`` (its result as ``res["after"]``) before the
+    params go.  S = 0 takes TRAIN_SEQ; the profiled step runs at
+    ``profile_seq`` tokens a row (0: S)."""
+    S = S or TRAIN_SEQ
     t0 = time.perf_counter()
     model = tmodel.build_model(cfg)
     params = model.init(gen(seed), DEV)
@@ -4288,15 +4327,15 @@ def _train_run(tag: str, cfg, B: int, accum: int, steps: int, seed: int,
     step_fn = tsteps.make_train_step(model, checked, peak_lr=TRAIN_PEAK_LR,
                                      warmup=TRAIN_WARMUP, total=steps,
                                      accum=accum)
-    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
                        global_batch=B, seed=0)
     log(f"{tag}: {cfg.name} with {cfg.n_layers} layers {cfg.layer_pattern}, "
         f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
         f"{cfg.head_dim}, d_ff {cfg.d_ff or cfg.moe_d_ff}, vocab "
         f"{cfg.vocab_size}, {n_params:,} params in {cfg.param_dtype} "
         f"(compute {cfg.dtype}; init {init_s:.1f} s), optimizer {opt.name};"
-        f" global batch {B} x {TRAIN_SEQ} tokens, accum {accum}, {steps} "
-        f"steps")
+        f" global batch {B} x {S} tokens, accum {accum}, {steps} steps, "
+        f"remat {cfg.remat}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -4327,7 +4366,7 @@ def _train_run(tag: str, cfg, B: int, accum: int, steps: int, seed: int,
     check(all(np.isfinite(list(m.values())).all() for m in metrics),
           f"{tag}: a metric was not finite: {metrics}")
     med = float(np.median(step_ms[1:]))
-    tokens = B * TRAIN_SEQ
+    tokens = B * S
     res = {"step_ms": step_ms, "step_ms_median_2_on": med,
            "tokens_per_step": tokens, "tokens_per_s": tokens / (med / 1e3),
            "peak_gb": peak_gb, "launches": launches, "b6_per_step": b6[0],
@@ -4342,19 +4381,26 @@ def _train_run(tag: str, cfg, B: int, accum: int, steps: int, seed: int,
     log(f"{tag} metrics by step: " + json.dumps(
         [{k: round(v, 5) for k, v in m.items()} for m in metrics]))
     if profile:
+        prof_pipe = SyntheticLM(vocab_size=cfg.vocab_size,
+                                seq_len=profile_seq or S, global_batch=B,
+                                seed=0)
         p = _device_profile(lambda: step_fn(params, opt_state,
-                                            pipe.batch_at(steps)))
+                                            prof_pipe.batch_at(steps)))
+        p["seq_len"] = profile_seq or S
         res["profile"] = p
         if "error" in p:
             log(f"{tag} step profile: not measured ({p['error']})")
         else:
-            log(f"{tag} step profile: device busy {p['busy_ms']:.1f} ms of "
+            log(f"{tag} step profile ({B} x {p['seq_len']} tokens): device "
+                f"busy {p['busy_ms']:.1f} ms of "
                 f"{p['wall_ms']:.1f} ms unprofiled wall (idle share "
                 f"{p['idle_share']:.1%}); by class " + json.dumps(
                     {k: round(v, 2) for k, v in p["by_class_ms"].items()}))
             for t in p["top"]:
                 log(f"    {t['ms']:9.2f} ms  x{t['count']:<5d} {t['kernel']}")
-    res["flops"] = _train_flops(cfg, params, tokens)
+    res["flops"] = _train_flops(cfg, params, tokens, S)
+    if after is not None:
+        res["after"] = after(model, params, opt_state, pipe)
     del params, opt_state, step_fn, checked, mets
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4370,7 +4416,9 @@ def phase_train_gemma3() -> dict:
     cfg = train_config()
     per_step = TRAIN_ACCUM * 2 * cfg.n_layers    # forward + recompute
     res = _train_run("train_gemma3", cfg, TRAIN_BATCH, TRAIN_ACCUM,
-                     TRAIN_STEPS, 60, lambda g: g, per_step, profile=True)
+                     TRAIN_STEPS, 60, lambda g: g, per_step, profile=True,
+                     after=_remat_steps)
+    res["remat"] = res.pop("after")
     f = res["flops"]
     res["mfu"] = f["flops"] / (res["step_ms_median_2_on"] / 1e3) \
         / PEAK_BF16_TC_FLOPS
@@ -4386,6 +4434,46 @@ def phase_train_gemma3() -> dict:
         f"{PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s); reduced "
         + json.dumps(res["reduced"]))
     return res
+
+
+def _remat_steps(model, params, opt_state, pipe) -> dict:
+    """One step of the same model, params and optimizer state under each
+    of ``REMAT_POLICIES``, after one warm-up step of the policy: its step
+    ms, peak memory, and B6 launches (a layer and microbatch: 1 under
+    "none", 2 under the others, whose backward recomputes the forward).
+    Every policy must run ("none", which keeps every activation, peaked
+    at 72.4 GB on the card)."""
+    cfg = model.cfg
+    out = {}
+    for policy in REMAT_POLICIES:
+        m = tmodel.build_model(dataclasses.replace(cfg, remat=policy))
+        step = tsteps.make_train_step(m, tsteps.default_optimizer(cfg),
+                                      peak_lr=TRAIN_PEAK_LR,
+                                      warmup=TRAIN_WARMUP, total=10 ** 6,
+                                      accum=TRAIN_ACCUM)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, met = step(params, opt_state, pipe.batch_at(100))
+        c0 = fa_kernel.launch_counts()
+        ms, (params, opt_state, met) = cuda_ms(
+            lambda: step(params, opt_state, pipe.batch_at(101)))
+        b6 = {k: n - c0[k] for k, n in fa_kernel.launch_counts().items()}
+        layers = TRAIN_ACCUM * cfg.n_layers
+        want = layers * (1 if policy == "none" else 2)
+        check(b6 == {"flash_attention": want, "flash_attention_tc": want},
+              f"remat {policy}: B6 launches {b6}, expected {want}")
+        loss = float(met["loss"])
+        check(np.isfinite(loss), f"remat {policy}: loss {loss}")
+        out[policy] = {"step_ms": ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "b6_per_step": want, "loss": loss}
+        log(f"train_gemma3 remat {policy}: one step {ms:.1f} ms, peak "
+            f"{out[policy]['peak_gb']:.2f} GB, B6 {want} a step, loss "
+            f"{loss:.5f}")
+        del m, step
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_moe() -> dict:
@@ -4407,6 +4495,61 @@ def phase_train_moe() -> dict:
     return res
 
 
+def phase_train_recurrent() -> dict:
+    """The recurrent families train on the card.  recurrentgemma-2b at
+    full width and depth (2,894,435,840 f32 params, bf16 compute, the
+    tied 256,000 vocab), 2 x 4,096 tokens at accum 2, 4 steps: B6 is the
+    forward of its 8 local layers (MQA, window 2,048), twice a layer a
+    microbatch (forward and remat's recompute), 32 tensor-core launches
+    a step.  xlstm-125m at full width and depth, 2 x XL_TRAIN_SEQ tokens,
+    3 steps (profiled at XL_PROFILE_SEQ), no B6: the sLSTM loop runs
+    plainly under grad (no CUDA graph).  Each: every parameter's gradient
+    finite and nonzero on step 1, finite losses, step ms, tokens/s, MFU,
+    peak memory, one step's device time by class (the RG-LRU / mLSTM
+    recurrences and the sLSTM loop by their profiler ranges: forward and
+    recompute)."""
+    out = {}
+    rg = tconfigs.get_config("recurrentgemma-2b")
+    n_local = sum(kind == "local" for *_, kind in
+                  ttransformer.layer_slots(rg))
+    runs = (("recurrentgemma-2b", rg, RG_TRAIN_BATCH, RG_TRAIN_ACCUM,
+             RG_TRAIN_STEPS, TRAIN_SEQ, 0, RG_TRAIN_ACCUM * 2 * n_local),
+            ("xlstm-125m", tconfigs.get_config("xlstm-125m"),
+             XL_TRAIN_BATCH, 1, XL_TRAIN_STEPS, XL_TRAIN_SEQ, XL_PROFILE_SEQ,
+             0))
+    for name, cfg, B, accum, steps, S, prof_S, b6 in runs:
+        res = _train_run(f"train_recurrent {name}", cfg, B, accum, steps,
+                         80, lambda g: g, b6, profile=True, S=S,
+                         profile_seq=prof_S)
+        f = res["flops"]
+        res["mfu"] = f["flops"] / (res["step_ms_median_2_on"] / 1e3) \
+            / PEAK_BF16_TC_FLOPS
+        res["reduced"] = {"global_batch": f"{B} of train_4k's 256 (accum "
+                                          f"{accum})",
+                          "steps": steps, "weights": "seeded random"}
+        if S != TRAIN_SEQ:
+            res["reduced"]["seq_len"] = (
+                f"{S} of train_4k's {TRAIN_SEQ} (a {TRAIN_SEQ}-token step "
+                f"took over 60 s, host-bound on the sLSTM loop)")
+        if prof_S:
+            res["reduced"]["profiled_step"] = f"{B} x {prof_S} tokens"
+        by_class = res["profile"].get("by_class_ms", {})
+        res["recurrence_ms"] = {rng: by_class.get(cls) for rng, cls in
+                                REC_CLASSES.items()}
+        log(f"train_recurrent {name}: MFU {res['mfu']:.2%} "
+            f"({f['flops'] / 1e12:.2f} TFLOP a step: 6 x "
+            f"{f['matmul_params']:,} matmul params x "
+            f"{res['tokens_per_step']} tokens + attention "
+            f"{f['flops_attention'] / 1e12:.3f}); profiler ranges "
+            + json.dumps({k: None if v is None else round(v, 2)
+                          for k, v in res["recurrence_ms"].items()})
+            + "; reduced " + json.dumps(res["reduced"]))
+        out[name] = res
+    out["launches"] = {k: sum(out[n]["launches"][k] for n, *_ in runs)
+                       for k in no_launches()}
+    return out
+
+
 def _loss_and_grads(model, params, batch):
     leaves = topt.optimizers.tree_leaves(params)
     for p in leaves:
@@ -4416,24 +4559,35 @@ def _loss_and_grads(model, params, batch):
     return float(loss.detach()), grads
 
 
-def _parity_one(arch: str) -> dict:
+def _parity_one(arch: str, S: int) -> dict:
     """One SMOKE model in f32 from the same weights on the CPU (B6's plain
     version, ``attention_vjp``) and on the card (B6's f32 kernel,
-    ``attention_vjp``): the loss and every gradient leaf, then 3 train
-    steps' losses."""
+    ``attention_vjp``), S tokens a row: the loss and every gradient leaf,
+    then 3 train steps' losses; no sLSTM loop replayed from a CUDA graph
+    (a replay records no autograd graph)."""
     cfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype="float32")
     model = tmodel.build_model(cfg)
     init = model.init(torch.Generator().manual_seed(70), "cpu")
-    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64,
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
                         global_batch=2, seed=1).batch_at(0)
 
     def on(device):
         return topt.optimizers.tree_map(
             lambda t: t.detach().clone().to(device), init)
 
-    c0 = fa_kernel.launch_counts()
-    card_loss, card_g = _loss_and_grads(model, on(DEV), batch)
-    c1 = fa_kernel.launch_counts()
+    graphed, replays = trec._slstm_graphed, []
+
+    def spy(*args, **kwargs):
+        replays.append(1)
+        return graphed(*args, **kwargs)
+
+    trec._slstm_graphed = spy
+    try:
+        c0 = fa_kernel.launch_counts()
+        card_loss, card_g = _loss_and_grads(model, on(DEV), batch)
+        c1 = fa_kernel.launch_counts()
+    finally:
+        trec._slstm_graphed = graphed
     cpu_loss, cpu_g = _loss_and_grads(model, on("cpu"), batch)
     # twice a stack layer (forward, remat's recompute), once for MTP's block
     n_b6 = 2 * sum(kind in ttransformer.ATTN_KINDS for *_, kind in
@@ -4455,36 +4609,40 @@ def _parity_one(arch: str) -> dict:
         state = opt.init(params)
         step = tsteps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
                                       total=3)
-        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64,
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
                            global_batch=2, seed=2)
         out = []
         for s in range(3):
             params, state, met = step(params, state, pipe.batch_at(s))
             out.append(float(met["loss"]))
         losses[device] = out
+    check(not replays, f"train_parity {arch}: the sLSTM loop was replayed "
+          f"from a CUDA graph under grad ({len(replays)} times)")
     step_err = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
                                                          losses["cpu"]))
     check(step_err <= TOL_TRAIN_STEPS, f"train_parity {arch}: step losses "
           f"{losses[DEV]} on the card, {losses['cpu']} on the CPU")
-    log(f"train_parity {arch} (SMOKE, f32, {len(card_g)} leaves): loss "
+    log(f"train_parity {arch} (SMOKE, f32, {S} tokens, {len(card_g)} "
+        f"leaves): loss "
         f"{card_loss:.6f} vs {cpu_loss:.6f} on the CPU ({loss_err:.3g}, "
         f"limit {TOL_TRAIN_LOSS}); gradients max {grad_err:.3g} (limit "
         f"{TOL_TRAIN_GRAD}); 3 steps' losses {losses[DEV]} vs "
         f"{losses['cpu']} ({step_err:.3g}, limit {TOL_TRAIN_STEPS})")
     return {"loss_err": loss_err, "grad_err": grad_err, "step_err": step_err,
-            "leaves": len(card_g)}
+            "leaves": len(card_g), "seq_len": S, "b6": n_b6}
 
 
 def phase_train_parity() -> dict:
-    """Card against CPU: gemma3-12b's SMOKE (6 layers, local + global) and
-    deepseek-v3's (MLA + MoE + MTP)."""
-    return {arch: _parity_one(arch) for arch in ("gemma3-12b",
-                                                 "deepseek-v3-671b")}
+    """Card against CPU: gemma3-12b's SMOKE (6 layers, local + global),
+    deepseek-v3's (MLA + MoE + MTP), recurrentgemma-2b's (RG-LRU + local
+    attention) and xlstm-125m's (mLSTM + sLSTM)."""
+    return {arch: _parity_one(arch, S) for arch, S in PARITY_ARCHS}
 
 
-def _train_line(grad: dict, g3: dict, moe: dict, par: dict) -> dict:
+def _train_line(grad: dict, g3: dict, moe: dict, rec: dict,
+                par: dict) -> dict:
     """B6's ``train`` entry: the gradient check, attention_vjp beside
-    SDPA's backward, the train paths' numbers."""
+    SDPA's backward, the train paths' numbers, the remat policies."""
     keep = ("step_ms", "step_ms_median_2_on", "tokens_per_s", "peak_gb",
             "b6_per_step", "params", "optimizer", "grad_check", "losses")
     return {
@@ -4501,7 +4659,15 @@ def _train_line(grad: dict, g3: dict, moe: dict, par: dict) -> dict:
                          "device_ms_by_class": g3["profile"].get(
                              "by_class_ms"),
                          "idle_share": g3["profile"].get("idle_share")},
+        "remat": g3["remat"],
         "train_moe": {**{k: moe[k] for k in keep}, "aux": moe["aux"]},
+        "train_recurrent": {
+            name: {**{k: r[k] for k in keep}, "mfu": r["mfu"],
+                   "flops": r["flops"], "reduced": r["reduced"],
+                   "recurrence_ms": r["recurrence_ms"],
+                   "device_ms_by_class": r["profile"].get("by_class_ms"),
+                   "idle_share": r["profile"].get("idle_share")}
+            for name, r in rec.items() if name != "launches"},
         "train_parity": par}
 
 
@@ -4537,6 +4703,7 @@ def main() -> int:
     tgrad = phase_train_grad()
     tg3 = phase_train_gemma3()
     tmoe = phase_train_moe()
+    trecur = phase_train_recurrent()
     tpar = phase_train_parity()
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
@@ -4549,7 +4716,8 @@ def main() -> int:
              "serve_whisper": wh["launches"],
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
              "calibrate": cal["launches"], "contracts": con["launches"],
-             "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"]}
+             "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"],
+             "train_recurrent": trecur["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -4619,7 +4787,7 @@ def main() -> int:
                       "idle_share")}
            for name, r in wh["runs"].items()},
         "params": wh["params"], "numerics": wh["numerics"]}
-    b6["train"] = _train_line(tgrad, tg3, tmoe, tpar)
+    b6["train"] = _train_line(tgrad, tg3, tmoe, trecur, tpar)
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
                           dense["b6_shape"], rec["b6_shape"],
                           *wh["b6_shapes"]]

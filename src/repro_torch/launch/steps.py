@@ -18,10 +18,11 @@ were given, so serving them afterwards records no autograd graph.  ``metrics`` h
 nothing back to the host.  The update runs inside the profiler range
 ``OPT_RANGE``.
 
-Only the attention families train: a recurrent config (a layer pattern
-with ``mlstm``, ``slstm`` or ``rglru``) raises, as its mixers write in
-place (ROADMAP A11-rest.6).  ``build_cell`` and the optimizer-state
-shardings wait for the model-stack sharding (ROADMAP A10-rest).
+Every family trains: the recurrent mixers differentiate through the
+RG-LRU scan's ``LinearScan`` (its adjoint scan as the backward) and the
+sLSTM loop's out-of-place form (``models.recurrent``).  ``build_cell``
+and the optimizer-state shardings wait for the model-stack sharding
+(ROADMAP A10-rest).
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.model import Model, stacked_layers
-from repro_torch.models.transformer import REC_KINDS
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
@@ -51,14 +51,6 @@ def default_optimizer(cfg: ModelConfig):
     return make_optimizer("adamw")
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    rec = sorted(set(cfg.layer_pattern) & set(REC_KINDS))
-    if rec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent mixers {rec} is not ported "
-            f"yet (ROADMAP A11-rest.6: their full passes write in place)")
-
-
 def _microbatch(batch: dict, accum: int, i: int) -> dict:
     if accum == 1:
         return batch
@@ -70,8 +62,6 @@ def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
                     warmup: int = 100, total: int = 10_000, accum: int = 1):
     """One optimizer step; ``accum`` > 1 splits the global batch into
     sequential microbatches (activation memory / accum)."""
-    _check_trainable(model.cfg)
-
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         device = leaves[0].device

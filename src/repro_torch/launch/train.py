@@ -8,8 +8,8 @@ Wires the layers together: config -> model -> data pipeline -> train step
 fault-tolerance hooks (preemption -> save-and-exit; the data state is the
 step, so a restart sees the same batches).  The model runs on the CUDA
 device unless ``--device`` names another one (``cpu`` runs every kernel's
-plain version).  ``--arch`` takes the attention families of the port's
-registry (the recurrent ones raise, ROADMAP A11-rest.6).  One device only:
+plain version).  ``--arch`` takes every arch of the port's registry, the
+recurrent ``recurrentgemma-2b`` and ``xlstm-125m`` too.  One device only:
 ``--mesh`` takes ``1x1`` (the model-stack sharding is ROADMAP A10-rest).
 
 A checkpoint holds ``{"params", "opt": {"step", "inner"}}``; a run with

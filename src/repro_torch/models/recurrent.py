@@ -41,6 +41,13 @@ The recurrences on the card:
   graph, and replayed block after block (the same kernels on the same
   values); a fused scan kernel is later work.
 
+Training: when autograd records a call (grad mode on and the input or a
+weight requires grad), the RG-LRU scan goes through ``LinearScan`` (the
+doubling scan forward, its adjoint scan backward) and the sLSTM loop runs
+out of place and never from a CUDA graph (``_slstm_loop_grad``); the
+mLSTM's chunk loop differentiates as it is.  Serving, grad mode on or
+off, keeps the in-place forms and their bits.
+
 The reference has no Pallas kernel for any of this; these are torch ops.
 The recurrences run inside ``torch.profiler.record_function`` ranges
 (``SCAN_RANGE``, ``SLSTM_RANGE``) so a profile can class their kernels.
@@ -127,13 +134,15 @@ def _rglru_gates(params: dict, cfg: ModelConfig, u: torch.Tensor):
     return log_a, b
 
 
-def linear_scan(log_a: torch.Tensor, b: torch.Tensor,
-                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _doubling_scan(log_a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = exp(log_a_t)·h_{t−1} + b_t along axis 1, from h0 (zeros when
     None): a doubling scan, ceil(log2 S) levels of whole-tensor ops.  At
     offset d every position t ≥ d folds in (A, h) at t − d, where A is the
     sum of log_a over the positions h covers; after the last level A is the
-    inclusive prefix sum, so h0 enters as exp(A_t)·h0."""
+    inclusive prefix sum, so h0 enters as exp(A_t)·h0.  It writes its two
+    working tensors in place, so autograd cannot record it: ``LinearScan``
+    gives it a gradient."""
     A, h = log_a.clone(), b.clone()
     S = h.shape[1]
     d = 1
@@ -144,6 +153,56 @@ def linear_scan(log_a: torch.Tensor, b: torch.Tensor,
     if h0 is not None:
         h = torch.addcmul(h, torch.exp(A), h0[:, None])
     return h
+
+
+class LinearScan(torch.autograd.Function):
+    """The doubling scan with its adjoint as the backward.  With
+    g_t = ∂L/∂(h_t) through the whole recurrence,
+
+        g_t = dh_t + a_{t+1}·g_{t+1}      (a linear scan over reversed t)
+        ∂L/∂b_t = g_t,   ∂L/∂log_a_t = g_t·a_t·h_{t−1},   ∂L/∂h0 = a_0·g_0
+
+    (h_{−1} = h0, or 0).  The backward runs that reversed recurrence
+    through ``_doubling_scan`` too.  It saves log_a, h and h0: O(S·w),
+    where autograd of an out-of-place doubling scan keeps every level."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        h = _doubling_scan(log_a, b, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        log_a, h, h0 = ctx.saved_tensors
+        # reversed time: step k folds in a_{S−k}, so
+        # log a' = (0, log_a_{S−1}, …, log_a_1)
+        rev_log_a = F.pad(torch.flip(log_a[:, 1:], (1,)), (0, 0, 1, 0))
+        g = torch.flip(_doubling_scan(rev_log_a, torch.flip(dh, (1,))), (1,))
+        del rev_log_a
+        a = torch.exp(log_a)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]) if h0 is None
+                            else h0[:, None], h[:, :-1]], dim=1)
+        d_log_a = g * a * h_prev
+        d_h0 = a[:, 0] * g[:, 0] if h0 is not None else None
+        return d_log_a, g, d_h0
+
+
+def _records(x: torch.Tensor, *tensors) -> bool:
+    """Whether autograd records a call on ``x`` and ``tensors`` (weights,
+    None skipped): grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x,) + tensors)
+
+
+def linear_scan(log_a: torch.Tensor, b: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = exp(log_a_t)·h_{t−1} + b_t along axis 1, from h0 (zeros when
+    None): ``_doubling_scan``, through ``LinearScan`` when autograd records
+    the call; otherwise (serving) the scan alone, the same bits."""
+    if _records(log_a, b, h0):
+        return LinearScan.apply(log_a, b, h0)
+    return _doubling_scan(log_a, b, h0)
 
 
 def rglru_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
@@ -360,7 +419,8 @@ def _slstm_step(x_proj: torch.Tensor, r: torch.Tensor, bf: torch.Tensor,
     """One timestep.  x_proj (H, B, 4·hd): the input projections of the
     gates z, i, f, o side by side, f32; state (c, n, h, m) each (H, B, hd).
     The four recurrent products are one ``baddbmm`` onto x_proj.  Returns
-    the new state, its h written to ``out`` when given."""
+    the new state, its h written to ``out`` when given (serving only:
+    autograd takes no ``out=``)."""
     c, n, h, m = state
     hd = r.shape[1]
     pre = torch.baddbmm(x_proj, h, r)                         # (H, B, 4·hd)
@@ -384,6 +444,20 @@ def _slstm_loop(proj: torch.Tensor, r: torch.Tensor, bf: torch.Tensor,
     for t in range(t0, t1):
         state = _slstm_step(proj[t], r, bf, state, out=hs[t])
     return state
+
+
+def _slstm_loop_grad(proj: torch.Tensor, r: torch.Tensor, bf: torch.Tensor,
+                     state: tuple) -> tuple:
+    """The loop as autograd records it: each step out of place, its h kept
+    and stacked at the end.  The steps' inputs come from one ``unbind``,
+    whose backward stacks their gradients once (indexing ``proj[t]`` would
+    add a zero-filled proj-sized gradient a step).  Returns (hs (S, H, B,
+    hd), the last state)."""
+    hs = []
+    for x_proj in proj.unbind(0):
+        state = _slstm_step(x_proj, r, bf, state)
+        hs.append(state[2])
+    return torch.stack(hs), state
 
 
 def _slstm_graphed(proj: torch.Tensor, r: torch.Tensor, bf: torch.Tensor,
@@ -449,12 +523,18 @@ def slstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
     proj = proj.contiguous()
     bf = params["bf"][:, None]                                # (H, 1, hd)
     state = _state_hb(init_slstm_state(cfg, B, x.device))
-    hs = torch.empty((S, H, B, hd), dtype=_F32, device=x.device)
     with torch.profiler.record_function(SLSTM_RANGE):
-        if x.is_cuda and S >= 2 * SLSTM_GRAPH_STEPS:
-            state = _slstm_graphed(proj, r, bf, state, hs, SLSTM_GRAPH_STEPS)
+        if _records(x, *params.values()):
+            # training: no in-place write, no CUDA graph (a replay records
+            # no autograd graph)
+            hs, state = _slstm_loop_grad(proj, r, bf, state)
         else:
-            state = _slstm_loop(proj, r, bf, state, hs, 0, S)
+            hs = torch.empty((S, H, B, hd), dtype=_F32, device=x.device)
+            if x.is_cuda and S >= 2 * SLSTM_GRAPH_STEPS:
+                state = _slstm_graphed(proj, r, bf, state, hs,
+                                       SLSTM_GRAPH_STEPS)
+            else:
+                state = _slstm_loop(proj, r, bf, state, hs, 0, S)
     y = _out_proj(hs.permute(2, 0, 1, 3).to(cfg.cdtype), params["wo_proj"],
                   cfg.cdtype)
     return y, _state_bh(state)

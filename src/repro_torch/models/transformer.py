@@ -30,7 +30,8 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -83,13 +84,10 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x + post_norm1(h), then the MLP or MoE sub-block (if any) with its
-    own residual.  Returns (x', aux): the MoE's load-balance loss, else 0."""
-    if cfg.post_norm:
-        h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
-    x = x + h
+def _mlp_residual(params: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLP or MoE sub-block (if any) with its own residual.  Returns
+    (x', aux): the MoE's load-balance loss, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "mlp" in params or "moe" in params:
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
@@ -103,6 +101,17 @@ def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
+def _residual_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + post_norm1(h), then ``_mlp_residual``; the normed h is freed
+    before the MLP runs."""
+    if cfg.post_norm:
+        h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+    x = x + h
+    del h
+    return _mlp_residual(params, cfg, x)
+
+
 def _encoder_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
                        positions: torch.Tensor) -> torch.Tensor:
     """Bidirectional self-attention (the encoder-decoder's encoder): q, k,
@@ -112,12 +121,10 @@ def _encoder_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return A.attend_full(params, cfg, q, k, v, "attn", causal=False)
 
 
-def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-               positions: torch.Tensor, causal: bool = True
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``causal=False`` makes an attention block's mixer bidirectional
-    (``_encoder_attention``), as the reference's encoder runs."""
-    _check_kind(kind)
+def _mixer_residual(params: dict, cfg: ModelConfig, kind: str,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """The block's first half: x + post_norm1(mixer(norm1(x)))."""
     xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
         h = R.FULL[kind](params["mixer"], cfg, xin)
@@ -125,7 +132,19 @@ def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         h = _encoder_attention(params["mixer"], cfg, xin, positions)
     else:
         h = A.attention_full(params["mixer"], cfg, xin, positions, kind)
-    return _residual_mlp(params, cfg, x, h)
+    if cfg.post_norm:
+        h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+    return x + h
+
+
+def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+               positions: torch.Tensor, causal: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``causal=False`` makes an attention block's mixer bidirectional
+    (``_encoder_attention``), as the reference's encoder runs."""
+    _check_kind(kind)
+    return _mlp_residual(params, cfg, _mixer_residual(params, cfg, kind, x,
+                                                      positions, causal))
 
 
 def block_prefill(params: dict, cfg: ModelConfig, kind: str,
@@ -265,21 +284,68 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def _remat(cfg: ModelConfig, fn, x: torch.Tensor):
-    """``fn`` under ``cfg.remat`` when the stack's input ``x`` carries a
-    gradient (training): ``"full"`` (the reference's default) recomputes
-    the block in the backward and saves only its input, ``"none"`` saves
-    every activation.  The reference remats each pattern period; a block
-    at a time computes the same function.  Its XLA save policies
-    ``"dots"`` and ``"save_io"`` are not ported.  Serving gets ``fn``."""
+#: the matrix products ``"dots"`` saves (what ``@``, ``einsum`` and
+#: ``matmul`` reach at the ATen level): ``checkpoint_dots`` saves every
+#: ``dot_general``
+_DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm,
+                      torch.ops.aten.bmm, torch.ops.aten.baddbmm,
+                      torch.ops.aten.mv, torch.ops.aten.dot})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _block_save_io(params: dict, cfg: ModelConfig, kind: str,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``block_full`` under ``"save_io"``: one checkpoint for the mixer half
+    and one for the MLP half, so what the block keeps is its input and
+    each half's output: x + mixer_out and x + mixer_out + mlp_out, the
+    reference's saved ``mixer_out`` / ``mlp_out`` up to the residual adds
+    (its inputs are kept anyway).  The backward of the MLP half recomputes
+    no mixer."""
+    _check_kind(kind)
+    x = checkpoint(_mixer_residual, params, cfg, kind, x, positions, causal,
+                   use_reentrant=False)
+    if "mlp" not in params and "moe" not in params:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return checkpoint(_mlp_residual, params, cfg, x, use_reentrant=False)
+
+
+def _remat(cfg: ModelConfig, x: torch.Tensor):
+    """The block function under ``cfg.remat`` when the stack's input ``x``
+    carries a gradient (training); serving gets ``block_full``.  The
+    reference remats each pattern period with ``jax.checkpoint``; here
+    each block is checkpointed (non-reentrant ``torch.utils.checkpoint``),
+    the same function:
+
+    - ``"none"``: no checkpoint, every activation saved;
+    - ``"dots"`` (``checkpoint_dots``): a selective checkpoint that saves
+      the outputs of the matrix products (``_DOT_OPS``) and recomputes the
+      rest;
+    - ``"save_io"`` (``save_only_these_names("mixer_out", "mlp_out")``):
+      ``_block_save_io``.  Two checkpoints, not a tag the selective policy
+      would save: the block code stays one function with no tagging op,
+      and the saved set is the reference's up to the residual adds;
+    - ``"full"``, and any other name as in the reference: the block's
+      input alone is saved, the whole block recomputed in the backward.
+
+    A policy changes memory and time, never the value."""
     if not (torch.is_grad_enabled() and x.requires_grad) \
             or cfg.remat == "none":
-        return fn
-    if cfg.remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    raise NotImplementedError(
-        f"remat={cfg.remat!r} is an XLA save policy the port does not have "
-        f"yet (ROADMAP A, 'remat policies'); use 'full' or 'none'")
+        return block_full
+    if cfg.remat == "save_io":
+        return _block_save_io
+    if cfg.remat == "dots":
+        return functools.partial(checkpoint, block_full, use_reentrant=False,
+                                 context_fn=_save_dots)
+    return functools.partial(checkpoint, block_full, use_reentrant=False)
 
 
 def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -288,7 +354,7 @@ def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """Returns (x, the sum of the blocks' aux losses).  In training each
     block is rematerialized as ``cfg.remat`` says (``_remat``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat(cfg, block_full, x)
+    block = _remat(cfg, x)
     for section, r, i, kind in layer_slots(cfg):
         x, a = block(_entry(params, section, r, i), cfg, kind, x, positions,
                      causal)

@@ -1138,3 +1138,48 @@ def test_every_gemma3_smoke_leaf_gets_a_gradient_on_the_card(cuda_device):
     assert abs(lc - lh) <= 1e-5 * abs(lh)
     for a, b in zip(gc, gh):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_xlstm_smoke_gradient_on_the_card_takes_no_graph(cuda_device,
+                                                         monkeypatch):
+    """xlstm-125m's SMOKE loss in f32 at S = 256 (four CUDA-graph blocks
+    of the sLSTM loop when serving): under grad the loop runs plainly —
+    no ``_slstm_graphed`` call, whose replay would record no autograd
+    graph — and every gradient leaf matches the CPU's ≤ 1e-4, the loss ≤
+    1e-5.  Serving the same params afterwards still takes the graph."""
+    from repro_torch.models import recurrent as trec
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    calls = []
+    graphed = trec._slstm_graphed
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return graphed(*args, **kwargs)
+
+    monkeypatch.setattr(trec, "_slstm_graphed", spy)
+    cfg = dataclasses.replace(get_smoke("xlstm-125m"), dtype="float32")
+    assert 256 >= 2 * trec.SLSTM_GRAPH_STEPS
+    model = tm.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        p = tree_map(lambda t: t.detach().to(dev), params)
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        loss, _ = model.loss(p, batch)
+        out[str(dev)] = (float(loss.detach()), torch.autograd.grad(
+            loss, tree_leaves(p)))
+    assert calls == []
+    (lc, gc), (lh, gh) = out[str(cuda_device)], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-4
+    on_card = tree_map(lambda t: t.detach().to(cuda_device), params)
+    with torch.no_grad():
+        model.forward(on_card, {"tokens": torch.as_tensor(
+            toks[:, :-1]).to(cuda_device)})
+    assert calls, "serving should replay the sLSTM loop from a CUDA graph"

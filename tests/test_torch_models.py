@@ -300,20 +300,16 @@ def test_init_trees_match_the_reference(arch):
 
 def test_unported_families_raise():
     """Every family of the reference builds now (the encoder-decoder since
-    whisper-large-v3 was ported, ``tests/test_torch_encdec.py``), and
-    ``Model`` has the reference's ``loss`` (``tests/test_torch_train.py``);
-    what the port still lacks is training the recurrent families (ROADMAP
-    A11-rest.6): their train step raises.  An arch outside the registry
-    raises."""
+    whisper-large-v3 was ported, ``tests/test_torch_encdec.py``), has the
+    reference's ``loss`` (``tests/test_torch_train.py``) and a train step,
+    the recurrent families' too; an arch outside the registry raises."""
     from repro_torch.launch import steps as tsteps
     for name in tconfigs.ARCHS:
         model = TM.build_model(tconfigs.get_smoke(name))
         assert model.cfg.is_encdec == (name == "whisper-large-v3")
         assert callable(model.loss)
-        if {"mlstm", "slstm", "rglru"} & set(model.cfg.layer_pattern):
-            with pytest.raises(NotImplementedError, match="A11-rest.6"):
-                tsteps.make_train_step(model, tsteps.default_optimizer(
-                    model.cfg))
+        assert callable(tsteps.make_train_step(
+            model, tsteps.default_optimizer(model.cfg)))
     assert "loss" in TM.Model._fields
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_smoke("no-such-arch")

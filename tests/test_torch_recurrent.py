@@ -11,6 +11,13 @@ max |ref|): f32 ≤ 1e-5, bf16 ≤ 5e-2.  The port's full pass hands prefill
 its final state; it is held to the reference's ``_rec_prefill_state`` (a
 per-token decode scan over the prompt) at the same tolerances, and the
 port's doubling scan to its own per-token loop.
+
+Training: each mixer's gradient against ``jax.grad`` of the reference's
+``*_full`` (≤ 1e-4), ``LinearScan`` (the RG-LRU scan's adjoint) by
+``gradcheck`` in f64 and against autograd of the per-token loop, the
+gradient across the scan's time chunks; and the serving forms of RG-LRU
+and sLSTM, grad mode on or off, bit for bit the code serving ran before
+training was ported.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro import configs as jconfigs
 from repro.configs.base import ModelConfig as JModelConfig
@@ -32,6 +40,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.models import model as TM
 from repro_torch.models import recurrent as TR
 from repro_torch.models import transformer as TT
+from repro_torch.models.layers import as_compute
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -315,3 +324,140 @@ def test_decode_matches_forward(arch, S, npre):
         lg, cache = m.decode_step(params, cache, toks[:, t:t + 1], t)
         np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(),
                                    rtol=5e-3, atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# gradients (training)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 2, 7, 16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_linear_scan_gradient(S, with_h0):
+    """``LinearScan`` (the doubling scan forward, its adjoint scan
+    backward) in f64: ``torch.autograd.gradcheck`` against finite
+    differences, and its gradient against autograd of the per-token
+    ``linear_scan_loop`` (≤ 1e-10 scale-normalized)."""
+    g = np.random.default_rng(S + 10 * with_h0)
+    log_a = torch.as_tensor(-g.uniform(0.0, 0.5, (B, S, 3)),
+                            dtype=torch.float64).requires_grad_(True)
+    b = torch.as_tensor(g.normal(size=(B, S, 3)),
+                        dtype=torch.float64).requires_grad_(True)
+    h0 = torch.as_tensor(g.normal(size=(B, 3)), dtype=torch.float64
+                         ).requires_grad_(True) if with_h0 else None
+    assert torch.autograd.gradcheck(TR.LinearScan.apply, (log_a, b, h0))
+    inputs = [t for t in (log_a, b, h0) if t is not None]
+    dh = torch.as_tensor(g.normal(size=(B, S, 3)), dtype=torch.float64)
+    got = torch.autograd.grad(TR.linear_scan(log_a, b, h0), inputs, dh)
+    ref = torch.autograd.grad(linear_scan_loop(log_a, b, h0), inputs, dh)
+    for a, r in zip(got, ref):
+        assert scaled(a, r) <= 1e-10
+
+
+@pytest.mark.parametrize("name,kind,S", CASES, ids=IDS)
+def test_full_gradient_matches_reference(name, kind, S):
+    """Each mixer's ``*_full`` differentiated in f32 against ``jax.grad``
+    of the reference's, under a seeded cotangent: the input's and every
+    parameter's gradient ≤ 1e-4 scale-normalized (RG-LRU through
+    ``LinearScan``, sLSTM through its out-of-place loop, mLSTM as it
+    is)."""
+    jc, tc, jp, tp = _setup(name, kind, "float32")
+    jx, tx = _x(tc, S, seed=8)
+    cot = np.random.default_rng(9).normal(size=tuple(tx.shape)).astype(
+        np.float32)
+    jgp, jgx = jax.grad(lambda p, x: jnp.sum(JFULL[kind](p, jc, x) * cot),
+                        argnums=(0, 1))(jp, jx)
+    names = sorted(tp)
+    leaves = [tp[n].requires_grad_(True) for n in names]
+    tx.requires_grad_(True)
+    y = TR.FULL[kind](tp, tc, tx)
+    grads = torch.autograd.grad((y * torch.as_tensor(cot)).sum(),
+                                leaves + [tx])
+    for n, g in zip(names + ["x"], grads):
+        e = scaled(g, jgx if n == "x" else jgp[n])
+        assert e <= 1e-4, f"{kind} d{n}: {e:.3g}"
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_scan_chunks_carry_the_gradient(dtype, monkeypatch):
+    """RG-LRU in time chunks of 16 and 7 tokens: the carry h_last enters
+    the next chunk with its gradient, so every parameter's and the
+    input's gradient equals one chunk's (f32 ≤ 1e-5, bf16 ≤ 5e-2)."""
+    _, tc, _, tp = _setup("recurrentgemma-2b", "rglru", dtype)
+    _, tx = _x(tc, 40, seed=10)
+    names = sorted(tp)
+
+    def grads():
+        leaves = [tp[n].detach().requires_grad_(True) for n in names]
+        x = tx.detach().requires_grad_(True)
+        y = TR.rglru_full(dict(zip(names, leaves)), tc, x)
+        return torch.autograd.grad(y.float().square().sum(), leaves + [x])
+
+    one = grads()
+    for chunk in (16, 7):
+        monkeypatch.setattr(TR, "SCAN_CHUNK", chunk)
+        for n, a, b in zip(names + ["x"], grads(), one):
+            assert scaled(a, b) <= TOL[dtype], (chunk, n)
+
+
+def _rglru_prefill_serving(params, cfg, x):
+    """RG-LRU's prefill as serving ran it before training was ported (the
+    same code, the doubling scan called directly)."""
+    dt = cfg.cdtype
+    S = x.shape[1]
+    u_in = x @ as_compute(params["w_x"], dt)
+    u = TR._causal_conv_full(u_in, as_compute(params["conv_k"], dt))
+    K = cfg.rglru_conv_width
+    conv = F.pad(u_in, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]
+    hb = torch.empty_like(u)
+    h_last = None
+    for s0 in range(0, S, TR.SCAN_CHUNK):
+        log_a, b = TR._rglru_gates(params, cfg, u[:, s0:s0 + TR.SCAN_CHUNK])
+        h = TR._doubling_scan(log_a, b, h_last)
+        h_last = h[:, -1].clone()
+        hb[:, s0:s0 + TR.SCAN_CHUNK] = h.to(dt)
+    gate = F.gelu(x @ as_compute(params["w_gate"], dt), approximate="tanh")
+    return (hb * gate) @ as_compute(params["w_out"], dt), {"h": h_last,
+                                                           "conv": conv}
+
+
+def _slstm_prefill_serving(params, cfg, x):
+    """sLSTM's prefill as serving ran it before training was ported: each
+    step's h written in place (``out=``)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    w, r = TR._slstm_weights(params)
+    proj = (x.to(torch.float32) @ w).view(B, S, H, 4 * hd).permute(
+        1, 2, 0, 3).contiguous()
+    state = TR._state_hb(TR.init_slstm_state(cfg, B, x.device))
+    hs = torch.empty((S, H, B, hd), dtype=torch.float32)
+    state = TR._slstm_loop(proj, r, params["bf"][:, None], state, hs, 0, S)
+    y = TR._out_proj(hs.permute(2, 0, 1, 3).to(cfg.cdtype),
+                     params["wo_proj"], cfg.cdtype)
+    return y, TR._state_bh(state)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("kind", ["rglru", "slstm"])
+def test_serving_forms_are_unchanged(kind, dtype):
+    """RG-LRU's and sLSTM's prefill with grad mode off and on (nothing
+    requiring grad) equal the serving code as it was before training was
+    ported, bit for bit, and record no autograd graph; the training form
+    (the params requiring grad) computes the same bits."""
+    name = "recurrentgemma-2b" if kind == "rglru" else "xlstm-125m"
+    _, tc, _, tp = _setup(name, kind, dtype)
+    _, tx = _x(tc, 40, seed=11)
+    serving = {"rglru": _rglru_prefill_serving,
+               "slstm": _slstm_prefill_serving}[kind]
+    with torch.no_grad():
+        ref_y, ref_s = serving(tp, tc, tx)
+    for grad_mode in (False, True):
+        with torch.set_grad_enabled(grad_mode):
+            y, state = TR.PREFILL[kind](tp, tc, tx)
+        assert y.grad_fn is None and torch.equal(y, ref_y), grad_mode
+        for k in ref_s:
+            assert torch.equal(state[k], ref_s[k]), (grad_mode, k)
+    trained = {k: v.detach().requires_grad_(True) for k, v in tp.items()}
+    y, state = TR.PREFILL[kind](trained, tc, tx)
+    assert y.grad_fn is not None and torch.equal(y.detach(), ref_y)
+    for k in ref_s:
+        assert torch.equal(state[k].detach(), ref_s[k]), k

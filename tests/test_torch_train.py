@@ -4,20 +4,25 @@ train state carried across.
 
 - For each of the eight attention archs' SMOKE config (gemma3-12b, yi-6b,
   yi-9b, minitron-4b, chameleon-34b with patch embeddings, qwen2-moe-a2.7b
-  and deepseek-v3-671b with the MoE aux loss and MTP, whisper-large-v3),
-  in f32 with converted weights: ``Model.loss`` and every metric against
+  and deepseek-v3-671b with the MoE aux loss and MTP, whisper-large-v3)
+  and the two recurrent ones (recurrentgemma-2b: RG-LRU and local
+  attention; xlstm-125m: mLSTM and sLSTM; at 64 tokens, two mLSTM chunks
+  and past the local window of 16), in f32 with converted weights under
+  the default ``remat="full"``: ``Model.loss`` and every metric against
   the reference's ``loss`` (≤ 1e-5), and every gradient leaf against
   ``jax.grad``'s (≤ 1e-4 scale-normalized, none missing) — the MoE
-  dispatch's backward included; in bf16 the loss ≤ 5e-2 (MoE through
-  ``test_torch_models.RoutingHandover``).
+  dispatch's backward and the RG-LRU scan's adjoint included; in bf16
+  the loss ≤ 5e-2 (MoE through ``test_torch_models.RoutingHandover``).
 - ``make_train_step`` on the reference test's ``itiny`` config in f32, 3
   steps against the reference's jitted step (losses and params ≤ 1e-5);
   accum = 1 against accum = 2 on the port itself (the property; the
   reference's own bf16 check is its known failure); resume from a
   checkpoint equal to continuing live, exactly; 40 steps lower the loss
   and compressed training (ratio 4) still learns, at the reference's own
-  thresholds; remat ``"full"`` and ``"none"`` give the same gradients;
-  the recurrent configs raise; the CLI trains and resumes.
+  thresholds; remat ``"none"``, ``"full"``, ``"dots"`` and ``"save_io"``
+  give the same gradients (two attention and both recurrent archs);
+  three steps of xlstm-125m's SMOKE against the reference's jitted step;
+  the CLI trains and resumes, an attention arch and both recurrent ones.
 - ``moe_ffn`` under ``torch.no_grad()`` (serving) is bit for bit today's
   in-place dispatch, and the out-of-place dispatch of grad mode gives the
   same bits.
@@ -64,8 +69,12 @@ from test_torch_models import RoutingHandover
 ATTN_ARCHS = ("gemma3-12b", "yi-6b", "yi-9b", "minitron-4b",
               "chameleon-34b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
               "whisper-large-v3")
+REC_ARCHS = ("recurrentgemma-2b", "xlstm-125m")
 TOL_LOSS, TOL_GRAD, TOL_BF16 = 1e-5, 1e-4, 5e-2
 B, S, N_PATCH, ENC_LEN = 2, 32, 6, 40
+#: the recurrent archs' length: two of xlstm's SMOKE mLSTM chunks (32),
+#: four of recurrentgemma's local windows (16)
+S_REC = 64
 ITINY = dict(name="itiny", family="dense", n_layers=2, d_model=32,
              n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64, vocab_size=128)
 
@@ -105,9 +114,14 @@ def _params(jc, tc, seed=0):
         jax.tree.map(np.asarray, jp), tc, device="cpu")
 
 
+def _seq(cfg) -> int:
+    return S_REC if cfg.name.startswith(REC_ARCHS) else S
+
+
 def _batch(cfg, seed=1) -> dict:
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (B, _seq(cfg) + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if cfg.family == "vlm":
         batch["patches"] = rng.normal(
@@ -154,12 +168,15 @@ def _reference_grads(arch, **kw):
     return _REFERENCE[key]
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + REC_ARCHS)
 def test_loss_and_every_gradient_match_reference(arch):
     """f32: the total and every metric ≤ 1e-5 of the reference's
     ``loss``; each parameter's gradient ≤ 1e-4 of ``jax.grad``'s, none
     missing (every attention layer's backward is ``attention_vjp``, the
-    MoE dispatch's is out of place)."""
+    MoE dispatch's is out of place, the RG-LRU scan's is its adjoint scan
+    and the sLSTM loop runs out of place), under ``remat="full"``: a
+    checkpoint's recompute skips autograd's version check, so a saved
+    tensor written in place would give a wrong gradient, not an error."""
     jc, tc, _, tp, batch, (jl, jmet), jg = _reference_grads(arch)
     tl, tmet, grads = _port_grads(TM.build_model(tc), tp, batch)
     tmet = {k: v.detach() for k, v in tmet.items()}
@@ -180,7 +197,7 @@ def test_loss_and_every_gradient_match_reference(arch):
         assert e <= TOL_GRAD, f"gradient leaf {i} {tuple(g.shape)}: {e:.3g}"
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + REC_ARCHS)
 def test_bf16_loss_matches_reference(arch, monkeypatch):
     """bf16 compute: the loss ≤ 5e-2 of the reference's; a MoE router's
     near-tie takes the reference's experts (``RoutingHandover``)."""
@@ -210,23 +227,24 @@ def test_softmax_xent_masks_negative_labels():
     assert float(none) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2-moe-a2.7b",
+                                  "recurrentgemma-2b", "xlstm-125m"])
 def test_remat_full_and_none_give_the_same_gradients(arch):
-    """Per-block recompute computes the same function: the gradients of
-    ``remat="full"`` (the default) and ``"none"`` agree, and the XLA save
-    policies the port lacks raise."""
+    """A remat policy changes memory and time, never the value: the loss
+    and gradients of ``remat="full"`` (the default), ``"none"``,
+    ``"dots"`` (the matmul outputs saved) and ``"save_io"`` (a checkpoint
+    per half-block) agree, each leaf ≤ 1e-6 of full's, and every policy
+    the reference accepts runs."""
     out = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "none", "dots", "save_io"):
         jc, tc = _configs(arch, remat=remat)
         _, tp = _params(jc, tc)
         out[remat] = _port_grads(TM.build_model(tc), tp, _batch(jc))
-    assert float(out["full"][0]) == float(out["none"][0])
-    for a, b in zip(out["full"][2], out["none"][2]):
-        assert scaled(a, b) <= 1e-6
-    jc, tc = _configs(arch, remat="dots")
-    _, tp = _params(jc, tc)
-    with pytest.raises(NotImplementedError, match="remat policies"):
-        _port_grads(TM.build_model(tc), tp, _batch(jc))
+    for remat in ("none", "dots", "save_io"):
+        assert float(out["full"][0]) == float(out[remat][0]), remat
+        assert len(out[remat][2]) == len(out["full"][2])
+        for a, b in zip(out["full"][2], out[remat][2]):
+            assert scaled(a, b) <= 1e-6, remat
 
 
 # ---------------------------------------------------------------------------
@@ -496,11 +514,45 @@ def test_compressed_training_still_learns():
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05, losses
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
-def test_recurrent_configs_raise(arch):
-    model = TM.build_model(tconfigs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="A11-rest.6"):
-        tsteps.make_train_step(model, topt.adamw())
+def test_recurrent_train_step_matches_the_reference_jitted_step():
+    """Three f32 steps of ``make_train_step`` on xlstm-125m's SMOKE (mLSTM
+    and sLSTM, adamw, warmup 2) against the reference's jitted step from
+    the same weights and batches of 64 tokens: losses and ``grad_norm`` ≤
+    1e-5; params ≤ 1e-4 scale-normalized.  adamw moves every entry by
+    about lr whatever its gradient's size, so an entry whose gradient is a
+    hundredth of its leaf's largest carries the gradient's ~1e-6
+    scale-normalized rounding into its update at ~1e-4 of the leaf; the
+    zero-initialized norm scales are nothing but such updates (measured:
+    1.0e-5 after 3 steps)."""
+    jc, tc = _configs("xlstm-125m")
+    model = JM.build_model(jc)
+    opt = jopt.adamw()
+    jstep = jax.jit(jsteps.make_train_step(model, opt, peak_lr=1e-2,
+                                           warmup=2, total=3))
+    jpipe = jmake_pipeline("synthetic", vocab_size=jc.vocab_size,
+                           seq_len=S_REC, global_batch=2, seed=3)
+    jp, tp = _params(jc, tc)
+    js = opt.init(jp)
+    jlosses = []
+    for s in range(3):
+        jp, js, jmet = jstep(jp, js, jax.tree.map(jnp.asarray,
+                                                  jpipe.batch_at(s)))
+        jlosses.append(float(jmet["loss"]))
+    port_opt = topt.adamw()
+    step = tsteps.make_train_step(TM.build_model(tc), port_opt, peak_lr=1e-2,
+                                  warmup=2, total=3)
+    pipe = make_pipeline("synthetic", vocab_size=tc.vocab_size,
+                         seq_len=S_REC, global_batch=2, seed=3)
+    ts, tlosses = port_opt.init(tp), []
+    for s in range(3):
+        tp, ts, tmet = step(tp, ts, pipe.batch_at(s))
+        tlosses.append(float(tmet["loss"]))
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-5)
+    assert abs(float(tmet["grad_norm"]) - float(jmet["grad_norm"])) <= \
+        1e-5 * float(jmet["grad_norm"])
+    for a, b in zip(jax.tree.leaves(convert.params_to_reference(tp, tc)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, jp))):
+        assert scaled(a, b) <= 1e-4
 
 
 def test_default_optimizer_and_accum_match_reference():
@@ -539,6 +591,23 @@ def test_train_cli_runs_then_resumes(tmp_path, capsys):
         ttrain.main(args + ["--steps", "1", "--mesh", "2x2"])
 
 
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_train_cli_trains_and_resumes_a_recurrent_arch(arch, tmp_path,
+                                                       capsys):
+    """The CLI trains a recurrent arch's SMOKE config at 64 tokens
+    (xlstm's mLSTM takes a multiple of its chunk of 32), checkpoints, and
+    a longer rerun resumes from the latest step."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len",
+            str(S_REC), "--global-batch", "2", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "2", "--log-every", "1"]
+    first = ttrain.main(args + ["--steps", "3"])
+    assert len(first) == 3 and all(np.isfinite(first))
+    assert "step     0  loss" in capsys.readouterr().out
+    again = ttrain.main(args + ["--steps", "4"])
+    assert "restored checkpoint @ step 2" in capsys.readouterr().out
+    assert len(again) == 2 and again[0] == first[2]
+
+
 def test_train_cli_prints_the_loss_summary(capsys):
     losses = ttrain.main(["--arch", "gemma3-12b", "--smoke", "--device",
                           "cpu", "--steps", "20", "--seq-len", "16",
@@ -565,7 +634,9 @@ def _ref_tree_equal(port, ref):
 @pytest.mark.parametrize("arch,scan", [("gemma3-12b", True),
                                        ("deepseek-v3-671b", True),
                                        ("whisper-large-v3", True),
-                                       ("chameleon-34b", False)])
+                                       ("chameleon-34b", False),
+                                       ("recurrentgemma-2b", True),
+                                       ("xlstm-125m", False)])
 def test_gradient_tree_round_trip(arch, scan):
     """A reference gradient tree has the params' structure:
     ``model_params_from_reference`` maps it and ``params_to_reference``
