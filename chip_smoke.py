@@ -246,8 +246,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
    f32 kernel) against the CPU (the plain version): the loss ≤ 1e-5,
    every gradient ≤ 1e-4, 3 train steps' losses ≤ 1e-4, no sLSTM loop
    replayed from a CUDA graph;
+11b. train_mesh: the train step on a device mesh, ranks spawned on the
+   card(s) (NCCL with a card a rank, else gloo with every rank on card 0;
+   the backend and any collective staged through host memory printed):
+   yi-6b at full width, 2 layers, FSDP on (2, 1) with 2 x 4,096 tokens
+   and TP on (1, 2) with 1 x 4,096; qwen2-moe-a2.7b at full width, 2
+   layers, expert-parallel on (1, 2) with 1 x 2,048 tokens at capacity
+   factor 15 (every dispatch checked to drop nothing; one MoE layer's
+   output and aux against the gather path and the per-slice formula; the
+   assignments both paths drop from the run's batch at cf 1.25 and 4);
+   yi-6b with sequence-parallel attention on (1, 3) with 1 x 3,072 (B6
+   with 1,024 / 2,048 / 3,072 keys on the three ranks); each in f32
+   against rank 0's one-rank run of the same weights and batch (loss ≤
+   1e-5, every gradient ≤ 1e-4,
+   grad_norm ≤ 1e-5, 3 steps ≤ 1e-4); the dense runs then 3 bf16 steps:
+   step ms a rank, tokens/s, peak, each collective's count and bytes a
+   step, the ms in ``mesh.collective`` on a profiled step, B6 a step;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the seventeen paths (every count reset just before
+   own path and on each of the eighteen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -272,6 +288,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -562,6 +579,23 @@ PARITY_ARCHS = (("gemma3-12b", 64), ("deepseek-v3-671b", 64),
 TOL_TRAIN_LOSS = 1e-5   # relative
 TOL_TRAIN_GRAD = 1e-4   # scale-normalized, each leaf
 TOL_TRAIN_STEPS = 1e-4  # 3 train steps' losses, relative
+# train_mesh: ranks spawned on the card(s) (NCCL with a card each where
+# as many are visible, else gloo with every rank on card 0).  yi-6b at full
+# width cut to 2 of 32 layers, 4,096 tokens a row: mesh (2, 1) FSDP over
+# data with 2 rows, mesh (1, 2) TP over model with 1 row; f32 against one
+# rank, then MESH_STEPS bf16 steps timed.  qwen2-moe-a2.7b at full width,
+# 2 of 24 layers, expert-parallel on (1, 2) with 1 x 2,048 tokens (cut
+# from 4,096: the phase's 150 s), its capacity factor raised from 1.25 to
+# E/k = 15, where no expert can overflow (a token picks an expert once;
+# at 4 the trained-on layers dropped tokens, measured on one H100); every
+# dispatch of the run is checked to drop nothing.  yi-6b, 2 layers,
+# sequence-parallel attention on (1, 3) with 1 x 3,072 tokens (32 heads
+# do not divide 3).
+MESH_LAYERS, MESH_SEQ, MESH_SP_SEQ, MESH_STEPS = 2, 4096, 3072, 3
+MESH_EP_SEQ = 2048
+MESH_DENSE = ((2, 1), (1, 2))
+TOL_MESH_GNORM = 1e-5   # grad_norm, relative
+TOL_MESH_AUX = 1e-5     # EP aux against its formula on the same slices
 
 
 class SmokeFailure(AssertionError):
@@ -4639,6 +4673,512 @@ def phase_train_parity() -> dict:
     return {arch: _parity_one(arch, S) for arch, S in PARITY_ARCHS}
 
 
+# ---------------------------------------------------------------------------
+# train_mesh: the train step on a device mesh
+# ---------------------------------------------------------------------------
+
+def mesh_dense_config(**kw):
+    """yi-6b at full width, MESH_LAYERS layers."""
+    return dataclasses.replace(tconfigs.get_config("yi-6b"),
+                               n_layers=MESH_LAYERS, **kw)
+
+
+def mesh_moe_config(**kw):
+    """qwen2-moe-a2.7b at full width, MESH_LAYERS layers, expert-parallel,
+    capacity factor E/k (no expert can overflow)."""
+    cfg = tconfigs.get_config("qwen2-moe-a2.7b")
+    return dataclasses.replace(
+        cfg, n_layers=MESH_LAYERS, moe_impl="shard_map",
+        capacity_factor=float(cfg.n_experts // cfg.moe_top_k), **kw)
+
+
+def _mesh_backend(world: int) -> str:
+    return "nccl" if DEV == "cuda" and torch.cuda.device_count() >= world \
+        else "gloo"
+
+
+def _free() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _mesh_steps(model, params, batch, mesh=None, specs=None,
+                gather=False):
+    """The loss and gradients at ``params`` (gathered whole on a mesh with
+    ``gather``), then MESH_STEPS adamw steps of which the first applies
+    those gradients (``make_train_step``'s update, lr from the same
+    schedule).  Returns (grads, loss, grad_norm, the steps' losses)."""
+    grads, met, gn = tsteps.loss_and_grads(model, params, batch, mesh=mesh,
+                                           specs=specs)
+    tree = topt.optimizers.tree_unflatten(params, iter(grads))
+    whole = topt.optimizers.tree_leaves(tsteps.gather_tree(
+        tree, specs, mesh)) if gather else grads
+    opt = topt.adamw()
+    state = opt.init(params)
+    lr = topt.warmup_cosine(state.step, peak=1e-2, warmup_steps=1,
+                            total_steps=MESH_STEPS)
+    extra = {} if gn is None else {"gnorm": gn}
+    params, state, m = opt.update(tree, state, params, lr, **extra)
+    del tree, grads
+    losses = [float(met["loss"])]
+    step = tsteps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
+                                  total=MESH_STEPS, mesh=mesh, specs=specs)
+    for s in range(MESH_STEPS - 1):
+        params, state, m2 = step(params, state, batch)
+        losses.append(float(m2["loss"]))
+    return whole, losses[0], float(m["grad_norm"]), losses
+
+
+def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
+                    loss_fn=None, record=None) -> dict:
+    """The mesh's loss, every gradient (gathered) and grad_norm, then
+    MESH_STEPS adamw steps' losses, against the same on one rank (rank 0,
+    after the other ranks freed their state).  ``loss_fn(model)`` gives
+    the loss of both sides (a stand-in model carries it to the step);
+    ``record(side)`` wraps each side's calls ("mesh", "one")."""
+    model = tmodel.build_model(cfg)
+    if loss_fn:
+        model = types.SimpleNamespace(cfg=model.cfg, init=model.init,
+                                      loss=loss_fn(model))
+    local, specs = tsteps.shard_params(cfg, model.init(gen(seed), DEV), mesh)
+    _free()
+    reset_counts()
+    with record("mesh") if record else _null():
+        whole, loss, gn, losses = _mesh_steps(model, local, batch, mesh,
+                                              specs, gather=True)
+    launches = read_counts()
+    del local
+    if rank != 0:
+        del whole
+    _free()
+    torch.distributed.barrier()
+    out = {"loss": loss, "grad_norm": gn, "losses": losses,
+           "launches": launches}
+    if rank == 0:
+        params = model.init(gen(seed), DEV)
+        paths = ["/".join(p) for p, _ in sharding.leaves_with_path(params)]
+        with record("one") if record else _null():
+            g1, loss1, gn1, losses1 = _mesh_steps(model, params, batch)
+        errs = {p: scaled_err(a, b) for p, a, b in zip(paths, whole, g1)}
+        del g1, whole, params
+        _free()
+        worst = max(errs, key=errs.get)
+        out.update(
+            loss_err=abs(loss - loss1) / abs(loss1), grad_err=errs[worst],
+            worst_leaf=worst, leaves=len(errs),
+            gnorm_err=abs(gn - gn1) / gn1,
+            step_err=max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                             losses1)),
+            losses_one_rank=losses1)
+        check(out["loss_err"] <= TOL_TRAIN_LOSS, f"{tag}: loss {loss} on "
+              f"the mesh, {loss1} on one rank")
+        check(out["grad_err"] <= TOL_TRAIN_GRAD, f"{tag}: gradient {worst}"
+              f" differs by {errs[worst]:.3g} (limit {TOL_TRAIN_GRAD})")
+        check(out["gnorm_err"] <= TOL_MESH_GNORM,
+              f"{tag}: grad_norm {gn} on the mesh, {gn1} on one rank")
+        check(out["step_err"] <= TOL_TRAIN_STEPS, f"{tag}: step losses "
+              f"{losses} on the mesh, {losses1} on one rank")
+        log(f"{tag} f32 against one rank: loss {loss:.6f} vs {loss1:.6f} "
+            f"({out['loss_err']:.3g}, limit {TOL_TRAIN_LOSS}); {len(errs)} "
+            f"gradient leaves, max {errs[worst]:.3g} at {worst} (limit "
+            f"{TOL_TRAIN_GRAD}); grad_norm {gn:.6f} vs {gn1:.6f} "
+            f"({out['gnorm_err']:.3g}); {MESH_STEPS} steps' losses {losses}"
+            f" vs {losses1} ({out['step_err']:.3g}, limit "
+            f"{TOL_TRAIN_STEPS})")
+    torch.distributed.barrier()
+    return out
+
+
+class _null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _mesh_bf16_steps(tag: str, cfg, mesh, B: int, S: int, seed: int,
+                     b6_per_step: int) -> dict:
+    """MESH_STEPS bf16 train steps on the mesh, each timed on this rank
+    (synchronized); peak memory, the collectives' count and bytes a step,
+    B6 launches a step (all on the tensor cores); the last step runs under
+    the CPU profiler for the ms inside the ``mesh.collective`` range."""
+    from repro_torch.distributed import collectives as coll
+    model = tmodel.build_model(cfg)
+    local, specs = tsteps.shard_params(cfg, model.init(gen(seed), DEV), mesh)
+    opt = topt.adamw()
+    state = opt.init(local)
+    step = tsteps.make_train_step(model, opt, peak_lr=TRAIN_PEAK_LR,
+                                  warmup=TRAIN_WARMUP, total=MESH_STEPS,
+                                  mesh=mesh, specs=specs)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                       seed=0)
+    _free()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    coll.reset_stats()
+    from torch.profiler import ProfilerActivity, profile
+    ms, b6, losses = [], [], []
+    for s in range(MESH_STEPS):
+        c0 = fa_kernel.launch_counts()
+        torch.distributed.barrier()
+        last = s == MESH_STEPS - 1
+        with profile(activities=[ProfilerActivity.CPU]) if last \
+                else _null() as prof:
+            t0 = time.perf_counter()
+            local, state, m = step(local, state, pipe.batch_at(s))
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        b6.append({k: n - c0[k] for k, n in fa_kernel.launch_counts().items()})
+        losses.append(float(m["loss"]))
+    launches = read_counts()
+    stats = {k: {"count": v["count"] / MESH_STEPS,
+                 "bytes": v["bytes"] / MESH_STEPS}
+             for k, v in coll.STATS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+    check(b6 == [{"flash_attention": b6_per_step,
+                  "flash_attention_tc": b6_per_step}] * MESH_STEPS,
+          f"{tag}: B6 a step on this rank {b6} (want {b6_per_step}, all on "
+          f"the tensor cores)")
+    check(np.isfinite(losses).all(), f"{tag}: losses {losses}")
+    coll_ms = sum(e.cpu_time_total for e in prof.key_averages()
+                  if e.key == coll.COLLECTIVE_RANGE) / 1e3
+    med = float(np.median(ms[1:]))
+    del local, state, step
+    _free()
+    return {"step_ms": ms, "step_ms_median_2_on": med,
+            "tokens_per_s": B * S / (med / 1e3), "peak_gb": peak,
+            "collectives_per_step": stats, "collective_ms_profiled_step":
+            coll_ms, "b6_per_step": b6[0], "launches": launches,
+            "losses": losses}
+
+
+def _mesh_dense_run(rank: int, shape) -> dict:
+    """(a): yi-6b on ``shape`` = (data, model), data rows of MESH_SEQ."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"), DEV)
+    tag = f"train_mesh yi-6b {shape[0]}x{shape[1]}"
+    B = shape[0]
+    cfg = mesh_dense_config(dtype="float32")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                        global_batch=B, seed=1).batch_at(0)
+    t0 = time.perf_counter()
+    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 91, rank)}
+    out["f32_s"] = time.perf_counter() - t0
+    n = 2 * MESH_LAYERS
+    check(out["f32"]["launches"] == no_launches(
+        flash_attention=n * MESH_STEPS), f"{tag}: the f32 steps should "
+          f"launch the CUDA-core B6 {n} times a step on this rank: "
+          f"{out['f32']['launches']}")
+    out["bf16"] = _mesh_bf16_steps(tag, mesh_dense_config(), mesh, B,
+                                   MESH_SEQ, 92, n)
+    return out
+
+
+def _moe_view(tree):
+    return tree["stack"]["scanned"][0][0]["moe"]
+
+
+def _mesh_ep_run(rank: int) -> dict:
+    """(b): qwen2-moe-a2.7b, expert-parallel on (1, 2)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as tmoe
+    mesh = make_mesh((1, 2), ("data", "model"), DEV)
+    tag = "train_mesh qwen2-moe-a2.7b EP 1x2"
+    cfg = mesh_moe_config(dtype="float32")
+    gather = dataclasses.replace(cfg, moe_impl="gather")
+    tp = 2
+    secs = {}
+    t0 = time.perf_counter()
+    # one MoE layer at T = MESH_EP_SEQ: the output and the aux
+    model = tmodel.build_model(cfg)
+    full = model.init(gen(93), DEV)
+    local, specs = tsteps.shard_params(cfg, full, mesh)
+    T = MESH_EP_SEQ
+    x = torch.randn((1, T, cfg.d_model), generator=gen(94), device=DEV)
+    with torch.no_grad(), sharding.use_mesh(mesh):
+        y_ep, aux_ep = tmoe.moe_ffn(_moe_view(sharding.mesh_view(
+            local, specs)), cfg, x)
+    layer = {}
+    if rank == 0:
+        mp_ = _moe_view(full)
+        with torch.no_grad():
+            y_g, _ = tmoe.moe_ffn(mp_, gather, x)
+            xs = x[0].chunk(tp)
+            aux_ref = float(torch.stack([tmoe._route(mp_, cfg, s)[2]
+                                         for s in xs]).mean())
+        layer = {"out_err": scaled_err(y_ep, y_g),
+                 "aux": float(aux_ep), "aux_formula": aux_ref,
+                 "aux_err": abs(float(aux_ep) - aux_ref) / aux_ref}
+        check(layer["out_err"] <= TOL_F32, f"{tag}: the EP layer's output "
+              f"differs from the gather path's by {layer['out_err']:.3g}")
+        check(layer["aux_err"] <= TOL_MESH_AUX, f"{tag}: aux {float(aux_ep)}"
+              f" against the per-slice formula's {aux_ref}")
+        log(f"{tag} one MoE layer at T = {T} (random input): output vs the "
+            f"gather path {layer['out_err']:.3g}; aux {float(aux_ep):.6f} "
+            f"vs the formula on the same slices {aux_ref:.6f}")
+        del mp_, y_g
+    del y_ep
+    secs["layer"] = time.perf_counter() - t0
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=T,
+                        global_batch=1, seed=1).batch_at(0)
+
+    def ce_only(model):
+        def fn(p, b):
+            t, m = model.loss(p, b)
+            return (t - tmodel.MOE_AUX_WEIGHT * m["aux"],
+                    {**m, "loss": m["ce"]})
+        return fn
+
+    tally = {}
+    assign = tmoe._assign
+
+    def counting(*args, **kwargs):
+        tok, slot, keep = assign(*args, **kwargs)
+        t = tally.setdefault(counting.side, [0, 0])
+        t[0] += int((~keep).sum())
+        t[1] += keep.numel()
+        return tok, slot, keep
+
+    class record:
+        def __init__(self, side):
+            counting.side = side
+
+        def __enter__(self):
+            tmoe._assign = counting
+
+        def __exit__(self, *exc):
+            tmoe._assign = assign
+
+    # the run's own traffic at the config's cf 1.25 and at 4 (the same
+    # weights): assignments dropped (dropped, of) in one forward, this
+    # rank's EP dispatches and the gather path's on one rank
+    t0 = time.perf_counter()
+    dev_batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    drops = {}
+    for c in (1.25, 4.0):
+        model = tmodel.build_model(dataclasses.replace(cfg,
+                                                       capacity_factor=c))
+        tally.clear()
+        with torch.no_grad(), record("mesh"), sharding.use_mesh(mesh):
+            model.loss(sharding.mesh_view(local, specs),
+                       tsteps.local_rows(dev_batch, mesh))
+        if rank == 0:
+            with torch.no_grad(), record("one"):
+                model.loss(full, dev_batch)
+        drops[str(c)] = {side: list(v) for side, v in tally.items()}
+    del full, local
+    _free()
+    torch.distributed.barrier()
+    secs["drops"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tally.clear()
+    f32 = _mesh_f32_check(tag, cfg, mesh, batch, 95, rank, loss_fn=ce_only,
+                          record=record)
+    f32["dropped"] = {side: list(v) for side, v in tally.items()}
+    check(tally["mesh"][0] == 0 and (rank or tally["one"][0] == 0),
+          f"{tag}: assignments dropped in the run (dropped, of): {tally}")
+    if rank == 0:
+        log(f"{tag}: assignments dropped in the run's dispatches (dropped, "
+            f"of) on rank 0 and on one rank: {f32['dropped']}")
+    n = 2 * MESH_LAYERS * MESH_STEPS
+    check(f32["launches"] == no_launches(flash_attention=n),
+          f"{tag}: B6 launches {f32['launches']} (want {n})")
+    secs["f32"] = time.perf_counter() - t0
+    return {"layer": layer, "f32": f32, "drops": drops, "parts_s": secs}
+
+
+def _mesh_sp_run(rank: int) -> dict:
+    """(c): yi-6b with sequence-parallel attention on (1, 3)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 3), ("data", "model"), DEV)
+    tag = "train_mesh yi-6b SP 1x3"
+    cfg = mesh_dense_config(dtype="float32", seq_parallel_attn=True)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SP_SEQ,
+                        global_batch=1, seed=1).batch_at(0)
+    keys = []
+    route = fa_grad.route
+
+    def spy(q, k, v, causal=True, window=None):
+        keys.append(int(k.shape[2]))
+        return route(q, k, v, causal, window)
+
+    class record:
+        def __init__(self, side):
+            self.side = side
+
+        def __enter__(self):
+            if self.side == "mesh":
+                fa_grad.route = spy
+
+        def __exit__(self, *exc):
+            fa_grad.route = route
+
+    out = _mesh_f32_check(tag, cfg, mesh, batch, 96, rank, record=record)
+    rows = MESH_SP_SEQ // 3
+    want = (rank + 1) * rows
+    check(keys and set(keys) == {want}, f"{tag}: rank {rank} launched B6 "
+          f"with keys {sorted(set(keys))} (want {want})")
+    out["b6_keys"] = sorted(set(keys))
+    return out
+
+
+def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
+               runs: tuple) -> None:
+    """One rank of ``train_mesh``: its backend's group over a ``file://``
+    store, then each of ``runs``; writes its records to ``tmpdir``."""
+    globals().update(cfg)
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    backend = _mesh_backend(world)
+    if DEV == "cuda":
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmpdir, 'store')}",
+        rank=rank, world_size=world, timeout=datetime.timedelta(minutes=10))
+    try:
+        out = {"rank": rank, "backend": backend}
+        for run in runs:
+            t0 = time.perf_counter()
+            if run == "ep":
+                out[run] = _mesh_ep_run(rank)
+            elif run == "sp":
+                out[run] = _mesh_sp_run(rank)
+            else:
+                out[run] = _mesh_dense_run(rank, tuple(
+                    int(v) for v in run.split("x")))
+            out[run]["s"] = time.perf_counter() - t0
+        out["staged"] = sorted(coll.STAGED)
+        with open(os.path.join(tmpdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(world: int, runs: tuple) -> list:
+    import torch.multiprocessing as mp
+    cfg = {k: globals()[k] for k in ("DEV", "MESH_LAYERS", "MESH_SEQ",
+                                     "MESH_SP_SEQ", "MESH_STEPS",
+                                     "MESH_EP_SEQ")}
+    tmpdir = tempfile.mkdtemp(prefix="train_mesh_")
+    _free()
+    mp.spawn(_mesh_rank, args=(world, tmpdir, cfg, runs), nprocs=world,
+             join=True)
+    infos = []
+    for r in range(world):
+        with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+    for name in os.listdir(tmpdir):
+        os.remove(os.path.join(tmpdir, name))
+    os.rmdir(tmpdir)
+    return infos
+
+
+def phase_train_mesh() -> dict:
+    """The train step on a device mesh: (a) yi-6b FSDP on (2, 1) and TP on
+    (1, 2), (b) qwen2-moe-a2.7b expert-parallel on (1, 2), in 2 ranks;
+    (c) yi-6b with sequence-parallel attention on (1, 3), in 3 ranks; each
+    in f32 against one rank of the same weights and batch on the same
+    card, (a) also timed in bf16."""
+    t0 = time.perf_counter()
+    runs2 = tuple(f"{d}x{m}" for d, m in MESH_DENSE) + ("ep",)
+    two = _spawn_mesh(2, runs2)
+    three = _spawn_mesh(3, ("sp",))
+    wall = time.perf_counter() - t0
+    backend = {2: two[0]["backend"], 3: three[0]["backend"]}
+    staged = sorted(set(sum((i["staged"] for i in two + three), [])))
+    log(f"train_mesh: backends {backend} (NCCL needs a card a rank: "
+        f"{torch.cuda.device_count()} visible); collectives staged through "
+        f"pinned host memory: {staged or 'none'}; {wall:.1f} s with spawns")
+    res = {"backend": backend, "staged": staged, "wall_s": wall,
+           "reduced": [f"yi-6b and qwen2-moe-a2.7b cut to {MESH_LAYERS} "
+                       f"layers", "qwen2-moe capacity_factor 1.25 -> 15 "
+                       "(E/k: nothing dropped) for the EP check",
+                       f"(b) {MESH_EP_SEQ} of 4,096 tokens (the phase's "
+                       f"150 s)",
+                       f"(c) {MESH_SP_SEQ} tokens (a multiple of 3)"],
+           "dense": {}}
+    for run in runs2[:-1]:
+        per_rank = [i[run]["bf16"] for i in two]
+        f32 = two[0][run]["f32"]
+        res["dense"][run] = {
+            "f32": {k: f32[k] for k in ("loss_err", "grad_err", "gnorm_err",
+                                        "step_err", "worst_leaf", "leaves",
+                                        "losses", "losses_one_rank")},
+            "step_ms_median_2_on": [b["step_ms_median_2_on"]
+                                    for b in per_rank],
+            "tokens_per_s": [b["tokens_per_s"] for b in per_rank],
+            "peak_gb": [b["peak_gb"] for b in per_rank],
+            "collectives_per_step": [b["collectives_per_step"]
+                                     for b in per_rank],
+            "collective_ms_profiled_step": [
+                b["collective_ms_profiled_step"] for b in per_rank],
+            "b6_per_step": [b["b6_per_step"]["flash_attention"]
+                            for b in per_rank],
+            "losses_bf16": per_rank[0]["losses"], "s": two[0][run]["s"],
+            "f32_s": two[0][run]["f32_s"]}
+        d = res["dense"][run]
+        log(f"train_mesh yi-6b {run} bf16 ({MESH_STEPS} steps, "
+            f"{int(run[0]) * MESH_SEQ} tokens a step): step ms per rank "
+            f"{[round(v, 1) for v in d['step_ms_median_2_on']]} (median of "
+            f"steps 2 on), tokens/s {[round(v) for v in d['tokens_per_s']]}"
+            f", peak GB {[round(v, 2) for v in d['peak_gb']]}, B6 a step "
+            f"{d['b6_per_step']}, collectives a step (rank 0) "
+            f"{json.dumps(d['collectives_per_step'][0])}, ms in "
+            f"{'mesh.collective'} on a profiled step "
+            f"{[round(v, 1) for v in d['collective_ms_profiled_step']]}")
+    ep = two[0]["ep"]
+    drops = {}
+    for c, one in ep["drops"].items():
+        mesh_d = [sum(i["ep"]["drops"][c]["mesh"][j] for i in two)
+                  for j in (0, 1)]
+        drops[c] = {"ep_dropped_of": mesh_d,
+                    "gather_dropped_of": one["one"],
+                    "ep_share": mesh_d[0] / mesh_d[1],
+                    "gather_share": one["one"][0] / one["one"][1]}
+    log(f"train_mesh qwen2-moe-a2.7b EP 1x2: the run's batch "
+        f"({MESH_EP_SEQ} tokens) through the model once at each capacity "
+        f"factor, assignments dropped (dropped, of; EP summed over both "
+        f"ranks): {json.dumps(drops)}")
+    res["ep"] = {"layer": ep["layer"], "f32": {
+        k: ep["f32"][k] for k in ("loss_err", "grad_err", "gnorm_err",
+                                  "step_err", "worst_leaf", "leaves",
+                                  "dropped")},
+        "drops_run_batch": drops, "tokens": MESH_EP_SEQ, "s": ep["s"],
+        "parts_s": ep["parts_s"]}
+    sp = three[0]["sp"]
+    res["sp"] = {**{k: sp[k] for k in ("loss_err", "grad_err", "gnorm_err",
+                                       "step_err", "worst_leaf", "leaves")},
+                 "b6_keys_by_rank": [i["sp"]["b6_keys"] for i in three],
+                 "s": sp["s"]}
+    log(f"train_mesh yi-6b SP 1x3: B6 keys by rank "
+        f"{res['sp']['b6_keys_by_rank']}")
+    # the path's launches on rank 0: every count reset before a run's
+    # counted part and read after it
+    total = no_launches()
+    for part in ([two[0][r]["f32"]["launches"] for r in runs2[:-1]]
+                 + [two[0][r]["bf16"]["launches"] for r in runs2[:-1]]
+                 + [ep["f32"]["launches"], sp["launches"]]):
+        total = {k: total[k] + part[k] for k in total}
+    res["launches"] = total
+    res["b6_launches_per_rank_per_step"] = {
+        **{f"{r}_f32": [i[r]["f32"]["launches"]["flash_attention"]
+                        / MESH_STEPS for i in two] for r in runs2[:-1]},
+        **{f"{r}_bf16": [i[r]["bf16"]["b6_per_step"]["flash_attention_tc"]
+                         for i in two] for r in runs2[:-1]},
+        "ep_f32": [i["ep"]["f32"]["launches"]["flash_attention"]
+                   / MESH_STEPS for i in two],
+        "sp_f32": [i["sp"]["launches"]["flash_attention"] / MESH_STEPS
+                   for i in three]}
+    return res
+
+
 def _train_line(grad: dict, g3: dict, moe: dict, rec: dict,
                 par: dict) -> dict:
     """B6's ``train`` entry: the gradient check, attention_vjp beside
@@ -4705,6 +5245,7 @@ def main() -> int:
     tmoe = phase_train_moe()
     trecur = phase_train_recurrent()
     tpar = phase_train_parity()
+    tmesh = phase_train_mesh()
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
@@ -4717,7 +5258,8 @@ def main() -> int:
              "serve_kernel": skm["launches"], "spsd_ragged": rag["launches"],
              "calibrate": cal["launches"], "contracts": con["launches"],
              "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"],
-             "train_recurrent": trecur["launches"]}
+             "train_recurrent": trecur["launches"],
+             "train_mesh": tmesh["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -4788,6 +5330,9 @@ def main() -> int:
            for name, r in wh["runs"].items()},
         "params": wh["params"], "numerics": wh["numerics"]}
     b6["train"] = _train_line(tgrad, tg3, tmoe, trecur, tpar)
+    b6["train_mesh"] = {k: tmesh[k] for k in (
+        "backend", "staged", "wall_s", "reduced", "dense", "ep", "sp",
+        "b6_launches_per_rank_per_step")}
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
                           dense["b6_shape"], rec["b6_shape"],
                           *wh["b6_shapes"]]

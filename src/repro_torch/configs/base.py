@@ -84,10 +84,12 @@ class ModelConfig:
     lru_width: int = 0
     mlstm_chunk: int = 256
 
-    # --- numerics / compilation (remat, unroll_scans, seq_parallel_attn,
-    # chunk_q and fsdp steer the reference's XLA compile and mesh and are
-    # kept so configs carry over; scan_layers says how the reference stores
-    # its superblocks, which the converter reads) ---
+    # --- numerics / compilation (unroll_scans and chunk_q steer the
+    # reference's XLA compile and are kept so configs carry over; remat
+    # picks the port's checkpointing; fsdp and seq_parallel_attn act on a
+    # mesh (``distributed.sharding``, ``models.attention._sp_active``);
+    # scan_layers says how the reference stores its superblocks, which the
+    # converter reads) ---
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: str = "full"

@@ -44,7 +44,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import collectives, sharding
 
 # Row panels are capped at roughly this many f32 elements (b·ncols), so the
 # streaming paths stay ~128 MB whatever the problem size (the reference's
@@ -375,6 +375,17 @@ def _unflatten(like, flat: list):
     return flat.pop(0)
 
 
+def _sum_over_data(tensors: list, mesh) -> list:
+    """Each carry (one dtype) summed over the data dims of ``mesh``, packed
+    into one buffer: one all-reduce a sweep, whatever its carries.  A sum
+    takes the data dims in the mesh's own order."""
+    axes = [a for a in mesh.mesh_dim_names if a in sharding.data_axes(mesh)]
+    buf = collectives.all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
+                                 axes, mesh=mesh)
+    return [part.reshape(t.shape) for part, t in zip(
+        torch.split(buf, [t.numel() for t in tensors]), tensors)]
+
+
 def sweep_panels(panel_fn, nrows: int, ncols: int, plans: Sequence,
                  block_size: Optional[int] = None, device=None, mesh=None,
                  slab_fn=None):
@@ -425,6 +436,5 @@ def sweep_panels(panel_fn, nrows: int, ncols: int, plans: Sequence,
             carry = [p.update(c, panel, idx, valid)
                      for p, c in zip(plans, carry)]
     if dp > 1:
-        carry = _unflatten(carry, sharding.all_reduce_sum(_flatten(carry),
-                                                          mesh))
+        carry = _unflatten(carry, _sum_over_data(_flatten(carry), mesh))
     return [p.finalize(c) for p, c in zip(plans, carry)]

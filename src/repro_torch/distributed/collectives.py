@@ -1,0 +1,368 @@
+"""The collectives of the mesh executor: autograd-aware redistributions of
+local tensors over the axes of a ``DeviceMesh``.
+
+Every rank holds local shards of plain tensors; these functions sit where
+the sharding rules split a dimension.  The gradient convention is
+Megatron's: a tensor replicated over ``model`` carries, on every ``model``
+rank, the whole gradient of the rank's loss, and the losses of the data
+ranks add up to the global loss (``launch.steps``).  So:
+
+- ``copy_to(x, axes)``: the identity forward; the backward sums the
+  gradient over ``axes`` (a replicated tensor entering a region whose
+  ranks each use a part of it);
+- ``reduce_from(x, axes)``: sums partial results over ``axes``; the
+  backward is the identity (a row-split weight's partial output leaving
+  the region);
+- ``scatter(x, dim, axes)`` / ``gather(x, dim, axes)``: take this rank's
+  part of a replicated tensor / all-gather the parts into a replicated
+  one; each is the other's backward;
+- ``all_gather_sum(x, dim, axes)``: all-gather whose backward
+  reduce-scatters (sums) the gradient back to the part: FSDP's weights,
+  and K/V under sequence parallelism, whose consumers each hold a
+  different part of the loss;
+- ``all_reduce_sum(x, axes)``: a sum whose backward is a sum too (terms
+  of the loss split over the data ranks);
+- ``all_to_all(x, axes)``: chunk i of dim 0 to rank i of the group (the
+  expert-parallel dispatch); its backward is the same exchange.
+
+On no mesh, or axes of size 1, each is the identity.  Several axes form
+one group, row-major in the mesh's order (``("data", "model")``: the
+first outermost), built once per mesh with ``dist.new_group`` on every
+rank in the same order.
+
+Gloo (ranks sharing one card) moves CUDA tensors through host memory.
+Where it refuses a collective on a CUDA tensor, the call is staged
+through pinned host memory here: ``STAGED`` names each such collective.
+Gloo sums bf16 in f32 here, and moves bf16 bits as f16.  Every call runs
+inside the profiler range ``COLLECTIVE_RANGE`` and is counted in
+``STATS`` (calls and payload bytes per kind).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
+
+#: profiler range of every collective of the executor
+COLLECTIVE_RANGE = "mesh.collective"
+#: {kind: {"count": calls, "bytes": payload bytes}} since ``reset_stats``
+STATS: dict = {}
+#: the collective kinds staged through host memory (gloo on CUDA tensors)
+STAGED: set = set()
+
+_GROUPS: dict = {}
+
+
+def reset_stats() -> None:
+    STATS.clear()
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _live(axes, mesh) -> Tuple[str, ...]:
+    """The axes of ``axes`` of size > 1 on ``mesh``."""
+    sizes = shd.mesh_shape(mesh)
+    return tuple(a for a in _axes(axes) if sizes.get(a, 1) > 1)
+
+
+def group_of(axes, mesh=None):
+    """(process group, size) of ``axes`` on ``mesh`` (the ambient mesh by
+    default); (None, 1) when they span one rank."""
+    mesh = shd.ambient_mesh() if mesh is None else mesh
+    axes = _live(axes, mesh)
+    if not axes:
+        return None, 1
+    size = math.prod(shd.mesh_shape(mesh)[a] for a in axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), size
+    names = list(mesh.mesh_dim_names)
+    if [names.index(a) for a in axes] != sorted(names.index(a)
+                                                for a in axes):
+        raise ValueError(f"axes {axes} out of the mesh's order {names}")
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        perm = [i for i, n in enumerate(names) if n not in axes] \
+            + [names.index(a) for a in axes]
+        rows = mesh.mesh.permute(perm).reshape(-1, size).tolist()
+        me, mine = dist.get_rank(), None
+        for row in rows:                     # every rank, in one order
+            g = dist.new_group(row)
+            if me in row:
+                mine = g
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1], size
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    s = STATS.setdefault(kind, {"count": 0, "bytes": 0})
+    s["count"] += 1
+    s["bytes"] += t.numel() * t.element_size()
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
+    return h.copy_(t)
+
+
+def _run(kind: str, fn, out: torch.Tensor, inp: torch.Tensor, group,
+         reduces: bool) -> torch.Tensor:
+    """``fn(out, inp, group)``, counted, with gloo's limits worked around:
+    bf16 summed in f32 or moved as f16 bits.  Returns ``out``."""
+    _count(kind, inp)
+    with torch.profiler.record_function(COLLECTIVE_RANGE):
+        if _gloo(group) and inp.dtype == torch.bfloat16:
+            if reduces:
+                o32 = out.float()
+                _dispatch(kind, fn, o32, inp.float(), group)
+                return out.copy_(o32)
+            _dispatch(kind, fn, out.view(torch.float16),
+                      inp.view(torch.float16), group)
+            return out
+        _dispatch(kind, fn, out, inp, group)
+        return out
+
+
+def _dispatch(kind: str, fn, out, inp, group) -> None:
+    """A CUDA call that gloo refuses is staged through pinned host memory
+    (and every later one of its kind)."""
+    if out.device.type == "cuda" and _gloo(group):
+        if kind not in STAGED:
+            try:
+                fn(out, inp, group)
+                return
+            except RuntimeError:
+                STAGED.add(kind)
+        h_out = torch.empty(out.shape, dtype=out.dtype, device="cpu",
+                            pin_memory=True)
+        fn(h_out, _host(inp), group)
+        out.copy_(h_out)
+        return
+    fn(out, inp, group)
+
+
+# ---------------------------------------------------------------------------
+# raw collectives (no autograd)
+# ---------------------------------------------------------------------------
+
+def _all_reduce_fn(op):
+    def fn(out, inp, group):
+        if out.data_ptr() != inp.data_ptr():
+            out.copy_(inp)
+        dist.all_reduce(out, op=op, group=group)
+    return fn
+
+
+def all_reduce(t: torch.Tensor, axes, op: str = "sum",
+               mesh=None) -> torch.Tensor:
+    """A new tensor: ``t`` summed (or maxed, ``op="max"``) over ``axes``."""
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    t = t.contiguous()
+    return _run("all_reduce", _all_reduce_fn(rop), t.clone(), t, group,
+                reduces=True)
+
+
+_gather_base = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_scatter_base = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _all_gather0(out, inp, group):
+    _gather_base(out, inp, group=group)
+
+
+def _reduce_scatter0(out, inp, group):
+    try:
+        _scatter_base(out, inp, group=group)
+    except RuntimeError:
+        if inp.device.type == "cuda":
+            raise
+        # a gloo without reduce_scatter: all-reduce, then this rank's part
+        full = inp.clone()
+        dist.all_reduce(full, group=group)
+        r = dist.get_rank(group)
+        out.copy_(full[r * out.shape[0]:(r + 1) * out.shape[0]])
+
+
+def all_gather(t: torch.Tensor, dim: int, axes, mesh=None) -> torch.Tensor:
+    """The parts of ``t`` of every rank of ``axes``, concatenated along
+    ``dim`` in group order."""
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    _run("all_gather", _all_gather0, out, x, group, reduces=False)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, axes,
+                   mesh=None) -> torch.Tensor:
+    """``t`` summed over ``axes``; this rank keeps its part along
+    ``dim``."""
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+    _run("reduce_scatter", _reduce_scatter0, out, x, group, reduces=True)
+    return out.movedim(0, dim)
+
+
+def _all_to_all0(out, inp, group):
+    dist.all_to_all_single(out, inp, group=group)
+
+
+def all_to_all_raw(t: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    return _run("all_to_all", _all_to_all0, out, t, group, reduces=False)
+
+
+def _part(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """This rank's part of ``t`` along ``dim`` over ``axes``."""
+    axes = _live(axes, mesh)
+    size = t.shape[dim] // shd._axis_size(mesh, axes)
+    return t.narrow(dim, shd._index_over(mesh, axes) * size, size)
+
+
+# ---------------------------------------------------------------------------
+# autograd-aware redistributions (each keeps its mesh for the backward,
+# which autograd may run on another thread, outside ``use_mesh``)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, mesh=ctx.mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return all_reduce(x, axes, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_reduce(x, axes, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, mesh=ctx.mesh), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return _part(x, dim, axes, mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.dim, ctx.axes, mesh=ctx.mesh).contiguous(),
+                None, None, None)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return all_gather(x, dim, axes, mesh=mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_part(g, ctx.dim, ctx.axes, ctx.mesh).contiguous(),
+                None, None, None)
+
+
+class _AllGatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return all_gather(x, dim, axes, mesh=mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.dim, ctx.axes,
+                               mesh=ctx.mesh).contiguous(), None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_to_all_raw(x, axes, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_raw(g, ctx.axes, mesh=ctx.mesh), None, None
+
+
+def _apply(fn, x, *args, axes):
+    """``fn`` on the ambient mesh, or ``x`` when ``axes`` span one rank."""
+    mesh = shd.ambient_mesh()
+    if not _live(axes, mesh):
+        return x
+    return fn.apply(x, *args, _axes(axes), mesh)
+
+
+def copy_to(x: torch.Tensor, axes) -> torch.Tensor:
+    return _apply(_CopyTo, x, axes=axes)
+
+
+def reduce_from(x: torch.Tensor, axes) -> torch.Tensor:
+    return _apply(_ReduceFrom, x, axes=axes)
+
+
+def all_reduce_sum(x: torch.Tensor, axes) -> torch.Tensor:
+    return _apply(_AllReduceSum, x, axes=axes)
+
+
+def scatter(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    return _apply(_Scatter, x, dim, axes=axes)
+
+
+def gather(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    return _apply(_Gather, x, dim, axes=axes)
+
+
+def all_gather_sum(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    return _apply(_AllGatherSum, x, dim, axes=axes)
+
+
+def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
+    return _apply(_AllToAll, x, axes=axes)
+
+
+def axes_size(axes, mesh: Optional[object] = None) -> int:
+    """The number of ranks ``axes`` span on ``mesh`` (ambient default)."""
+    mesh = shd.ambient_mesh() if mesh is None else mesh
+    return shd._axis_size(mesh, _live(axes, mesh))

@@ -1,0 +1,54 @@
+"""Device meshes (port of ``repro.launch.mesh``, and of the reference
+trainer's ``parse_mesh``).
+
+Pure functions: importing this module touches no device and no process
+group; a mesh is built only when called, over the ranks of an initialized
+``torch.distributed`` process group (``init_device_mesh``).
+
+The production shapes stay the reference's: (16, 16) over ("data",
+"model") and (2, 16, 16) over ("pod", "data", "model").  Axis order is
+outermost first = slowest interconnect first.  On H100 machines of 8 GPUs
+a 16-wide ``model`` axis spans two NVLink domains, so its collectives
+cross the inter-node network; the reference's torus kept ``model`` on
+adjacent links.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default process
+    group (whose world size must be the product of ``shape``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(int(s) for s in shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+def describe(mesh) -> str:
+    """``data=2 x model=4`` for a ``DeviceMesh`` or a {name: size} dict."""
+    from repro_torch.distributed.sharding import mesh_shape
+    return " x ".join(f"{k}={v}" for k, v in mesh_shape(mesh).items())
+
+
+def mesh_dims(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """'2x4' -> ((2, 4), ('data', 'model')); one dim is ('data',), three
+    add 'pod' in front."""
+    dims = tuple(int(x) for x in spec.split("x"))
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(dims)]
+    return dims, axes
+
+
+def parse_mesh(spec: str, device_type: str = "cuda"):
+    """The mesh of a ``--mesh`` value such as '1x2' (the reference
+    trainer's ``parse_mesh``)."""
+    return make_mesh(*mesh_dims(spec), device_type=device_type)

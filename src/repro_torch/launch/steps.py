@@ -1,4 +1,4 @@
-"""The train step of the port (port of the train half of
+"""Step functions and shardings for one (arch, shape, mesh) cell (port of
 ``repro.launch.steps``).
 
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
@@ -16,28 +16,73 @@ require grad only inside the step: they come back with the flags they
 were given, so serving them afterwards records no autograd graph.  ``metrics`` holds
 0-d device tensors (the loss's, ``grad_norm`` and ``lr``), so a step reads
 nothing back to the host.  The update runs inside the profiler range
-``OPT_RANGE``.
+``OPT_RANGE``.  Every family trains on one device.
 
-Every family trains: the recurrent mixers differentiate through the
-RG-LRU scan's ``LinearScan`` (its adjoint scan as the backward) and the
-sLSTM loop's out-of-place form (``models.recurrent``).  ``build_cell``
-and the optimizer-state shardings wait for the model-stack sharding
-(ROADMAP A10-rest).
+**On a mesh** (``make_train_step(..., mesh=, specs=)``, a ``DeviceMesh``
+of more than one device; a mesh of one device takes the code above) the
+params and the optimizer state are this rank's local shards, laid out by
+``specs`` (``distributed.sharding.param_shardings`` of the global params;
+``shard_params`` makes both).  Every rank is handed the same global
+batch; a microbatch is the reference's global row block, of which a rank
+takes its rows over (pod, data).  The model runs under
+``sharding.use_mesh`` on a ``mesh_view`` of the shards: FSDP gathers
+each block's weights over ``data`` on use, ``model`` carries heads, FFN
+width, vocabulary and experts (``models``).  A rank's loss is its share
+of the global loss, so after the backward each gradient is summed over
+the data axes that split the batch and do not split the leaf (an FSDP
+leaf's was reduce-scattered over ``data`` in the backward); the leaves
+that a ``model`` rank uses in part (under TP, SP and EP) were summed over
+``model`` inside autograd (``collectives.copy_to``).  The global-norm
+clip sums each leaf's squares over the axes it is split over and counts
+a replicated leaf once (``mesh_global_norm``).  adamw and lion update the
+shards elementwise; adafactor on shards (its factored statistics need
+whole rows and columns) is ROADMAP A10-rest.3, with the families
+``models.model.check_mesh_support`` names.
+
+``build_cell`` is the entry point the reference's dry-run, trainer and
+server share: the step function, its abstract arguments (tensors on the
+``meta`` device: nothing is allocated; ``Model.init`` on ``meta`` draws
+nothing, see ``layers.dense_init``) and the in/out spec trees for the
+train, prefill and decode kinds.  The train cell's step runs on a mesh as
+above; the prefill and decode steps run on a mesh of one device and raise
+``NotImplementedError`` (ROADMAP A10-rest.2) on a larger one.
+``_opt_shardings`` gives an optimizer-state leaf its parameter's spec by
+path suffix and shape, else replicated.
 """
 from __future__ import annotations
 
 import functools
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.model import Model, stacked_layers
+from repro_torch.configs import config_for_shape
+from repro_torch.configs.base import ModelConfig, ShapeConfig, input_specs
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.model import (Model, build_model, check_mesh_support,
+                                      stacked_layers)
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
 _F32 = torch.float32
 #: profiler range of the optimizer's update inside a train step
 OPT_RANGE = "train.optimizer"
+WHISPER_DECODER_LEN = 448        # fixed decoder horizon (enc-dec decode cells)
+#: elements of one gradient all-reduce bucket
+_BUCKET = 1 << 26
+
+
+class Cell(NamedTuple):
+    cfg: ModelConfig
+    shape: ShapeConfig
+    model: Model
+    step_fn: Callable
+    abstract_args: tuple          # meta tensors, positional
+    in_shardings: tuple           # spec trees
+    out_shardings: Any
+    kind: str                     # train | prefill | decode
 
 
 def default_optimizer(cfg: ModelConfig):
@@ -58,50 +103,69 @@ def _microbatch(batch: dict, accum: int, i: int) -> dict:
             for k, v in batch.items()}
 
 
+def _grads_and_metrics(loss_fn, params, leaves, micro, accum: int):
+    """Each microbatch's loss and backward; (a gradient per leaf, the
+    metrics averaged over the microbatches)."""
+    device = leaves[0].device
+    acc, mets = {}, []
+    with torch.enable_grad():
+        for i in range(accum):
+            loss, met = loss_fn(params, micro(i))
+            loss.backward()
+            del loss
+            mets.append({k: v.detach() for k, v in met.items()})
+            if accum == 1:
+                continue
+            for j, p in enumerate(leaves):
+                if p.dtype != _F32 and p.grad is not None:
+                    g = p.grad.to(_F32)
+                    p.grad = None
+                    acc[j] = g if j not in acc else acc[j].add_(g)
+    grads = []
+    for j, p in enumerate(leaves):
+        g = acc.pop(j, p.grad)
+        if g is None:                            # a leaf the loss never read
+            g = torch.zeros(p.shape, dtype=_F32 if accum > 1 else p.dtype,
+                            device=device)
+        grads.append(g.div_(accum) if accum > 1 else g)
+    if accum == 1:
+        metrics = mets[0]
+    else:
+        metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
+                   for k in mets[0]}
+    return grads, metrics
+
+
 def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
-                    warmup: int = 100, total: int = 10_000, accum: int = 1):
+                    warmup: int = 100, total: int = 10_000, accum: int = 1,
+                    mesh=None, specs=None):
     """One optimizer step; ``accum`` > 1 splits the global batch into
-    sequential microbatches (activation memory / accum)."""
+    sequential microbatches (activation memory / accum).  With a ``mesh``
+    of more than one device the params are local shards laid out by
+    ``specs`` (see the module's docstring)."""
+    on_mesh = not shd.is_trivial(mesh)
+    if on_mesh:
+        check_mesh_support(model.cfg)
+        if opt.name == "adafactor":
+            raise NotImplementedError(
+                "adafactor on sharded params (its factored statistics need "
+                "whole rows and columns) is ROADMAP A10-rest.3")
+        if specs is None:
+            raise ValueError("a mesh step needs the params' spec tree")
+
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
-        device = leaves[0].device
         flags = [p.requires_grad for p in leaves]
-        for p in leaves:
-            p.requires_grad_(True)
-            p.grad = None
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()}
-        acc, mets = {}, []
-        with torch.enable_grad():
-            for i in range(accum):
-                loss, met = model.loss(params, _microbatch(batch, accum, i))
-                loss.backward()
-                del loss
-                mets.append({k: v.detach() for k, v in met.items()})
-                if accum == 1:
-                    continue
-                for j, p in enumerate(leaves):
-                    if p.dtype != _F32 and p.grad is not None:
-                        g = p.grad.to(_F32)
-                        p.grad = None
-                        acc[j] = g if j not in acc else acc[j].add_(g)
-        grads = []
-        for j, p in enumerate(leaves):
-            g = acc.pop(j, p.grad)
-            if g is None:                        # a leaf the loss never read
-                g = torch.zeros(p.shape, dtype=_F32 if accum > 1 else p.dtype,
-                                device=device)
-            grads.append(g.div_(accum) if accum > 1 else g)
-        if accum == 1:
-            metrics = mets[0]
-        else:
-            metrics = {k: torch.mean(torch.stack([m[k] for m in mets]))
-                       for k in mets[0]}
+        grads, metrics, gnorm = loss_and_grads(
+            model, params, batch, accum=accum, mesh=mesh if on_mesh else None,
+            specs=specs)
         lr = warmup_cosine(opt_state.step, peak=peak_lr, warmup_steps=warmup,
                            total_steps=total)
         with torch.profiler.record_function(OPT_RANGE):
+            extra = {} if gnorm is None else {"gnorm": gnorm}
             params, opt_state, om = opt.update(
-                tree_unflatten(params, iter(grads)), opt_state, params, lr)
+                tree_unflatten(params, iter(grads)), opt_state, params, lr,
+                **extra)
         del grads
         for p, flag in zip(leaves, flags):      # serving them records no graph
             p.grad = None
@@ -110,13 +174,149 @@ def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
     return train_step
 
 
-def default_accum(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1) -> int:
+def loss_and_grads(model: Model, params, batch: dict, *, accum: int = 1,
+                   mesh=None, specs=None):
+    """The step's forward and backward: (a gradient per leaf of
+    ``params`` in tree order, the metrics, the global norm on a mesh or
+    None).  On a mesh the gradients are this rank's shards, summed over
+    the data axes (``sync_grads``).  The leaves require grad on return."""
+    leaves = tree_leaves(params)
+    device = leaves[0].device
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    if shd.is_trivial(mesh):
+        grads, metrics = _grads_and_metrics(
+            model.loss, params, leaves, lambda i: _microbatch(batch, accum, i),
+            accum)
+        return grads, metrics, None
+    flat_specs = [s for _, s in shd.leaves_with_path(specs)]
+    with shd.use_mesh(mesh):
+        grads, metrics = _grads_and_metrics(
+            model.loss, shd.mesh_view(params, specs), leaves,
+            lambda i: local_rows(_microbatch(batch, accum, i), mesh), accum)
+    sync_grads(grads, flat_specs, mesh)
+    return grads, metrics, mesh_global_norm(grads, flat_specs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the mesh executor's pieces
+# ---------------------------------------------------------------------------
+
+def local_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a (micro)batch: its block over (pod, data),
+    row-major with ``pod`` outer.  A batch whose rows the data axes do not
+    divide (``batch_pspec`` would put its sequence on ``data``) is ROADMAP
+    A10-rest.3."""
+    n = shd.data_size(mesh)
+    if n == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise NotImplementedError(
+            f"a batch of {B} rows on {shd.mesh_shape(mesh)}: a batch the "
+            f"data axes do not split by rows is ROADMAP A10-rest.3")
+    i, rows = shd.shard_index(mesh), B // n
+    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
+def _reduce_axes(spec, mesh) -> tuple:
+    """The data axes a leaf's gradient is summed over: those that split
+    the batch and not the leaf."""
+    own = shd.spec_axes(spec)
+    return tuple(a for a in shd.data_axes(mesh)
+                 if a not in own and shd.mesh_shape(mesh)[a] > 1)
+
+
+@torch.no_grad()
+def sync_grads(grads: list, flat_specs: list, mesh) -> None:
+    """Sum each gradient in place over ``_reduce_axes``, in buckets of one
+    dtype and axis set, in the same order on every rank."""
+    groups: dict = {}
+    for j, (g, spec) in enumerate(zip(grads, flat_specs)):
+        axes = _reduce_axes(spec, mesh)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(j)
+    for (axes, _), idx in groups.items():
+        start = 0
+        while start < len(idx):
+            end, n = start, 0
+            while end < len(idx) and (n == 0 or n + grads[idx[end]].numel()
+                                      <= _BUCKET):
+                n += grads[idx[end]].numel()
+                end += 1
+            part = idx[start:end]
+            buf = C.all_reduce(torch.cat([grads[j].reshape(-1)
+                                          for j in part]), axes, mesh=mesh)
+            for j, piece in zip(part, torch.split(
+                    buf, [grads[j].numel() for j in part])):
+                grads[j].copy_(piece.view_as(grads[j]))
+            del buf
+            start = end
+
+
+@torch.no_grad()
+def mesh_global_norm(grads: list, flat_specs: list, mesh) -> torch.Tensor:
+    """The global norm of a gradient tree of local shards: each leaf's sum
+    of squares summed over the axes it is split over, a replicated leaf
+    counted once."""
+    by_axes: dict = {}
+    for g, spec in zip(grads, flat_specs):
+        axes = tuple(a for a, n in shd.mesh_shape(mesh).items()
+                     if n > 1 and a in shd.spec_axes(spec))
+        by_axes.setdefault(axes, []).append(
+            torch.sum(torch.square(g.to(_F32))))
+    total = None
+    for axes in sorted(by_axes):
+        s = torch.sum(torch.stack(by_axes[axes]))
+        s = C.all_reduce(s, axes, mesh=mesh) if axes else s
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def shard_params(cfg: ModelConfig, params, mesh):
+    """(this rank's shards of the global ``params``, their spec tree) under
+    ``cfg``'s rules (``fsdp``; expert banks over ('data', 'model') for
+    ``moe_impl="shard_map"``)."""
+    specs = shd.param_shardings(params, mesh, fsdp=cfg.fsdp,
+                                moe_ep2d=cfg.moe_impl == "shard_map")
+    return shd.shard_tree(params, specs, mesh), specs
+
+
+@torch.no_grad()
+def gather_tree(tree, specs, mesh, dst: Optional[int] = None):
+    """Whole leaves of a tree of local shards laid out by ``specs``: the
+    inverse of ``sharding.shard_tree``, gathered leaf by leaf.  Every rank
+    gets them; with ``dst``, only global rank ``dst`` keeps them, each
+    moved to the host as soon as it is whole (a checkpoint of a model
+    whose train state fits no device whole), and the others get None."""
+    flat = dict(shd.leaves_with_path(specs))
+    keep = dst is None or dist.get_rank() == dst
+
+    def one(path, t):
+        spec = flat.get(path, ())
+        for d, e in enumerate(spec):
+            axes = shd._entry_axes(e)
+            if axes and C.axes_size(axes, mesh) > 1:
+                t = C.all_gather(t, d, axes, mesh=mesh)
+        if dst is None:
+            return t
+        return t.cpu() if keep else None
+    out = shd.map_with_path(one, tree)
+    return out if keep else None
+
+
+def default_accum(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                  dp: Optional[int] = None) -> int:
     """Microbatch count so per-step activation temps fit ~8 GB a device
     (the reference's calibrated budget: ~10x the bf16 block inputs).
-    ``dp`` is the data-parallel size (the port has no model mesh yet, so
-    1); ``accum`` is capped at the local batch."""
+    The data-parallel size is the mesh's (pod × data), or ``dp`` where
+    no mesh is given; ``accum`` is capped at the local batch."""
     if shape.kind != "train":
         return 1
+    if dp is None:
+        dp = shd.data_size(mesh)
     local_b = max(shape.global_batch // dp, 1)
     layers = cfg.n_layers + (cfg.n_dec_layers if cfg.is_encdec else 0)
     act = layers * local_b * shape.seq_len * cfg.d_model * 2 * 10
@@ -124,3 +324,95 @@ def default_accum(cfg: ModelConfig, shape: ShapeConfig, dp: int = 1) -> int:
     while act / accum > 8e9 and accum < local_b:
         accum *= 2
     return accum
+
+
+# ---------------------------------------------------------------------------
+# cells
+# ---------------------------------------------------------------------------
+
+def _abstract(spec) -> torch.Tensor:
+    return torch.empty(tuple(spec.shape), dtype=spec.dtype, device="meta")
+
+
+def _serve_on(mesh, kind: str) -> None:
+    if not shd.is_trivial(mesh):
+        raise NotImplementedError(
+            f"the {kind} cell on {shd.mesh_shape(mesh)}: sharded serving is "
+            f"ROADMAP A10-rest.2")
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               opt=None, accum: Optional[int] = None) -> Cell:
+    """The step, its abstract args and its in/out spec trees for a cell on
+    ``mesh`` (a ``DeviceMesh`` or a {name: size} dict: the specs need only
+    the sizes; the train step runs on a ``DeviceMesh``)."""
+    cfg = config_for_shape(cfg, shape)
+    model = build_model(cfg)
+    aparams = model.init(None, "meta")
+    psh = shd.param_shardings(aparams, mesh, fsdp=cfg.fsdp,
+                              moe_ep2d=cfg.moe_impl == "shard_map")
+    batch = {k: _abstract(v) for k, v in input_specs(cfg, shape).items()}
+    repl = shd.replicated(mesh)
+    B = shape.global_batch
+
+    if shape.kind == "train":
+        opt = opt or default_optimizer(cfg)
+        aopt = opt.init(aparams)
+        osh = _opt_shardings(aopt, aparams, psh, mesh)
+        bsh = shd.batch_shardings(batch, mesh)
+        step = make_train_step(
+            model, opt, mesh=None if isinstance(mesh, dict) else mesh,
+            specs=psh,
+            accum=accum if accum is not None
+            else default_accum(cfg, shape, mesh))
+        return Cell(cfg, shape, model, step, (aparams, aopt, batch),
+                    (psh, osh, bsh), (psh, osh, repl), "train")
+
+    if shape.kind == "prefill":
+        max_len = WHISPER_DECODER_LEN if cfg.is_encdec else shape.seq_len
+
+        def prefill_step(params, batch):
+            _serve_on(mesh, "prefill")
+            return model.prefill(params, batch, max_len)
+
+        acache = model.cache_shape(B, max_len, "meta", **(
+            {"enc_len": shape.seq_len} if cfg.is_encdec else {}))
+        lsh = shd.batch_pspec((B, cfg.vocab_size), mesh)
+        return Cell(cfg, shape, model, prefill_step, (aparams, batch),
+                    (psh, shd.batch_shardings(batch, mesh)),
+                    (lsh, shd.cache_shardings(acache, mesh)), "prefill")
+
+    # decode
+    acache = model.cache_shape(
+        B, WHISPER_DECODER_LEN if cfg.is_encdec else shape.seq_len, "meta",
+        **({"enc_len": shape.seq_len} if cfg.is_encdec else {}))
+    csh = shd.cache_shardings(acache, mesh)
+    tokens = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+
+    def decode_step(params, cache, tokens, pos):
+        _serve_on(mesh, "decode")
+        return model.decode_step(params, cache, tokens, pos)
+
+    return Cell(cfg, shape, model, decode_step,
+                (aparams, acache, tokens, pos),
+                (psh, csh, shd.batch_pspec((B, 1), mesh), repl),
+                (shd.batch_pspec((B, cfg.vocab_size), mesh), csh), "decode")
+
+
+def _opt_shardings(aopt, aparams, psh, mesh):
+    """Optimizer-state specs: a state leaf whose path *suffix* matches a
+    parameter path and whose shape matches that parameter inherits the
+    parameter's spec (so Adam's m/v are ZeRO-sharded exactly like the
+    weights); factored/scalar stats are replicated."""
+    specs = dict(shd.leaves_with_path(psh))
+    pinfo = {path: (tuple(leaf.shape), specs[path])
+             for path, leaf in shd.leaves_with_path(aparams)}
+
+    def one(path, leaf):
+        for i in range(len(path)):
+            info = pinfo.get(path[i:])
+            if info is not None and info[0] == tuple(leaf.shape):
+                return info[1]
+        return shd.replicated(mesh)
+    return shd.map_with_path(one, aopt)

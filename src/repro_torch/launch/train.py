@@ -9,27 +9,49 @@ fault-tolerance hooks (preemption -> save-and-exit; the data state is the
 step, so a restart sees the same batches).  The model runs on the CUDA
 device unless ``--device`` names another one (``cpu`` runs every kernel's
 plain version).  ``--arch`` takes every arch of the port's registry, the
-recurrent ``recurrentgemma-2b`` and ``xlstm-125m`` too.  One device only:
-``--mesh`` takes ``1x1`` (the model-stack sharding is ROADMAP A10-rest).
+recurrent ``recurrentgemma-2b`` and ``xlstm-125m`` too.
 
-A checkpoint holds ``{"params", "opt": {"step", "inner"}}``; a run with
-``--ckpt-dir`` resumes from its latest step.  Losses reach the host only
-on log steps.
+``--mesh dxm`` (or ``pxdxm``) trains on a device mesh of that shape
+(``launch.mesh.parse_mesh``; ``data`` x ``model``, ``pod`` in front):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch yi-6b --smoke --mesh 1x2
+
+under ``torchrun`` (the process group is set up from its environment:
+NCCL when every rank has a card of its own, else gloo) or in a process
+whose group is already initialized.  Each rank draws the same seeded
+params and keeps its shards (``launch.steps.shard_params``); the step is
+``launch.steps``' mesh executor.  The dense and MoE attention families
+run there; the others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
+
+A checkpoint holds ``{"params", "opt": {"step", "inner"}}`` in whole
+leaves; a run with ``--ckpt-dir`` resumes from its latest step.  On a mesh
+the leaves are all-gathered one at a time into rank 0's host memory and
+rank 0 writes the same store a single device writes; a restore takes each
+rank's shards of the stored leaves, so a mesh checkpoint restores on one
+device and a one-device checkpoint on a mesh.  The ranks agree each step
+on whether a preemption signal reached any of them.  Losses reach the
+host only on log steps.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import make_pipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import mesh_dims, parse_mesh
 from repro_torch.launch.steps import default_optimizer, make_train_step
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, check_mesh_support
 from repro_torch.optim import OptState
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime import PreemptionHandler
@@ -42,12 +64,56 @@ def train_tree(params, opt_state: OptState) -> dict:
 
 
 @torch.no_grad()
-def load_train_tree(params, opt_state: OptState, restored: dict) -> None:
+def load_train_tree(params, opt_state: OptState, restored: dict,
+                    specs=None, mesh=None) -> None:
     """Copy a restored train state (numpy leaves, ``train_tree``'s
-    structure) into the live tensors, the step included."""
-    for t, arr in zip(tree_leaves(train_tree(params, opt_state)),
-                      tree_leaves(restored)):
-        t.copy_(torch.as_tensor(arr))
+    structure) into the live tensors, the step included; on a mesh each
+    rank takes its shard of every leaf (``specs``: the train tree's spec
+    tree)."""
+    flat = [s for _, s in shd.leaves_with_path(specs)] if specs else None
+    for i, (t, arr) in enumerate(zip(
+            tree_leaves(train_tree(params, opt_state)),
+            tree_leaves(restored))):
+        a = torch.as_tensor(arr)
+        t.copy_(a if flat is None else shd.local_shard(a, flat[i], mesh))
+
+
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """``flag`` or-ed over every rank of the mesh's group: a preemption
+    signal may reach the ranks a step apart, and all of them must enter
+    the checkpoint's collectives together."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device="cpu" if dist.get_backend()
+                     == "gloo" else device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _setup_mesh(spec: str, device):
+    """(mesh, this rank's device) for ``--mesh``; (None, device) for a
+    mesh of one device.  Initializes the process group from ``torchrun``'s
+    environment where none is."""
+    dims, _ = mesh_dims(spec)
+    if int(np.prod(dims)) == 1:
+        return None, device
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {spec} takes {int(np.prod(dims))} ranks: run under "
+                f"torchrun --nproc-per-node {int(np.prod(dims))}, or in a "
+                f"process whose torch.distributed group is initialized")
+        cuda = device.type == "cuda"
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        nccl = cuda and torch.cuda.device_count() >= int(
+            os.environ.get("LOCAL_WORLD_SIZE", os.environ.get(
+                "WORLD_SIZE", 1)))
+        dist.init_process_group("nccl" if nccl else "gloo")
+        if cuda:
+            device = torch.device("cuda", local if nccl else 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return parse_mesh(spec, device.type), device
 
 
 def main(argv=None):
@@ -61,7 +127,9 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=256)
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--mesh", default="1x1",
-                   help="only 1x1: the model-stack sharding is not ported")
+                   help="dxm or pxdxm (data x model, pod in front); more "
+                        "than one device needs torchrun or an initialized "
+                        "process group")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--accum", type=int, default=1)
@@ -75,35 +143,48 @@ def main(argv=None):
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions)")
     args = p.parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; the "
-            f"model-stack sharding is ROADMAP A10-rest")
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    device = resolve_device(args.device)
+    if int(np.prod(mesh_dims(args.mesh)[0])) > 1:
+        check_mesh_support(cfg)
+    mesh, device = _setup_mesh(args.mesh, resolve_device(args.device))
+    rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)
     opt = default_optimizer(cfg)
-    step_fn = make_train_step(model, opt, peak_lr=args.peak_lr,
-                              total=args.steps,
-                              warmup=max(args.steps // 10, 1),
-                              accum=args.accum)
     pipe = make_pipeline("synthetic", vocab_size=cfg.vocab_size,
                          seq_len=args.seq_len, global_batch=args.global_batch)
 
     preempt = PreemptionHandler(install_signal=True)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
 
+    state_specs = specs = None
+    if mesh is not None:
+        aparams = model.init(None, "meta")
+        aopt = opt.init(aparams)
+        specs = shd.param_shardings(aparams, mesh, fsdp=cfg.fsdp,
+                                    moe_ep2d=cfg.moe_impl == "shard_map")
+        state_specs = train_tree(specs, OptState(
+            shd.replicated(mesh),
+            steps_lib._opt_shardings(aopt, aparams, specs, mesh).inner))
+    step_fn = make_train_step(model, opt, peak_lr=args.peak_lr,
+                              total=args.steps,
+                              warmup=max(args.steps // 10, 1),
+                              accum=args.accum, mesh=mesh, specs=specs)
     params = model.init(torch.Generator(device="cpu").manual_seed(0), device)
+    if mesh is not None:
+        params = shd.shard_tree(params, specs, mesh)
     opt_state = opt.init(params)
     start = 0
     if mgr is not None:
         latest = mgr.latest_step()
         if latest is not None:
-            restored = mgr.restore(latest, train_tree(params, opt_state))
-            load_train_tree(params, opt_state, restored)
+            like = train_tree(params, opt_state) if mesh is None \
+                else train_tree(aparams, aopt)
+            restored = mgr.restore(latest, like)
+            load_train_tree(params, opt_state, restored, state_specs, mesh)
             start = latest
-            print(f"restored checkpoint @ step {latest}")
+            if rank0:
+                print(f"restored checkpoint @ step {latest}")
 
     t0 = time.time()
     losses = []
@@ -111,7 +192,7 @@ def main(argv=None):
         params, opt_state, metrics = step_fn(params, opt_state,
                                              pipe.batch_at(step))
         losses.append(metrics["loss"])
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if rank0 and (step % args.log_every == 0 or step == args.steps - 1):
             dt = time.time() - t0
             tput = (step - start + 1) * args.global_batch \
                 * args.seq_len / max(dt, 1e-9)
@@ -119,18 +200,27 @@ def main(argv=None):
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"lr {float(metrics['lr']):.2e}  "
                   f"{tput:,.0f} tok/s", flush=True)
-        if mgr is not None and (
-                (step + 1) % args.ckpt_every == 0 or preempt.should_exit):
-            mgr.save(step + 1, train_tree(params, opt_state),
-                     blocking=preempt.should_exit)
-        if preempt.should_exit:
+        stop = _any_rank(preempt.should_exit, mesh, device)
+        if mgr is not None and ((step + 1) % args.ckpt_every == 0 or stop):
+            if mesh is None:
+                mgr.save(step + 1, train_tree(params, opt_state),
+                         blocking=stop)
+            else:
+                # leaf by leaf into rank 0's host memory; rank 0 writes
+                whole = steps_lib.gather_tree(train_tree(params, opt_state),
+                                              state_specs, mesh, dst=0)
+                if rank0:
+                    mgr.save(step + 1, whole, blocking=True)
+                del whole
+                dist.barrier()
+        if stop:
             print(f"preempted: checkpointed at step {step + 1}, exiting")
             break
     if mgr is not None:
         mgr.join()
     losses = torch.stack(losses).tolist() if losses else []
 
-    if len(losses) >= 20:
+    if rank0 and len(losses) >= 20:
         first, last = np.mean(losses[:10]), np.mean(losses[-10:])
         print(f"loss {first:.4f} -> {last:.4f} "
               f"({'improved' if last < first else 'NOT improved'})")

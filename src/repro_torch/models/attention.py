@@ -2,8 +2,20 @@
 decode (port of ``repro.models.attention``).
 
 Layouts are the reference's: activations (B, S, d_model), heads in
-(B, S, H, D).  The reference's sharding constraints have no counterpart
-here (the model-stack sharding rules are ROADMAP A10-rest).
+(B, S, H, D).
+
+On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``)
+``attention_full`` is tensor-parallel over ``model``: each rank projects
+and attends its own q heads (``wq``/``wo`` split by heads), against its
+own kv heads where ``wk``/``wv`` are split too, else against the kv heads
+its q heads map to (``_kv_heads_of``); the output projection's partial
+sums are all-reduced.  Where the heads do not divide ``model`` and the
+positions do, with ``seq_parallel_attn`` (``_sp_active``, the reference's
+rule), each rank takes its S/tp query rows instead, against K/V
+all-gathered once a layer and cut at its last row: B6 right-aligns
+queries to keys, so the keys ``[:(r+1)·S/tp]`` give rank r the causal
+mask without a new kernel argument.  The reference's
+``with_sharding_constraint`` points are these redistributions.
 
 ``attn_impl``: the reference chooses between an XLA einsum path ("xla") and
 the Pallas flash kernel ("pallas"); both compute the same function.  Here
@@ -42,6 +54,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sketched_attention import (build_landmark_state,
                                                  signed_den_floor)
 from repro_torch.device import generator_or_default
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import as_compute
@@ -52,6 +66,15 @@ NEG = -1e30
 
 def _is_mla(cfg: ModelConfig, kind: str) -> bool:
     return cfg.use_mla and kind in ("attn", "global")
+
+
+def _sp_active(cfg: ModelConfig, S: int) -> bool:
+    """Sequence-parallel attention: only when heads don't divide the TP axis
+    (otherwise head sharding is strictly better) and positions do."""
+    if not cfg.seq_parallel_attn or S <= 1:
+        return False
+    tp = shd.ambient_axis_size("model")
+    return tp > 1 and cfg.n_heads % tp != 0 and S % tp == 0
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +177,56 @@ def attention_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.use_mla:
         return mla_attend_full(params, cfg,
                                *_mla_project(params, cfg, x, positions))
+    if _sp_active(cfg, x.shape[1]):
+        return _attention_sp(params, cfg, x, positions, kind)
+    if shd.split(params, "wq", 1):
+        return _attention_tp(params, cfg, x, positions, kind)
     q, k, v = _qkv(params, cfg, x, positions, _theta(cfg, kind))
     return attend_full(params, cfg, q, k, v, kind)
+
+
+def _kv_heads_of(rank: int, h_loc: int, cfg: ModelConfig) -> list:
+    """The kv heads (global ids) that this rank's ``h_loc`` q heads read,
+    for a replicated ``wk``/``wv``: each kv head once when the local heads
+    are whole groups of one size, else one per q head (MHA locally)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    kvs = [(rank * h_loc + j) // group for j in range(h_loc)]
+    uniq = sorted(set(kvs))
+    rep = h_loc // len(uniq)
+    if [u for u in uniq for _ in range(rep)] == kvs:
+        return uniq
+    return kvs
+
+
+def _attention_tp(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kind: str) -> torch.Tensor:
+    """Heads split over ``model``: this rank's q heads (and kv heads), the
+    partial output projection summed over the ranks."""
+    p = shd.tp_local(params)
+    x = C.copy_to(x, "model")
+    q, k, v = _qkv(p, cfg, x, positions, _theta(cfg, kind))
+    if not shd.split(params, "wk", 1):
+        idx = _kv_heads_of(shd.axis_index("model"), q.shape[2], cfg)
+        k, v = k[:, :, idx].contiguous(), v[:, :, idx]
+    return C.reduce_from(attend_full(p, cfg, q, k, v, kind), "model")
+
+
+def _attention_sp(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kind: str) -> torch.Tensor:
+    """Sequence-parallel attention: this rank's S/tp query rows against
+    K/V all-gathered over ``model`` and cut at its last row; the output
+    rows all-gathered back.  The weights are whole on every rank."""
+    r, tp = shd.axis_index("model"), shd.ambient_axis_size("model")
+    p = shd.tp_local(params)
+    rows = x.shape[1] // tp
+    xs = shd.constrain(x, (None, "model", None))
+    q, k, v = _qkv(p, cfg, xs, positions[r * rows:(r + 1) * rows],
+                   _theta(cfg, kind))
+    end = (r + 1) * rows
+    k = C.all_gather_sum(k, 1, "model")[:, :end]
+    v = C.all_gather_sum(v, 1, "model")[:, :end]
+    y = attend_full(p, cfg, q, k, v, kind)
+    return shd.constrain(y, (), src=(None, "model", None))
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,14 @@ Weights are stored in ``cfg.pdtype`` and used in ``cfg.cdtype``: every
 matmul weight goes through ``as_compute`` (a no-op for a weight already held
 in the compute dtype, see ``Model.prepare`` in ``models.model``), norm
 scales stay in f32 arithmetic.
+
+On a mesh (``distributed.sharding.use_mesh`` and a ``MeshParams`` view of
+the params) the vocabulary and the MLP width may be split over ``model``:
+``embed`` looks up the rows it holds and sums the ranks' rows,
+``unembed`` gives this rank's slice of the vocabulary (``vocab_slice``),
+and ``mlp`` multiplies by its column and row slices and sums the partial
+outputs (``distributed.collectives``).  Off a mesh every function is the
+single-device code.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 
 _F32 = torch.float32
 
@@ -35,7 +45,11 @@ def as_compute(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 def dense_init(generator: torch.Generator, shape, dtype,
                scale: Optional[float] = None, device=None) -> torch.Tensor:
     """Truncated-normal (±3σ) fan-in init, drawn on the generator's device
-    and moved to ``device``."""
+    and moved to ``device``.  On the ``meta`` device nothing is drawn: the
+    tensor has the shape and dtype alone (``launch.steps.build_cell``'s
+    abstract params, 671B of them for deepseek-v3)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(tuple(shape), dtype=_F32, device=generator.device)
@@ -85,14 +99,37 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor
     vocab × d_model copy per call); ``scale_embed`` multiplies by √d_model
     rounded to the compute dtype, as the reference does."""
     dt = cfg.cdtype
-    x = as_compute(params["embedding"][tokens], dt)
+    if shd.split(params, "embedding", 0):
+        # this rank's rows of the vocabulary; the others' tokens give 0
+        table = params["embedding"]
+        local = tokens - shd.axis_index("model") * table.shape[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        x = as_compute(table[torch.where(mine, local, 0)], dt) \
+            * mine[..., None].to(dt)
+        x = C.reduce_from(x, "model")
+    else:
+        x = as_compute(params["embedding"][tokens], dt)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
 
 
+def vocab_slice(params: dict, cfg: ModelConfig):
+    """(first entry, width) of the vocabulary slice ``unembed`` gives on
+    this rank; the whole vocabulary off a mesh."""
+    key, dim = ("embedding", 0) if cfg.tie_embeddings else ("unembed", 1)
+    if not shd.split(params, key, dim):
+        return 0, cfg.vocab_size
+    width = params[key].shape[dim]
+    return shd.axis_index("model") * width, width
+
+
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the vocabulary, or over this rank's slice of it
+    (``vocab_slice``) where the table is split over ``model``."""
     dt = cfg.cdtype
+    if vocab_slice(params, cfg)[1] != cfg.vocab_size:
+        x = C.copy_to(x, "model")
     if cfg.tie_embeddings:
         logits = x @ as_compute(params["embedding"], dt).T
     else:
@@ -144,6 +181,12 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
 
 
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN; with its width split over ``model`` each rank multiplies by
+    its columns of ``wi_*`` and rows of ``wo``, and the partial outputs
+    are summed."""
+    tp = shd.split(params, "wi_up", 1)
+    if tp:
+        x = C.copy_to(x, "model")
     dt = cfg.cdtype
     up = x @ as_compute(params["wi_up"], dt)
     if cfg.mlp_variant == "swiglu":
@@ -157,4 +200,5 @@ def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_variant)
-    return h @ as_compute(params["wo"], dt)
+    out = h @ as_compute(params["wo"], dt)
+    return C.reduce_from(out, "model") if tp else out

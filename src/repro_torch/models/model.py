@@ -40,6 +40,19 @@ each stacked on a leading axis of ``n_dec_layers`` as the reference's
 ``_encdec_cache`` lays it out: the decoder's self-attention cache and the
 cross-attention's encoder K/V, computed once at prefill.
 
+On a mesh (``distributed.sharding.use_mesh`` with params laid out by
+``sharding.mesh_view``; ``launch.steps`` drives it) ``loss`` takes this
+rank's rows of the batch and returns this rank's share of the loss: the
+shares of the data ranks add up to the global loss (the CE summed over
+the rank's tokens over the global token count; the aux, a global value,
+over the data ranks' count), and ``metrics`` holds the global values.  A
+vocabulary split over ``model`` gives the CE by a distributed
+log-sum-exp (``vocab_parallel_nll``): the logits are never gathered.  The
+dense and MoE attention families run there; MLA, the recurrent mixers,
+the encoder-decoder, MTP and the serving entry points raise
+``NotImplementedError`` naming their ROADMAP item
+(``check_mesh_support``).
+
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
 ``prefill`` takes the landmark layers' draws (``landmark_draws``, see
 ``transformer.stack_prefill``) or draws them from ``generator``.
@@ -54,6 +67,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator_or_default, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
@@ -186,11 +201,83 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] per row, the logits split over ``model``
+    by vocabulary: the max and the sum of exponentials all-reduced, the
+    target logit taken from the rank that holds it.  The backward is each
+    rank's slice of softmax − one-hot; the loss is replicated over
+    ``model``, so no collective runs there."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, first, mesh):
+        lg = logits.to(_F32)
+        m = C.all_reduce(torch.amax(lg, dim=-1), "model", op="max",
+                         mesh=mesh)
+        e = torch.exp(lg - m[..., None])
+        s = C.all_reduce(torch.sum(e, dim=-1), "model", mesh=mesh)
+        local = labels - first
+        mine = (local >= 0) & (local < lg.shape[-1])
+        at = torch.where(mine, local, 0)
+        tl = torch.gather(lg, -1, at[..., None])[..., 0] * mine.to(_F32)
+        tl = C.all_reduce(tl, "model", mesh=mesh)
+        ctx.save_for_backward(e.div_(s[..., None]), at, mine)
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        p, at, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, at[..., None], (-g * mine.to(_F32))[..., None])
+        return grad.to(ctx.dtype), None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       first: int) -> torch.Tensor:
+    """Per-row NLL of vocabulary-split logits (this rank's entries
+    ``first`` on) under the ambient mesh."""
+    return _VocabParallelNLL.apply(logits, labels, first, shd.ambient_mesh())
+
+
+def check_mesh_support(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this port does not yet run on
+    a mesh of more than one device (ROADMAP A10-rest.3)."""
+    what = None
+    if cfg.is_encdec:
+        what = "the encoder-decoder"
+    elif cfg.use_mla:
+        what = "MLA (deepseek)"
+    elif cfg.mtp:
+        what = "multi-token prediction"
+    elif any(k in T.REC_KINDS for k in cfg.layer_pattern):
+        what = "the recurrent mixers"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a mesh of more than one device is "
+            f"ROADMAP A10-rest.3")
+
+
+def _check_mesh(cfg: ModelConfig) -> None:
+    """``check_mesh_support`` under an ambient mesh of more than one
+    device.  (The embeddings and the final norm are never split over
+    ``data``, so only the blocks gather weights: ``transformer``.)"""
+    if shd.mesh_active():
+        check_mesh_support(cfg)
+
+
+def _serving_on_mesh(cfg: ModelConfig) -> None:
+    if shd.mesh_active():
+        raise NotImplementedError(
+            f"{cfg.name}: prefill and decode on a mesh of more than one "
+            f"device are ROADMAP A10-rest.2")
+
+
 def _labels(batch: dict, device) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], dtype=torch.int64, device=device)
 
 
 def _lm_hidden(params: dict, cfg: ModelConfig, batch: dict):
+    _check_mesh(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = T.stack_full(params["stack"], cfg, x, positions)
@@ -199,7 +286,10 @@ def _lm_hidden(params: dict, cfg: ModelConfig, batch: dict):
 
 def _lm_forward(params: dict, batch: dict, *, cfg: ModelConfig):
     h, aux = _lm_hidden(params, cfg, batch)
-    return L.unembed(params["embed"], cfg, h), aux
+    logits = L.unembed(params["embed"], cfg, h)
+    if L.vocab_slice(params["embed"], cfg)[1] != cfg.vocab_size:
+        logits = C.gather(logits, -1, "model")
+    return logits, aux
 
 
 def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -219,8 +309,32 @@ def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
     return softmax_xent(L.unembed(params["embed"], cfg, z), labels2)
 
 
+def _mesh_loss(params: dict, cfg: ModelConfig, h: torch.Tensor,
+               aux: torch.Tensor, labels: torch.Tensor):
+    """This rank's share of the loss on a mesh, and the global metrics."""
+    logits = L.unembed(params["embed"], cfg, h)
+    first, width = L.vocab_slice(params["embed"], cfg)
+    if width != cfg.vocab_size:
+        nll = vocab_parallel_nll(logits, labels, first)
+    else:
+        lg = logits.to(_F32)
+        nll = torch.logsumexp(lg, dim=-1) - torch.gather(
+            lg, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    del logits
+    mask = (labels >= 0).to(_F32)
+    dp = shd.data_axes(shd.ambient_mesh())
+    count = C.all_reduce(torch.sum(mask), dp)
+    share = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+    ce = C.all_reduce(share.detach(), dp)
+    total = share + MOE_AUX_WEIGHT * aux / C.axes_size(dp)
+    return total, {"ce": ce, "aux": aux,
+                   "loss": ce + MOE_AUX_WEIGHT * aux.detach()}
+
+
 def _lm_loss(params: dict, batch: dict, *, cfg: ModelConfig):
     h, aux = _lm_hidden(params, cfg, batch)
+    if shd.mesh_active():
+        return _mesh_loss(params, cfg, h, aux, _labels(batch, h.device))
     ce = softmax_xent(L.unembed(params["embed"], cfg, h),
                       _labels(batch, h.device))
     total = ce + MOE_AUX_WEIGHT * aux
@@ -237,6 +351,7 @@ def _lm_prefill(params: dict, batch: dict, max_len: int, *,
                 cfg: ModelConfig,
                 landmark_draws: Optional[Dict[int, dict]] = None,
                 generator: Optional[torch.Generator] = None):
+    _serving_on_mesh(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, caches = T.stack_prefill(params["stack"], cfg, x, positions, max_len,
@@ -247,6 +362,7 @@ def _lm_prefill(params: dict, batch: dict, max_len: int, *,
 
 def _lm_decode(params: dict, cache: dict, tokens, pos: int, *,
                cfg: ModelConfig):
+    _serving_on_mesh(cfg)
     x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
                                               _device(params)))
     x, cache = T.stack_decode(params["stack"], cfg, x, cache, int(pos))
@@ -366,6 +482,7 @@ def _dec_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _encdec_hidden(params: dict, cfg: ModelConfig, batch: dict
                    ) -> torch.Tensor:
+    _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
     positions = torch.arange(x.shape[1], device=x.device)
@@ -395,6 +512,7 @@ def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
     cache.  Returns (the last position's logits, cache).  The decoder has
     no landmark layer, so ``landmark_draws`` and ``generator`` (taken as
     the LM's prefill takes them) are unused."""
+    _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
@@ -421,6 +539,7 @@ def _encdec_decode(params: dict, cache: dict, tokens, pos: int, *,
     """One decoder token: each layer's self-attention reads and updates
     its slice of the self cache in place (the full-cache decode read),
     then attends across to the cached encoder K/V."""
+    _check_mesh(cfg)
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
                                               _device(params)))

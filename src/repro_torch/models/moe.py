@@ -26,21 +26,40 @@ k values of each token are put back in routing order, (T, k, d), and summed
 over k in that fixed order, so two calls give the same bits.
 
 Shared experts (deepseek's 1, qwen's 4) are one dense MLP of width
-n_shared · moe_d_ff, added unconditionally.  The reference's
-``moe_impl="shard_map"`` (expert parallelism over a mesh) falls back to
-this gather path on one device, and so does the port; the expert-parallel
-variant is ROADMAP A10-rest.  No custom kernel: the reference computes the
-expert GEMMs, the sort and the scatter as XLA ops outside any Pallas
-kernel.
+n_shared · moe_d_ff, added unconditionally.  No custom kernel: the
+reference computes the expert GEMMs, the sort and the scatter as XLA ops
+outside any Pallas kernel.
+
+On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``):
+
+- the gather path keeps the reference's global semantics (GSPMD runs its
+  one program over the global batch): the capacity is that of every
+  token of the data ranks, an expert's slots go to the tokens in global
+  order (``_assign``'s ``offsets``: the assignments of the lower data
+  ranks, one all-gather of E counts), and the aux is formed from the
+  global means.  With the experts split over ``model`` each rank computes
+  its own experts' slots, with the FFN width split each rank its part of
+  every expert; the partial combine is summed over ``model``;
+- ``moe_impl="shard_map"`` is the reference's expert parallelism
+  (``_moe_shard_map``) where the experts divide data × model
+  (``_ep_axes_available``): each ``model`` rank routes the disjoint token
+  slice ``rank·T_loc`` of its data slice, with its own aux (``pmean``ed
+  over the EP group) and capacity max(8, ⌈int(cf·(T_loc·k)/E)⌉₈); one
+  ``all_to_all`` carries the slots to the experts' ranks and one brings
+  them back; the combine is this path's fixed order, and the slices are
+  all-gathered over ``model``.  Without the divisibility it is the gather
+  path, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import as_compute
 
@@ -63,9 +82,12 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor):
+def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor,
+           group_mean=None):
     """xf: (T, d) -> top-k weights (T, k) f32, expert ids (T, k) int64, and
-    the Switch-style load-balance aux E · Σ_e frac_e · mean_prob_e."""
+    the Switch-style load-balance aux E · Σ_e frac_e · mean_prob_e.
+    ``group_mean`` replaces the mean over the tokens (a mean over every
+    data rank's tokens on a mesh)."""
     logits = xf.to(_F32) @ params["router"].to(_F32)          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort puts the lower expert id first at a tie, as
@@ -76,8 +98,9 @@ def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor):
     E = cfg.n_experts
     hard = torch.zeros((xf.shape[0], E), dtype=_F32, device=xf.device)
     hard.scatter_(1, idx, 1.0)
-    frac = torch.mean(hard, dim=0) / cfg.moe_top_k
-    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    mean = group_mean or (lambda t: torch.mean(t, dim=0))
+    frac = mean(hard) / cfg.moe_top_k
+    aux = E * torch.sum(frac * mean(probs))
     return w, idx, aux
 
 
@@ -92,10 +115,13 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return -(-C // 8) * 8
 
 
-def _assign(cfg: ModelConfig, idx: torch.Tensor, C: int):
+def _assign(cfg: ModelConfig, idx: torch.Tensor, C: int,
+            offsets: Optional[torch.Tensor] = None):
     """The dispatch plan of the T·k assignments, in routing order (token t's
     j-th choice is entry t·k + j): its token, its buffer slot (E·C for a
-    dropped assignment) and whether it is kept."""
+    dropped assignment) and whether it is kept.  ``offsets`` (E,) counts
+    each expert's assignments that come before these tokens (a mesh's
+    lower data ranks)."""
     E, k = cfg.n_experts, cfg.moe_top_k
     eids = idx.reshape(-1)
     Tk = eids.shape[0]
@@ -103,6 +129,8 @@ def _assign(cfg: ModelConfig, idx: torch.Tensor, C: int):
     se, order = torch.sort(eids, stable=True)
     first = torch.searchsorted(se, se, side="left")
     pos_in_e = ar - first
+    if offsets is not None:
+        pos_in_e = pos_in_e + offsets[se]
     keep_s = pos_in_e < C
     slot_s = torch.where(keep_s, se * C + pos_in_e,
                          torch.full_like(se, E * C))
@@ -123,14 +151,24 @@ def _tracks_grad(params: dict, xf: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 def _dispatch_compute(params: dict, cfg: ModelConfig, xf: torch.Tensor,
-                      w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+                      w: torch.Tensor, idx: torch.Tensor,
+                      C: Optional[int] = None,
+                      offsets: Optional[torch.Tensor] = None,
+                      first_expert: int = 0) -> torch.Tensor:
     """Sort-based capacity dispatch.  xf: (T, d) -> (T, d) in the compute
-    dtype."""
+    dtype.  ``C`` and ``offsets`` default to these T tokens alone; banks of
+    fewer than E experts (split over ``model``) hold experts
+    ``first_expert`` on, and only their slots are computed."""
     T, d = xf.shape
-    E, k = cfg.n_experts, cfg.moe_top_k
+    E, k = params["wi_gate"].shape[0], cfg.moe_top_k
     dt = cfg.cdtype
-    C = capacity(cfg, T)
-    tok, slot, keep = _assign(cfg, idx, C)
+    C = capacity(cfg, T) if C is None else C
+    tok, slot, keep = _assign(cfg, idx, C, offsets)
+    if E != cfg.n_experts:                 # this rank's experts' slots
+        lo = first_expert * C
+        mine = (slot >= lo) & (slot < lo + E * C)
+        keep = keep & mine
+        slot = torch.where(mine, slot - lo, E * C)
     # every drop lands in row E·C, which no expert reads
     train = _tracks_grad(params, xf, w)
     if train:
@@ -165,8 +203,110 @@ def moe_ffn(params: dict, cfg: ModelConfig,
     """x: (B, S, d) -> (out (B, S, d), aux loss scalar f32)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    w, idx, aux = _route(params, cfg, xf)
-    out = _dispatch_compute(params, cfg, xf, w, idx)
+    if shd.mesh_active():
+        out, aux = (_moe_shard_map(params, cfg, xf)
+                    if cfg.moe_impl == "shard_map" and _ep_axes_available(cfg)
+                    else _moe_gather_mesh(params, cfg, xf))
+    else:
+        w, idx, aux = _route(params, cfg, xf)
+        out = _dispatch_compute(params, cfg, xf, w, idx)
     if cfg.n_shared_experts:
         out = out + L.mlp(params["shared"], cfg, xf)
     return out.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+def _data_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the tokens of every data rank (equal counts): the
+    gradient of a rank's share flows back to every rank's tokens."""
+    axes = shd.data_axes(shd.ambient_mesh())
+    n = C.axes_size(axes)
+    m = torch.mean(t, dim=0)
+    return m if n == 1 else C.all_reduce_sum(m, axes) / n
+
+
+def _moe_gather_mesh(params: dict, cfg: ModelConfig, xf: torch.Tensor):
+    """The gather path on a mesh, with the reference's global semantics."""
+    axes = shd.data_axes(shd.ambient_mesh())
+    n = C.axes_size(axes)
+    w, idx, aux = _route(params, cfg, xf, group_mean=_data_mean)
+    offsets = None
+    if n > 1:
+        counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+        every = C.all_gather(counts[None], 0, axes)          # (n, E)
+        offsets = torch.sum(every[:shd.axis_index(axes)], dim=0)
+    Cap = capacity(cfg, xf.shape[0] * n)
+    by_expert = shd.split(params, "wi_gate", 0)
+    tp = by_expert or shd.split(params, "wi_gate", 2)
+    if tp:
+        xf, w = C.copy_to(xf, "model"), C.copy_to(w, "model")
+    first = (shd.axis_index("model") * params["wi_gate"].shape[0]
+             if by_expert else 0)
+    out = _dispatch_compute(params, cfg, xf, w, idx, Cap, offsets, first)
+    return (C.reduce_from(out, "model") if tp else out), aux
+
+
+def _ep_axes(cfg: ModelConfig):
+    return ("data", "model")
+
+
+def _ep_axes_available(cfg: ModelConfig) -> bool:
+    n = 1
+    for a in _ep_axes(cfg):
+        n *= shd.ambient_axis_size(a)
+    return n > 1 and cfg.n_experts % n == 0
+
+
+def ep_capacity(cfg: ModelConfig, T_loc: int) -> int:
+    """The expert-parallel capacity of T_loc tokens a rank: max(8, int(cf ·
+    (T_loc·k) / E) rounded up to a multiple of 8), the reference's
+    expression (T·k formed first)."""
+    Tk = T_loc * cfg.moe_top_k
+    return max(8, -(-int(cfg.capacity_factor * Tk / cfg.n_experts) // 8) * 8)
+
+
+def _moe_shard_map(params: dict, cfg: ModelConfig, xf: torch.Tensor):
+    """Expert parallelism over ('data', 'model') (the reference's
+    ``_moe_shard_map``, step for step): xf is this data slice's tokens,
+    replicated over ``model``."""
+    axes = _ep_axes(cfg)
+    tp = shd.ambient_axis_size("model")
+    n_ep = shd.ambient_axis_size(axes)
+    T_rep, d = xf.shape
+    if T_rep % tp:
+        raise ValueError(f"expert parallelism: {T_rep} tokens a data rank "
+                         f"do not split over model = {tp}")
+    T_loc = T_rep // tp
+    xs = C.scatter(xf, 0, "model")                 # this rank's token slice
+    router = C.copy_to(params["router"], "model")
+    w, idx, aux = _route({"router": router}, cfg, xs)
+    dp = shd.data_axes(shd.ambient_mesh())
+    aux = C.reduce_from(C.all_reduce_sum(aux, dp), "model") / (
+        C.axes_size(dp) * tp)                      # pmean over the group
+    E, k, dt = cfg.n_experts, cfg.moe_top_k, cfg.cdtype
+    E_loc = E // n_ep
+    Cap = ep_capacity(cfg, T_loc)
+    tok, slot, keep = _assign(cfg, idx, Cap)
+    sbuf = torch.zeros((E * Cap + 1, d), dtype=dt,
+                       device=xf.device).index_copy(0, slot, xs[tok].to(dt))
+    sbuf = sbuf[:E * Cap].reshape(n_ep, E_loc * Cap, d)
+    rbuf = C.all_to_all(sbuf, axes)
+    rb = rbuf.reshape(n_ep, E_loc, Cap, d).transpose(0, 1) \
+        .reshape(E_loc, n_ep * Cap, d)
+    gate = F.silu(torch.bmm(rb, as_compute(params["wi_gate"], dt)))
+    up = torch.bmm(rb, as_compute(params["wi_up"], dt))
+    ob = torch.bmm(gate * up, as_compute(params["wo"], dt))
+    del rb, gate, up
+    ob = ob.reshape(E_loc, n_ep, Cap, d).transpose(0, 1) \
+        .reshape(n_ep, E_loc * Cap, d)
+    obuf = C.all_to_all(ob, axes)
+    flat = torch.cat([obuf.reshape(E * Cap, d), obuf.new_zeros((1, d))])
+    wk = (w.reshape(-1) * keep.to(_F32)).to(dt)
+    vals = (flat[slot] * wk[:, None]).view(T_loc, k, d)
+    out = vals[:, 0]
+    for j in range(1, k):                  # a fixed order: bit-repeatable
+        out = out + vals[:, j]
+    return C.gather(out, 0, "model"), aux

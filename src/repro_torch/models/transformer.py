@@ -18,6 +18,11 @@ Every block has three modes:
   prefill : (x) -> (x', cache_entry)   cache sized ``max_len``
   decode  : (x, cache_entry, pos) -> (x', cache_entry)   (updated in place)
 
+On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``)
+each half-block all-gathers its FSDP-sharded weights as it starts
+(``sharding.materialize``); under a checkpoint the recompute gathers them
+again, so no gathered weight outlives its half-block.
+
 A recurrent block's cache entry is its mixer's decode state (RG-LRU
 ``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).
 Prefill takes it from the mixer's full pass (``recurrent.*_prefill``); the
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -90,6 +96,8 @@ def _mlp_residual(params: dict, cfg: ModelConfig, x: torch.Tensor
     (x', aux): the MoE's load-balance loss, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "mlp" in params or "moe" in params:
+        params = shd.materialize(params, ("norm2", "mlp", "moe",
+                                          "post_norm2"))
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
         if "moe" in params:
             h, aux = M.moe_ffn(params["moe"], cfg, h)
@@ -125,6 +133,7 @@ def _mixer_residual(params: dict, cfg: ModelConfig, kind: str,
                     x: torch.Tensor, positions: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The block's first half: x + post_norm1(mixer(norm1(x)))."""
+    params = shd.materialize(params, ("norm1", "mixer", "post_norm1"))
     xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
         h = R.FULL[kind](params["mixer"], cfg, xin)
@@ -311,11 +320,12 @@ def _block_save_io(params: dict, cfg: ModelConfig, kind: str,
     (its inputs are kept anyway).  The backward of the MLP half recomputes
     no mixer."""
     _check_kind(kind)
-    x = checkpoint(_mixer_residual, params, cfg, kind, x, positions, causal,
-                   use_reentrant=False)
+    x = checkpoint(shd.bind_mesh(_mixer_residual), params, cfg, kind, x,
+                   positions, causal, use_reentrant=False)
     if "mlp" not in params and "moe" not in params:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    return checkpoint(_mlp_residual, params, cfg, x, use_reentrant=False)
+    return checkpoint(shd.bind_mesh(_mlp_residual), params, cfg, x,
+                      use_reentrant=False)
 
 
 def _remat(cfg: ModelConfig, x: torch.Tensor):
@@ -343,9 +353,10 @@ def _remat(cfg: ModelConfig, x: torch.Tensor):
     if cfg.remat == "save_io":
         return _block_save_io
     if cfg.remat == "dots":
-        return functools.partial(checkpoint, block_full, use_reentrant=False,
-                                 context_fn=_save_dots)
-    return functools.partial(checkpoint, block_full, use_reentrant=False)
+        return functools.partial(checkpoint, shd.bind_mesh(block_full),
+                                 use_reentrant=False, context_fn=_save_dots)
+    return functools.partial(checkpoint, shd.bind_mesh(block_full),
+                             use_reentrant=False)
 
 
 def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,

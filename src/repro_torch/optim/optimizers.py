@@ -36,8 +36,10 @@ class OptState(NamedTuple):
 class Optimizer:
     name: str
     init: Callable[[Any], OptState]
-    update: Callable[[Any, OptState, Any, Any], tuple]
-    # update(grads, state, params, lr) -> (params, state, metrics)
+    update: Callable[..., tuple]
+    # update(grads, state, params, lr, gnorm=None)
+    #     -> (params, state, metrics);
+    # ``gnorm``: the gradients' global norm where the caller formed it
 
 
 # ---------------------------------------------------------------------------
@@ -113,11 +115,14 @@ def clip_by_global_norm(tree, max_norm: float):
     return tree_map(lambda x: x.to(_F32) * scale, tree), gn
 
 
-def _grads_f32(grads: List[torch.Tensor], clip_norm: Optional[float]):
+def _grads_f32(grads: List[torch.Tensor], clip_norm: Optional[float],
+               gn: Optional[torch.Tensor] = None):
     """(a function giving leaf i's gradient in f32, clipped as the
     reference clips the tree, global norm); leaves are made one at a
-    time, so no clipped copy of the whole tree is held."""
-    gn = global_norm(grads)
+    time, so no clipped copy of the whole tree is held.  ``gn`` is the
+    global norm when the caller formed it (the leaves are local shards of
+    a mesh: ``launch.steps``)."""
+    gn = global_norm(grads) if gn is None else gn
     if clip_norm is None:
         return (lambda i: grads[i].to(_F32)), gn
     scale = _clip_scale(gn, clip_norm)
@@ -162,11 +167,12 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                "v": tree_map(_zeros(), params)})
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, gnorm=None):
         flat_p = tree_leaves(params)
         flat_m = tree_leaves(state.inner["m"])
         flat_v = tree_leaves(state.inner["v"])
-        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm)
+        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm,
+                                 gnorm)
         t = state.step + 1
         tf = t.to(_F32)
         bc1 = 1.0 - b1 ** tf
@@ -246,12 +252,13 @@ def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
         return OptState(step=_step0(params), inner=inner)
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, gnorm=None):
         flat_p = tree_leaves(params)
         flat_st = _flatten_upto(state.inner["stats"], params)
         flat_m = tree_leaves(state.inner["m"]) if momentum \
             else [None] * len(flat_p)
-        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm)
+        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm,
+                                 gnorm)
         t = state.step + 1
         beta2 = 1.0 - (t.to(_F32) + 1.0) ** (-decay)
 
@@ -322,10 +329,11 @@ def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.1,
                         inner={"m": tree_map(_zeros(), params)})
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, gnorm=None):
         flat_p = tree_leaves(params)
         flat_m = tree_leaves(state.inner["m"])
-        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm)
+        grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm,
+                                 gnorm)
         for i, (p, m) in enumerate(zip(flat_p, flat_m)):
             g = grad_of(i)
             u = torch.sign(b1 * m + (1 - b1) * g)

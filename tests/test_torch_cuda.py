@@ -1102,6 +1102,40 @@ def test_flash_gradient_on_the_card(cuda_device, dtype, tol, causal, window):
         assert err <= tol, err
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_gradient_with_truncated_keys_on_the_card(cuda_device, dtype,
+                                                         tol, window):
+    """Sequence-parallel attention's call: rank r of 3 passes its 96 query
+    rows of S = 288 with the keys ``[:(r+1)·96]``; B6 right-aligns the
+    queries (Sq < Sk), so the causal mask is the global one.  dq, dk, dv
+    of the autograd Function against torch autograd of the plain version,
+    f32 ≤ 1e-4, bf16 ≤ 5e-2 scale-normalized."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    S, tp = 288, 3
+    rows = S // tp
+    q, k, v = rand(2, 8, S, 64), rand(2, 4, S, 64), rand(2, 4, S, 64)
+    for r in range(tp):
+        qs, end = q[:, :, r * rows:(r + 1) * rows], (r + 1) * rows
+        ks, vs = k[:, :, :end], v[:, :, :end]
+        do = rand(2, 8, rows, 64)
+        leaves = [t.clone().requires_grad_(True) for t in (qs, ks, vs)]
+        got = torch.autograd.grad(fa_ops.flash_attention(
+            *leaves, causal=True, window=window), leaves, do)
+        leaves = [t.clone().requires_grad_(True) for t in (qs, ks, vs)]
+        ref = torch.autograd.grad(fa_kernel.flash_attention_plain(
+            *leaves, causal=True, window=window), leaves, do)
+        for a, b in zip(got, ref):
+            err = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max())
+            assert err <= tol, (r, err)
+
+
 def test_every_gemma3_smoke_leaf_gets_a_gradient_on_the_card(cuda_device):
     """gemma3-12b's SMOKE loss on the card (bf16 compute, B6 on the tensor
     cores forward, ``attention_vjp`` backward): every parameter leaf gets a

@@ -71,7 +71,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
               "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
               "repro_torch.optim.compress", "repro_torch.launch.steps",
               "repro_torch.launch.train",
-              "repro_torch.kernels.flash_attention.grad"):
+              "repro_torch.kernels.flash_attention.grad",
+              "repro_torch.launch.mesh",
+              "repro_torch.distributed.collectives"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -99,6 +101,22 @@ def test_source_imports_no_jax_and_no_reference(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_the_mesh_module_imports_without_jax_or_a_process_group():
+    """``repro_torch.launch.mesh`` alone, in a fresh interpreter: no jax,
+    no reference, no process group set up by the import."""
+    code = ("import sys, torch.distributed as dist\n"
+            "import repro_torch.launch.mesh as m\n"
+            "assert m.mesh_dims('2x16x16') == ((2, 16, 16), "
+            "('pod', 'data', 'model'))\n"
+            "assert not dist.is_initialized()\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_the_distributed_package_is_checked_and_reports_trivial_meshes():

@@ -567,7 +567,7 @@ def test_default_optimizer_and_accum_match_reference():
         for shape in (("t", 4096, 256, "train"), ("t", 32768, 8, "train"),
                       ("p", 4096, 2, "prefill")):
             for dp in (1, 4):
-                assert tsteps.default_accum(tc, TShapeConfig(*shape), dp) \
+                assert tsteps.default_accum(tc, TShapeConfig(*shape), dp=dp) \
                     == jsteps.default_accum(jc, JShapeConfig(*shape),
                                             Mesh(data=dp, model=1))
 
@@ -575,7 +575,8 @@ def test_default_optimizer_and_accum_match_reference():
 def test_train_cli_runs_then_resumes(tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch yi-6b --smoke --steps 3
     --device cpu --ckpt-dir D`` trains and checkpoints; a second run with
-    more steps restores the latest step and goes on."""
+    more steps restores the latest step and goes on.  A mesh of 4 devices
+    asks for 4 ranks (``tests/test_torch_train_mesh.py`` trains on one)."""
     args = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--seq-len",
             "32", "--global-batch", "2", "--ckpt-dir", str(tmp_path),
             "--ckpt-every", "2", "--log-every", "1"]
@@ -587,7 +588,7 @@ def test_train_cli_runs_then_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "restored checkpoint @ step 2" in out
     assert len(again) == 3 and again[0] == first[2]
-    with pytest.raises(NotImplementedError, match="A10-rest"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         ttrain.main(args + ["--steps", "1", "--mesh", "2x2"])
 
 

@@ -1,0 +1,553 @@
+"""The port's train step on a device mesh (CPU): against one rank and
+against the reference's expert and sequence parallelism.
+
+Port side: 4 gloo ranks (``torch.multiprocessing`` spawn, a ``file://``
+store in a temp dir) form ("data", "model") meshes (2, 2) and (1, 4) and
+run, once for the module:
+
+- yi-6b (GQA: 8 heads, 2 kv heads, so at model = 4 the kv heads stay
+  whole and each rank reads the one its q heads map to), gemma3-12b
+  (local windows, qk-norm, post-norms, a tied and softcapped
+  embedding; 4 heads over 2 kv heads), qwen2-moe-a2.7b (6 experts: over
+  ``model`` at 2, the FFN width split at 4, which they do not divide) and
+  yi-6b with ``fsdp`` (the weights gathered over ``data`` on use), SMOKE
+  in f32: the loss, every gradient leaf (``launch.steps.loss_and_grads``,
+  the shards gathered back) and three steps' losses of
+  ``make_train_step`` against the same on one rank (loss ≤ 1e-5,
+  gradients ≤ 1e-4 scale-normalized, the steps ≤ 1e-4);
+- expert parallelism (``moe_impl="shard_map"``) on the reference test's
+  config (E 8, k 2, cf 8.0) on (2, 2), and a capacity-bound case (cf 0.7,
+  k 6) on (1, 4): the output and the aux against the reference's
+  ``_moe_shard_map`` on the same inputs (≤ 1e-5, aux ≤ 1e-6 relative),
+  every gradient of sum(out·g) + aux (router, shared experts, banks;
+  summed over the data ranks) against the reference's ``jax.grad``
+  (≤ 1e-4), and at cf 8.0, where nothing drops, the expert banks'
+  gradients against the gather path on one rank (≤ 1e-4);
+- sequence-parallel attention on the reference test's config (6 heads on
+  model = 4) on (1, 4): the loss against the reference's at its mesh (1,
+  4) (≤ 1e-5), the gradients against one rank;
+- the trainer's checkpoints (bf16 SMOKE yi-6b): a mesh run's checkpoint
+  (whole leaves, in the one-device layout) resumes on one device, and a
+  one-device checkpoint resumes on the mesh; both continue the
+  uninterrupted run's losses (≤ 2e-3 relative: bf16 sums in another
+  order); the shards gathered back are the params bit for bit (qwen2-moe
+  with ``fsdp``: every rule's layout), to every rank and, as a checkpoint
+  gathers them, to rank 0's host alone; a preemption signal on one rank
+  stops them all.
+
+Reference side: one subprocess sees 4 CPU devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4``, as
+``tests/test_distributed_paths.py`` runs its multi-device cases) and runs
+``moe_ffn`` with ``moe_impl="shard_map"`` and the SP loss under ``with
+mesh:``; it asserts that the expert- and sequence-parallel paths engaged.
+The two sides run at once.  The spawn and the subprocess each have their
+own timeout (240 s), and the gloo group a 120 s one, so a hung collective
+fails the module instead of running out the suite's clock.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import convert
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps
+from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as TM
+from repro_torch.models import moe as TMoE
+from repro_torch.optim import make_optimizer
+from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+
+REPO = Path(__file__).resolve().parents[1]
+WORLD = 4
+TIMEOUT = 240
+MESHES = ((2, 2), (1, 4))
+ARCHS = (("yi-6b", False), ("gemma3-12b", False), ("qwen2-moe-a2.7b", False),
+         ("yi-6b", True))
+TOL_LOSS, TOL_GRAD, TOL_STEPS = 1e-5, 1e-4, 1e-4
+MOE = dict(name="t", family="moe", n_layers=1, d_model=64, n_heads=4,
+           n_kv_heads=4, head_dim=16, d_ff=0, vocab_size=128, n_experts=8,
+           n_shared_experts=1, moe_top_k=2, moe_d_ff=48, capacity_factor=8.0,
+           dtype="float32", moe_impl="shard_map")
+EP_CASES = (("cf8", (2, 2), {}),
+            ("cf07_k6", (1, 4), {"capacity_factor": 0.7, "moe_top_k": 6}))
+SP = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=6,
+          n_kv_heads=2, head_dim=8, d_ff=96, vocab_size=64, dtype="float32",
+          seq_parallel_attn=True)
+CLI = ["--arch", "yi-6b", "--smoke", "--seq-len", "32", "--global-batch",
+       "4", "--device", "cpu", "--log-every", "1"]
+
+REF_SCRIPT = r'''
+import dataclasses, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs.base import ModelConfig
+from repro.models import attention as A
+from repro.models import moe as M
+from repro.models.model import build_model
+
+assert len(jax.devices()) == 4, jax.devices()
+d = sys.argv[1]
+inp = dict(np.load(d + "/inputs.npz", allow_pickle=True))
+cfgs = inp.pop("cfgs").item()
+out = {}
+for name, shape in cfgs["ep"]:
+    cfg = ModelConfig(**cfgs["moe"][name])
+    params = {k[len(name) + 4:]: jnp.asarray(v) for k, v in inp.items()
+              if k.startswith(name + "/ep/")}
+    params = {"router": params["router"], "wi_gate": params["wi_gate"],
+              "wi_up": params["wi_up"], "wo": params["wo"],
+              "shared": {k[7:]: v for k, v in params.items()
+                         if k.startswith("shared/")}}
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"))
+    x, g = jnp.asarray(inp[name + "/x"]), jnp.asarray(inp[name + "/g"])
+
+    def objective(p, x):
+        o, a = M.moe_ffn(p, cfg, x)
+        return jnp.sum(o * g) + a
+    with mesh:
+        assert M._ep_axes_available(cfg), name
+        o, a = jax.jit(lambda p, x: M.moe_ffn(p, cfg, x))(params, x)
+        grads = jax.jit(jax.grad(objective))(params, x)
+    out[name + "/out"], out[name + "/aux"] = np.asarray(o), np.asarray(a)
+    for k, v in grads.items():
+        for sub, leaf in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[name + "/grad/" + k + ("/" + sub if sub else "")] = \
+                np.asarray(leaf)
+sp = ModelConfig(**cfgs["sp"])
+flat = {k[3:]: v for k, v in inp.items() if k.startswith("sp/")}
+leaves, treedef = jax.tree_util.tree_flatten(build_model(sp).init(
+    jax.random.PRNGKey(0)))
+paths = [jax.tree_util.keystr(p) for p, _ in
+         jax.tree_util.tree_flatten_with_path(build_model(sp).init(
+             jax.random.PRNGKey(0)))[0]]
+params = jax.tree_util.tree_unflatten(
+    treedef, [jnp.asarray(flat[p]) for p in paths])
+batch = {"tokens": jnp.asarray(inp["sp_tokens"]),
+         "labels": jnp.asarray(inp["sp_labels"])}
+with jax.make_mesh((1, 4), ("data", "model")):
+    assert A._sp_active(sp, batch["tokens"].shape[1])
+    loss, _ = jax.jit(build_model(sp).loss)(params, batch)
+out["sp/loss"] = np.asarray(loss)
+np.savez(d + "/ref.npz", **out)
+'''
+
+
+# ---------------------------------------------------------------------------
+# inputs shared by both sides
+# ---------------------------------------------------------------------------
+
+def arch_cfg(arch: str, fsdp: bool) -> ModelConfig:
+    return dataclasses.replace(get_smoke(arch), dtype="float32", fsdp=fsdp)
+
+
+def arch_batch(cfg) -> dict:
+    rng = np.random.default_rng(3)
+    t = rng.integers(0, cfg.vocab_size, size=(4, 32)).astype(np.int32)
+    return {"tokens": t, "labels": np.roll(t, -1, 1)}
+
+
+def arch_params(cfg):
+    return TM.build_model(cfg).init(torch.Generator().manual_seed(5), "cpu")
+
+
+def moe_cfg(kw) -> ModelConfig:
+    return ModelConfig(**{**MOE, **kw})
+
+
+def moe_params(cfg):
+    return TMoE.init_moe(torch.Generator().manual_seed(7), cfg, "cpu")
+
+
+def moe_x() -> np.ndarray:
+    return (np.random.default_rng(8).normal(size=(4, 16, 64)) * 0.5
+            ).astype(np.float32)
+
+
+def moe_cotangent() -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(9).normal(
+        size=(4, 16, 64)).astype(np.float32))
+
+
+def sp_inputs():
+    cfg = ModelConfig(**SP)
+    params = TM.build_model(cfg).init(torch.Generator().manual_seed(11),
+                                      "cpu")
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, 64, size=(2, 64)).astype(np.int32)
+    return cfg, params, {"tokens": t, "labels": np.roll(t, -1, 1)}
+
+
+def _flat_ref(tree, prefix=""):
+    """A reference-layout tree as {jax keystr: array}."""
+    import jax
+    return {prefix + jax.tree_util.keystr(p): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def _gathered(tree, specs, mesh) -> list:
+    return [t.detach().clone() for t in tree_leaves(
+        steps.gather_tree(tree, specs, mesh))]
+
+
+def _arch_runs(mesh, out: dict) -> None:
+    for arch, fsdp in ARCHS:
+        cfg = arch_cfg(arch, fsdp)
+        model = TM.build_model(cfg)
+        local, specs = steps.shard_params(cfg, arch_params(cfg), mesh)
+        grads, met, gn = steps.loss_and_grads(model, local, arch_batch(cfg),
+                                              mesh=mesh, specs=specs)
+        key = f"{tuple(mesh.shape)}/{arch}/{fsdp}"
+        out[key + "/loss"] = float(met["loss"])
+        out[key + "/gnorm"] = float(gn)
+        out[key + "/grads"] = _gathered(tree_unflatten(local, iter(grads)),
+                                        specs, mesh)
+        opt = make_optimizer("adamw")
+        step = steps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
+                                     total=10, mesh=mesh, specs=specs)
+        state = opt.init(local)
+        losses = []
+        for _ in range(3):
+            local, state, m = step(local, state, arch_batch(cfg))
+            losses.append(float(m["loss"]))
+        out[key + "/steps"] = losses
+
+
+def _ep_runs(out: dict) -> None:
+    x = torch.as_tensor(moe_x())
+    for name, shape, kw in EP_CASES:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        cfg = moe_cfg(kw)
+        full = moe_params(cfg)
+        specs = shd.param_shardings({"moe": full}, mesh,
+                                    moe_ep2d=True)["moe"]
+        local = shd.shard_tree(full, specs, mesh)
+        for t in tree_leaves(local):
+            t.requires_grad_(True)
+        with shd.use_mesh(mesh):
+            xl = steps.local_rows({"x": x}, mesh)["x"]
+            o, aux = TMoE.moe_ffn(shd.mesh_view(local, specs), cfg, xl)
+            g = steps.local_rows({"g": moe_cotangent()}, mesh)["g"]
+            # each data rank's share of sum(out·g) + aux
+            (torch.sum(o * g) + aux / shd.data_size(mesh)).backward()
+        rows = torch.cat([t.detach() for t in _all_rows(o.detach(), mesh)])
+        out[name + "/out"] = rows
+        out[name + "/aux"] = float(aux)
+        grads = [t.grad for t in tree_leaves(local)]
+        steps.sync_grads(grads, [s for _, s in shd.leaves_with_path(specs)],
+                         mesh)
+        out[name + "/grads"] = _gathered(tree_unflatten(local, iter(grads)),
+                                         specs, mesh)
+
+
+def _all_rows(t, mesh) -> list:
+    """Every data rank's rows, in data order (the ranks of one ``model``
+    group hold the same rows; ranks are row-major over (data, model))."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return parts[::mesh.shape[1]]
+
+
+def _sp_run(out: dict) -> None:
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    cfg, params, batch = sp_inputs()
+    local, specs = steps.shard_params(cfg, params, mesh)
+    grads, met, _ = steps.loss_and_grads(TM.build_model(cfg), local, batch,
+                                         mesh=mesh, specs=specs)
+    out["sp/loss"] = float(met["loss"])
+    out["sp/grads"] = _gathered(tree_unflatten(local, iter(grads)), specs,
+                                mesh)
+
+
+def _cli_runs(d: str, out: dict) -> None:
+    ttrain.main(CLI + ["--steps", "2", "--mesh", "2x2", "--ckpt-dir",
+                       d + "/ck_mesh", "--ckpt-every", "2"])
+    out["cli/mesh_resumes_single"] = ttrain.main(
+        CLI + ["--steps", "3", "--mesh", "2x2", "--ckpt-dir",
+               d + "/ck_single", "--ckpt-every", "5"])
+    # what a mesh checkpoint stores: the shards gathered back, bit for bit
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), fsdp=True)
+    full = arch_params(cfg)
+    local, specs = steps.shard_params(cfg, full, mesh)
+    out["cli/roundtrip"] = all(
+        torch.equal(a, b) for a, b in zip(
+            _gathered(local, specs, mesh), tree_leaves(full)))
+    # the checkpoint's gather: whole leaves on rank 0's host only
+    to0 = steps.gather_tree(local, specs, mesh, dst=0)
+    out["cli/roundtrip_rank0"] = (to0 is None) != (dist.get_rank() == 0) \
+        and (to0 is None or all(
+            a.device.type == "cpu" and torch.equal(a, b)
+            for a, b in zip(tree_leaves(to0), tree_leaves(full))))
+    out["cli/gathered_on"] = [int(v) for v in _all_ranks(to0 is not None)]
+    # a preemption signal on rank 1 alone stops every rank
+    out["cli/stop_by_rank"] = [int(v) for v in _all_ranks(ttrain._any_rank(
+        dist.get_rank() == 1, mesh, torch.device("cpu")))]
+    out["cli/stop_none"] = ttrain._any_rank(False, mesh, torch.device("cpu"))
+
+
+def _all_ranks(flag: bool) -> list:
+    parts = [torch.zeros(1, dtype=torch.int64)
+             for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, torch.tensor([int(flag)]))
+    return [int(p) for p in parts]
+
+
+def _port_rank(rank: int, world: int, d: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        out = {}
+        for shape in MESHES:
+            _arch_runs(make_mesh(shape, ("data", "model"), "cpu"), out)
+        _ep_runs(out)
+        _sp_run(out)
+        _cli_runs(d, out)
+        if rank == 0:
+            torch.save(out, f"{d}/port.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, args, nprocs: int, timeout: float) -> None:
+    ctx = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    t0 = time.monotonic()
+    while not ctx.join(timeout=5):
+        if time.monotonic() - t0 > timeout:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the {nprocs} ranks ran past {timeout} s")
+
+
+# ---------------------------------------------------------------------------
+# fixtures
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh")
+    inputs = {"cfgs": np.array({
+        "moe": {name: {**MOE, **kw} for name, _, kw in EP_CASES},
+        "ep": [(name, shape) for name, shape, _ in EP_CASES], "sp": SP},
+        dtype=object)}
+    x = moe_x()
+    for name, _, kw in EP_CASES:
+        inputs[name + "/x"] = x
+        inputs[name + "/g"] = moe_cotangent().numpy()
+        for path, leaf in shd.leaves_with_path(moe_params(moe_cfg(kw))):
+            inputs[name + "/ep/" + "/".join(path)] = leaf.numpy()
+    cfg, params, batch = sp_inputs()
+    ref_params = convert.params_to_reference(params, cfg)
+    inputs.update(_flat_ref(ref_params, "sp/"))
+    inputs["sp_tokens"], inputs["sp_labels"] = batch["tokens"], \
+        batch["labels"]
+    np.savez(d / "inputs.npz", **inputs)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT, str(d)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    # the reverse checkpoint: two steps on one device, resumed on the mesh
+    ttrain.main(CLI + ["--steps", "2", "--ckpt-dir", str(d / "ck_single"),
+                       "--ckpt-every", "2"])
+    try:
+        _spawn(_port_rank, (WORLD, str(d)), WORLD, TIMEOUT)
+    finally:
+        try:
+            stdout, stderr = proc.communicate(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+    assert proc.returncode == 0, stdout + "\n" + stderr
+    return {"port": torch.load(d / "port.pt"),
+            "ref": dict(np.load(d / "ref.npz")), "dir": d}
+
+
+def scaled(got, want) -> float:
+    got = torch.as_tensor(got, dtype=torch.float64)
+    want = torch.as_tensor(want, dtype=torch.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                 1e-30))
+
+
+def one_rank(cfg, params, batch):
+    grads, met, _ = steps.loss_and_grads(TM.build_model(cfg), params, batch)
+    return float(met["loss"]), [g.detach() for g in grads]
+
+
+# ---------------------------------------------------------------------------
+# against one rank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch,fsdp", ARCHS,
+                         ids=[f"{a}{'-fsdp' if f else ''}" for a, f in ARCHS])
+def test_mesh_step_matches_one_rank(runs, shape, arch, fsdp):
+    cfg = arch_cfg(arch, fsdp)
+    params = arch_params(cfg)
+    loss, grads = one_rank(cfg, params, arch_batch(cfg))
+    key = f"{shape}/{arch}/{fsdp}"
+    got = runs["port"]
+    assert abs(got[key + "/loss"] - loss) <= TOL_LOSS * abs(loss)
+    assert len(got[key + "/grads"]) == len(grads)
+    errs = [scaled(a, b) for a, b in zip(got[key + "/grads"], grads)]
+    assert max(errs) <= TOL_GRAD, max(errs)
+    gn = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+    assert abs(got[key + "/gnorm"] - gn) <= 1e-5 * gn
+    model, opt = TM.build_model(cfg), make_optimizer("adamw")
+    step = steps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
+                                 total=10)
+    state, losses = opt.init(params), []
+    for _ in range(3):
+        params, state, m = step(params, state, arch_batch(cfg))
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(got[key + "/steps"], losses, rtol=TOL_STEPS)
+
+
+@pytest.mark.parametrize("leaf", ("norm1", "router"))
+def test_replicated_leaf_gradients_are_one_ranks(runs, leaf):
+    """A norm scale and the router are whole on every rank; their gradient
+    is summed over the data ranks (and, for what a ``model`` rank uses in
+    part, over ``model``) to one rank's."""
+    cfg = arch_cfg("qwen2-moe-a2.7b", False)
+    params = arch_params(cfg)
+    _, grads = one_rank(cfg, params, arch_batch(cfg))
+    paths = ["/".join(p) for p, _ in shd.leaves_with_path(params)]
+    picked = [i for i, p in enumerate(paths) if f"/{leaf}/" in p
+              or p.endswith("/" + leaf)]
+    assert picked
+    for shape in MESHES:
+        got = runs["port"][f"{shape}/qwen2-moe-a2.7b/False/grads"]
+        for i in picked:
+            assert scaled(got[i], grads[i]) <= TOL_GRAD, (shape, paths[i])
+
+
+# ---------------------------------------------------------------------------
+# expert and sequence parallelism against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [c[0] for c in EP_CASES])
+def test_expert_parallel_matches_reference(runs, name):
+    got, ref = runs["port"], runs["ref"]
+    assert scaled(got[name + "/out"], ref[name + "/out"]) <= 1e-5
+    assert abs(got[name + "/aux"] - float(ref[name + "/aux"])) \
+        <= 1e-6 * abs(float(ref[name + "/aux"]))
+
+
+def test_expert_parallel_capacity_bound_case_drops():
+    """cf 0.7, k 6: 16 tokens a rank make 96 assignments for 8 experts of
+    8 slots each, so the reference's capacity drops some."""
+    cfg = moe_cfg(dict(EP_CASES[1][2]))
+    assert TMoE.ep_capacity(cfg, 16) == 8 < 96 // 8
+
+
+def test_expert_parallel_gradients_match_gather_path(runs):
+    """At cf 8.0 nothing drops, so EP computes the gather path's function:
+    the expert banks' gradients against it on one rank."""
+    cfg = dataclasses.replace(moe_cfg({}), moe_impl="gather")
+    params = moe_params(cfg)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    out, _ = TMoE.moe_ffn(params, cfg, torch.as_tensor(moe_x()))
+    torch.sum(out * moe_cotangent()).backward()
+    got = dict(zip(["/".join(p) for p, _ in shd.leaves_with_path(params)],
+                   runs["port"]["cf8/grads"]))
+    for path, leaf in shd.leaves_with_path(params):
+        if path[0] in ("wi_gate", "wi_up", "wo"):
+            assert scaled(got["/".join(path)], leaf.grad) <= TOL_GRAD, path
+
+
+@pytest.mark.parametrize("name", [c[0] for c in EP_CASES])
+def test_expert_parallel_gradients_match_reference(runs, name):
+    """``jax.grad`` of the reference's ``_moe_shard_map`` (sum(out·g) +
+    aux) against the port's expert-parallel backward, each rank's
+    gradients summed over the data ranks as the train step sums them:
+    the router (summed over ``model`` by ``copy_to``; the aux's term
+    through the ``pmean``), the shared experts and the expert banks."""
+    cfg = moe_cfg(dict(next(c for c in EP_CASES if c[0] == name)[2]))
+    ref = runs["ref"]
+    got = runs["port"][name + "/grads"]
+    paths = ["/".join(p) for p, _ in shd.leaves_with_path(moe_params(cfg))]
+    assert sorted(paths) == sorted(k[len(name) + 6:] for k in ref
+                                   if k.startswith(name + "/grad/"))
+    for path, g in zip(paths, got):
+        assert scaled(g, ref[name + "/grad/" + path]) <= TOL_GRAD, path
+
+
+def test_sequence_parallel_matches_reference_and_one_rank(runs):
+    got = runs["port"]
+    ref_loss = float(runs["ref"]["sp/loss"])
+    assert abs(got["sp/loss"] - ref_loss) <= TOL_LOSS * abs(ref_loss)
+    cfg, params, batch = sp_inputs()
+    loss, grads = one_rank(cfg, params, batch)
+    assert abs(got["sp/loss"] - loss) <= TOL_LOSS * abs(loss)
+    errs = [scaled(a, b) for a, b in zip(got["sp/grads"], grads)]
+    assert max(errs) <= TOL_GRAD, max(errs)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across layouts
+# ---------------------------------------------------------------------------
+
+def test_checkpoints_cross_between_mesh_and_one_device(runs, capsys):
+    d = runs["dir"]
+    full = ttrain.main(CLI + ["--steps", "3"])
+    resumed = ttrain.main(CLI + ["--steps", "3", "--ckpt-dir",
+                                 str(d / "ck_mesh")])
+    assert "restored checkpoint @ step 2" in capsys.readouterr().out
+    np.testing.assert_allclose(resumed, full[2:], rtol=2e-3)
+    np.testing.assert_allclose(runs["port"]["cli/mesh_resumes_single"],
+                               full[2:], rtol=2e-3)
+    # the mesh's checkpoint holds whole leaves of the one-device layout
+    model = TM.build_model(get_smoke("yi-6b"))
+    params = model.init(None, "cpu")
+    opt = steps.default_optimizer(get_smoke("yi-6b"))
+    like = ttrain.train_tree(params, opt.init(params))
+    restored = CheckpointManager(str(d / "ck_mesh")).restore(2, like)
+    assert int(restored["opt"]["step"]) == 2
+    assert [np.shape(a) for a in tree_leaves(restored)] == \
+        [tuple(t.shape) for t in tree_leaves(like)]
+    assert runs["port"]["cli/roundtrip"]
+    assert runs["port"]["cli/roundtrip_rank0"]
+    assert runs["port"]["cli/gathered_on"] == [1, 0, 0, 0]
+
+
+def test_a_preemption_on_one_rank_stops_every_rank(runs):
+    """The trainer's stop flag is or-ed over the ranks, so every rank
+    enters the checkpoint's collectives at the same step."""
+    assert runs["port"]["cli/stop_by_rank"] == [1] * WORLD
+    assert runs["port"]["cli/stop_none"] is False
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m",
+                                  "recurrentgemma-2b", "whisper-large-v3"])
+def test_the_families_left_out_refuse_a_mesh(arch):
+    """MLA, the recurrent mixers and the encoder-decoder say so on a mesh
+    of more than one device, before any rank is set up."""
+    with pytest.raises(NotImplementedError, match="A10-rest.3"):
+        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--steps", "1", "--mesh", "1x2"])
