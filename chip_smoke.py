@@ -262,8 +262,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
    grad_norm ≤ 1e-5, 3 steps ≤ 1e-4); the dense runs then 3 bf16 steps:
    step ms a rank, tokens/s, peak, each collective's count and bytes a
    step, the ms in ``mesh.collective`` on a profiled step, B6 a step;
+11c. serve_mesh: prefill and decode on a device mesh, run in train_mesh's
+   2-rank spawn, each rank's cache laid out by the reference's
+   ``cache_shardings``: yi-6b at full width, 2 layers, TP on (1, 2) at
+   1 x 4,096 + 16 tokens (the cache split by sequence) and data-parallel
+   on (2, 1) at 2 x 4,096 + 16 (split by batch); gemma3-12b, 6 layers
+   (5 local + 1 global), landmark decode (c 512, theta 4) on (1, 2) at
+   1 x 8,192 + 16 (the rings split by slots, the factors whole);
+   qwen2-moe-a2.7b, 2 layers, on (1, 2) at 1 x 4,096 + 16; each in f32
+   against rank 0's one-rank run of the same weights, prompts and draws
+   (every step's logits ≤ 1e-4, the greedy tokens equal, the cache
+   gathered from the shards ≤ 1e-4: k, v, k_land, offset; the landmark
+   factors ≤ 1e-5 of one rank's build from the mesh's own gathered K/V
+   and the same draws), then bf16:
+   prefill ms and decode ms a token a rank, peak, B6 a prefill (all on
+   the tensor cores, none at decode), the collectives of a decode step
+   and of a prefill and their ms in ``mesh.collective``;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the eighteen paths (every count reset just before
+   own path and on each of the nineteen paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -330,6 +346,7 @@ from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
@@ -596,6 +613,28 @@ MESH_EP_SEQ = 2048
 MESH_DENSE = ((2, 1), (1, 2))
 TOL_MESH_GNORM = 1e-5   # grad_norm, relative
 TOL_MESH_AUX = 1e-5     # EP aux against its formula on the same slices
+# serve_mesh: the serving cells on a mesh, run inside train_mesh's 2-rank
+# spawn (no spawn of their own).  Seeded weights at full width; each run in
+# f32 against one rank of the same weights, prompts and draws (rank 0,
+# after the mesh freed its state): every step's logits, the greedy tokens,
+# the cache gathered from the shards; then in bf16, timed.  Prompt +
+# SERVE_MESH_GEN tokens (a cache of 4,112 / 8,208 positions, which the
+# reference's cache_shardings splits by sequence where the batch is 1):
+# (a) yi-6b, 2 of 32 layers, TP (1, 2) at 1 x 4,096 and data-parallel
+# (2, 1) at 2 x 4,096 (FSDP's weights gathered on use); (b) gemma3-12b, 6
+# of 48 layers (5 local + 1 global), landmark decode (c 512, theta 4) on
+# (1, 2) at 1 x 8,192; (c) qwen2-moe-a2.7b, 2 of 24 layers, (1, 2) at
+# 1 x 4,096 (the gather path, 30 experts a rank, capacity factor 1.25).
+SERVE_MESH = {"serve_yi_1x2": ("yi-6b", (1, 2), 1, 4096, 2),
+              "serve_yi_2x1": ("yi-6b", (2, 1), 2, 4096, 2),
+              "serve_gemma3_1x2": ("gemma3-12b", (1, 2), 1, 8192, 6),
+              "serve_moe_1x2": ("qwen2-moe-a2.7b", (1, 2), 1, 4096, 2)}
+SERVE_MESH_GEN = 16
+TOL_SERVE_MESH = 1e-4   # f32 logits vs one rank, scale-normalized, a step
+# the landmark factors the mesh built against one rank's build from the
+# mesh's own K/V (gathered, the same draws): a layout or indexing fault of
+# the per-head build and its all-gather shows here, K's rounding does not
+TOL_SERVE_MESH_WITNESS = 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -5026,6 +5065,247 @@ def _mesh_sp_run(rank: int) -> dict:
     return out
 
 
+def serve_mesh_config(arch: str, layers: int, **kw):
+    """``arch`` at full width cut to ``layers``, its weights whole on every
+    data rank (``fsdp`` off: a replica that gathered its blocks' weights
+    over ``data`` at every decode step would move them all a token);
+    gemma3 with landmark decode on its global layers."""
+    cfg = tconfigs.get_config(arch)
+    if arch == "gemma3-12b":
+        kw["use_landmark_decode"] = True
+    return dataclasses.replace(cfg, n_layers=layers, fsdp=False, **kw)
+
+
+def _serve_mesh_draws(cfg, B: int, S: int, seed: int):
+    """Explicit landmark draws of every global layer (B, KV, ·), from a
+    seeded numpy generator: each head's c landmarks and theta·c sketch
+    columns (the landmarks first)."""
+    if not cfg.use_landmark_decode:
+        return None
+    rng = np.random.default_rng(seed)
+    c, s = cfg.landmark_c, cfg.landmark_theta * cfg.landmark_c
+    out = {}
+    for n, (*_, kind) in enumerate(ttransformer.layer_slots(cfg)):
+        if kind == "global":
+            perm = np.stack([[rng.permutation(S)[:s]
+                              for _ in range(cfg.n_kv_heads)]
+                             for _ in range(B)])
+            out[n] = {"p_idx": torch.as_tensor(perm[..., :c], device=DEV),
+                      "skx": torch.as_tensor(perm, device=DEV)}
+    return out
+
+
+@torch.no_grad()
+def _serve_steps(model, params, prompts, draws, n_gen: int, *,
+                 global_batch=None, forced=None):
+    """Prefill to prompt + n_gen, then n_gen - 1 decode steps: greedy, or
+    fed ``forced`` (B, n_gen) tokens.  (logits (n_gen, B, V), tokens,
+    cache, prefill ms, decode ms a step), host ms between synchronizes."""
+    S = prompts.shape[1]
+    kw = {} if global_batch is None else {"global_batch": global_batch}
+    _sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts}, S + n_gen,
+                                  landmark_draws=draws, **kw)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps, toks = [logits], [torch.argmax(logits, -1)]
+    t0 = time.perf_counter()
+    for i in range(n_gen - 1):
+        tok = toks[-1] if forced is None else forced[:, i]
+        logits, cache = model.decode_step(params, cache, tok[:, None], S + i)
+        steps.append(logits)
+        toks.append(torch.argmax(logits, -1))
+    _sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(n_gen - 1, 1)
+    return (torch.stack(steps), torch.stack(toks, 1), cache, prefill_ms,
+            decode_ms)
+
+
+def _serve_mesh_run(rank: int, run: str) -> dict:
+    """One serving run of ``SERVE_MESH`` on its mesh: f32 against one
+    rank (rank 0), then bf16 timed on every rank."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+    from torch.profiler import ProfilerActivity, profile
+    arch, shape, B, S, layers = SERVE_MESH[run]
+    mesh = make_mesh(shape, ("data", "model"), DEV)
+    tag = f"serve_mesh {arch} {shape[0]}x{shape[1]}"
+    n_attn = sum(kind in ttransformer.ATTN_KINDS
+                 for *_, kind in ttransformer.layer_slots(
+                     serve_mesh_config(arch, layers)))
+    prompts = torch.randint(0, tconfigs.get_config(arch).vocab_size, (B, S),
+                            generator=gen(110), device=DEV)
+    rows = sharding.row_axes(B, mesh)
+    first, nrows = sharding.local_range((rows,), 0, B, mesh)
+    mine = prompts[first:first + nrows]
+    secs, out = {}, {"rows": [first, nrows]}
+
+    # f32: the mesh, then one rank of the same weights, prompts and draws
+    t0 = time.perf_counter()
+    cfg = serve_mesh_config(arch, layers, dtype="float32")
+    draws = _serve_mesh_draws(cfg, B, S, 111)
+    model = tmodel.build_model(cfg)
+    local, specs = tsteps.shard_params(cfg, model.init(gen(112), DEV), mesh)
+    _free()
+    reset_counts()
+    build, built = tattention.build_landmark_cache, []
+
+    def spy(cfg_, k, v, draws_, generator=None, rows=0, heads=None):
+        built.append((k.clone(), v.clone(), rows, heads))
+        return build(cfg_, k, v, draws_, generator, rows=rows, heads=heads)
+    tattention.build_landmark_cache = spy
+    try:
+        with sharding.use_mesh(mesh):
+            lg, toks, cache, _, _ = _serve_steps(
+                model, sharding.mesh_view(local, specs), mine, draws,
+                SERVE_MESH_GEN, global_batch=B)
+            toks = coll.all_gather(toks, 0, rows, mesh=mesh)
+    finally:
+        tattention.build_landmark_cache = build
+    launches = read_counts()
+    whole = sharding.gather_cache(cache, mesh)
+    # each landmark layer's K and V as the mesh built its factors from
+    # them: every head (over ``model``) and row (over the row axes)
+    kv_built = [tuple(coll.all_gather(coll.all_gather(t, 2, "model",
+                                                      mesh=mesh)
+                                      if heads is not None else t,
+                                      0, rows, mesh=mesh)
+                      for t in (k, v))
+                for k, v, _, heads in built]
+    del local, cache, built
+    if rank != 0:
+        del whole, lg, kv_built
+    _free()
+    dist.barrier()
+    if rank == 0:
+        # the witness: one rank's factors from the mesh's K/V and draws
+        global_layers = [n for n, (*_, kind) in enumerate(
+            ttransformer.layer_slots(cfg)) if kind == "global"] \
+            if cfg.use_landmark_decode else []
+        witness = {}
+        for n, (k, v) in zip(global_layers, kv_built):
+            section, r, i, _ = ttransformer.layer_slots(cfg)[n]
+            got = ttransformer._entry(whole, section, r, i)
+            for name, t in tattention.build_landmark_cache(
+                    cfg, k, v, draws[n]).items():
+                witness[name] = max(witness.get(name, 0.0),
+                                    scaled_err(got[name].float(), t.float()))
+        check(len(witness) == (4 if global_layers else 0)
+              and len(kv_built) == len(global_layers), f"{tag}: "
+              f"{len(kv_built)} landmark builds on the mesh for "
+              f"{len(global_layers)} global layers")
+        del kv_built
+        _free()
+        params = model.init(gen(112), DEV)
+        lg1, toks1, cache1, _, _ = _serve_steps(model, params, prompts, draws,
+                                                SERVE_MESH_GEN, forced=toks)
+        step_err = [scaled_err(a, b[first:first + nrows])
+                    for a, b in zip(lg, lg1)]
+        # each leaf's worst layer: k and v (and the landmark keys k_land
+        # and offset, gathered from K) are checked; uv and u1 pass K's
+        # last-bit differences through the pseudo-inverse of each head's
+        # sketch, so against one rank's they are held through the decode
+        # logits they feed, and against the witness above
+        leaf_err = {}
+        for (path, a), (_, b) in zip(sharding.leaves_with_path(whole),
+                                     sharding.leaves_with_path(cache1)):
+            leaf_err[path[-1]] = max(leaf_err.get(path[-1], 0.0),
+                                     scaled_err(a.float(), b.float()))
+        cache_err = max(e for k, e in leaf_err.items()
+                        if k not in ("uv", "u1"))
+        same = bool(torch.equal(toks, toks1))
+        del params, lg1, cache1, whole, lg
+        _free()
+        out["f32"] = {"logit_err_max": max(step_err),
+                      "logit_err_prefill": step_err[0],
+                      "cache_err": cache_err, "cache_err_by_leaf": leaf_err,
+                      "witness_err_by_leaf": witness, "tokens_equal": same}
+        log(f"{tag} f32 against one rank: logits max {max(step_err):.3g} "
+            f"(prefill {step_err[0]:.3g}; limit {TOL_SERVE_MESH}) over "
+            f"{SERVE_MESH_GEN} steps, cache gathered from the shards by "
+            f"leaf {json.dumps(leaf_err)}, greedy tokens equal: {same}; "
+            f"landmark factors against one rank's build from the mesh's "
+            f"K/V by leaf {json.dumps(witness)} (limit "
+            f"{TOL_SERVE_MESH_WITNESS})")
+        check(max(step_err) <= TOL_SERVE_MESH, f"{tag} f32: logits "
+              f"differ from one rank's by {max(step_err):.3g} (limit "
+              f"{TOL_SERVE_MESH}; per step {step_err})")
+        check(cache_err <= TOL_SERVE_MESH, f"{tag} f32: the gathered cache "
+              f"differs from one rank's by {cache_err:.3g}")
+        check(same, f"{tag} f32: greedy tokens differ from one rank's")
+        check(all(e <= TOL_SERVE_MESH_WITNESS for e in witness.values()),
+              f"{tag} f32: the mesh's landmark factors differ from one "
+              f"rank's build from the same K/V and draws: {witness}")
+    dist.barrier()
+    check(launches == no_launches(flash_attention=n_attn), f"{tag} f32: "
+          f"launches {launches} (want the CUDA-core B6 once a layer of the "
+          f"prefill, {n_attn})")
+    out["f32_launches"] = launches
+    secs["f32"] = time.perf_counter() - t0
+
+    # bf16: a warm-up generate, then the timed one
+    t0 = time.perf_counter()
+    cfg = serve_mesh_config(arch, layers)
+    draws = _serve_mesh_draws(cfg, B, S, 111)
+    model = tmodel.build_model(cfg)
+    local, specs = tsteps.shard_params(
+        cfg, model.prepare(model.init(gen(112), DEV)), mesh)
+    view = sharding.mesh_view(local, specs)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.use_mesh(mesh):
+        _serve_steps(model, view, mine, draws, 2, global_batch=B)
+        reset_counts()
+        c0 = fa_kernel.launch_counts()
+        dist.barrier()
+        lg, toks, cache, prefill_ms, decode_ms = _serve_steps(
+            model, view, mine, draws, SERVE_MESH_GEN, global_batch=B)
+        launches = read_counts()
+        b6 = {k: n - c0[k] for k, n in launches.items()
+              if k.startswith("flash")}
+        # one more decode step and one more prefill, each counted and
+        # profiled on the CPU (the host blocks in every gloo collective)
+        coll.reset_stats()
+        tok = torch.argmax(lg[-1], -1)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            model.decode_step(view, cache, tok[:, None],
+                              S + SERVE_MESH_GEN - 1)
+            _sync()
+        stats = {k: dict(v) for k, v in coll.STATS.items()}
+        del cache
+        coll.reset_stats()
+        with profile(activities=[ProfilerActivity.CPU]) as pprof:
+            model.prefill(view, {"tokens": mine}, S + SERVE_MESH_GEN,
+                          landmark_draws=draws, global_batch=B)
+            _sync()
+        pstats = {k: dict(v) for k, v in coll.STATS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    coll_ms = sum(e.cpu_time_total for e in prof.key_averages()
+                  if e.key == coll.COLLECTIVE_RANGE) / 1e3
+    pcoll_ms = sum(e.cpu_time_total for e in pprof.key_averages()
+                   if e.key == coll.COLLECTIVE_RANGE) / 1e3
+    check(bool(torch.isfinite(lg.float()).all()), f"{tag} bf16: logits not "
+          f"finite")
+    check(b6 == {"flash_attention": n_attn, "flash_attention_tc": n_attn},
+          f"{tag} bf16: B6 in the timed generate {b6} (want {n_attn}, all "
+          f"on the tensor cores, none at decode)")
+    del local, view, lg
+    _free()
+    secs["bf16"] = time.perf_counter() - t0
+    out.update(bf16={"prefill_ms": prefill_ms, "decode_ms_per_token":
+                     decode_ms, "peak_gb": peak,
+                     "collectives_decode_step": stats,
+                     "collective_ms_decode_step": coll_ms,
+                     "collectives_prefill": pstats,
+                     "collective_ms_prefill": pcoll_ms,
+                     "b6_prefill": b6["flash_attention_tc"],
+                     "launches": launches},
+               parts_s=secs, B=B, S=S, mesh=list(shape), layers=layers)
+    return out
+
+
 def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
                runs: tuple) -> None:
     """One rank of ``train_mesh``: its backend's group over a ``file://``
@@ -5047,6 +5327,8 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
             t0 = time.perf_counter()
             if run == "ep":
                 out[run] = _mesh_ep_run(rank)
+            elif run in SERVE_MESH:
+                out[run] = _serve_mesh_run(rank, run)
             elif run == "sp":
                 out[run] = _mesh_sp_run(rank)
             else:
@@ -5065,7 +5347,8 @@ def _spawn_mesh(world: int, runs: tuple) -> list:
     import torch.multiprocessing as mp
     cfg = {k: globals()[k] for k in ("DEV", "MESH_LAYERS", "MESH_SEQ",
                                      "MESH_SP_SEQ", "MESH_STEPS",
-                                     "MESH_EP_SEQ")}
+                                     "MESH_EP_SEQ", "SERVE_MESH",
+                                     "SERVE_MESH_GEN")}
     tmpdir = tempfile.mkdtemp(prefix="train_mesh_")
     _free()
     mp.spawn(_mesh_rank, args=(world, tmpdir, cfg, runs), nprocs=world,
@@ -5085,10 +5368,12 @@ def phase_train_mesh() -> dict:
     (1, 2), (b) qwen2-moe-a2.7b expert-parallel on (1, 2), in 2 ranks;
     (c) yi-6b with sequence-parallel attention on (1, 3), in 3 ranks; each
     in f32 against one rank of the same weights and batch on the same
-    card, (a) also timed in bf16."""
+    card, (a) also timed in bf16.  The 2-rank spawn then runs
+    ``serve_mesh``'s runs (``SERVE_MESH``), which ``phase_serve_mesh``
+    reads from ``res["serve_mesh"]``."""
     t0 = time.perf_counter()
     runs2 = tuple(f"{d}x{m}" for d, m in MESH_DENSE) + ("ep",)
-    two = _spawn_mesh(2, runs2)
+    two = _spawn_mesh(2, runs2 + tuple(SERVE_MESH))
     three = _spawn_mesh(3, ("sp",))
     wall = time.perf_counter() - t0
     backend = {2: two[0]["backend"], 3: three[0]["backend"]}
@@ -5176,6 +5461,58 @@ def phase_train_mesh() -> dict:
                    / MESH_STEPS for i in two],
         "sp_f32": [i["sp"]["launches"]["flash_attention"] / MESH_STEPS
                    for i in three]}
+    res["serve_mesh"] = [{run: i[run] for run in SERVE_MESH} for i in two]
+    return res
+
+
+def phase_serve_mesh(tmesh: dict) -> dict:
+    """The serving cells on a mesh (``SERVE_MESH``), run by
+    ``phase_train_mesh``'s 2-rank spawn: per run and rank the bf16 prefill
+    ms, decode ms a token, the collectives of a decode step, its ms in
+    ``mesh.collective``, peak GB and B6 a prefill; the f32 errors against
+    one rank.  The path's launches are rank 0's, each run's counts reset
+    just before its mesh calls and read just after."""
+    ranks = tmesh["serve_mesh"]
+    res = {"runs": {}, "launches": no_launches(),
+           "s": sum(ranks[0][run]["s"] for run in SERVE_MESH),
+           "reduced": [
+               "yi-6b and qwen2-moe-a2.7b cut to 2 layers, gemma3-12b to 6 "
+               "(5 local + 1 global) of 48",
+               f"contexts 4,096 (yi, qwen2-moe) and 8,192 (gemma3) + "
+               f"{SERVE_MESH_GEN} tokens: the phase's 150 s",
+               "fsdp off (weights whole on every data rank)",
+               "two gloo ranks time-share one card (no NCCL: one card)"]}
+    for run in SERVE_MESH:
+        per = [r[run] for r in ranks]
+        r0 = per[0]
+        for part in (r0["f32_launches"], r0["bf16"]["launches"]):
+            for k, v in part.items():
+                res["launches"][k] += v
+        row = {"mesh": r0["mesh"], "B": r0["B"], "S": r0["S"],
+               "layers": r0["layers"], "f32": r0["f32"], "s": r0["s"],
+               **{k: [p["bf16"][k] for p in per] for k in (
+                   "prefill_ms", "decode_ms_per_token", "peak_gb",
+                   "collective_ms_decode_step", "collective_ms_prefill",
+                   "b6_prefill")},
+               **{k: [p["bf16"][k] for p in per] for k in (
+                   "collectives_decode_step", "collectives_prefill")},
+               "parts_s": r0["parts_s"]}
+        res["runs"][run] = row
+        arch, shape, B, S, layers = SERVE_MESH[run]
+        log(f"serve_mesh {arch} {shape[0]}x{shape[1]} ({layers} layers, "
+            f"{B} x {S} + {SERVE_MESH_GEN}) bf16 per rank: prefill ms "
+            f"{[round(v, 1) for v in row['prefill_ms']]}, decode ms a token "
+            f"{[round(v, 2) for v in row['decode_ms_per_token']]}, peak GB "
+            f"{[round(v, 2) for v in row['peak_gb']]}, B6 a prefill "
+            f"{row['b6_prefill']}, a decode step's collectives (rank 0) "
+            f"{json.dumps(row['collectives_decode_step'][0])}, its ms in "
+            f"mesh.collective {[round(v, 2) for v in row['collective_ms_decode_step']]}"
+            f"; a profiled prefill's collectives (rank 0) "
+            f"{json.dumps(row['collectives_prefill'][0])}, its ms in "
+            f"mesh.collective {[round(v, 1) for v in row['collective_ms_prefill']]}"
+            f"; f32 vs one rank {json.dumps(r0['f32'])}; {r0['s']:.1f} s")
+    log(f"serve_mesh: {res['s']:.1f} s inside train_mesh's spawn; reduced "
+        f"{res['reduced']}")
     return res
 
 
@@ -5246,6 +5583,7 @@ def main() -> int:
     trecur = phase_train_recurrent()
     tpar = phase_train_parity()
     tmesh = phase_train_mesh()
+    smesh = phase_serve_mesh(tmesh)
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
@@ -5259,7 +5597,8 @@ def main() -> int:
              "calibrate": cal["launches"], "contracts": con["launches"],
              "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"],
              "train_recurrent": trecur["launches"],
-             "train_mesh": tmesh["launches"]}
+             "train_mesh": tmesh["launches"],
+             "serve_mesh": smesh["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -5333,6 +5672,7 @@ def main() -> int:
     b6["train_mesh"] = {k: tmesh[k] for k in (
         "backend", "staged", "wall_s", "reduced", "dense", "ep", "sp",
         "b6_launches_per_rank_per_step")}
+    b6["serve_mesh"] = {k: smesh[k] for k in ("runs", "reduced", "s")}
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
                           dense["b6_shape"], rec["b6_shape"],
                           *wh["b6_shapes"]]

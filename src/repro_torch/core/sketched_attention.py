@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import functools
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -218,6 +218,23 @@ def sketched_attention(Q, K, V, c: int, theta: int = 4, mode: str = "fast",
 # Decode path: O(c) per token against a long context
 # ---------------------------------------------------------------------------
 
+def landmark_draws(K: torch.Tensor, c: int, theta: int = 4,
+                   selection: str = "strided", *,
+                   generator: Optional[torch.Generator] = None,
+                   p_idx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p_idx, skx): the c landmarks of K (n, d) (``selection``; ``p_idx``
+    where given) and the column sketch of min(theta·c, n) positions that
+    extends them, drawn from ``generator`` in that order, as
+    ``build_landmark_state`` draws them where it is given none."""
+    n = K.shape[0]
+    g = generator_or_default(generator)
+    if p_idx is None:
+        p_idx = select_landmarks(K, c, selection=selection, generator=g)
+    p_idx = _index(p_idx, K.device)
+    return p_idx, _extend_without_replacement(
+        p_idx, min(theta * p_idx.shape[0], n), n, g)
+
+
 def build_landmark_state(K, V, c: int, theta: int = 4,
                          selection: str = "strided", *,
                          generator: Optional[torch.Generator] = None,
@@ -229,7 +246,10 @@ def build_landmark_state(K, V, c: int, theta: int = 4,
     n, d = K.shape
     inv = inv_sqrt_d(d)
     g = generator_or_default(generator)
-    if p_idx is None:
+    if skx is None:
+        p_idx, skx = landmark_draws(K, c, theta, selection, generator=g,
+                                    p_idx=p_idx)
+    elif p_idx is None:
         p_idx = select_landmarks(K, c, selection=selection, generator=g)
     p_idx = _index(p_idx, device)
     c = p_idx.shape[0]            # may have been clamped to n
@@ -237,8 +257,6 @@ def build_landmark_state(K, V, c: int, theta: int = 4,
     offset = torch.max((Kp @ Kp.T).to(_F32)) * inv
 
     Rhat = _exp_scores(Kp, K, inv, offset)               # (c, n)
-    if skx is None:
-        skx = _extend_without_replacement(p_idx, min(theta * c, n), n, g)
     skx = _index(skx, device)
     # queries at the sketched rows are the sketched keys (self-Gram)
     Ks = K[skx]

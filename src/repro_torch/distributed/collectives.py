@@ -25,6 +25,11 @@ ranks add up to the global loss (``launch.steps``).  So:
 - ``all_to_all(x, axes)``: chunk i of dim 0 to rank i of the group (the
   expert-parallel dispatch); its backward is the same exchange.
 
+Serving's forward-only exchanges: ``heads_to_seq`` (K/V split by heads
+to split by sequence, one all-to-all: a prefill's cache laid out by
+``sharding.cache_shardings``) and ``lse_merge`` (per-rank partial reads of
+a sequence-split cache merged by log-sum-exp in a fixed rank order).
+
 On no mesh, or axes of size 1, each is the identity.  Several axes form
 one group, row-major in the mesh's order (``("data", "model")``: the
 first outermost), built once per mesh with ``dist.new_group`` on every
@@ -233,6 +238,46 @@ def all_to_all_raw(t: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty_like(t)
     return _run("all_to_all", _all_to_all0, out, t, group, reduces=False)
+
+
+def heads_to_seq(t: torch.Tensor, axes="model", mesh=None) -> torch.Tensor:
+    """K or V (B, S, KV_loc, D) split by heads over ``axes`` (rank i holds
+    heads i·KV_loc on, every position) -> (B, S/n, n·KV_loc, D): every
+    head of this rank's part of the positions (rank i the i-th S/n), in
+    one all-to-all.  Forward only (serving)."""
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    B, S, h, D = t.shape
+    x = t.transpose(0, 1).reshape(n, S // n, B, h, D)
+    out = all_to_all_raw(x, axes, mesh=mesh)   # out[i]: rank i's heads
+    return out.permute(2, 1, 0, 3, 4).reshape(B, S // n, n * h, D)
+
+
+def lse_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, axes,
+              mesh=None) -> torch.Tensor:
+    """The normalized read of per-rank partial softmax reads over
+    ``axes``: each rank's running max ``m`` (−inf where it saw no key),
+    sum of exponentials ``l`` (0 there) and unnormalized output ``o``
+    (``m``'s shape + (Dv,)), f32.  One all-gather of the packed partials,
+    then Σ_r o_r·e^(m_r − M) / Σ_r l_r·e^(m_r − M) with M = max_r m_r,
+    summed in the group's rank order: every rank forms the same bits, and
+    no float is reduced in an order the transport picks.  Forward only."""
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+    return _lse_combine(all_gather(packed[None], 0, axes, mesh=mesh))
+
+
+def _lse_combine(parts: torch.Tensor) -> torch.Tensor:
+    """``lse_merge``'s arithmetic on the gathered partials (n, ..., Dv +
+    2): o, then m, then l on the last dimension, rank r at index r."""
+    ms, ls, os_ = parts[..., -2], parts[..., -1], parts[..., :-2]
+    M = torch.amax(ms, dim=0)
+    scale = torch.exp(ms - M)                   # e^(−inf) = 0: no key seen
+    num, den = os_[0] * scale[0][..., None], ls[0] * scale[0]
+    for r in range(1, parts.shape[0]):
+        num = num + os_[r] * scale[r][..., None]
+        den = den + ls[r] * scale[r]
+    return num / den[..., None]
 
 
 def _part(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:

@@ -40,7 +40,16 @@ replicated and every rank returns the full result.
 **Local shards.**  ``shard_tree(tree, specs, mesh)`` gives this rank's
 part of each leaf; ``placements(spec, mesh)`` the DTensor placements of a
 spec (a dimension split over two axes is ``Shard`` on both mesh
-dimensions, which DTensor lays out row-major, as JAX does).
+dimensions, which DTensor lays out row-major, as JAX does).  A decode
+cache: ``shard_cache`` lays a whole one out by ``cache_shardings`` (its
+dicts carrying their specs, as a prefill on the mesh returns them),
+``gather_cache`` gathers it back, ``local_range`` gives a rank's first
+position (or ring slot) and count along a split dimension.
+
+**Serving rows.**  A serving batch goes over the data axes only when they
+divide it (``batch_pspec``; ``row_axes``); otherwise every rank holds the
+whole batch.  ``use_rows`` tells the model code which (``batch_axes``:
+the MoE's global capacity, the landmark draws' rows).
 
 **The ambient mesh.**  ``use_mesh(mesh)`` sets the mesh the model code runs
 under (a ``contextvars`` variable of this module): ``ambient_axis_size``,
@@ -71,6 +80,8 @@ import torch.distributed as dist
 DATA_DIMS = ("pod", "data")
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_rows",
                                                        default=None)
 
 
@@ -447,6 +458,13 @@ def _cache_spec(keys, shape, mesh) -> list:
     return full
 
 
+def row_axes(batch: int, mesh) -> Tuple[str, ...]:
+    """The axes (of size > 1) that split a batch of ``batch`` rows under
+    ``batch_pspec``: () where the rows are whole on every rank."""
+    entry = batch_pspec((batch,), mesh)[0]
+    return tuple(a for a in _entry_axes(entry) if _axis_size(mesh, a) > 1)
+
+
 def cache_shardings(cache, mesh):
     """Decode caches, keyed by leaf name (the reference's cache layout
     contract): k/v/enc_kv batch -> DP and KV heads -> 'model' when they
@@ -535,6 +553,53 @@ def shard_tree(tree, specs, mesh):
         if isinstance(leaf, torch.Tensor) else leaf, tree)
 
 
+def local_range(spec, dim: int, size: int, mesh=None) -> Tuple[int, int]:
+    """(first index, length) of this rank's part of dimension ``dim`` (of
+    global length ``size``) under ``spec`` on ``mesh`` (the ambient mesh
+    by default): (0, size) where the dimension is whole.  For a cache
+    leaf split by sequence these are its first position and its count;
+    for a ring, its first slot and its count of slots."""
+    mesh = _MESH.get() if mesh is None else mesh
+    entry = spec[dim] if dim < len(spec) else None
+    axes = tuple(a for a in _entry_axes(entry) if _axis_size(mesh, a) > 1)
+    if not axes:
+        return 0, size
+    n = _axis_size(mesh, axes)
+    return _index_over(mesh, axes) * (size // n), size // n
+
+
+def shard_cache(cache, mesh):
+    """This rank's shards of a whole decode cache, laid out by
+    ``cache_shardings`` and carrying their specs (``mesh_view``): what a
+    prefill on ``mesh`` returns and a decode step takes."""
+    specs = cache_shardings(cache, mesh)
+    return mesh_view(shard_tree(cache, specs, mesh), specs)
+
+
+def gather_cache(cache, mesh):
+    """The whole cache of a tree of local shards carrying their specs
+    (``shard_cache``, a prefill's output), on every rank: each leaf
+    all-gathered over the axes its spec splits."""
+    from repro_torch.distributed import collectives as C
+
+    def one(t, spec):
+        for d, e in enumerate(spec):
+            axes = tuple(a for a in _entry_axes(e) if _axis_size(mesh, a) > 1)
+            if axes:
+                t = C.all_gather(t, d, axes, mesh=mesh)
+        return t
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            specs = getattr(tree, "specs", {})
+            return {k: one(v, specs[k]) if isinstance(v, torch.Tensor)
+                    else walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return tree
+    return walk(cache)
+
+
 # ---------------------------------------------------------------------------
 # the ambient mesh
 # ---------------------------------------------------------------------------
@@ -552,6 +617,26 @@ def use_mesh(mesh):
 def ambient_mesh():
     """The mesh of ``use_mesh``, or None."""
     return _MESH.get()
+
+
+@contextlib.contextmanager
+def use_rows(axes):
+    """Run the model code with its batch rows split over ``axes`` (a
+    serving batch that ``data`` does not divide is whole on every rank:
+    ``()``).  Outside it the rows are split over the data axes, as a train
+    step splits them."""
+    token = _ROWS.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The axes of the ambient mesh that split the batch rows
+    (``use_rows``; the data axes by default)."""
+    rows = _ROWS.get()
+    return data_axes(_MESH.get()) if rows is None else rows
 
 
 def mesh_active() -> bool:

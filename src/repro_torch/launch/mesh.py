@@ -14,6 +14,8 @@ adjacent links.
 """
 from __future__ import annotations
 
+import math
+import os
 from typing import Sequence, Tuple
 
 
@@ -52,3 +54,32 @@ def parse_mesh(spec: str, device_type: str = "cuda"):
     """The mesh of a ``--mesh`` value such as '1x2' (the reference
     trainer's ``parse_mesh``)."""
     return make_mesh(*mesh_dims(spec), device_type=device_type)
+
+
+def setup_mesh(spec: str, device):
+    """(mesh, this rank's device) for a launcher's ``--mesh``; (None,
+    device) for a mesh of one device.  Initializes the process group from
+    ``torchrun``'s environment where none is: NCCL when every rank has a
+    card of its own, else gloo (ranks sharing one card, or the CPU)."""
+    import torch
+    import torch.distributed as dist
+    dims, _ = mesh_dims(spec)
+    if math.prod(dims) == 1:
+        return None, device
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {spec} takes {math.prod(dims)} ranks: run under "
+                f"torchrun --nproc-per-node {math.prod(dims)}, or in a "
+                f"process whose torch.distributed group is initialized")
+        cuda = device.type == "cuda"
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        nccl = cuda and torch.cuda.device_count() >= int(
+            os.environ.get("LOCAL_WORLD_SIZE", os.environ.get(
+                "WORLD_SIZE", 1)))
+        dist.init_process_group("nccl" if nccl else "gloo")
+        if cuda:
+            device = torch.device("cuda", local if nccl else 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return parse_mesh(spec, device.type), device

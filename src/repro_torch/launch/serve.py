@@ -22,19 +22,37 @@ decode step reads it and updates it in place.  xlstm-125m's
 mLSTM takes a prompt whose length is a multiple of ``mlstm_chunk`` (or
 shorter than it).  The model runs on the CUDA device unless ``--device``
 names another one.
+
+``--mesh dxm`` (or ``pxdxm``) serves on a device mesh of that shape under
+``torchrun`` (``launch.mesh.setup_mesh``, as the trainer sets it up):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch yi-6b --smoke --mesh 1x2
+
+Each rank draws the same seeded params and keeps its shards; the
+prefill and decode steps run on them with the cache laid out by
+``sharding.cache_shardings`` (``models.model``), and every rank returns
+the same tokens.  The dense, gemma3 and MoE families run there; the
+others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, build_model
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import describe, mesh_dims, setup_mesh
+from repro_torch.launch.steps import shard_params
+from repro_torch.models.model import Model, build_model, check_mesh_support
 
 
 def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
@@ -42,11 +60,18 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
              landmark_draws: Optional[Dict[int, dict]] = None,
              generator: Optional[torch.Generator] = None,
              patches: Optional[torch.Tensor] = None,
-             frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+             frames: Optional[torch.Tensor] = None,
+             mesh=None, specs=None) -> torch.Tensor:
     """prompts: (B, S) int -> (B, gen) greedy continuations.  ``patches``
     (B, n_patch, d_model) replace the leading prompt positions at prefill
     (early fusion); ``frames`` (B, S_enc, frontend_dim) are an
-    encoder-decoder's encoder input, the prompts its decoder's."""
+    encoder-decoder's encoder input, the prompts its decoder's.
+
+    On a ``mesh`` of more than one device ``params`` are this rank's
+    shards laid out by ``specs`` (``launch.steps.shard_params``) and every
+    rank is handed the whole batch: it serves its rows
+    (``sharding.batch_pspec``), and the tokens of every row are gathered
+    back, so each rank returns the same (B, gen)."""
     B, S = prompts.shape
     max_len = max_len or (S + gen)
     batch = {"tokens": prompts}
@@ -54,9 +79,22 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
         batch["patches"] = patches
     if frames is not None:
         batch["frames"] = frames
-    logits, cache = model.prefill(params, batch, max_len,
-                                  landmark_draws=landmark_draws,
-                                  generator=generator)
+    if shd.is_trivial(mesh):
+        return _greedy(model, params, batch, S, gen, max_len,
+                       landmark_draws=landmark_draws, generator=generator)
+    rows = shd.row_axes(B, mesh)
+    first, n = shd.local_range((rows,), 0, B, mesh)
+    with shd.use_mesh(mesh):
+        toks = _greedy(model, shd.mesh_view(params, specs),
+                       {k: v[first:first + n] for k, v in batch.items()},
+                       S, gen, max_len, landmark_draws=landmark_draws,
+                       generator=generator, global_batch=B)
+    return C.all_gather(toks, 0, rows, mesh=mesh)
+
+
+def _greedy(model: Model, params, batch: dict, S: int, gen: int,
+            max_len: int, **prefill_kw) -> torch.Tensor:
+    logits, cache = model.prefill(params, batch, max_len, **prefill_kw)
     tok = torch.argmax(logits, dim=-1)
     toks = [tok]
     for i in range(gen - 1):
@@ -80,15 +118,25 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--mesh", default="1x1",
+                   help="dxm or pxdxm (data x model, pod in front); more "
+                        "than one device needs torchrun or an initialized "
+                        "process group")
     args = p.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.landmark:
         cfg = dataclasses.replace(cfg, use_landmark_decode=True)
-    device = resolve_device(args.device)
+    if math.prod(mesh_dims(args.mesh)[0]) > 1:
+        check_mesh_support(cfg)
+    mesh, device = setup_mesh(args.mesh, resolve_device(args.device))
+    rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)
     params = model.prepare(model.init(
         torch.Generator(device=device).manual_seed(0), device))
+    specs = None
+    if mesh is not None:
+        params, specs = shard_params(cfg, params, mesh)
     frames = None
     if cfg.is_encdec:
         frames = torch.randn(
@@ -102,17 +150,21 @@ def main(argv=None) -> None:
         device=device)
     t0 = time.perf_counter()
     out = generate(model, params, prompts, args.gen,
-                   generator=torch.Generator().manual_seed(2), frames=frames)
+                   generator=torch.Generator().manual_seed(2), frames=frames,
+                   mesh=mesh, specs=specs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"generated {tuple(out.shape)} on {device} in {dt:.2f}s "
-          f"({args.batch * args.gen / dt:.1f} tok/s)")
-    print("sample row:", out[0][:16].tolist())
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         raise RuntimeError(f"a generated token lies outside [0, "
                            f"{cfg.vocab_size})")
-    print("serve ok")
+    if rank0:
+        where = device if mesh is None else describe(mesh)
+        print(f"generated {tuple(out.shape)} on {where} in {dt:.2f}s "
+              f"({args.batch * args.gen / dt:.1f} tok/s)")
+        print("sample row:", out[0][:16].tolist())
+        print("serve ok")
+    return out
 
 
 if __name__ == "__main__":

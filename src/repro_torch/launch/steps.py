@@ -44,8 +44,12 @@ server share: the step function, its abstract arguments (tensors on the
 ``meta`` device: nothing is allocated; ``Model.init`` on ``meta`` draws
 nothing, see ``layers.dense_init``) and the in/out spec trees for the
 train, prefill and decode kinds.  The train cell's step runs on a mesh as
-above; the prefill and decode steps run on a mesh of one device and raise
-``NotImplementedError`` (ROADMAP A10-rest.2) on a larger one.
+above.  The prefill and decode steps run on a ``DeviceMesh`` as the
+reference's jitted cells run on theirs: they take this rank's shards
+under the in specs (the params, the batch rows, the cache) and return
+its shards under the out specs (the logits, vocabulary whole; the cache,
+laid out by ``cache_shardings``).  A {name: size} mesh gives the specs
+only: its serving steps raise ``ValueError`` on more than one device.
 ``_opt_shardings`` gives an optimizer-state leaf its parameter's spec by
 path suffix and shape, else replicated.
 """
@@ -334,11 +338,17 @@ def _abstract(spec) -> torch.Tensor:
     return torch.empty(tuple(spec.shape), dtype=spec.dtype, device="meta")
 
 
-def _serve_on(mesh, kind: str) -> None:
-    if not shd.is_trivial(mesh):
-        raise NotImplementedError(
-            f"the {kind} cell on {shd.mesh_shape(mesh)}: sharded serving is "
-            f"ROADMAP A10-rest.2")
+def _serving_mesh(mesh, kind: str):
+    """The mesh a serving cell runs on: None for one device; a {name:
+    size} mesh of more than one device carries no ranks (its cell gives
+    the specs only)."""
+    if shd.is_trivial(mesh):
+        return None
+    if isinstance(mesh, dict):
+        raise ValueError(f"the {kind} cell on {shd.mesh_shape(mesh)}: a "
+                         f"{{name: size}} mesh gives the specs only; run "
+                         f"the step on a DeviceMesh")
+    return mesh
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -372,8 +382,12 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         max_len = WHISPER_DECODER_LEN if cfg.is_encdec else shape.seq_len
 
         def prefill_step(params, batch):
-            _serve_on(mesh, "prefill")
-            return model.prefill(params, batch, max_len)
+            m = _serving_mesh(mesh, "prefill")
+            if m is None:
+                return model.prefill(params, batch, max_len)
+            with shd.use_mesh(m):
+                return model.prefill(shd.mesh_view(params, psh), batch,
+                                     max_len, global_batch=B)
 
         acache = model.cache_shape(B, max_len, "meta", **(
             {"enc_len": shape.seq_len} if cfg.is_encdec else {}))
@@ -391,8 +405,12 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     pos = torch.empty((), dtype=torch.int32, device="meta")
 
     def decode_step(params, cache, tokens, pos):
-        _serve_on(mesh, "decode")
-        return model.decode_step(params, cache, tokens, pos)
+        m = _serving_mesh(mesh, "decode")
+        if m is None:
+            return model.decode_step(params, cache, tokens, pos)
+        with shd.use_mesh(m):
+            return model.decode_step(shd.mesh_view(params, psh),
+                                     shd.mesh_view(cache, csh), tokens, pos)
 
     return Cell(cfg, shape, model, decode_step,
                 (aparams, acache, tokens, pos),

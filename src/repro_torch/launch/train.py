@@ -36,7 +36,6 @@ host only on log steps.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
@@ -49,7 +48,7 @@ from repro_torch.data import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import mesh_dims, parse_mesh
+from repro_torch.launch.mesh import mesh_dims, setup_mesh
 from repro_torch.launch.steps import default_optimizer, make_train_step
 from repro_torch.models.model import build_model, check_mesh_support
 from repro_torch.optim import OptState
@@ -90,32 +89,6 @@ def _any_rank(flag: bool, mesh, device) -> bool:
     return bool(t.item())
 
 
-def _setup_mesh(spec: str, device):
-    """(mesh, this rank's device) for ``--mesh``; (None, device) for a
-    mesh of one device.  Initializes the process group from ``torchrun``'s
-    environment where none is."""
-    dims, _ = mesh_dims(spec)
-    if int(np.prod(dims)) == 1:
-        return None, device
-    if not dist.is_initialized():
-        if "RANK" not in os.environ:
-            raise RuntimeError(
-                f"--mesh {spec} takes {int(np.prod(dims))} ranks: run under "
-                f"torchrun --nproc-per-node {int(np.prod(dims))}, or in a "
-                f"process whose torch.distributed group is initialized")
-        cuda = device.type == "cuda"
-        local = int(os.environ.get("LOCAL_RANK", 0))
-        nccl = cuda and torch.cuda.device_count() >= int(
-            os.environ.get("LOCAL_WORLD_SIZE", os.environ.get(
-                "WORLD_SIZE", 1)))
-        dist.init_process_group("nccl" if nccl else "gloo")
-        if cuda:
-            device = torch.device("cuda", local if nccl else 0)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    return parse_mesh(spec, device.type), device
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -147,7 +120,7 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if int(np.prod(mesh_dims(args.mesh)[0])) > 1:
         check_mesh_support(cfg)
-    mesh, device = _setup_mesh(args.mesh, resolve_device(args.device))
+    mesh, device = setup_mesh(args.mesh, resolve_device(args.device))
     rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)
     opt = default_optimizer(cfg)

@@ -17,6 +17,17 @@ queries to keys, so the keys ``[:(r+1)·S/tp]`` give rank r the causal
 mask without a new kernel argument.  The reference's
 ``with_sharding_constraint`` points are these redistributions.
 
+Serving on a mesh: ``attention_prefill`` takes the same paths and
+returns this rank's cache shard under ``sharding.cache_shardings``: split
+by batch and kv heads, or by sequence (the local rings by slots), where
+K/V computed split by heads move to the sequence split in one all-to-all
+(``collectives.heads_to_seq``).  A decode step of a sequence-split cache
+(``attention_decode``) reads the rank's positions for every head and merges
+the partial reads by log-sum-exp in a fixed rank order
+(``collectives.lse_merge``); only the rank holding the token's position
+(or ring slot) writes it.  The landmark factors are whole over
+``model``: each rank builds its kv heads' and all-gathers them.
+
 ``attn_impl``: the reference chooses between an XLA einsum path ("xla") and
 the Pallas flash kernel ("pallas"); both compute the same function.  Here
 both values name one path, ``kernels.flash_attention.ops.flash_attention``:
@@ -51,6 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sketched_attention as SA
 from repro_torch.core.sketched_attention import (build_landmark_state,
                                                  signed_den_floor)
 from repro_torch.device import generator_or_default
@@ -199,23 +211,28 @@ def _kv_heads_of(rank: int, h_loc: int, cfg: ModelConfig) -> list:
 
 
 def _attention_tp(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, kind: str) -> torch.Tensor:
+                  positions: torch.Tensor, kind: str, with_kv: bool = False):
     """Heads split over ``model``: this rank's q heads (and kv heads), the
-    partial output projection summed over the ranks."""
+    partial output projection summed over the ranks.  ``with_kv`` also
+    returns the rank's k and v (B, S, ·, D): its own kv heads where
+    ``wk``/``wv`` are split, else every kv head."""
     p = shd.tp_local(params)
     x = C.copy_to(x, "model")
     q, k, v = _qkv(p, cfg, x, positions, _theta(cfg, kind))
+    kr, vr = k, v
     if not shd.split(params, "wk", 1):
         idx = _kv_heads_of(shd.axis_index("model"), q.shape[2], cfg)
-        k, v = k[:, :, idx].contiguous(), v[:, :, idx]
-    return C.reduce_from(attend_full(p, cfg, q, k, v, kind), "model")
+        kr, vr = k[:, :, idx].contiguous(), v[:, :, idx]
+    y = C.reduce_from(attend_full(p, cfg, q, kr, vr, kind), "model")
+    return (y, k, v) if with_kv else y
 
 
 def _attention_sp(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, kind: str) -> torch.Tensor:
+                  positions: torch.Tensor, kind: str, with_kv: bool = False):
     """Sequence-parallel attention: this rank's S/tp query rows against
     K/V all-gathered over ``model`` and cut at its last row; the output
-    rows all-gathered back.  The weights are whole on every rank."""
+    rows all-gathered back.  The weights are whole on every rank.
+    ``with_kv`` also returns the whole K and V (every head and position)."""
     r, tp = shd.axis_index("model"), shd.ambient_axis_size("model")
     p = shd.tp_local(params)
     rows = x.shape[1] // tp
@@ -223,10 +240,126 @@ def _attention_sp(params: dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _qkv(p, cfg, xs, positions[r * rows:(r + 1) * rows],
                    _theta(cfg, kind))
     end = (r + 1) * rows
-    k = C.all_gather_sum(k, 1, "model")[:, :end]
-    v = C.all_gather_sum(v, 1, "model")[:, :end]
-    y = attend_full(p, cfg, q, k, v, kind)
-    return shd.constrain(y, (), src=(None, "model", None))
+    k = C.all_gather_sum(k, 1, "model")
+    v = C.all_gather_sum(v, 1, "model")
+    y = attend_full(p, cfg, q, k[:, :end], v[:, :end], kind)
+    y = shd.constrain(y, (), src=(None, "model", None))
+    return (y, k, v) if with_kv else y
+
+
+# ---------------------------------------------------------------------------
+# prefill: the attention and the layer's decode cache
+# ---------------------------------------------------------------------------
+
+def attention_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, kind: str, max_len: int,
+                      spec: Optional[dict] = None,
+                      draws: Optional[dict] = None,
+                      generator: Optional[torch.Generator] = None):
+    """(the attention's output, the layer's decode cache): q, k and v are
+    projected once and serve both.  On a mesh the attention takes
+    ``attention_full``'s path (sequence- or tensor-parallel) and the cache
+    is this rank's shard, laid out by ``spec`` (the entry's
+    ``sharding.cache_shardings``, ``{"k": spec, "v": spec}`` or the
+    landmark factors')."""
+    on_mesh = shd.mesh_active()
+    if on_mesh and spec is None:
+        raise ValueError("a prefill on a mesh takes its cache entry's specs")
+    split = False                          # k, v hold this rank's kv heads
+    if _sp_active(cfg, x.shape[1]):
+        h, k, v = _attention_sp(params, cfg, x, positions, kind, True)
+    elif shd.split(params, "wq", 1):
+        h, k, v = _attention_tp(params, cfg, x, positions, kind, True)
+        split = shd.split(params, "wk", 1)
+    else:
+        q, k, v = _qkv(params, cfg, x, positions, _theta(cfg, kind))
+        h = attend_full(params, cfg, q, k, v, kind)
+        del q
+    if not on_mesh:
+        return h, prefill_cache(cfg, kind, k, v, max_len, draws, generator)
+    return h, _mesh_prefill_cache(cfg, kind, k, v, max_len, spec, split,
+                                  draws, generator)
+
+
+def prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
+                  v: torch.Tensor, max_len: int, draws: Optional[dict] = None,
+                  generator: Optional[torch.Generator] = None) -> dict:
+    """The decode cache of one attention layer from its prefill k, v
+    (B, S, KV, D): the landmark factors, the ring of the last W positions
+    (each in its slot src % W), or the keys padded to ``max_len``."""
+    B, S = k.shape[:2]
+    if kind == "global" and cfg.use_landmark_decode:
+        return build_landmark_cache(cfg, k, v, draws, generator)
+    if kind == "local" and cfg.window is not None:
+        W = min(cfg.window, max_len)
+        src = torch.clamp(max(S - W, 0) + torch.arange(W, device=k.device),
+                          0, S - 1)
+        slots = src % W
+        kr = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype, device=k.device)
+        vr = torch.zeros((B, W) + v.shape[2:], dtype=v.dtype, device=v.device)
+        kr[:, slots] = k[:, src]
+        vr[:, slots] = v[:, src]
+        return {"k": kr, "v": vr}
+    pad = max_len - S
+    return {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _mesh_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
+                        v: torch.Tensor, max_len: int, spec: dict,
+                        split: bool, draws: Optional[dict],
+                        generator: Optional[torch.Generator]) -> dict:
+    """This rank's shard of the layer's cache from its k, v: its own kv
+    heads where ``split``, else every head; its batch rows.  Landmark
+    draws from ``generator`` are those of one device: every rank draws the
+    whole batch's, from every row's and head's K, and reads its own."""
+    rows = shd.axis_index(shd.batch_axes()) * k.shape[0]
+    if kind == "global" and cfg.use_landmark_decode:
+        heads = None
+        if split:
+            first = shd.axis_index("model") * k.shape[2]
+            heads = list(range(first, first + k.shape[2]))
+        if draws is None:
+            whole = C.all_gather(k, 2, "model") if split else k
+            draws = landmark_draws(
+                cfg, C.all_gather(whole, 0, shd.batch_axes()), generator)
+            del whole
+        st = build_landmark_cache(cfg, k, v, draws, rows=rows, heads=heads)
+        # the factors are split by batch rows only: each rank built its kv
+        # heads', so gather them over ``model``
+        return {name: C.all_gather(t, 1, "model") if split else t
+                for name, t in st.items()}
+    entry = prefill_cache(cfg, kind, k, v, max_len)
+    return {name: _cache_layout(t, spec[name], split)
+            for name, t in entry.items()}
+
+
+def _cache_layout(t: torch.Tensor, spec, split: bool) -> torch.Tensor:
+    """t (B_loc, S, ·, D), this rank's kv heads (``split``) or every head,
+    every position or ring slot -> its shard under ``spec``: its part of
+    the positions (over the spec's sequence axes) and of the heads.  Heads
+    to sequence is one all-to-all over ``model``."""
+    mesh = shd.ambient_mesh()
+    seq = tuple(a for a in shd._entry_axes(spec[1])
+                if shd.ambient_axis_size(a) > 1)
+    by_head = "model" in shd._entry_axes(spec[2]) \
+        and shd.ambient_axis_size("model") > 1
+    if split and not by_head:
+        if "model" in seq:
+            outer = tuple(a for a in seq if a != "model")
+            t = _narrow(t, 1, outer, mesh)          # this data group's part
+            return C.heads_to_seq(t, "model").contiguous()
+        t = C.all_gather(t, 2, "model")
+    elif by_head and not split:
+        t = _narrow(t, 2, ("model",), mesh)
+    return _narrow(t, 1, seq, mesh).contiguous()
+
+
+def _narrow(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    if not axes:
+        return t
+    first, n = shd.local_range((axes,), 0, t.shape[dim], mesh)
+    return t.narrow(dim, first, n)
 
 
 # ---------------------------------------------------------------------------
@@ -345,32 +478,83 @@ def _decode_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, 1, H, v.shape[-1]).to(cfg.cdtype)
 
 
+def _partial_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_valid: torch.Tensor):
+    """``_decode_read`` over a part of the keys, unnormalized: the max m
+    (B, KV, G) of the valid logits (−inf where none is valid), the sum l
+    of their exponentials (0 there) and o = Σ e^(logit − m)·v
+    (B, KV, G, Dv), all f32; ``collectives.lse_merge`` combines them."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, D).to(_F32)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.to(_F32)) / (D ** 0.5)
+    logits = torch.where(kv_valid[:, None, None, :], logits, -torch.inf)
+    m = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    return m, torch.sum(p, dim=-1), torch.einsum("bkgs,bskd->bkgd", p,
+                                                 v.to(_F32))
+
+
 def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: dict, pos: int, kind: str = "attn"
                      ) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, d); ``pos`` the new token's position.  Returns (y, cache)
-    with the cache updated in place."""
+    with the cache updated in place.
+
+    On a mesh a full or ring cache is this rank's shard under its specs
+    (``cache.specs``, as a prefill on the mesh returns it; whole where it
+    carries none).  Split by kv heads: the rank's q heads read its own kv
+    heads.  Otherwise every head reads the rank's positions (or ring
+    slots), merged over the sequence axes by log-sum-exp; the rank that
+    holds position ``pos`` (slot ``pos % W``) writes the token's k and v,
+    the others write nothing.  The heads of a tensor-parallel rank leave
+    through its part of the output projection, summed over ``model``."""
     pos = int(pos)
     if _is_mla(cfg, kind):
         return _mla_decode(params, cfg, x, cache, pos), cache
     if kind == "global" and cfg.use_landmark_decode and "k_land" in cache:
         return _landmark_decode(params, cfg, x, cache, pos), cache
+    spec = (getattr(cache, "specs", None) or {}).get("k", (None,) * 4)
+    mesh = shd.ambient_mesh()
+    tp = shd.split(params, "wq", 1)
+    by_head = "model" in shd._entry_axes(spec[2]) \
+        and shd.ambient_axis_size("model") > 1
     positions = torch.tensor([pos], device=x.device)
     q, k_new, v_new = _qkv(params, cfg, x, positions, _theta(cfg, kind))
+    if not by_head:                        # every head reads the keys here
+        if shd.split(params, "wk", 1):
+            k_new = C.all_gather(k_new, 2, "model")
+            v_new = C.all_gather(v_new, 2, "model")
+        if tp:
+            q = C.all_gather(q, 2, "model")
     kc, vc = cache["k"], cache["v"]
+    seq = tuple(a for a in shd._entry_axes(spec[1])
+                if shd.ambient_axis_size(a) > 1)
+    size = kc.shape[1] * shd.ambient_axis_size(seq)
+    first = shd.local_range(spec, 1, size, mesh)[0]
+    j = first + torch.arange(kc.shape[1], device=x.device)
     if kind == "local" and cfg.window is not None:
-        W = kc.shape[1]
-        slot = pos % W
-        j = torch.arange(W, device=x.device)
-        slot_pos = pos - torch.remainder(pos - j, W)
+        slot = pos % size
+        slot_pos = pos - torch.remainder(pos - j, size)
         valid = ((slot_pos >= 0) & (slot_pos <= pos))[None]   # (1, W)
     else:
+        if pos >= size:
+            raise IndexError(f"position {pos} past a cache of {size}")
         slot = pos
-        valid = (torch.arange(kc.shape[1], device=x.device) <= pos)[None]
-    kc[:, slot] = k_new[:, 0].to(kc.dtype)
-    vc[:, slot] = v_new[:, 0].to(vc.dtype)
-    out = _decode_read(q, kc, vc, cfg, valid)
-    return _out_proj(out, params["wo"], cfg.cdtype), cache
+        valid = (j <= pos)[None]
+    if first <= slot < first + kc.shape[1]:
+        kc[:, slot - first] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot - first] = v_new[:, 0].to(vc.dtype)
+    if seq:
+        out = C.lse_merge(*_partial_read(q, kc, vc, valid), seq, mesh=mesh)
+        out = out.reshape(q.shape[0], 1, q.shape[2], -1).to(cfg.cdtype)
+    else:
+        out = _decode_read(q, kc, vc, cfg, valid)
+    if tp and not by_head:                 # this rank's heads
+        h = params["wo"].shape[0]
+        out = out.narrow(2, shd.axis_index("model") * h, h)
+    y = _out_proj(out, params["wo"], cfg.cdtype)
+    return (C.reduce_from(y, "model") if tp else y), cache
 
 
 def _mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -425,43 +609,72 @@ def _landmark_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     dt = cfg.cdtype
     positions = torch.tensor([pos], device=x.device)
     q = _q(params, cfg, x, positions, cfg.rope_theta)[:, 0]    # (B, H, D)
-    KV = cfg.n_kv_heads
+    tp = shd.split(params, "wq", 1)
+    fac = {name: cache[name] for name in ("k_land", "uv", "u1", "offset")}
+    if tp:      # the factors are whole over ``model``: this rank's heads'
+        idx = _kv_heads_of(shd.axis_index("model"), q.shape[1], cfg)
+        fac = {name: t[:, idx] for name, t in fac.items()}
+    KV = fac["k_land"].shape[1]
     B, H, D = q.shape
     qg = q.reshape(B, KV, H // KV, D).to(_F32)
-    kl = cache["k_land"].to(_F32)                              # (B,KV,c,D)
+    kl = fac["k_land"].to(_F32)                                # (B,KV,c,D)
     logits = torch.einsum("bkgd,bkcd->bkgc", qg, kl) / (D ** 0.5)
-    cvec = torch.exp(logits - cache["offset"][:, :, None, None])
-    num = torch.einsum("bkgc,bkcv->bkgv", cvec, cache["uv"].to(_F32))
-    den = torch.einsum("bkgc,bkc->bkg", cvec, cache["u1"])
+    cvec = torch.exp(logits - fac["offset"][:, :, None, None])
+    num = torch.einsum("bkgc,bkcv->bkgv", cvec, fac["uv"].to(_F32))
+    den = torch.einsum("bkgc,bkc->bkg", cvec, fac["u1"])
     out = num / signed_den_floor(den)[..., None]
     out = out.reshape(B, 1, H, out.shape[-1]).to(dt)
-    return _out_proj(out, params["wo"], dt)
+    y = _out_proj(out, params["wo"], dt)
+    return C.reduce_from(y, "model") if tp else y
 
 
 def build_landmark_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
                          draws: Optional[dict] = None,
-                         generator: Optional[torch.Generator] = None
-                         ) -> dict:
+                         generator: Optional[torch.Generator] = None,
+                         rows: int = 0, heads=None) -> dict:
     """Prefill-side landmark cache from the full K/V (B, S, KV, D): the
     paper's Algorithm 1 on the softmax Gram, per (batch row, kv head).
 
     ``draws`` = {"p_idx": (B, KV, c), "skx": (B, KV, s)} gives the landmark
     and column-sketch indices of every head; without them each head draws
-    its own from ``generator``, in (batch row, kv head) order.  k and v stay
-    in the compute dtype, as the reference passes them.
+    its own from ``generator`` (``landmark_draws``).  k and v stay in the
+    compute dtype, as the reference passes them.  On a mesh k and v may
+    hold a part of the batch and of the heads: their rows are the batch's
+    ``rows`` on, their heads ``heads`` (global ids; all by default), and
+    the draws, of the whole batch, are read there.
     """
     B, S, KV, _ = k.shape
-    g = generator_or_default(generator)
+    heads = list(range(KV)) if heads is None else list(heads)
+    if draws is None:
+        if rows or len(heads) != KV:
+            raise ValueError("a part of the batch reads the whole batch's "
+                             "landmark draws")
+        draws = landmark_draws(cfg, k, generator)
     outs = {"k_land": [], "uv": [], "u1": [], "offset": []}
     for b in range(B):
-        for h in range(KV):
-            given = {} if draws is None else {
-                name: draws[name][b][h] for name in ("p_idx", "skx")}
+        for j, h in enumerate(heads):
             st = build_landmark_state(
-                k[b, :, h], v[b, :, h], cfg.landmark_c, cfg.landmark_theta,
-                cfg.landmark_selection, generator=g, device=k.device,
-                **given)
+                k[b, :, j], v[b, :, j], cfg.landmark_c, cfg.landmark_theta,
+                cfg.landmark_selection, device=k.device,
+                **{name: draws[name][rows + b][h]
+                   for name in ("p_idx", "skx")})
             for name, t in zip(outs, st):
                 outs[name].append(t)
     return {name: torch.stack(ts).unflatten(0, (B, KV))
             for name, ts in outs.items()}
+
+
+def landmark_draws(cfg: ModelConfig, k: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> dict:
+    """{"p_idx": (B, KV, c), "skx": (B, KV, s)}: the landmark and
+    column-sketch indices that each head of k (B, S, KV, D) draws from
+    ``generator`` (a new one of the default seed where None), in (batch
+    row, kv head) order."""
+    g = generator_or_default(generator)
+    B, _, KV, _ = k.shape
+    pairs = [SA.landmark_draws(k[b, :, h], cfg.landmark_c,
+                               cfg.landmark_theta, cfg.landmark_selection,
+                               generator=g)
+             for b in range(B) for h in range(KV)]
+    return {name: torch.stack([p[i] for p in pairs]).unflatten(0, (B, KV))
+            for i, name in enumerate(("p_idx", "skx"))}

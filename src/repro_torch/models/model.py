@@ -10,8 +10,8 @@ with local attention) and whisper's encoder-decoder.
                                               in cfg.cdtype, cast once
   forward(params, batch)                   -> (logits, aux)
   loss(params, batch)                      -> (total, metrics)   train
-  prefill(params, batch, max_len, *, landmark_draws, generator)
-                                           -> (last_logits, cache)
+  prefill(params, batch, max_len, *, landmark_draws, generator,
+          global_batch)                    -> (last_logits, cache)
   decode_step(params, cache, tokens, pos)  -> (logits, cache)
   cache_shape(batch, max_len, device)      -> zero cache
 
@@ -47,10 +47,18 @@ shares of the data ranks add up to the global loss (the CE summed over
 the rank's tokens over the global token count; the aux, a global value,
 over the data ranks' count), and ``metrics`` holds the global values.  A
 vocabulary split over ``model`` gives the CE by a distributed
-log-sum-exp (``vocab_parallel_nll``): the logits are never gathered.  The
-dense and MoE attention families run there; MLA, the recurrent mixers,
-the encoder-decoder, MTP and the serving entry points raise
-``NotImplementedError`` naming their ROADMAP item
+log-sum-exp (``vocab_parallel_nll``): the logits are never gathered.
+
+``prefill`` and ``decode_step`` run there too, on this rank's shards:
+the params, the batch rows that ``sharding.batch_pspec`` gives it (a
+batch that ``data`` does not divide is whole on every rank; ``prefill``
+takes ``global_batch``, the rows of every rank) and the cache, laid out
+by ``sharding.cache_shardings`` of the whole cache: ``prefill`` returns
+this rank's shards carrying their specs (``sharding.mesh_view``), which
+``decode_step`` reads.  The logits come back with their vocabulary
+whole (``batch_pspec((B, V))``).  The dense and MoE attention families
+run on a mesh; MLA, the recurrent mixers, the encoder-decoder and MTP
+raise ``NotImplementedError`` naming their ROADMAP item
 (``check_mesh_support``).
 
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
@@ -265,13 +273,6 @@ def _check_mesh(cfg: ModelConfig) -> None:
         check_mesh_support(cfg)
 
 
-def _serving_on_mesh(cfg: ModelConfig) -> None:
-    if shd.mesh_active():
-        raise NotImplementedError(
-            f"{cfg.name}: prefill and decode on a mesh of more than one "
-            f"device are ROADMAP A10-rest.2")
-
-
 def _labels(batch: dict, device) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], dtype=torch.int64, device=device)
 
@@ -286,10 +287,7 @@ def _lm_hidden(params: dict, cfg: ModelConfig, batch: dict):
 
 def _lm_forward(params: dict, batch: dict, *, cfg: ModelConfig):
     h, aux = _lm_hidden(params, cfg, batch)
-    logits = L.unembed(params["embed"], cfg, h)
-    if L.vocab_slice(params["embed"], cfg)[1] != cfg.vocab_size:
-        logits = C.gather(logits, -1, "model")
-    return logits, aux
+    return _logits(params, cfg, h), aux
 
 
 def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -347,27 +345,85 @@ def _lm_loss(params: dict, batch: dict, *, cfg: ModelConfig):
     return total, metrics
 
 
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor
+            ) -> torch.Tensor:
+    """The unembedding of h, its vocabulary gathered over ``model`` where
+    the table is split."""
+    logits = L.unembed(params["embed"], cfg, h)
+    if L.vocab_slice(params["embed"], cfg)[1] != cfg.vocab_size:
+        logits = C.gather(logits, -1, "model")
+    return logits
+
+
+def _serving_rows(cfg: ModelConfig, local: int,
+                  global_batch: Optional[int]) -> tuple:
+    """(the global batch, the axes that split its rows) of a prefill on
+    the ambient mesh, this rank holding ``local`` rows."""
+    check_mesh_support(cfg)
+    mesh = shd.ambient_mesh()
+    if global_batch is None:
+        if shd.data_size(mesh) > 1:
+            raise ValueError("a prefill on a mesh with data ranks takes "
+                             "global_batch (its rows are split over data "
+                             "only when data divides it)")
+        global_batch = local
+    rows = shd.row_axes(global_batch, mesh)
+    if local * shd.ambient_axis_size(rows) != global_batch:
+        raise ValueError(f"{local} rows on this rank of a batch of "
+                         f"{global_batch} split over {rows}")
+    return global_batch, rows
+
+
+def _cache_rows(cfg: ModelConfig, cache: dict) -> tuple:
+    """The axes that split the batch rows of a cache of shards carrying
+    their specs (``sharding.shard_cache``, a prefill's output): the batch
+    entry of its first layer's leaves."""
+    section, r, i, _ = T.layer_slots(cfg)[0]
+    specs = getattr(T._entry(cache, section, r, i), "specs", None)
+    if not specs:
+        raise ValueError("a decode cache on a mesh carries its specs "
+                         "(sharding.shard_cache, or a prefill's output)")
+    return tuple(a for a in shd._entry_axes(next(iter(specs.values()))[0])
+                 if shd.ambient_axis_size(a) > 1)
+
+
 def _lm_prefill(params: dict, batch: dict, max_len: int, *,
                 cfg: ModelConfig,
                 landmark_draws: Optional[Dict[int, dict]] = None,
-                generator: Optional[torch.Generator] = None):
-    _serving_on_mesh(cfg)
+                generator: Optional[torch.Generator] = None,
+                global_batch: Optional[int] = None):
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = T.stack_prefill(params["stack"], cfg, x, positions, max_len,
-                                landmark_draws, generator)
+    if not shd.mesh_active():
+        x, caches = T.stack_prefill(params["stack"], cfg, x, positions,
+                                    max_len, landmark_draws, generator)
+    else:
+        B, rows = _serving_rows(cfg, x.shape[0], global_batch)
+        mesh = shd.ambient_mesh()
+        specs = shd.cache_shardings(T.stack_cache(cfg, B, max_len, "meta"),
+                                    mesh)
+        with shd.use_rows(rows):
+            x, caches = T.stack_prefill(params["stack"], cfg, x, positions,
+                                        max_len, landmark_draws, generator,
+                                        specs)
+        caches = shd.mesh_view(caches, specs)
     h_last = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, h_last)[:, 0], caches
+    return _logits(params, cfg, h_last)[:, 0], caches
 
 
 def _lm_decode(params: dict, cache: dict, tokens, pos: int, *,
                cfg: ModelConfig):
-    _serving_on_mesh(cfg)
     x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
                                               _device(params)))
-    x, cache = T.stack_decode(params["stack"], cfg, x, cache, int(pos))
+    if not shd.mesh_active():
+        x, cache = T.stack_decode(params["stack"], cfg, x, cache, int(pos))
+    else:
+        check_mesh_support(cfg)
+        with shd.use_rows(_cache_rows(cfg, cache)):
+            x, cache = T.stack_decode(params["stack"], cfg, x, cache,
+                                      int(pos))
     h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, h)[:, 0], cache
+    return _logits(params, cfg, h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -506,12 +562,13 @@ def _encdec_loss(params: dict, batch: dict, *, cfg: ModelConfig):
 def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
                     cfg: ModelConfig,
                     landmark_draws: Optional[Dict[int, dict]] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    global_batch: Optional[int] = None):
     """Encode the frames; prime the decoder's self-attention cache with the
     prompt tokens; project each layer's cross-attention K/V once, into the
     cache.  Returns (the last position's logits, cache).  The decoder has
-    no landmark layer, so ``landmark_draws`` and ``generator`` (taken as
-    the LM's prefill takes them) are unused."""
+    no landmark layer, so ``landmark_draws``, ``generator`` and
+    ``global_batch`` (taken as the LM's prefill takes them) are unused."""
     _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     dcfg = _dec_cfg(cfg)

@@ -37,7 +37,12 @@ On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``):
   token of the data ranks, an expert's slots go to the tokens in global
   order (``_assign``'s ``offsets``: the assignments of the lower data
   ranks, one all-gather of E counts), and the aux is formed from the
-  global means.  With the experts split over ``model`` each rank computes
+  global means; the data ranks are those that split the batch rows
+  (``sharding.batch_axes``: none when a serving batch is whole on every
+  rank, as a decode of one sequence is).  Serving takes the same path
+  at prefill and at decode (T = B: the capacity of the global B tokens),
+  filling its buffer in place.  With the experts split over ``model``
+  each rank computes
   its own experts' slots, with the FFN width split each rank its part of
   every expert; the partial combine is summed over ``model``;
 - ``moe_impl="shard_map"`` is the reference's expert parallelism
@@ -222,15 +227,17 @@ def moe_ffn(params: dict, cfg: ModelConfig,
 def _data_mean(t: torch.Tensor) -> torch.Tensor:
     """The mean over the tokens of every data rank (equal counts): the
     gradient of a rank's share flows back to every rank's tokens."""
-    axes = shd.data_axes(shd.ambient_mesh())
+    axes = shd.batch_axes()
     n = C.axes_size(axes)
     m = torch.mean(t, dim=0)
     return m if n == 1 else C.all_reduce_sum(m, axes) / n
 
 
 def _moe_gather_mesh(params: dict, cfg: ModelConfig, xf: torch.Tensor):
-    """The gather path on a mesh, with the reference's global semantics."""
-    axes = shd.data_axes(shd.ambient_mesh())
+    """The gather path on a mesh, with the reference's global semantics
+    (the tokens of the ranks that split the batch rows: a serving batch
+    that ``data`` does not divide is whole on every rank)."""
+    axes = shd.batch_axes()
     n = C.axes_size(axes)
     w, idx, aux = _route(params, cfg, xf, group_mean=_data_mean)
     offsets = None

@@ -21,7 +21,10 @@ Every block has three modes:
 On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``)
 each half-block all-gathers its FSDP-sharded weights as it starts
 (``sharding.materialize``); under a checkpoint the recompute gathers them
-again, so no gathered weight outlives its half-block.
+again, so no gathered weight outlives its half-block.  Prefill and decode
+run there too: each cache entry is this rank's shard, laid out by
+``sharding.cache_shardings`` (``attention.attention_prefill``,
+``attention.attention_decode``).
 
 A recurrent block's cache entry is its mixer's decode state (RG-LRU
 ``h``/``conv``, mLSTM ``C``/``n``/``m``, sLSTM ``c``/``n``/``h``/``m``).
@@ -159,59 +162,34 @@ def block_full(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
 def block_prefill(params: dict, cfg: ModelConfig, kind: str,
                   x: torch.Tensor, positions: torch.Tensor, max_len: int,
                   draws: Optional[dict] = None,
-                  generator: Optional[torch.Generator] = None
-                  ) -> Tuple[torch.Tensor, dict]:
+                  generator: Optional[torch.Generator] = None,
+                  spec: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
     """Returns (x', cache_entry).  The projections are made once and serve
     both the attention and the cache (the reference projects them twice;
     the two are the same computation): q, k and v, or under MLA the
     latents ckv and the rope key, which are MLA's cache.  A recurrent
     block's cache is its mixer's state after the last token, from the full
-    pass (the reference rebuilds it by ``_rec_prefill_state``)."""
+    pass (the reference rebuilds it by ``_rec_prefill_state``).  On a mesh
+    the attention takes its tensor- or sequence-parallel path
+    (``attention.attention_prefill``) and the entry is this rank's shard
+    under ``spec``, the entry's cache specs."""
     _check_kind(kind)
-    xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    mp = shd.materialize(params, ("norm1", "mixer"))
+    xin = L.rmsnorm(mp["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
-        h, cache = R.PREFILL[kind](params["mixer"], cfg, xin)
+        h, cache = R.PREFILL[kind](mp["mixer"], cfg, xin)
     elif cfg.use_mla:
-        parts = A._mla_project(params["mixer"], cfg, xin, positions)
-        h = A.mla_attend_full(params["mixer"], cfg, *parts)
+        parts = A._mla_project(mp["mixer"], cfg, xin, positions)
+        h = A.mla_attend_full(mp["mixer"], cfg, *parts)
         pad = (0, 0, 0, max_len - x.shape[1])
         cache = {"ckv": torch.nn.functional.pad(parts[2], pad),
                  "krope": torch.nn.functional.pad(parts[3], pad)}
         del parts
     else:
-        q, k, v = A._qkv(params["mixer"], cfg, xin, positions,
-                         A._theta(cfg, kind))
-        h = A.attend_full(params["mixer"], cfg, q, k, v, kind)
-        del q
-        cache = _attn_prefill_cache(cfg, kind, k, v, max_len, draws,
-                                    generator)
-        del k, v
+        h, cache = A.attention_prefill(mp["mixer"], cfg, xin, positions,
+                                       kind, max_len, spec, draws, generator)
+    del mp
     return _residual_mlp(params, cfg, x, h)[0], cache
-
-
-def _attn_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
-                        v: torch.Tensor, max_len: int,
-                        draws: Optional[dict] = None,
-                        generator: Optional[torch.Generator] = None) -> dict:
-    """The decode cache of one attention layer from its prefill k, v
-    (B, S, KV, D)."""
-    B, S = k.shape[:2]
-    if kind == "global" and cfg.use_landmark_decode:
-        return A.build_landmark_cache(cfg, k, v, draws, generator)
-    if kind == "local" and cfg.window is not None:
-        # the last W positions, each in its ring slot src % W
-        W = min(cfg.window, max_len)
-        src = torch.clamp(max(S - W, 0) + torch.arange(W, device=k.device),
-                          0, S - 1)
-        slots = src % W
-        kr = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype, device=k.device)
-        vr = torch.zeros((B, W) + v.shape[2:], dtype=v.dtype, device=v.device)
-        kr[:, slots] = k[:, src]
-        vr[:, slots] = v[:, src]
-        return {"k": kr, "v": vr}
-    pad = max_len - S
-    return {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
 
 
 def _rec_prefill_state(mp: dict, cfg: ModelConfig, kind: str,
@@ -232,12 +210,14 @@ def block_decode(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     token's k and v (or latents) into it, a recurrent layer replaces its
     state's tensors."""
     _check_kind(kind)
-    xin = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    mp = shd.materialize(params, ("norm1", "mixer"))
+    xin = L.rmsnorm(mp["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
-        h, cache = R.DECODE[kind](params["mixer"], cfg, xin, cache)
+        h, cache = R.DECODE[kind](mp["mixer"], cfg, xin, cache)
     else:
-        h, cache = A.attention_decode(params["mixer"], cfg, xin, cache, pos,
+        h, cache = A.attention_decode(mp["mixer"], cfg, xin, cache, pos,
                                       kind)
+    del mp
     return _residual_mlp(params, cfg, x, h)[0], cache
 
 
@@ -376,15 +356,19 @@ def stack_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, max_len: int,
                   landmark_draws: Optional[Dict[int, dict]] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  cache_specs: Optional[dict] = None):
     """Returns (x, caches).  ``landmark_draws`` maps a landmark layer's flat
     index (``layer_slots``) to its draws; a layer without an entry draws
-    from ``generator``."""
+    from ``generator``.  On a mesh ``cache_specs`` is the whole cache's
+    ``sharding.cache_shardings`` and each entry this rank's shard."""
     caches = _empty_like_layout(cfg)
     for n, (section, r, i, kind) in enumerate(layer_slots(cfg)):
         draws = None if landmark_draws is None else landmark_draws.get(n)
+        spec = None if cache_specs is None \
+            else _entry(cache_specs, section, r, i)
         x, c = block_prefill(_entry(params, section, r, i), cfg, kind, x,
-                             positions, max_len, draws, generator)
+                             positions, max_len, draws, generator, spec)
         _append(caches, section, r, c)
     return x, caches
 

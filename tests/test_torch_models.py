@@ -419,7 +419,7 @@ def test_attention_decode(kind, dtype):
                 draws["p_idx"][b, h] = np.asarray(p)
                 draws["skx"][b, h] = np.asarray(
                     jsa._extend_without_replacement(ks, p, s, S_PRE))
-    tcache = TT._attn_prefill_cache(tc, lkind, k, v, S_MAX, draws)
+    tcache = TA.prefill_cache(tc, lkind, k, v, S_MAX, draws)
     assert set(tcache) == set(jcache)
     for name in jcache:
         e = scaled(tcache[name], jcache[name])
