@@ -262,6 +262,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    grad_norm ≤ 1e-5, 3 steps ≤ 1e-4); the dense runs then 3 bf16 steps:
    step ms a rank, tokens/s, peak, each collective's count and bytes a
    step, the ms in ``mesh.collective`` on a profiled step, B6 a step;
+   deepseek-v3-671b at full width in the 2-rank spawn: 2 layers (both of
+   the dense prefix) + the MTP block, fsdp, adafactor on shards (momentum
+   off, the stacked layers as one tensor, as the uncut config trains), on
+   (2, 1) with 2 x 2,048 tokens and (1, 2) with 1 x 4,096: the f32 check
+   on 1 layer + MTP at 2 x 1,024 (the loss, gradients and grad_norm
+   gates above; one adafactor update from zeroed params at lr 1 against
+   one rank's by the mesh's gathered gradients, r / c / v and rank 0's
+   block of the update ≤ 1e-5), then bf16 steps timed the same way, 2 on
+   (2, 1) and 3 on (1, 2);
 11c. serve_mesh: prefill and decode on a device mesh, run in train_mesh's
    2-rank spawn, each rank's cache laid out by the reference's
    ``cache_shardings``: yi-6b at full width, 2 layers, TP on (1, 2) at
@@ -269,7 +278,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    on (2, 1) at 2 x 4,096 + 16 (split by batch); gemma3-12b, 6 layers
    (5 local + 1 global), landmark decode (c 512, theta 4) on (1, 2) at
    1 x 8,192 + 16 (the rings split by slots, the factors whole);
-   qwen2-moe-a2.7b, 2 layers, on (1, 2) at 1 x 4,096 + 16; each in f32
+   qwen2-moe-a2.7b, 2 layers, on (1, 2) at 1 x 4,096 + 16;
+   deepseek-v3-671b, 4 layers (3 dense + 1 MoE, 128 experts a rank) on
+   (1, 2) at 1 x 8,192 + 16 with absorbed MLA decode over its latent
+   split by sequence (the ranks draw their weights in turn; the f32 check
+   on the 2 dense layers; the MoE layer at T = 512, capacity E/k,
+   against each rank's f32 per-token evaluation of its own experts'
+   tokens summed over the ranks, ≤ 5e-2); each in f32
    against rank 0's one-rank run of the same weights, prompts and draws
    (every step's logits ≤ 1e-4, the greedy tokens equal, the cache
    gathered from the shards ≤ 1e-4: k, v, k_land, offset; the landmark
@@ -296,6 +311,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import json
 import os
 import re
@@ -628,7 +644,40 @@ TOL_MESH_AUX = 1e-5     # EP aux against its formula on the same slices
 SERVE_MESH = {"serve_yi_1x2": ("yi-6b", (1, 2), 1, 4096, 2),
               "serve_yi_2x1": ("yi-6b", (2, 1), 2, 4096, 2),
               "serve_gemma3_1x2": ("gemma3-12b", (1, 2), 1, 8192, 6),
-              "serve_moe_1x2": ("qwen2-moe-a2.7b", (1, 2), 1, 4096, 2)}
+              "serve_moe_1x2": ("qwen2-moe-a2.7b", (1, 2), 1, 4096, 2),
+              "serve_ds_1x2": ("deepseek-v3-671b", (1, 2), 1, 8192, 4)}
+# (e) deepseek-v3-671b, 4 of 61 layers (the 3 dense + the first MoE: 128
+# of the 256 experts a rank), absorbed MLA decode, its latent cache of
+# 8,208 positions split by sequence (B = 1).  Its f32 check runs the dense
+# prefix alone (SERVE_MESH_F32_LAYERS); its MoE layer is checked apart
+# (SERVE_MESH_MOE_T tokens, bf16, capacity E/k, nothing dropped) against
+# each rank's f32 per-token evaluation of its own experts' tokens, summed
+# over the ranks.  Its ranks draw their weights in turn (the whole draw,
+# ~31.6 GB with a 15 GB f32 bank, held by one rank at a time).
+SERVE_MESH_F32_LAYERS = {"serve_ds_1x2": 2}
+SERVE_MESH_MOE_T = {"serve_ds_1x2": 512}
+SERVE_MESH_SERIAL_INIT = {"serve_ds_1x2"}
+# (d) train_mesh deepseek-v3-671b at full width: DS_TRAIN_LAYERS layers,
+# both of the dense prefix (first_k_dense cut with them), plus the MTP
+# block; fsdp as the config sets it; adafactor (momentum off, the stacked
+# layers as one tensor) as default_optimizer gives the uncut > 100B config.
+# DS_BF16_STEPS bf16 steps of DS_TRAIN_TOKENS on (2, 1) (2 x 2,048) and
+# (1, 2) (1 x 4,096): (2, 1)'s FSDP step moves ~10 GB through gloo, so it
+# takes 2.  The f32 check against one rank on DS_F32_LAYERS layer + MTP at
+# DS_F32_B x DS_F32_S (one rank's f32 copy with its gradients, ~25 GB,
+# beside the mesh's): the loss, every gradient and grad_norm, then one
+# adafactor update by those gradients from zeroed params at lr 1 (the
+# params become the clipped update, -u), against one rank's update by the
+# mesh's gradients gathered: the statistics r / c / v (whole on every
+# rank) and rank 0's block of u, each <= TOL_ADA_UPDATE.
+DS_TRAIN_LAYERS, DS_TRAIN_TOKENS = 2, 4096
+DS_F32_LAYERS, DS_F32_B, DS_F32_S = 1, 2, 1024
+DS_BF16_STEPS = {(2, 1): 2, (1, 2): MESH_STEPS}
+DS_MESHES = ((2, 1), (1, 2))
+# one adafactor update on the mesh against one rank's by the same (the
+# mesh's) gradients, scale-normalized, each leaf: the row and column sums
+# are added in another order on the card
+TOL_ADA_UPDATE = 1e-5
 SERVE_MESH_GEN = 16
 TOL_SERVE_MESH = 1e-4   # f32 logits vs one rank, scale-normalized, a step
 # the landmark factors the mesh built against one rank's build from the
@@ -4742,40 +4791,79 @@ def _free() -> None:
         torch.cuda.empty_cache()
 
 
+def _flat_specs(specs):
+    return None if specs is None else [s for _, s in
+                                       sharding.leaves_with_path(specs)]
+
+
+@torch.no_grad()
+def _update_probe(opt, params, grads: list, gn: float, mesh=None,
+                  specs=None) -> tuple:
+    """One update of ``opt`` by ``grads`` (clipped by the global norm
+    ``gn``) from ``params`` zeroed, at lr 1, so that they become the
+    update itself (-u): (its statistics' leaves, whole on every rank, and
+    the params' leaves, this rank's blocks).  ``params`` is consumed."""
+    leaves = topt.optimizers.tree_leaves(params)
+    for p in leaves:
+        p.zero_()
+    flat = _flat_specs(specs)
+    state = opt.init(params, mesh=mesh, specs=flat)
+    dev = leaves[0].device
+    opt.update(topt.optimizers.tree_unflatten(params, iter(grads)), state,
+               params, 1.0, gnorm=torch.tensor(gn, device=dev), mesh=mesh,
+               specs=flat)
+    return topt.optimizers.tree_leaves(state.inner["stats"]), leaves
+
+
 def _mesh_steps(model, params, batch, mesh=None, specs=None,
-                gather=False):
-    """The loss and gradients at ``params`` (gathered whole on a mesh with
-    ``gather``), then MESH_STEPS adamw steps of which the first applies
-    those gradients (``make_train_step``'s update, lr from the same
-    schedule).  Returns (grads, loss, grad_norm, the steps' losses)."""
+                gather=False, make_opt=topt.adamw, steps=MESH_STEPS,
+                probe=False):
+    """The loss and gradients at ``params`` (on a mesh with ``gather``,
+    gathered whole into rank 0's host memory: an empty list elsewhere),
+    then ``steps`` - 1 steps of ``make_opt()`` (adamw by default) after an
+    update by those gradients (``make_train_step``'s update, lr from the
+    same schedule).  With ``probe`` (and ``steps`` 1), ``_update_probe``
+    of ``make_opt()`` by the gradients.  Returns (grads, loss, grad_norm,
+    the steps' losses, the probe or None)."""
     grads, met, gn = tsteps.loss_and_grads(model, params, batch, mesh=mesh,
                                            specs=specs)
     tree = topt.optimizers.tree_unflatten(params, iter(grads))
     whole = topt.optimizers.tree_leaves(tsteps.gather_tree(
-        tree, specs, mesh)) if gather else grads
-    opt = topt.adamw()
-    state = opt.init(params)
+        tree, specs, mesh, dst=0)) if gather else grads
+    if steps == 1:
+        gn = float(topt.optimizers.global_norm(grads) if gn is None else gn)
+        del tree
+        return (whole, float(met["loss"]), gn, [float(met["loss"])],
+                _update_probe(make_opt(), params, grads, gn, mesh, specs)
+                if probe else None)
+    opt = make_opt()
+    flat = _flat_specs(specs)
+    state = opt.init(params, mesh=mesh, specs=flat)
     lr = topt.warmup_cosine(state.step, peak=1e-2, warmup_steps=1,
                             total_steps=MESH_STEPS)
-    extra = {} if gn is None else {"gnorm": gn}
+    extra = {} if gn is None else {"gnorm": gn, "mesh": mesh, "specs": flat}
     params, state, m = opt.update(tree, state, params, lr, **extra)
     del tree, grads
     losses = [float(met["loss"])]
     step = tsteps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
                                   total=MESH_STEPS, mesh=mesh, specs=specs)
-    for s in range(MESH_STEPS - 1):
+    for s in range(steps - 1):
         params, state, m2 = step(params, state, batch)
         losses.append(float(m2["loss"]))
-    return whole, losses[0], float(m["grad_norm"]), losses
+    return whole, losses[0], float(m["grad_norm"]), losses, None
 
 
 def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
-                    loss_fn=None, record=None) -> dict:
+                    loss_fn=None, record=None, make_opt=topt.adamw,
+                    steps=MESH_STEPS, probe=False) -> dict:
     """The mesh's loss, every gradient (gathered) and grad_norm, then
-    MESH_STEPS adamw steps' losses, against the same on one rank (rank 0,
-    after the other ranks freed their state).  ``loss_fn(model)`` gives
-    the loss of both sides (a stand-in model carries it to the step);
-    ``record(side)`` wraps each side's calls ("mesh", "one")."""
+    ``steps`` steps' losses of ``make_opt()`` (adamw by default), against
+    the same on one rank (rank 0, after the other ranks freed their
+    state).  ``loss_fn(model)`` gives the loss of both sides (a stand-in
+    model carries it to the step); ``record(side)`` wraps each side's
+    calls ("mesh", "one").  With ``probe`` (``steps`` 1): one update of
+    ``make_opt()`` on the mesh against one rank's by the mesh's gathered
+    gradients (``_update_probe``)."""
     model = tmodel.build_model(cfg)
     if loss_fn:
         model = types.SimpleNamespace(cfg=model.cfg, init=model.init,
@@ -4783,25 +4871,43 @@ def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
     local, specs = tsteps.shard_params(cfg, model.init(gen(seed), DEV), mesh)
     _free()
     reset_counts()
+    t0 = time.perf_counter()
     with record("mesh") if record else _null():
-        whole, loss, gn, losses = _mesh_steps(model, local, batch, mesh,
-                                              specs, gather=True)
+        whole, loss, gn, losses, mprobe = _mesh_steps(
+            model, local, batch, mesh, specs, gather=True, make_opt=make_opt,
+            steps=steps, probe=probe)
     launches = read_counts()
+    parts = {"mesh": time.perf_counter() - t0}
     del local
     if rank != 0:
-        del whole
+        del whole, mprobe
     _free()
     torch.distributed.barrier()
     out = {"loss": loss, "grad_norm": gn, "losses": losses,
-           "launches": launches}
+           "launches": launches, "parts_s": parts}
     if rank == 0:
+        t0 = time.perf_counter()
         params = model.init(gen(seed), DEV)
         paths = ["/".join(p) for p, _ in sharding.leaves_with_path(params)]
         with record("one") if record else _null():
-            g1, loss1, gn1, losses1 = _mesh_steps(model, params, batch)
-        errs = {p: scaled_err(a, b) for p, a, b in zip(paths, whole, g1)}
-        del g1, whole, params
+            g1, loss1, gn1, losses1, _ = _mesh_steps(
+                model, params, batch, make_opt=make_opt, steps=steps)
+        parts["one"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        errs, grads = {}, []
+        for p, a, b in zip(paths, whole, g1):
+            a = a.to(DEV)
+            errs[p] = scaled_err(a, b)
+            if probe:
+                grads.append(a)
+        del g1, whole
+        if probe:
+            # the mesh's gradients, now on the card, step one rank too
+            out.update(_probe_errs(tag, make_opt, params, grads, gn, mprobe,
+                                   paths, specs, mesh))
+        del grads, params, mprobe
         _free()
+        parts["compare"] = time.perf_counter() - t0
         worst = max(errs, key=errs.get)
         out.update(
             loss_err=abs(loss - loss1) / abs(loss1), grad_err=errs[worst],
@@ -4822,11 +4928,38 @@ def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
             f"({out['loss_err']:.3g}, limit {TOL_TRAIN_LOSS}); {len(errs)} "
             f"gradient leaves, max {errs[worst]:.3g} at {worst} (limit "
             f"{TOL_TRAIN_GRAD}); grad_norm {gn:.6f} vs {gn1:.6f} "
-            f"({out['gnorm_err']:.3g}); {MESH_STEPS} steps' losses {losses}"
+            f"({out['gnorm_err']:.3g}); {steps} steps' losses {losses}"
             f" vs {losses1} ({out['step_err']:.3g}, limit "
             f"{TOL_TRAIN_STEPS})")
     torch.distributed.barrier()
     return out
+
+
+def _probe_errs(tag: str, make_opt, params, grads: list, gn: float,
+                mprobe: tuple, paths: list, specs, mesh) -> dict:
+    """One rank's ``_update_probe`` of ``params`` by the mesh's gathered
+    gradients ``grads`` against the mesh's ``mprobe``: each statistic
+    leaf, and rank 0's block of each update leaf."""
+    stats1, u1 = _update_probe(make_opt(), params, grads, gn)
+    grads.clear()
+    stats, u = mprobe
+    stat_err = max(scaled_err(a, b) for a, b in zip(stats, stats1))
+    flat = _flat_specs(specs)
+    u_errs = {p: scaled_err(a, sharding.local_block(b, s, mesh))
+              for p, a, b, s in zip(paths, u, u1, flat)}
+    worst = max(u_errs, key=u_errs.get)
+    check(len(stats) == len(stats1) and stat_err <= TOL_ADA_UPDATE,
+          f"{tag}: adafactor's statistics on the mesh differ from one "
+          f"rank's by {stat_err:.3g} (limit {TOL_ADA_UPDATE})")
+    check(u_errs[worst] <= TOL_ADA_UPDATE, f"{tag}: adafactor's update "
+          f"{worst} on rank 0's block differs by {u_errs[worst]:.3g} "
+          f"(limit {TOL_ADA_UPDATE})")
+    log(f"{tag} f32 adafactor update against one rank's by the same "
+        f"gradients: {len(stats)} statistic leaves, max {stat_err:.3g}; "
+        f"{len(u_errs)} update leaves (rank 0's blocks), max "
+        f"{u_errs[worst]:.3g} at {worst} (limit {TOL_ADA_UPDATE})")
+    return {"ada_stat_err": stat_err, "ada_update_err": u_errs[worst],
+            "ada_update_worst_leaf": worst}
 
 
 class _null:
@@ -4838,16 +4971,19 @@ class _null:
 
 
 def _mesh_bf16_steps(tag: str, cfg, mesh, B: int, S: int, seed: int,
-                     b6_per_step: int) -> dict:
-    """MESH_STEPS bf16 train steps on the mesh, each timed on this rank
-    (synchronized); peak memory, the collectives' count and bytes a step,
-    B6 launches a step (all on the tensor cores); the last step runs under
-    the CPU profiler for the ms inside the ``mesh.collective`` range."""
+                     b6_per_step: int, make_opt=topt.adamw,
+                     n_steps: int = MESH_STEPS) -> dict:
+    """``n_steps`` bf16 train steps of ``make_opt()`` (adamw by default) on
+    the mesh, each timed on this rank (synchronized); peak memory, the
+    collectives' count and bytes a step, B6 launches a step (all on the
+    tensor cores); the last step (the first of 2, so that step 2 is timed
+    without it) runs under the CPU profiler for the ms inside the
+    ``mesh.collective`` range."""
     from repro_torch.distributed import collectives as coll
     model = tmodel.build_model(cfg)
     local, specs = tsteps.shard_params(cfg, model.init(gen(seed), DEV), mesh)
-    opt = topt.adamw()
-    state = opt.init(local)
+    opt = make_opt()
+    state = opt.init(local, mesh=mesh, specs=_flat_specs(specs))
     step = tsteps.make_train_step(model, opt, peak_lr=TRAIN_PEAK_LR,
                                   warmup=TRAIN_WARMUP, total=MESH_STEPS,
                                   mesh=mesh, specs=specs)
@@ -4860,25 +4996,27 @@ def _mesh_bf16_steps(tag: str, cfg, mesh, B: int, S: int, seed: int,
     coll.reset_stats()
     from torch.profiler import ProfilerActivity, profile
     ms, b6, losses = [], [], []
-    for s in range(MESH_STEPS):
+    profiled = n_steps - 1 if n_steps > 2 else 0
+    for s in range(n_steps):
         c0 = fa_kernel.launch_counts()
         torch.distributed.barrier()
-        last = s == MESH_STEPS - 1
-        with profile(activities=[ProfilerActivity.CPU]) if last \
-                else _null() as prof:
+        with profile(activities=[ProfilerActivity.CPU]) if s == profiled \
+                else _null() as cm:
             t0 = time.perf_counter()
             local, state, m = step(local, state, pipe.batch_at(s))
             _sync()
             ms.append((time.perf_counter() - t0) * 1e3)
+        if s == profiled:
+            prof = cm
         b6.append({k: n - c0[k] for k, n in fa_kernel.launch_counts().items()})
         losses.append(float(m["loss"]))
     launches = read_counts()
-    stats = {k: {"count": v["count"] / MESH_STEPS,
-                 "bytes": v["bytes"] / MESH_STEPS}
+    stats = {k: {"count": v["count"] / n_steps,
+                 "bytes": v["bytes"] / n_steps}
              for k, v in coll.STATS.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
     check(b6 == [{"flash_attention": b6_per_step,
-                  "flash_attention_tc": b6_per_step}] * MESH_STEPS,
+                  "flash_attention_tc": b6_per_step}] * n_steps,
           f"{tag}: B6 a step on this rank {b6} (want {b6_per_step}, all on "
           f"the tensor cores)")
     check(np.isfinite(losses).all(), f"{tag}: losses {losses}")
@@ -5069,11 +5207,60 @@ def serve_mesh_config(arch: str, layers: int, **kw):
     """``arch`` at full width cut to ``layers``, its weights whole on every
     data rank (``fsdp`` off: a replica that gathered its blocks' weights
     over ``data`` at every decode step would move them all a token);
-    gemma3 with landmark decode on its global layers."""
+    gemma3 with landmark decode on its global layers; deepseek's dense
+    prefix cut with the layers, absorbed decode."""
     cfg = tconfigs.get_config(arch)
     if arch == "gemma3-12b":
         kw["use_landmark_decode"] = True
+    if cfg.use_mla:
+        kw.update(first_k_dense=min(cfg.first_k_dense, layers),
+                  mla_absorb=True)
     return dataclasses.replace(cfg, n_layers=layers, fsdp=False, **kw)
+
+
+def ds_config(layers: int, **kw):
+    """deepseek-v3-671b at full width cut to ``layers``, the dense prefix
+    first (first_k_dense cut with them); MTP and fsdp as the config sets
+    them."""
+    cfg = tconfigs.get_config("deepseek-v3-671b")
+    return dataclasses.replace(cfg, n_layers=layers, first_k_dense=min(
+        cfg.first_k_dense, layers), **kw)
+
+
+def ds_optimizer(cfg):
+    """adafactor as ``default_optimizer`` gives the uncut config: momentum
+    off, the layers the reference stacks updated as one tensor."""
+    return topt.adafactor(momentum=False, stacks=functools.partial(
+        tmodel.stacked_layers, cfg=cfg))
+
+
+def _mesh_ds_train_run(rank: int, shape) -> dict:
+    """(d): deepseek-v3-671b on ``shape`` = (data, model): MLA over heads,
+    MTP, fsdp, adafactor on shards."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"), DEV)
+    tag = f"train_mesh deepseek-v3 {shape[0]}x{shape[1]}"
+    t0 = time.perf_counter()
+    cfg = ds_config(DS_F32_LAYERS, dtype="float32", param_dtype="float32")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=DS_F32_S,
+                        global_batch=DS_F32_B, seed=1).batch_at(0)
+    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 97, rank,
+                                  make_opt=lambda: ds_optimizer(cfg),
+                                  steps=1, probe=True)}
+    out["f32_s"] = time.perf_counter() - t0
+    # B6 a step: each layer's forward and its checkpoint's recompute, the
+    # MTP block's forward once (not checkpointed)
+    n = 2 * DS_F32_LAYERS + 1
+    check(out["f32"]["launches"] == no_launches(flash_attention=n),
+          f"{tag}: the f32 step should launch the CUDA-core B6 {n} times "
+          f"on this rank: {out['f32']['launches']}")
+    cfg = ds_config(DS_TRAIN_LAYERS)
+    B = shape[0]
+    out["bf16"] = _mesh_bf16_steps(tag, cfg, mesh, B, DS_TRAIN_TOKENS // B,
+                                   98, 2 * DS_TRAIN_LAYERS + 1,
+                                   make_opt=lambda: ds_optimizer(cfg),
+                                   n_steps=DS_BF16_STEPS[shape])
+    return out
 
 
 def _serve_mesh_draws(cfg, B: int, S: int, seed: int):
@@ -5132,9 +5319,14 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     arch, shape, B, S, layers = SERVE_MESH[run]
     mesh = make_mesh(shape, ("data", "model"), DEV)
     tag = f"serve_mesh {arch} {shape[0]}x{shape[1]}"
-    n_attn = sum(kind in ttransformer.ATTN_KINDS
-                 for *_, kind in ttransformer.layer_slots(
-                     serve_mesh_config(arch, layers)))
+    serial = run in SERVE_MESH_SERIAL_INIT
+    f32_layers = SERVE_MESH_F32_LAYERS.get(run, layers)
+
+    def attn_layers(n):
+        return sum(kind in ttransformer.ATTN_KINDS
+                   for *_, kind in ttransformer.layer_slots(
+                       serve_mesh_config(arch, n)))
+    n_attn = attn_layers(layers)
     prompts = torch.randint(0, tconfigs.get_config(arch).vocab_size, (B, S),
                             generator=gen(110), device=DEV)
     rows = sharding.row_axes(B, mesh)
@@ -5144,11 +5336,11 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
 
     # f32: the mesh, then one rank of the same weights, prompts and draws
     t0 = time.perf_counter()
-    cfg = serve_mesh_config(arch, layers, dtype="float32")
+    cfg = serve_mesh_config(arch, f32_layers, dtype="float32",
+                            param_dtype="float32")
     draws = _serve_mesh_draws(cfg, B, S, 111)
     model = tmodel.build_model(cfg)
-    local, specs = tsteps.shard_params(cfg, model.init(gen(112), DEV), mesh)
-    _free()
+    local, specs = _init_shards(cfg, model, 112, mesh, serial)
     reset_counts()
     build, built = tattention.build_landmark_cache, []
 
@@ -5239,9 +5431,9 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
               f"{tag} f32: the mesh's landmark factors differ from one "
               f"rank's build from the same K/V and draws: {witness}")
     dist.barrier()
-    check(launches == no_launches(flash_attention=n_attn), f"{tag} f32: "
-          f"launches {launches} (want the CUDA-core B6 once a layer of the "
-          f"prefill, {n_attn})")
+    check(launches == no_launches(flash_attention=attn_layers(f32_layers)),
+          f"{tag} f32: launches {launches} (want the CUDA-core B6 once a "
+          f"layer of the prefill, {attn_layers(f32_layers)})")
     out["f32_launches"] = launches
     secs["f32"] = time.perf_counter() - t0
 
@@ -5250,10 +5442,8 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     cfg = serve_mesh_config(arch, layers)
     draws = _serve_mesh_draws(cfg, B, S, 111)
     model = tmodel.build_model(cfg)
-    local, specs = tsteps.shard_params(
-        cfg, model.prepare(model.init(gen(112), DEV)), mesh)
+    local, specs = _init_shards(cfg, model, 112, mesh, serial, prepare=True)
     view = sharding.mesh_view(local, specs)
-    _free()
     torch.cuda.reset_peak_memory_stats()
     with sharding.use_mesh(mesh):
         _serve_steps(model, view, mine, draws, 2, global_batch=B)
@@ -5291,6 +5481,9 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     check(b6 == {"flash_attention": n_attn, "flash_attention_tc": n_attn},
           f"{tag} bf16: B6 in the timed generate {b6} (want {n_attn}, all "
           f"on the tensor cores, none at decode)")
+    if run in SERVE_MESH_MOE_T:
+        out["moe_layer"] = _moe_mesh_check(tag, cfg, mesh, view,
+                                           SERVE_MESH_MOE_T[run])
     del local, view, lg
     _free()
     secs["bf16"] = time.perf_counter() - t0
@@ -5304,6 +5497,79 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
                      "launches": launches},
                parts_s=secs, B=B, S=S, mesh=list(shape), layers=layers)
     return out
+
+
+def _init_shards(cfg, model, seed: int, mesh, serial: bool,
+                 prepare: bool = False):
+    """(this rank's shards of the seeded params, their specs); with
+    ``serial`` the ranks draw the whole tree in turn, so one card holds
+    one whole draw at a time."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size() if serial else 1):
+        if not serial or dist.get_rank() == r:
+            params = model.init(gen(seed), DEV)
+            if prepare:
+                params = model.prepare(params)
+            out = tsteps.shard_params(cfg, params, mesh)
+            del params
+            _free()
+        if serial:
+            dist.barrier()
+    return out
+
+
+@torch.no_grad()
+def _moe_mesh_check(tag: str, cfg, mesh, view, T: int) -> dict:
+    """The first MoE layer on the mesh in bf16 (its experts split over
+    ``model``), the capacity raised until nothing can drop (cf = E/k),
+    against an f32 per-token evaluation that each rank makes of the tokens
+    routed to its own experts, and of its part of the shared MLP, summed
+    over ``model`` (no rank holds the whole bank); two calls bit-equal."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models import moe as tmoe
+    ccfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.moe_top_k)
+    mp = view["stack"]["scanned"][0][0]["moe"]
+    x = torch.randn((1, T, cfg.d_model), generator=gen(121),
+                    device=DEV).to(cfg.cdtype)
+    xf = x.reshape(T, cfg.d_model)
+    with sharding.use_mesh(mesh):
+        w, idx, _ = tmoe._route(mp, ccfg, xf)
+        _, _, keep = tmoe._assign(ccfg, idx, tmoe.capacity(ccfg, T))
+        check(bool(keep.all()), f"{tag} MoE layer: an assignment dropped")
+        ms, out = cuda_ms(lambda: tmoe.moe_ffn(mp, ccfg, x)[0], reps=3,
+                          warmup=1)
+        again = tmoe.moe_ffn(mp, ccfg, x)[0]
+        first = sharding.axis_index("model") * mp["wi_gate"].shape[0]
+        shared_split = sharding.split(mp["shared"], "wi_up", 1)
+        rank = sharding.axis_index("model")
+    check(torch.equal(out, again), f"{tag} MoE layer: two calls differ")
+    x32 = xf.float()
+    ref = torch.zeros((T, cfg.d_model), dtype=torch.float32, device=DEV)
+    for e in range(mp["wi_gate"].shape[0]):
+        rows, j = torch.nonzero(idx == first + e, as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = x32[rows]
+        h = torch.nn.functional.silu(xe @ mp["wi_gate"][e].float()) \
+            * (xe @ mp["wi_up"][e].float())
+        ref.index_add_(0, rows, (h @ mp["wo"][e].float())
+                       * w[rows, j][:, None])
+    if cfg.n_shared_experts and (shared_split or rank == 0):
+        sh = mp["shared"]
+        ref += (torch.nn.functional.silu(x32 @ sh["wi_gate"].float())
+                * (x32 @ sh["wi_up"].float())) @ sh["wo"].float()
+    ref = coll.all_reduce(ref, "model", mesh=mesh)
+    err = scaled_err(out.reshape(T, -1).float(), ref)
+    check(err <= TOL_MOE, f"{tag} MoE layer vs f32 per-token: {err:.3g} > "
+          f"{TOL_MOE}")
+    log(f"{tag} MoE layer at T = {T} on the mesh ({mp['wi_gate'].shape[0]} "
+        f"experts a rank, capacity {tmoe.capacity(ccfg, T)}, nothing "
+        f"dropped): {ms:.2f} ms, vs the ranks' f32 per-token evaluations "
+        f"summed {err:.3g} (limit {TOL_MOE}), two calls bit-equal")
+    return {"T": T, "ms": ms, "err_vs_f32_per_token": err,
+            "experts_per_rank": int(mp["wi_gate"].shape[0])}
 
 
 def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
@@ -5327,6 +5593,9 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
             t0 = time.perf_counter()
             if run == "ep":
                 out[run] = _mesh_ep_run(rank)
+            elif run.startswith("ds_"):
+                out[run] = _mesh_ds_train_run(rank, tuple(
+                    int(v) for v in run[3:].split("x")))
             elif run in SERVE_MESH:
                 out[run] = _serve_mesh_run(rank, run)
             elif run == "sp":
@@ -5345,10 +5614,13 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
 
 def _spawn_mesh(world: int, runs: tuple) -> list:
     import torch.multiprocessing as mp
-    cfg = {k: globals()[k] for k in ("DEV", "MESH_LAYERS", "MESH_SEQ",
-                                     "MESH_SP_SEQ", "MESH_STEPS",
-                                     "MESH_EP_SEQ", "SERVE_MESH",
-                                     "SERVE_MESH_GEN")}
+    cfg = {k: globals()[k] for k in (
+        "DEV", "MESH_LAYERS", "MESH_SEQ", "MESH_SP_SEQ", "MESH_STEPS",
+        "MESH_EP_SEQ", "SERVE_MESH", "SERVE_MESH_GEN",
+        "SERVE_MESH_F32_LAYERS", "SERVE_MESH_MOE_T",
+        "SERVE_MESH_SERIAL_INIT", "DS_TRAIN_LAYERS", "DS_TRAIN_TOKENS",
+        "DS_F32_LAYERS", "DS_F32_B", "DS_F32_S", "DS_BF16_STEPS",
+        "DS_MESHES")}
     tmpdir = tempfile.mkdtemp(prefix="train_mesh_")
     _free()
     mp.spawn(_mesh_rank, args=(world, tmpdir, cfg, runs), nprocs=world,
@@ -5373,7 +5645,8 @@ def phase_train_mesh() -> dict:
     reads from ``res["serve_mesh"]``."""
     t0 = time.perf_counter()
     runs2 = tuple(f"{d}x{m}" for d, m in MESH_DENSE) + ("ep",)
-    two = _spawn_mesh(2, runs2 + tuple(SERVE_MESH))
+    ds = tuple(f"ds_{d}x{m}" for d, m in DS_MESHES)
+    two = _spawn_mesh(2, runs2 + ds + tuple(SERVE_MESH))
     three = _spawn_mesh(3, ("sp",))
     wall = time.perf_counter() - t0
     backend = {2: two[0]["backend"], 3: three[0]["backend"]}
@@ -5387,15 +5660,26 @@ def phase_train_mesh() -> dict:
                        "(E/k: nothing dropped) for the EP check",
                        f"(b) {MESH_EP_SEQ} of 4,096 tokens (the phase's "
                        f"150 s)",
-                       f"(c) {MESH_SP_SEQ} tokens (a multiple of 3)"],
-           "dense": {}}
+                       f"(c) {MESH_SP_SEQ} tokens (a multiple of 3)",
+                       f"(d) deepseek-v3-671b cut to {DS_TRAIN_LAYERS} "
+                       f"layers (both of the dense prefix, no MoE layer) + "
+                       f"the MTP block; its f32 check to {DS_F32_LAYERS} "
+                       f"layer + MTP at {DS_F32_B} x {DS_F32_S} tokens (one "
+                       f"rank's f32 copy with gradients beside the mesh's), "
+                       f"its steps to one adafactor update against one "
+                       f"rank's by the same gradients",
+                       f"(d) (2, 1) bf16: {DS_BF16_STEPS[(2, 1)]} of "
+                       f"{MESH_STEPS} steps (~10 GB of gloo a step; its "
+                       f"step ms is step 2's)"],
+           "dense": {}, "deepseek": {}}
     for run in runs2[:-1]:
         per_rank = [i[run]["bf16"] for i in two]
         f32 = two[0][run]["f32"]
         res["dense"][run] = {
             "f32": {k: f32[k] for k in ("loss_err", "grad_err", "gnorm_err",
                                         "step_err", "worst_leaf", "leaves",
-                                        "losses", "losses_one_rank")},
+                                        "losses", "losses_one_rank",
+                                        "parts_s")},
             "step_ms_median_2_on": [b["step_ms_median_2_on"]
                                     for b in per_rank],
             "tokens_per_s": [b["tokens_per_s"] for b in per_rank],
@@ -5418,6 +5702,34 @@ def phase_train_mesh() -> dict:
             f"{json.dumps(d['collectives_per_step'][0])}, ms in "
             f"{'mesh.collective'} on a profiled step "
             f"{[round(v, 1) for v in d['collective_ms_profiled_step']]}")
+    for run in ds:
+        per_rank = [i[run]["bf16"] for i in two]
+        f32 = two[0][run]["f32"]
+        res["deepseek"][run] = {
+            "f32": {k: f32[k] for k in ("loss_err", "grad_err", "gnorm_err",
+                                        "worst_leaf", "leaves",
+                                        "ada_stat_err", "ada_update_err",
+                                        "ada_update_worst_leaf", "parts_s")},
+            "bf16_steps": len(per_rank[0]["step_ms"]),
+            **{k: [b[k] for b in per_rank] for k in (
+                "step_ms_median_2_on", "tokens_per_s", "peak_gb",
+                "collectives_per_step", "collective_ms_profiled_step")},
+            "b6_per_step": [b["b6_per_step"]["flash_attention"]
+                            for b in per_rank],
+            "losses_bf16": per_rank[0]["losses"], "s": two[0][run]["s"],
+            "f32_s": two[0][run]["f32_s"]}
+        d = res["deepseek"][run]
+        log(f"train_mesh deepseek-v3 {run[3:]} bf16 adafactor "
+            f"({d['bf16_steps']} steps, {DS_TRAIN_TOKENS} tokens a step, {DS_TRAIN_LAYERS} "
+            f"layers + MTP): step ms per rank "
+            f"{[round(v, 1) for v in d['step_ms_median_2_on']]}, tokens/s "
+            f"{[round(v) for v in d['tokens_per_s']]}, peak GB "
+            f"{[round(v, 2) for v in d['peak_gb']]}, B6 a step "
+            f"{d['b6_per_step']}, collectives a step (rank 0) "
+            f"{json.dumps(d['collectives_per_step'][0])}, ms in "
+            f"mesh.collective on a profiled step "
+            f"{[round(v, 1) for v in d['collective_ms_profiled_step']]}; "
+            f"{d['s']:.1f} s (f32 {d['f32_s']:.1f})")
     ep = two[0]["ep"]
     drops = {}
     for c, one in ep["drops"].items():
@@ -5447,16 +5759,18 @@ def phase_train_mesh() -> dict:
     # the path's launches on rank 0: every count reset before a run's
     # counted part and read after it
     total = no_launches()
-    for part in ([two[0][r]["f32"]["launches"] for r in runs2[:-1]]
-                 + [two[0][r]["bf16"]["launches"] for r in runs2[:-1]]
+    for part in ([two[0][r]["f32"]["launches"] for r in runs2[:-1] + ds]
+                 + [two[0][r]["bf16"]["launches"] for r in runs2[:-1] + ds]
                  + [ep["f32"]["launches"], sp["launches"]]):
         total = {k: total[k] + part[k] for k in total}
     res["launches"] = total
+    f32_steps = {**{r: MESH_STEPS for r in runs2[:-1]},
+                 **{r: 1 for r in ds}}
     res["b6_launches_per_rank_per_step"] = {
         **{f"{r}_f32": [i[r]["f32"]["launches"]["flash_attention"]
-                        / MESH_STEPS for i in two] for r in runs2[:-1]},
+                        / f32_steps[r] for i in two] for r in runs2[:-1] + ds},
         **{f"{r}_bf16": [i[r]["bf16"]["b6_per_step"]["flash_attention_tc"]
-                         for i in two] for r in runs2[:-1]},
+                         for i in two] for r in runs2[:-1] + ds},
         "ep_f32": [i["ep"]["f32"]["launches"]["flash_attention"]
                    / MESH_STEPS for i in two],
         "sp_f32": [i["sp"]["launches"]["flash_attention"] / MESH_STEPS
@@ -5477,9 +5791,12 @@ def phase_serve_mesh(tmesh: dict) -> dict:
            "s": sum(ranks[0][run]["s"] for run in SERVE_MESH),
            "reduced": [
                "yi-6b and qwen2-moe-a2.7b cut to 2 layers, gemma3-12b to 6 "
-               "(5 local + 1 global) of 48",
-               f"contexts 4,096 (yi, qwen2-moe) and 8,192 (gemma3) + "
-               f"{SERVE_MESH_GEN} tokens: the phase's 150 s",
+               "(5 local + 1 global) of 48, deepseek-v3-671b to 4 (3 dense "
+               "+ 1 MoE) of 61, its f32 check to the 2 dense layers",
+               f"contexts 4,096 (yi, qwen2-moe) and 8,192 (gemma3, "
+               f"deepseek) + {SERVE_MESH_GEN} tokens: the phase's 150 s",
+               "deepseek's MoE layer checked at T = 512 with its capacity "
+               "raised to E/k (nothing dropped)",
                "fsdp off (weights whole on every data rank)",
                "two gloo ranks time-share one card (no NCCL: one card)"]}
     for run in SERVE_MESH:
@@ -5497,6 +5814,8 @@ def phase_serve_mesh(tmesh: dict) -> dict:
                **{k: [p["bf16"][k] for p in per] for k in (
                    "collectives_decode_step", "collectives_prefill")},
                "parts_s": r0["parts_s"]}
+        if "moe_layer" in r0:
+            row["moe_layer"] = [p["moe_layer"] for p in per]
         res["runs"][run] = row
         arch, shape, B, S, layers = SERVE_MESH[run]
         log(f"serve_mesh {arch} {shape[0]}x{shape[1]} ({layers} layers, "
@@ -5548,42 +5867,55 @@ def _train_line(grad: dict, g3: dict, moe: dict, rec: dict,
         "train_parity": par}
 
 
+#: each phase's wall seconds in this run, in the order run
+PHASE_S: dict = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall time kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[phase.__name__.removeprefix("phase_")] = round(
+        time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    phase_parity()
-    phase_parity_slab()
-    phase_parity_read()
-    phase_parity_flash()
-    m = phase_main()
-    phase_scaling()
+    timed(phase_card)
+    timed(phase_build)
+    timed(phase_parity)
+    timed(phase_parity_slab)
+    timed(phase_parity_read)
+    timed(phase_parity_flash)
+    m = timed(phase_main)
+    timed(phase_scaling)
     b1, b2 = _b1_line(m), _b2_line(m)
-    sh = phase_spsd_sharded(m)
+    sh = timed(phase_spsd_sharded, m)
     b4 = _b4_line(m, sh)
-    att = phase_attention_long()
-    pol = phase_attention_policy()
-    srv = phase_serve_gemma3()
+    att = timed(phase_attention_long)
+    pol = timed(phase_attention_policy)
+    srv = timed(phase_serve_gemma3)
     b6 = _flash_line(srv)
-    moe = phase_serve_moe()
-    mla = phase_serve_mla()
-    dense = phase_serve_dense_configs()
-    rec = phase_serve_recurrent()
-    wh = phase_serve_whisper()
-    skm = phase_serve_kernel()
-    rag = phase_ragged()
-    cal = phase_calibrate()
-    con = phase_contracts()
-    tgrad = phase_train_grad()
-    tg3 = phase_train_gemma3()
-    tmoe = phase_train_moe()
-    trecur = phase_train_recurrent()
-    tpar = phase_train_parity()
-    tmesh = phase_train_mesh()
-    smesh = phase_serve_mesh(tmesh)
+    moe = timed(phase_serve_moe)
+    mla = timed(phase_serve_mla)
+    dense = timed(phase_serve_dense_configs)
+    rec = timed(phase_serve_recurrent)
+    wh = timed(phase_serve_whisper)
+    skm = timed(phase_serve_kernel)
+    rag = timed(phase_ragged)
+    cal = timed(phase_calibrate)
+    con = timed(phase_contracts)
+    tgrad = timed(phase_train_grad)
+    tg3 = timed(phase_train_gemma3)
+    tmoe = timed(phase_train_moe)
+    trecur = timed(phase_train_recurrent)
+    tpar = timed(phase_train_parity)
+    tmesh = timed(phase_train_mesh)
+    smesh = timed(phase_serve_mesh, tmesh)
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
@@ -5670,8 +6002,8 @@ def main() -> int:
         "params": wh["params"], "numerics": wh["numerics"]}
     b6["train"] = _train_line(tgrad, tg3, tmoe, trecur, tpar)
     b6["train_mesh"] = {k: tmesh[k] for k in (
-        "backend", "staged", "wall_s", "reduced", "dense", "ep", "sp",
-        "b6_launches_per_rank_per_step")}
+        "backend", "staged", "wall_s", "reduced", "dense", "deepseek", "ep",
+        "sp", "b6_launches_per_rank_per_step")}
     b6["serve_mesh"] = {k: smesh[k] for k in ("runs", "reduced", "s")}
     b6["model_shapes"] = [moe["b6_shape"], mla["b6_shape"],
                           dense["b6_shape"], rec["b6_shape"],
@@ -5695,6 +6027,7 @@ def main() -> int:
                 f"({r['bottleneck']}), measured {r['measured_s'] * 1e3:.4f} "
                 f"ms, achieved_frac {r['achieved_frac']:.4f}")
     kernels_line = {"kernels": [b1, b2, b4, att["line"], b6]}
+    log(f"seconds by phase: {json.dumps(PHASE_S)}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)

@@ -29,6 +29,8 @@ Serving's forward-only exchanges: ``heads_to_seq`` (K/V split by heads
 to split by sequence, one all-to-all: a prefill's cache laid out by
 ``sharding.cache_shardings``) and ``lse_merge`` (per-rank partial reads of
 a sequence-split cache merged by log-sum-exp in a fixed rank order).
+``ordered_sum`` is the same fixed-order sum for the optimizer's
+statistics on shards.
 
 On no mesh, or axes of size 1, each is the identity.  Several axes form
 one group, row-major in the mesh's order (``("data", "model")``: the
@@ -265,6 +267,35 @@ def lse_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, axes,
     no float is reduced in an order the transport picks.  Forward only."""
     packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
     return _lse_combine(all_gather(packed[None], 0, axes, mesh=mesh))
+
+
+def ordered_sum(t: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``t`` summed over ``axes`` in the group's rank order: one
+    all-gather, then the parts added from rank 0 up, so every rank forms
+    the same bits (a float ``all_reduce`` lets the transport pick the
+    order).  Forward only."""
+    if not _live(axes, shd.ambient_mesh() if mesh is None else mesh):
+        return t
+    parts = all_gather(t[None], 0, axes, mesh=mesh)
+    out = parts[0]
+    for r in range(1, parts.shape[0]):
+        out = out + parts[r]
+    return out
+
+
+def sum_by_axes(parts: list, mesh=None) -> torch.Tensor:
+    """The sum of the scalars ``parts``, [(value, the axes its leaf is
+    split over)]: the values of one set of axes added over those axes in
+    rank order (``ordered_sum``; a replicated leaf's, axes (), counted
+    once), the sets added in sorted order."""
+    by_axes: dict = {}
+    for v, axes in parts:
+        by_axes.setdefault(tuple(axes), []).append(v)
+    total = None
+    for axes in sorted(by_axes):
+        s = ordered_sum(torch.stack(by_axes[axes]).sum(), axes, mesh)
+        total = s if total is None else total + s
+    return total
 
 
 def _lse_combine(parts: torch.Tensor) -> torch.Tensor:

@@ -532,17 +532,46 @@ def placements(spec, mesh) -> list:
     return out
 
 
+def split_axes(spec, ndim: int, mesh) -> list:
+    """The axes (of size > 1) that split each of ``ndim`` dimensions under
+    ``spec``: all () without a spec or off a mesh."""
+    if spec is None or is_trivial(mesh):
+        return [()] * ndim
+    return [tuple(a for a in _entry_axes(spec[d] if d < len(spec) else None)
+                  if _axis_size(mesh, a) > 1) for d in range(ndim)]
+
+
+def leaf_axes(spec, mesh) -> Tuple[str, ...]:
+    """Every axis (of size > 1) that splits a leaf under ``spec``, in the
+    mesh's order: the ranks whose parts of a sum over the leaf add up."""
+    used = spec_axes(spec or ())
+    return tuple(a for a, n in mesh_shape(mesh).items() if n > 1 and a in used)
+
+
+def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's part of ``t`` under ``spec`` (a view)."""
+    for d, axes in enumerate(split_axes(spec, t.ndim, mesh)):
+        if axes:
+            n = t.shape[d] // _axis_size(mesh, axes)
+            t = t.narrow(d, _index_over(mesh, axes) * n, n)
+    return t
+
+
 def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's part of ``t`` under ``spec`` (a copy)."""
-    out = t
-    for d, e in enumerate(spec):
-        axes = tuple(a for a in _entry_axes(e) if _axis_size(mesh, a) > 1)
-        if not axes:
-            continue
-        n = _axis_size(mesh, axes)
-        size = t.shape[d] // n
-        out = out.narrow(d, _index_over(mesh, axes) * size, size)
-    return out.clone() if out is t else out.contiguous().clone()
+    """This rank's part of ``t`` under ``spec`` (a contiguous copy)."""
+    return local_block(t, spec, mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor whose part under ``spec`` this rank's ``t`` is:
+    all-gathered over the axes that split each dimension (the inverse of
+    ``local_shard``)."""
+    from repro_torch.distributed import collectives as C
+    for d, axes in enumerate(split_axes(spec, t.ndim, mesh)):
+        if axes:
+            t = C.all_gather(t, d, axes, mesh=mesh)
+    return t
 
 
 def shard_tree(tree, specs, mesh):
@@ -560,8 +589,7 @@ def local_range(spec, dim: int, size: int, mesh=None) -> Tuple[int, int]:
     leaf split by sequence these are its first position and its count;
     for a ring, its first slot and its count of slots."""
     mesh = _MESH.get() if mesh is None else mesh
-    entry = spec[dim] if dim < len(spec) else None
-    axes = tuple(a for a in _entry_axes(entry) if _axis_size(mesh, a) > 1)
+    axes = split_axes(spec, dim + 1, mesh)[dim]
     if not axes:
         return 0, size
     n = _axis_size(mesh, axes)
@@ -580,19 +608,11 @@ def gather_cache(cache, mesh):
     """The whole cache of a tree of local shards carrying their specs
     (``shard_cache``, a prefill's output), on every rank: each leaf
     all-gathered over the axes its spec splits."""
-    from repro_torch.distributed import collectives as C
-
-    def one(t, spec):
-        for d, e in enumerate(spec):
-            axes = tuple(a for a in _entry_axes(e) if _axis_size(mesh, a) > 1)
-            if axes:
-                t = C.all_gather(t, d, axes, mesh=mesh)
-        return t
-
     def walk(tree):
         if isinstance(tree, dict):
             specs = getattr(tree, "specs", {})
-            return {k: one(v, specs[k]) if isinstance(v, torch.Tensor)
+            return {k: gather_leaf(v, specs[k], mesh)
+                    if isinstance(v, torch.Tensor)
                     else walk(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v) for v in tree)

@@ -32,8 +32,10 @@ names another one.
 Each rank draws the same seeded params and keeps its shards; the
 prefill and decode steps run on them with the cache laid out by
 ``sharding.cache_shardings`` (``models.model``), and every rank returns
-the same tokens.  The dense, gemma3 and MoE families run there; the
-others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
+the same tokens.  The dense, gemma3, MoE and MLA families run there
+(``--arch deepseek-v3-671b``: MLA over heads, its latent cache split by
+sequence at 1,024 positions or more and read through a log-sum-exp
+merge); the others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
 """
 from __future__ import annotations
 

@@ -34,10 +34,15 @@ leaf's was reduce-scattered over ``data`` in the backward); the leaves
 that a ``model`` rank uses in part (under TP, SP and EP) were summed over
 ``model`` inside autograd (``collectives.copy_to``).  The global-norm
 clip sums each leaf's squares over the axes it is split over and counts
-a replicated leaf once (``mesh_global_norm``).  adamw and lion update the
-shards elementwise; adafactor on shards (its factored statistics need
-whole rows and columns) is ROADMAP A10-rest.3, with the families
-``models.model.check_mesh_support`` names.
+a replicated leaf once (``mesh_global_norm``).  The optimizer's update
+gets the mesh and each leaf's spec: adamw and lion update the shards
+elementwise; adafactor keeps its factored statistics whole and
+replicated, as the reference lays them out (``_opt_shardings``), formed
+from local sums added over the axes that split the reduced dimension in
+rank order (``optim.optimizers``); its state is made on the mesh by
+``opt.init(local, mesh=, specs=)``.  The families
+``models.model.check_mesh_support`` names raise there (ROADMAP
+A10-rest.3).
 
 ``build_cell`` is the entry point the reference's dry-run, trainer and
 server share: the step function, its abstract arguments (tensors on the
@@ -148,14 +153,12 @@ def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
     of more than one device the params are local shards laid out by
     ``specs`` (see the module's docstring)."""
     on_mesh = not shd.is_trivial(mesh)
+    flat_specs = None
     if on_mesh:
         check_mesh_support(model.cfg)
-        if opt.name == "adafactor":
-            raise NotImplementedError(
-                "adafactor on sharded params (its factored statistics need "
-                "whole rows and columns) is ROADMAP A10-rest.3")
         if specs is None:
             raise ValueError("a mesh step needs the params' spec tree")
+        flat_specs = [s for _, s in shd.leaves_with_path(specs)]
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -166,7 +169,8 @@ def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
         lr = warmup_cosine(opt_state.step, peak=peak_lr, warmup_steps=warmup,
                            total_steps=total)
         with torch.profiler.record_function(OPT_RANGE):
-            extra = {} if gnorm is None else {"gnorm": gnorm}
+            extra = {} if gnorm is None else {
+                "gnorm": gnorm, "mesh": mesh, "specs": flat_specs}
             params, opt_state, om = opt.update(
                 tree_unflatten(params, iter(grads)), opt_state, params, lr,
                 **extra)
@@ -263,20 +267,12 @@ def sync_grads(grads: list, flat_specs: list, mesh) -> None:
 @torch.no_grad()
 def mesh_global_norm(grads: list, flat_specs: list, mesh) -> torch.Tensor:
     """The global norm of a gradient tree of local shards: each leaf's sum
-    of squares summed over the axes it is split over, a replicated leaf
-    counted once."""
-    by_axes: dict = {}
-    for g, spec in zip(grads, flat_specs):
-        axes = tuple(a for a, n in shd.mesh_shape(mesh).items()
-                     if n > 1 and a in shd.spec_axes(spec))
-        by_axes.setdefault(axes, []).append(
-            torch.sum(torch.square(g.to(_F32))))
-    total = None
-    for axes in sorted(by_axes):
-        s = torch.sum(torch.stack(by_axes[axes]))
-        s = C.all_reduce(s, axes, mesh=mesh) if axes else s
-        total = s if total is None else total + s
-    return torch.sqrt(total)
+    of squares summed over the axes it is split over in rank order, a
+    replicated leaf counted once (``collectives.sum_by_axes``, which
+    adafactor's update clip shares)."""
+    return torch.sqrt(C.sum_by_axes(
+        [(torch.sum(torch.square(g.to(_F32))), shd.leaf_axes(spec, mesh))
+         for g, spec in zip(grads, flat_specs)], mesh))
 
 
 def shard_params(cfg: ModelConfig, params, mesh):
@@ -299,11 +295,7 @@ def gather_tree(tree, specs, mesh, dst: Optional[int] = None):
     keep = dst is None or dist.get_rank() == dst
 
     def one(path, t):
-        spec = flat.get(path, ())
-        for d, e in enumerate(spec):
-            axes = shd._entry_axes(e)
-            if axes and C.axes_size(axes, mesh) > 1:
-                t = C.all_gather(t, d, axes, mesh=mesh)
+        t = shd.gather_leaf(t, flat.get(path, ()), mesh)
         if dst is None:
             return t
         return t.cpu() if keep else None

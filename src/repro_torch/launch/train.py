@@ -21,8 +21,11 @@ under ``torchrun`` (the process group is set up from its environment:
 NCCL when every rank has a card of its own, else gloo) or in a process
 whose group is already initialized.  Each rank draws the same seeded
 params and keeps its shards (``launch.steps.shard_params``); the step is
-``launch.steps``' mesh executor.  The dense and MoE attention families
-run there; the others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
+``launch.steps``' mesh executor.  The dense, MoE and MLA attention
+families run there (``--arch deepseek-v3-671b``: MLA over heads,
+multi-token prediction, and adafactor, which ``default_optimizer`` gives
+the uncut config, with its statistics whole on every rank); the others
+raise ``NotImplementedError`` (ROADMAP A10-rest.3).
 
 A checkpoint holds ``{"params", "opt": {"step", "inner"}}`` in whole
 leaves; a run with ``--ckpt-dir`` resumes from its latest step.  On a mesh
@@ -144,9 +147,11 @@ def main(argv=None):
                               warmup=max(args.steps // 10, 1),
                               accum=args.accum, mesh=mesh, specs=specs)
     params = model.init(torch.Generator(device="cpu").manual_seed(0), device)
+    flat_specs = None
     if mesh is not None:
         params = shd.shard_tree(params, specs, mesh)
-    opt_state = opt.init(params)
+        flat_specs = [s for _, s in shd.leaves_with_path(specs)]
+    opt_state = opt.init(params, mesh=mesh, specs=flat_specs)
     start = 0
     if mgr is not None:
         latest = mgr.latest_step()

@@ -28,6 +28,16 @@ the partial reads by log-sum-exp in a fixed rank order
 (or ring slot) writes it.  The landmark factors are whole over
 ``model``: each rank builds its kv heads' and all-gathers them.
 
+MLA on a mesh runs over heads (``_mla``): each rank holds its heads of
+``wq_b``, ``wkv_b`` and ``wo`` and its part of ``wq_a``'s q_rank columns
+(the low-rank query all-gathered before its norm); ``wkv_a`` is
+replicated, so the latent is whole on every ``model`` rank and a prefill
+keeps its slice of it under the cache specs with no exchange.  At decode
+the latent cache may be split by sequence: absorbed, every head's latent
+query reads the rank's positions and the partial reads merge by
+log-sum-exp; materialized, the slices are all-gathered first
+(``_mla_decode``).
+
 ``attn_impl``: the reference chooses between an XLA einsum path ("xla") and
 the Pallas flash kernel ("pallas"); both compute the same function.  Here
 both values name one path, ``kernels.flash_attention.ops.flash_attention``:
@@ -187,8 +197,7 @@ def attention_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, kind: str = "attn"
                    ) -> torch.Tensor:
     if cfg.use_mla:
-        return mla_attend_full(params, cfg,
-                               *_mla_project(params, cfg, x, positions))
+        return _mla(params, cfg, x, positions)[0]
     if _sp_active(cfg, x.shape[1]):
         return _attention_sp(params, cfg, x, positions, kind)
     if shd.split(params, "wq", 1):
@@ -265,6 +274,8 @@ def attention_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     on_mesh = shd.mesh_active()
     if on_mesh and spec is None:
         raise ValueError("a prefill on a mesh takes its cache entry's specs")
+    if cfg.use_mla:
+        return _mla_prefill(params, cfg, x, positions, max_len, spec)
     split = False                          # k, v hold this rank's kv heads
     if _sp_active(cfg, x.shape[1]):
         h, k, v = _attention_sp(params, cfg, x, positions, kind, True)
@@ -335,7 +346,8 @@ def _mesh_prefill_cache(cfg: ModelConfig, kind: str, k: torch.Tensor,
 
 
 def _cache_layout(t: torch.Tensor, spec, split: bool) -> torch.Tensor:
-    """t (B_loc, S, ·, D), this rank's kv heads (``split``) or every head,
+    """t (B_loc, S, ·, D) or a latent (B_loc, S, R), this rank's kv heads
+    (``split``) or every head,
     every position or ring slot -> its shard under ``spec``: its part of
     the positions (over the spec's sequence axes) and of the heads.  Heads
     to sequence is one all-to-all over ``model``."""
@@ -370,11 +382,25 @@ def _mla_project(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
     """-> q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated, the latent
     ckv (B, S, R) and the shared rope key k_rope (B, S, dr) rotated, all in
-    the compute dtype."""
+    the compute dtype.
+
+    On a mesh ``params`` may hold this rank's heads of ``wq_b`` (H is then
+    its local heads) and its part of ``wq_a``'s q_rank columns: the low-rank
+    query ql is all-gathered over ``model`` before its norm, and its
+    gradient, partial on each rank (each reads ql through its own heads),
+    summed back to the part.  Where the heads are whole, ``wq_a`` itself
+    is gathered (the replicated body's gradient is taken at the part)."""
     dt = cfg.cdtype
     dn, R = cfg.qk_nope_dim, cfg.kv_lora_rank
-    ql = L.rmsnorm(params["q_norm"], x @ as_compute(params["wq_a"], dt),
-                   cfg.norm_eps)
+    wq_a = as_compute(params["wq_a"], dt)
+    q_rank_split = shd.split(params, "wq_a", 1)
+    heads = shd.split(params, "wq_b", 1)
+    if q_rank_split and not heads:
+        wq_a = C.gather(wq_a, 1, "model")
+    ql = x @ wq_a
+    if q_rank_split and heads:
+        ql = C.all_gather_sum(ql, -1, "model")
+    ql = L.rmsnorm(params["q_norm"], ql, cfg.norm_eps)
     q = _proj(ql, params["wq_b"], dt)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = L.apply_rope(q_rope.transpose(1, 2), positions,
@@ -404,6 +430,38 @@ def mla_attend_full(params: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     out = fa_ops.flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
                                  v.transpose(1, 2), causal=True)
     return _out_proj(out.transpose(1, 2), params["wo"], dt)
+
+
+def _mla(params: dict, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor):
+    """(MLA's output, ckv (B, S, R), k_rope (B, S, dr)): the one-device
+    body (``_mla_project``, ``mla_attend_full``).  With the heads split
+    over ``model`` it runs on this rank's heads of ``wq_b``, ``wkv_b`` and
+    ``wo`` and the partial output projection is summed over ``model``; the
+    latent, from the replicated ``wkv_a``, is whole on every rank with no
+    exchange."""
+    tp = shd.split(params, "wq_b", 1)
+    if tp:
+        params, x = shd.tp_local(params), C.copy_to(x, "model")
+    q_nope, q_rope, ckv, k_rope = _mla_project(params, cfg, x, positions)
+    y = mla_attend_full(params, cfg, q_nope, q_rope, ckv, k_rope)
+    return (C.reduce_from(y, "model") if tp else y), ckv, k_rope
+
+
+def _mla_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, max_len: int,
+                 spec: Optional[dict]):
+    """(MLA's output, its latent cache padded to ``max_len``): on a mesh
+    this rank's slice of it under ``spec`` (the latent is whole on every
+    ``model`` rank, so the slice is a narrow)."""
+    h, ckv, krope = _mla(params, cfg, x, positions)
+    pad = (0, 0, 0, max_len - x.shape[1])
+    cache = {"ckv": torch.nn.functional.pad(ckv, pad),
+             "krope": torch.nn.functional.pad(krope, pad)}
+    if spec is not None and shd.mesh_active():
+        cache = {name: _cache_layout(t, spec[name], False)
+                 for name, t in cache.items()}
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -479,15 +537,17 @@ def _decode_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _partial_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kv_valid: torch.Tensor):
+                  kv_valid: torch.Tensor, width: Optional[int] = None):
     """``_decode_read`` over a part of the keys, unnormalized: the max m
     (B, KV, G) of the valid logits (−inf where none is valid), the sum l
     of their exponentials (0 there) and o = Σ e^(logit − m)·v
-    (B, KV, G, Dv), all f32; ``collectives.lse_merge`` combines them."""
+    (B, KV, G, Dv), all f32; ``collectives.lse_merge`` combines them.  The
+    logits are scaled by 1/√``width`` (q's width by default)."""
     B, _, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, KV, H // KV, D).to(_F32)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.to(_F32)) / (D ** 0.5)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.to(_F32)) \
+        / ((width or D) ** 0.5)
     logits = torch.where(kv_valid[:, None, None, :], logits, -torch.inf)
     m = torch.amax(logits, dim=-1)
     p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
@@ -565,28 +625,58 @@ def _mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     plus q_rope against krope, the softmax and the read of ckv in f32
     einsums, then W_v.  Otherwise K and V are materialized from the whole
     latent cache and read as a full-cache decode does (``_decode_read``).
-    Both use the scale 1/√(dn + dr) and mask positions after ``pos``."""
+    Both use the scale 1/√(dn + dr) and mask positions after ``pos``.
+
+    On a mesh the heads may be split over ``model`` (this rank's heads of
+    ``wq_b``, ``wkv_b``, ``wo``; the partial output projection summed) and
+    the cache, this rank's shard under ``cache.specs``, split by sequence:
+    only the rank holding ``pos`` writes the token's latents.  Absorbed,
+    the latent queries of every head ([q_lat; q_rope], all-gathered over
+    ``model``) read this rank's positions, the partial reads merged by
+    log-sum-exp over the sequence axes (``collectives.lse_merge``), and
+    each rank takes its heads' o_lat through its W_v.  Materialized, the
+    latent slices are all-gathered over the sequence axes first."""
     dt = cfg.cdtype
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    spec = (getattr(cache, "specs", None) or {}).get("ckv", (None,) * 3)
+    mesh = shd.ambient_mesh()
+    tp = shd.split(params, "wq_b", 1)
+    if tp:
+        params, x = shd.tp_local(params), C.copy_to(x, "model")
     positions = torch.tensor([pos], device=x.device)
     q_nope, q_rope, ckv_new, krope_new = _mla_project(params, cfg, x,
                                                       positions)
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
-    krope[:, pos] = krope_new[:, 0].to(krope.dtype)
+    seq = tuple(a for a in shd._entry_axes(spec[1])
+                if shd.ambient_axis_size(a) > 1)
+    S = ckv.shape[1] * shd.ambient_axis_size(seq)
+    if pos >= S:
+        raise IndexError(f"position {pos} past a cache of {S}")
+    first = shd.local_range(spec, 1, S, mesh)[0]
+    if first <= pos < first + ckv.shape[1]:
+        ckv[:, pos - first] = ckv_new[:, 0].to(ckv.dtype)
+        krope[:, pos - first] = krope_new[:, 0].to(krope.dtype)
     wkv_b = as_compute(params["wkv_b"], dt)                    # (R,H,dn+dv)
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
-    S = ckv.shape[1]
-    valid = torch.arange(S, device=x.device) <= pos
+    if seq and not cfg.mla_absorb:         # the whole latent, every rank
+        ckv = C.all_gather(ckv, 1, seq, mesh=mesh)
+        krope = C.all_gather(krope, 1, seq, mesh=mesh)
+        first, seq = 0, ()
+    valid = first + torch.arange(ckv.shape[1], device=x.device) <= pos
     if cfg.mla_absorb:
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_k)
-        s_lat = torch.einsum("bshr,btr->bhst", q_lat.to(_F32), ckv.to(_F32))
-        s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(_F32),
-                              krope.to(_F32))
-        logits = (s_lat + s_rope) / ((dn + dr) ** 0.5)
-        logits = torch.where(valid[None, None, None, :], logits, NEG)
-        w = torch.softmax(logits, dim=-1)                      # (B,H,1,S)
-        o_lat = torch.einsum("bhst,btr->bshr", w, ckv.to(_F32))
+        if seq:
+            o_lat = _mla_merged_read(cfg, q_lat, q_rope, ckv, krope, valid,
+                                     seq, mesh, tp)
+        else:
+            s_lat = torch.einsum("bshr,btr->bhst", q_lat.to(_F32),
+                                 ckv.to(_F32))
+            s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(_F32),
+                                  krope.to(_F32))
+            logits = (s_lat + s_rope) / ((dn + dr) ** 0.5)
+            logits = torch.where(valid[None, None, None, :], logits, NEG)
+            w = torch.softmax(logits, dim=-1)                  # (B,H,1,S)
+            o_lat = torch.einsum("bhst,btr->bshr", w, ckv.to(_F32))
         out = torch.einsum("bshr,rhk->bshk", o_lat, w_v.to(_F32))
     else:
         k_nope = torch.einsum("btr,rhk->bthk", ckv, w_k)
@@ -595,7 +685,31 @@ def _mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
             k_nope.shape[:3] + (dr,))], dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)
         out = _decode_read(qf, kf, v, cfg, valid[None])
-    return _out_proj(out.to(dt), params["wo"], dt)
+    y = _out_proj(out.to(dt), params["wo"], dt)
+    return C.reduce_from(y, "model") if tp else y
+
+
+def _mla_merged_read(cfg: ModelConfig, q_lat: torch.Tensor,
+                     q_rope: torch.Tensor, ckv: torch.Tensor,
+                     krope: torch.Tensor, valid: torch.Tensor, seq, mesh,
+                     tp: bool) -> torch.Tensor:
+    """The absorbed read of a latent cache split by sequence over ``seq``:
+    [q_lat; q_rope] (B, 1, H_loc, R + dr) of every head (all-gathered over
+    ``model`` where ``tp``) against this rank's [ckv; krope] as one shared
+    key head, the partial reads merged by log-sum-exp -> o_lat (B, 1,
+    H_loc, R) f32 of this rank's heads."""
+    qa = torch.cat([q_lat, q_rope], dim=-1)
+    if tp:
+        qa = C.all_gather(qa, 2, "model", mesh=mesh)
+    part = _partial_read(qa, torch.cat([ckv, krope], dim=-1)[:, :, None],
+                         ckv[:, :, None], valid[None],
+                         width=cfg.qk_nope_dim + cfg.qk_rope_dim)
+    o_lat = C.lse_merge(*part, seq, mesh=mesh).reshape(
+        qa.shape[:3] + (ckv.shape[-1],))
+    if tp:
+        h = q_lat.shape[2]
+        o_lat = o_lat.narrow(2, shd.axis_index("model") * h, h)
+    return o_lat
 
 
 def _landmark_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -56,9 +56,12 @@ takes ``global_batch``, the rows of every rank) and the cache, laid out
 by ``sharding.cache_shardings`` of the whole cache: ``prefill`` returns
 this rank's shards carrying their specs (``sharding.mesh_view``), which
 ``decode_step`` reads.  The logits come back with their vocabulary
-whole (``batch_pspec((B, V))``).  The dense and MoE attention families
-run on a mesh; MLA, the recurrent mixers, the encoder-decoder and MTP
-raise ``NotImplementedError`` naming their ROADMAP item
+whole (``batch_pspec((B, V))``).  The dense, MoE and MLA attention
+families run on a mesh, deepseek's multi-token prediction too (its
+``proj`` a partial product where ``model`` splits it, its block through
+``block_full``'s mesh paths, its NLL vocabulary-parallel); the recurrent
+mixers, the encoder-decoder and MLA under ``seq_parallel_attn`` raise
+``NotImplementedError`` naming their ROADMAP item
 (``check_mesh_support``).
 
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
@@ -253,10 +256,8 @@ def check_mesh_support(cfg: ModelConfig) -> None:
     what = None
     if cfg.is_encdec:
         what = "the encoder-decoder"
-    elif cfg.use_mla:
-        what = "MLA (deepseek)"
-    elif cfg.mtp:
-        what = "multi-token prediction"
+    elif cfg.use_mla and cfg.seq_parallel_attn:
+        what = "MLA under seq_parallel_attn"
     elif any(k in T.REC_KINDS for k in cfg.layer_pattern):
         what = "the recurrent mixers"
     if what is not None:
@@ -290,26 +291,49 @@ def _lm_forward(params: dict, batch: dict, *, cfg: ModelConfig):
     return _logits(params, cfg, h), aux
 
 
-def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
-              h: torch.Tensor) -> torch.Tensor:
-    """deepseek MTP: predict t+2 from [norm(h_t); norm(emb(token_{t+1}))]."""
+def _mtp_hidden(params: dict, cfg: ModelConfig, batch: dict,
+                h: torch.Tensor) -> torch.Tensor:
+    """deepseek MTP's hidden state for predicting t+2 from [norm(h_t);
+    norm(emb(token_{t+1}))].  On a mesh h and the tokens are this rank's
+    rows; a ``proj`` split over ``model`` (by its 2d rows) is a partial
+    product summed over ``model``, and the block takes ``block_full``'s
+    mesh paths."""
     mp, device = params["mtp"], h.device
     tok_next = torch.roll(_tokens(batch, device), -1, dims=1)
     e = L.embed(params["embed"], cfg, tok_next)
     z = torch.cat([L.rmsnorm(mp["norm_h"], h, cfg.norm_eps),
                    L.rmsnorm(mp["norm_e"], e, cfg.norm_eps)], dim=-1)
-    z = z @ L.as_compute(mp["proj"], cfg.cdtype)
+    proj = L.as_compute(mp["proj"], cfg.cdtype)
+    if shd.split(mp, "proj", 0):
+        first = shd.axis_index("model") * proj.shape[0]
+        z = C.copy_to(z, "model")[..., first:first + proj.shape[0]]
+        z = C.reduce_from(z @ proj, "model")
+    else:
+        z = z @ proj
     positions = torch.arange(z.shape[1], device=device)
     z, _ = T.block_full(mp["block"], cfg, "attn", z, positions)
-    z = L.rmsnorm(mp["final_norm"], z, cfg.norm_eps)
+    return L.rmsnorm(mp["final_norm"], z, cfg.norm_eps)
+
+
+def _mtp_labels(batch: dict, device) -> torch.Tensor:
     labels2 = torch.roll(_labels(batch, device), -1, dims=1)
     labels2[:, -2:] = -1                                     # no target
-    return softmax_xent(L.unembed(params["embed"], cfg, z), labels2)
+    return labels2
 
 
-def _mesh_loss(params: dict, cfg: ModelConfig, h: torch.Tensor,
-               aux: torch.Tensor, labels: torch.Tensor):
-    """This rank's share of the loss on a mesh, and the global metrics."""
+def _mtp_loss(params: dict, cfg: ModelConfig, batch: dict,
+              h: torch.Tensor) -> torch.Tensor:
+    """deepseek MTP: predict t+2 from [norm(h_t); norm(emb(token_{t+1}))]."""
+    z = _mtp_hidden(params, cfg, batch, h)
+    return softmax_xent(L.unembed(params["embed"], cfg, z),
+                        _mtp_labels(batch, h.device))
+
+
+def _mesh_nll(params: dict, cfg: ModelConfig, h: torch.Tensor,
+              labels: torch.Tensor):
+    """(this rank's share of the mean NLL over every data rank's labels
+    ≥ 0, its global value) of the unembedding of h, vocabulary-parallel
+    where the table is split."""
     logits = L.unembed(params["embed"], cfg, h)
     first, width = L.vocab_slice(params["embed"], cfg)
     if width != cfg.vocab_size:
@@ -323,16 +347,32 @@ def _mesh_loss(params: dict, cfg: ModelConfig, h: torch.Tensor,
     dp = shd.data_axes(shd.ambient_mesh())
     count = C.all_reduce(torch.sum(mask), dp)
     share = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
-    ce = C.all_reduce(share.detach(), dp)
+    return share, C.all_reduce(share.detach(), dp)
+
+
+def _mesh_loss(params: dict, cfg: ModelConfig, batch: dict, h: torch.Tensor,
+               aux: torch.Tensor):
+    """This rank's share of the loss on a mesh, and the global metrics."""
+    share, ce = _mesh_nll(params, cfg, h, _labels(batch, h.device))
+    dp = shd.data_axes(shd.ambient_mesh())
     total = share + MOE_AUX_WEIGHT * aux / C.axes_size(dp)
-    return total, {"ce": ce, "aux": aux,
-                   "loss": ce + MOE_AUX_WEIGHT * aux.detach()}
+    metrics = {"ce": ce, "aux": aux}
+    loss = ce + MOE_AUX_WEIGHT * aux.detach()
+    if cfg.mtp:
+        share, mtp = _mesh_nll(params, cfg,
+                               _mtp_hidden(params, cfg, batch, h),
+                               _mtp_labels(batch, h.device))
+        total = total + MTP_WEIGHT * share
+        metrics["mtp"] = mtp
+        loss = loss + MTP_WEIGHT * mtp
+    metrics["loss"] = loss
+    return total, metrics
 
 
 def _lm_loss(params: dict, batch: dict, *, cfg: ModelConfig):
     h, aux = _lm_hidden(params, cfg, batch)
     if shd.mesh_active():
-        return _mesh_loss(params, cfg, h, aux, _labels(batch, h.device))
+        return _mesh_loss(params, cfg, batch, h, aux)
     ce = softmax_xent(L.unembed(params["embed"], cfg, h),
                       _labels(batch, h.device))
     total = ce + MOE_AUX_WEIGHT * aux

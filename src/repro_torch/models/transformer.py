@@ -170,21 +170,14 @@ def block_prefill(params: dict, cfg: ModelConfig, kind: str,
     latents ckv and the rope key, which are MLA's cache.  A recurrent
     block's cache is its mixer's state after the last token, from the full
     pass (the reference rebuilds it by ``_rec_prefill_state``).  On a mesh
-    the attention takes its tensor- or sequence-parallel path
-    (``attention.attention_prefill``) and the entry is this rank's shard
-    under ``spec``, the entry's cache specs."""
+    the attention takes its tensor- or sequence-parallel path (MLA its
+    heads over ``model``: ``attention.attention_prefill``) and the entry is
+    this rank's shard under ``spec``, the entry's cache specs."""
     _check_kind(kind)
     mp = shd.materialize(params, ("norm1", "mixer"))
     xin = L.rmsnorm(mp["norm1"], x, cfg.norm_eps)
     if kind in REC_KINDS:
         h, cache = R.PREFILL[kind](mp["mixer"], cfg, xin)
-    elif cfg.use_mla:
-        parts = A._mla_project(mp["mixer"], cfg, xin, positions)
-        h = A.mla_attend_full(mp["mixer"], cfg, *parts)
-        pad = (0, 0, 0, max_len - x.shape[1])
-        cache = {"ckv": torch.nn.functional.pad(parts[2], pad),
-                 "krope": torch.nn.functional.pad(parts[3], pad)}
-        del parts
     else:
         h, cache = A.attention_prefill(mp["mixer"], cfg, xin, positions,
                                        kind, max_len, spec, draws, generator)

@@ -16,13 +16,31 @@ parameters and moments into the given tensors in place, under
 ``torch.no_grad()`` (so a step holds no second copy of the weights), and
 returns the same dicts with a new ``OptState``; ``step`` is a 0-d int32
 tensor on the params' device, so no step reads the host.
+
+**On a mesh** (``update(..., mesh=, specs=)`` and ``init(..., mesh=,
+specs=)``, ``specs`` the spec of each parameter leaf in ``tree_leaves``
+order, as ``launch.steps`` threads them) the params, gradients and every
+state leaf of a parameter's shape are this rank's shards.  adamw and lion
+are elementwise and read no layout.  adafactor's factored statistics are
+whole and replicated, as the reference lays them out
+(``launch.steps._opt_shardings``): a row or column mean is formed from
+local sums added over the axes that split the reduced dimension, in rank
+order (``collectives.ordered_sum``: every rank forms the same bits), and
+all-gathered over the axes that split the kept ones; ``vhat`` is read at
+the local block.  The update's RMS clip sums u² over the axes that split
+each leaf (a replicated leaf counts once) and divides by the global
+count.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Iterator, List, NamedTuple, Optional
 
 import torch
+
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 
 _F32 = torch.float32
 
@@ -37,9 +55,11 @@ class Optimizer:
     name: str
     init: Callable[[Any], OptState]
     update: Callable[..., tuple]
-    # update(grads, state, params, lr, gnorm=None)
+    # init(params, mesh=None, specs=None) -> state
+    # update(grads, state, params, lr, gnorm=None, mesh=None, specs=None)
     #     -> (params, state, metrics);
-    # ``gnorm``: the gradients' global norm where the caller formed it
+    # ``gnorm``: the gradients' global norm where the caller formed it;
+    # ``mesh``/``specs``: the leaves are shards (see the module docstring)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +149,8 @@ def _grads_f32(grads: List[torch.Tensor], clip_norm: Optional[float],
     return (lambda i: grads[i].to(_F32) * scale), gn
 
 
-def _is_matrix(x) -> bool:
-    return x.ndim >= 2 and min(x.shape[-2:]) >= 2
+def _is_matrix(shape) -> bool:
+    return len(shape) >= 2 and min(shape[-2:]) >= 2
 
 
 def _apply(p: torch.Tensor, u: torch.Tensor, lr, weight_decay: float
@@ -138,7 +158,8 @@ def _apply(p: torch.Tensor, u: torch.Tensor, lr, weight_decay: float
     """p ← p − lr·(u + wd·p) in f32, stored in p's dtype; ``u`` is
     consumed."""
     p32 = p if p.dtype == _F32 else p.to(_F32)
-    u.add_(weight_decay * p32)
+    if weight_decay:
+        u.add_(weight_decay * p32)
     u.mul_(lr)
     if p.dtype == _F32:
         p.sub_(u)
@@ -161,13 +182,13 @@ def _step0(params) -> torch.Tensor:
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, clip_norm: Optional[float] = 1.0
           ) -> Optimizer:
-    def init(params):
+    def init(params, mesh=None, specs=None):
         return OptState(step=_step0(params),
                         inner={"m": tree_map(_zeros(), params),
                                "v": tree_map(_zeros(), params)})
 
     @torch.no_grad()
-    def update(grads, state, params, lr, gnorm=None):
+    def update(grads, state, params, lr, gnorm=None, mesh=None, specs=None):
         flat_p = tree_leaves(params)
         flat_m = tree_leaves(state.inner["m"])
         flat_v = tree_leaves(state.inner["v"])
@@ -205,10 +226,30 @@ def _leaf_groups(params, stacks: Optional[Callable]) -> List[List[int]]:
     return groups + [[i] for i in sorted(pos.values())]
 
 
-def _across_layers(p: torch.Tensor, n: int) -> bool:
-    """A vector in a stack of ``n`` layers whose stacked (n, d) is a
-    matrix: the reference factors it across the layers."""
-    return n >= 2 and p.ndim == 1 and p.shape[0] >= 2
+def _across_layers(shape, n: int) -> bool:
+    """A vector (of ``shape``) in a stack of ``n`` layers whose stacked
+    (n, d) is a matrix: the reference factors it across the layers."""
+    return n >= 2 and len(shape) == 1 and shape[0] >= 2
+
+
+# ---------------------------------------------------------------------------
+# leaves split over a mesh (adafactor's statistics)
+# ---------------------------------------------------------------------------
+
+def _whole_shape(p: torch.Tensor, axes: list, mesh) -> tuple:
+    """The shape of the whole tensor of the block ``p``, dimension d split
+    over ``axes[d]``."""
+    return tuple(n * C.axes_size(a, mesh) if a else n
+                 for n, a in zip(p.shape, axes))
+
+
+def _mean_over(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """The mean over ``dim`` of the whole tensor whose block ``t`` is,
+    that dimension split over ``axes``: local sums added in rank order."""
+    if not axes:
+        return torch.mean(t, dim=dim)
+    n = t.shape[dim] * C.axes_size(axes, mesh)
+    return C.ordered_sum(torch.sum(t, dim=dim), axes, mesh) / n
 
 
 def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
@@ -229,22 +270,29 @@ def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
     matrix (layers, d) — a scalar row statistic in each layer, the (d,)
     column statistic shared and kept in each.  Without ``stacks`` every
     tensor is its own (``scan_layers=False``).
+
+    On a mesh the statistics are whole on every rank (``init`` sizes them
+    from the local shards and their specs) and the params, gradients and
+    momentum are shards: see the module's docstring.
     """
-    def init(params):
+    def init(params, mesh=None, specs=None):
         flat = tree_leaves(params)
         n_of = {i: len(g) for g in _leaf_groups(params, stacks) for i in g}
+        specs = specs or [None] * len(flat)
 
         def stats(i, p):
-            if _is_matrix(p):
-                return {"r": torch.zeros(p.shape[:-1], dtype=_F32,
+            shape = _whole_shape(p, shd.split_axes(specs[i], p.ndim, mesh),
+                                 mesh)
+            if _is_matrix(shape):
+                return {"r": torch.zeros(shape[:-1], dtype=_F32,
                                          device=p.device),
-                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                        "c": torch.zeros(shape[:-2] + shape[-1:],
                                          dtype=_F32, device=p.device)}
-            if _across_layers(p, n_of[i]):
+            if _across_layers(shape, n_of[i]):
                 return {"r": torch.zeros((), dtype=_F32, device=p.device),
-                        "c": torch.zeros(p.shape, dtype=_F32,
+                        "c": torch.zeros(shape, dtype=_F32,
                                          device=p.device)}
-            return {"v": torch.zeros(p.shape, dtype=_F32, device=p.device)}
+            return {"v": torch.zeros(shape, dtype=_F32, device=p.device)}
         inner = {"stats": tree_unflatten(
             params, iter([stats(i, p) for i, p in enumerate(flat)]))}
         if momentum:
@@ -252,7 +300,7 @@ def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
         return OptState(step=_step0(params), inner=inner)
 
     @torch.no_grad()
-    def update(grads, state, params, lr, gnorm=None):
+    def update(grads, state, params, lr, gnorm=None, mesh=None, specs=None):
         flat_p = tree_leaves(params)
         flat_st = _flatten_upto(state.inner["stats"], params)
         flat_m = tree_leaves(state.inner["m"]) if momentum \
@@ -261,52 +309,78 @@ def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
                                  gnorm)
         t = state.step + 1
         beta2 = 1.0 - (t.to(_F32) + 1.0) ** (-decay)
+        mesh = None if shd.is_trivial(mesh) else mesh
+        specs = specs or [None] * len(flat_p)
+        axes_of = [shd.split_axes(specs[i], p.ndim, mesh)
+                   for i, p in enumerate(flat_p)]
+        shapes = [_whole_shape(p, ax, mesh) for p, ax in zip(flat_p, axes_of)]
 
-        def factored(g2, st):
-            r = beta2 * st["r"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            c = beta2 * st["c"] + (1 - beta2) * torch.mean(g2, dim=-2)
+        def factored(g2, st, ax):
+            """(vhat at the local block, the whole new r and c); ``ax``:
+            the axes splitting each dimension of g2, which is consumed."""
+            lead, rows, cols = ax[:-2], ax[-2], ax[-1]
+            row = shd.gather_leaf(_mean_over(g2, -1, cols, mesh),
+                                  lead + [rows], mesh)
+            col = shd.gather_leaf(_mean_over(g2, -2, rows, mesh),
+                                  lead + [cols], mesh)
+            del g2
+            r = beta2 * st["r"] + (1 - beta2) * row
+            c = beta2 * st["c"] + (1 - beta2) * col
             rmean = torch.mean(r, dim=-1, keepdim=True)
-            vhat = (r[..., :, None] * c[..., None, :]) \
-                / torch.clamp(rmean[..., None], min=eps)
+            vhat = shd.local_block(r, lead + [rows], mesh)[..., :, None] \
+                * shd.local_block(c, lead + [cols], mesh)[..., None, :]
+            vhat.div_(torch.clamp(shd.local_block(rmean, lead + [()], mesh)
+                                  [..., None], min=eps))
             return vhat, r, c
+
+        def scaled(g, vhat):
+            """g / sqrt(max(vhat, eps)), written over ``vhat``: a leaf's
+            update holds two tensors of its size at most."""
+            return torch.div(g, vhat.clamp_(min=eps).sqrt_(), out=vhat)
 
         for grp in _leaf_groups(params, stacks):
             sts = [flat_st[i] for i in grp]
-            if _across_layers(flat_p[grp[0]], len(grp)):
+            if _across_layers(shapes[grp[0]], len(grp)):
                 # the stacked (layers, d) vector, factored as one matrix
                 g = torch.stack([grad_of(i) for i in grp])
                 vhat, r, c = factored(g * g + eps, {
                     "r": torch.stack([st["r"] for st in sts]),
-                    "c": sts[0]["c"]})
+                    "c": sts[0]["c"]}, [()] + axes_of[grp[0]])
                 for j, st in enumerate(sts):
                     st["r"].copy_(r[j])
                     st["c"].copy_(c)
-                us = list(torch.unbind(
-                    g / torch.sqrt(torch.clamp(vhat, min=eps))))
+                us = list(torch.unbind(scaled(g, vhat)))
                 del g, vhat
             else:
                 us = []
                 for i, st in zip(grp, sts):
                     g = grad_of(i)
-                    g2 = g * g + eps
-                    if _is_matrix(flat_p[i]):
-                        vhat, r, c = factored(g2, st)
+                    if _is_matrix(shapes[i]):
+                        vhat, r, c = factored(torch.mul(g, g).add_(eps), st,
+                                              axes_of[i])
                         st["r"].copy_(r)
                         st["c"].copy_(c)
                     else:
-                        vhat = beta2 * st["v"] + (1 - beta2) * g2
+                        vhat = beta2 * st["v"] + (1 - beta2) * shd.gather_leaf(
+                            g * g + eps, specs[i], mesh)
                         st["v"].copy_(vhat)
-                    del g2
-                    us.append(g / torch.sqrt(torch.clamp(vhat, min=eps)))
+                        vhat = shd.local_block(vhat, specs[i], mesh)
+                    us.append(scaled(g, vhat))
                     del g, vhat
             # update clipping (Shazeer & Stern): RMS(u) <= 1 over the
             # stacked tensor
-            n = sum(u.numel() for u in us)
-            ms = torch.mean(us[0] * us[0]) if len(us) == 1 else \
-                torch.stack([torch.sum(u * u) for u in us]).sum() / n
+            if mesh is None:
+                n = sum(u.numel() for u in us)
+                ms = torch.mean(us[0] * us[0]) if len(us) == 1 else \
+                    torch.stack([torch.sum(u * u) for u in us]).sum() / n
+            else:
+                n = sum(math.prod(shapes[i]) for i in grp)
+                ms = C.sum_by_axes([(torch.sum(u * u),
+                                     shd.leaf_axes(specs[i], mesh))
+                                    for i, u in zip(grp, us)], mesh) / n
             scale = torch.clamp(torch.sqrt(ms + eps), min=1.0)
             for i, u in zip(grp, us):
-                u = u / scale
+                u = u.div_(scale)
                 m = flat_m[i]
                 if m is not None:
                     u = 0.9 * m.to(_F32) + 0.1 * u
@@ -324,12 +398,12 @@ def adafactor(weight_decay: float = 0.0, eps: float = 1e-30,
 
 def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.1,
          clip_norm: Optional[float] = 1.0) -> Optimizer:
-    def init(params):
+    def init(params, mesh=None, specs=None):
         return OptState(step=_step0(params),
                         inner={"m": tree_map(_zeros(), params)})
 
     @torch.no_grad()
-    def update(grads, state, params, lr, gnorm=None):
+    def update(grads, state, params, lr, gnorm=None, mesh=None, specs=None):
         flat_p = tree_leaves(params)
         flat_m = tree_leaves(state.inner["m"])
         grad_of, gn = _grads_f32(_flatten_upto(grads, params), clip_norm,

@@ -28,7 +28,15 @@ really splits the sequence:
   (2, 2) (8 experts over (data, model), B = 4, nothing dropped);
 - on (1, 2), a mesh of the first two ranks: gemma3-12b with landmark
   decode (each rank builds half the heads' factors) and qwen2-moe (the
-  experts split), as the card runs them.
+  experts split), as the card runs them;
+- deepseek-v3 (MLA over heads, its latent cache under the reference's
+  layout): absorbed decode on (2, 2) with B = 1 (the latent split by
+  sequence over (data, model), the partial reads merged by log-sum-exp)
+  and with B = 2 and ``fsdp`` (by batch over ``data``, by sequence over
+  ``model``), materialized decode on (1, 4) (the slices all-gathered), and
+  a 240-token prompt on (1, 4) whose latent is not split; the first
+  layer's latent shards ≤ 1e-6 of one rank's, each case's exchanges
+  counted.
 
 For each case: ``Model.prefill`` under ``use_mesh`` to ``max_len`` = prompt
 + 16, then 15 greedy steps through ``build_cell``'s decode cell; the
@@ -37,11 +45,12 @@ this process): every step's logits ≤ 1e-5 scale-normalized, the greedy
 tokens identical, and each rank's cache shard (of the prefill, of the
 prefill cell and after the last step) equal to ``local_shard`` of the
 one-rank cache under ``cache_shardings`` (≤ 1e-5).  The CLI on (2, 2)
-gives every rank the same tokens.
+gives every rank the same tokens (gemma3 and deepseek).
 
 Reference side: one subprocess sees 4 CPU devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) and, for each
-case without landmark decode, jits the reference's prefill (to
+case without landmark decode but deepseek's fsdp one (``ONE_RANK_ONLY``),
+jits the reference's prefill (to
 ``max_len``) with its prefill cell's in specs and its decode cell's cache
 specs as the out specs, and its decode cell with that cell's own in/out
 specs, on the weights ``convert.params_to_reference`` gives, teacher-forced
@@ -109,14 +118,29 @@ CASES = {
     "gemma3-2x2-b2-generator": ("gemma3-12b", {"window": 1024,
                                                "use_landmark_decode": True},
                                 (2, 2), 2, 1016),
+    "deepseek-2x2-b1": ("deepseek-v3-671b", {}, (2, 2), 1, 1024),
+    "deepseek-2x2-b2-fsdp": ("deepseek-v3-671b", {"fsdp": True}, (2, 2), 2,
+                             1024),
+    "deepseek-1x4-materialized": ("deepseek-v3-671b", {"mla_absorb": False},
+                                  (1, 4), 1, 1024),
+    "deepseek-1x4-b2-short": ("deepseek-v3-671b", {}, (1, 4), 2, 240),
 }
 #: cases whose landmark draws come from a generator, not given
 GENERATOR = {"gemma3-2x2-b2-generator"}
-REF_CASES = [n for n, c in CASES.items()
-             if not c[1].get("use_landmark_decode")]
-CELL_CASES = REF_CASES + sorted(GENERATOR)
+#: cases held to one rank only: the reference's jitted cells are the
+#: module's slowest part.  deepseek's three latent layouts (the merged
+#: absorbed read, the materialized read, the latent not split) are held
+#: to the reference; this case reads with the merged read's code over
+#: other axes
+ONE_RANK_ONLY = {"deepseek-2x2-b2-fsdp"}
+NO_LANDMARK = [n for n, c in CASES.items()
+               if not c[1].get("use_landmark_decode")]
+REF_CASES = [n for n in NO_LANDMARK if n not in ONE_RANK_ONLY]
+CELL_CASES = NO_LANDMARK + sorted(GENERATOR)
 CLI = ["--arch", "gemma3-12b", "--smoke", "--landmark", "--device", "cpu",
        "--batch", "2", "--prompt-len", "32", "--gen", "6"]
+DS_CLI = ["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
+          "--batch", "2", "--prompt-len", "32", "--gen", "6"]
 
 REF_SCRIPT = r'''
 import dataclasses, sys
@@ -381,6 +405,8 @@ def _port_rank(rank: int, world: int, d: str) -> None:
             dist.barrier()
         toks = tserve.main(CLI + ["--mesh", "2x2"])
         out["cli"] = [t.clone() for t in _all_ranks(toks)]
+        toks = tserve.main(DS_CLI + ["--mesh", "2x2"])
+        out["cli_deepseek"] = [t.clone() for t in _all_ranks(toks)]
         torch.save(out, f"{d}/rank{rank}.pt")
         dist.barrier()
     finally:
@@ -551,6 +577,47 @@ def test_the_layouts_take_their_exchanges(runs):
         == 2 * case_cfg("qwen2moe-2x2-ep").n_layers         # there, back
 
 
+MLA_CASES = [n for n in CASES if CASES[n][0] == "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("name", MLA_CASES)
+def test_mla_latent_shards_are_one_ranks_slices(runs, name):
+    """Each rank's ``ckv`` / ``krope`` of the first layer, whose input (the
+    embedding) is one rank's bits, after the prefill and after the last
+    decode step: ``local_shard`` of one rank's latent cache ≤ 1e-6.  The
+    deeper layers' inputs carry the tensor-parallel sums' order (≈ 1e-6 at
+    the third layer); ``test_cache_shards_follow_cache_shardings`` holds
+    them at 1e-5."""
+    for r, got in on_mesh(runs, name):
+        for when in ("prefill_cache", "cache"):
+            first = [(p, same, err) for p, same, err in got[when]
+                     if p.startswith("prefix/0/")]
+            assert len(first) == 2, first
+            for path, same, err in first:
+                assert same and err <= 1e-6, (r, when, path, err)
+
+
+def test_mla_latent_layouts_take_their_exchanges(runs):
+    """deepseek's latent cache: its prefill slice is a narrow (no
+    all-to-all: the latent is whole on every ``model`` rank).  A decode
+    step all-gathers ql over q_rank in each layer; absorbed over a
+    sequence-split latent it also gathers the latent queries of every head
+    and merges the partial reads (two more all-gathers a layer);
+    materialized, it gathers ckv and krope over the sequence; a latent not
+    split reads with no exchange of its own.  One more all-gather brings
+    the logits' vocabulary.  (With ``fsdp`` each block's weights are
+    gathered too.)"""
+    layers = case_cfg("deepseek-2x2-b1").n_layers
+    want = {"deepseek-2x2-b1": 3 * layers + 1,
+            "deepseek-1x4-materialized": 3 * layers + 1,
+            "deepseek-1x4-b2-short": layers + 1}
+    for name, n in want.items():
+        for r, got in on_mesh(runs, name):
+            assert "all_to_all" not in got["prefill_stats"], (name, r)
+            assert got["decode_stats"]["all_gather"]["count"] == n, (
+                name, r, got["decode_stats"])
+
+
 def test_cli_serves_the_same_tokens_on_every_rank(runs):
     """``serve.py --mesh 2x2`` (gemma3 SMOKE with landmark decode, bf16):
     every rank returns the same tokens for the whole batch."""
@@ -561,14 +628,38 @@ def test_cli_serves_the_same_tokens_on_every_rank(runs):
     assert parts[0].shape == runs["cli_one"].shape
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m",
+def test_cli_serves_deepseek_on_a_mesh(runs):
+    """``serve.py --arch deepseek-v3-671b --mesh 2x2`` (bf16 SMOKE): every
+    rank returns the same tokens for the whole batch, of one device's
+    shape."""
+    parts = runs["port"][0]["cli_deepseek"]
+    assert all(torch.equal(parts[0], t) for t in parts[1:])
+    for port in runs["port"][1:]:
+        assert torch.equal(port["cli_deepseek"][0], parts[0])
+    assert parts[0].shape == tserve.main(DS_CLI).shape
+
+
+@pytest.mark.parametrize("arch", ["mla-seq-parallel", "xlstm-125m",
                                   "recurrentgemma-2b", "whisper-large-v3"])
 def test_the_families_left_out_refuse_a_serving_mesh(arch):
-    """MLA, the recurrent mixers and the encoder-decoder say so on a mesh
-    of more than one device, before any rank is set up."""
+    """The recurrent mixers and the encoder-decoder say so on a mesh of
+    more than one device, before any rank is set up; MLA under
+    ``seq_parallel_attn`` (no shipped config sets it) at its prefill on a
+    mesh, before any collective."""
     with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                     "--mesh", "1x2"])
+        if arch == "mla-seq-parallel":
+            cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
+                                      seq_parallel_attn=True)
+            model = TM.build_model(cfg)
+            with shd.use_mesh({"data": 1, "model": 2}):
+                model.prefill(model.init(torch.Generator().manual_seed(0),
+                                         "cpu"),
+                              {"tokens": torch.zeros((1, 8),
+                                                     dtype=torch.int64)},
+                              8)
+        else:
+            tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--mesh", "1x2"])
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,21 @@ run, once for the module:
   whole and each rank reads the one its q heads map to), gemma3-12b
   (local windows, qk-norm, post-norms, a tied and softcapped
   embedding; 4 heads over 2 kv heads), qwen2-moe-a2.7b (6 experts: over
-  ``model`` at 2, the FFN width split at 4, which they do not divide) and
-  yi-6b with ``fsdp`` (the weights gathered over ``data`` on use), SMOKE
-  in f32: the loss, every gradient leaf (``launch.steps.loss_and_grads``,
-  the shards gathered back) and three steps' losses of
-  ``make_train_step`` against the same on one rank (loss ≤ 1e-5,
-  gradients ≤ 1e-4 scale-normalized, the steps ≤ 1e-4);
+  ``model`` at 2, the FFN width split at 4, which they do not divide),
+  yi-6b with ``fsdp`` (the weights gathered over ``data`` on use) and
+  deepseek-v3 with and without ``fsdp`` (MLA over heads, MTP, 8 experts
+  top-2 over ``model``, one dense prefix layer), SMOKE in f32: the loss,
+  every gradient leaf (``launch.steps.loss_and_grads``, the shards
+  gathered back) and three steps' losses of ``make_train_step`` against
+  the same on one rank (loss ≤ 1e-5, gradients ≤ 1e-4 scale-normalized,
+  the steps ≤ 1e-4);
+- adafactor on shards (deepseek-v3 with and without ``fsdp``, yi-6b with
+  ``fsdp``, whose factored dims split over ``data``): three steps
+  (``ADA_STEPS``: momentum off and on), the stacked layers as one tensor,
+  against one rank (≤ 1e-4); one update's statistics, momentum and params
+  gathered back
+  against the reference's ``adafactor().update`` on the gathered
+  gradients (≤ 1e-6; the bf16 momentum within one ulp);
 - expert parallelism (``moe_impl="shard_map"``) on the reference test's
   config (E 8, k 2, cf 8.0) on (2, 2), and a capacity-bound case (cf 0.7,
   k 6) on (1, 4): the output and the aux against the reference's
@@ -33,7 +42,10 @@ run, once for the module:
   order); the shards gathered back are the params bit for bit (qwen2-moe
   with ``fsdp``: every rule's layout), to every rank and, as a checkpoint
   gathers them, to rank 0's host alone; a preemption signal on one rank
-  stops them all.
+  stops them all; ``--arch deepseek-v3-671b --mesh 2x2`` trains;
+- deepseek-v3 SMOKE on (1, 3), whose 4 heads do not divide ``model``
+  while ``wq_a``'s q_rank columns do: the loss and every gradient against
+  one rank.
 
 Reference side: one subprocess sees 4 CPU devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``, as
@@ -48,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import os
 import subprocess
 import sys
@@ -59,6 +72,7 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import convert
 from repro_torch.checkpoint import CheckpointManager
@@ -78,7 +92,19 @@ WORLD = 4
 TIMEOUT = 240
 MESHES = ((2, 2), (1, 4))
 ARCHS = (("yi-6b", False), ("gemma3-12b", False), ("qwen2-moe-a2.7b", False),
-         ("yi-6b", True))
+         ("yi-6b", True), ("deepseek-v3-671b", False),
+         ("deepseek-v3-671b", True))
+#: the runs that also train with adafactor (yi-6b's fsdp splits factored
+#: dims over ``data``; deepseek's MLA over ``model``)
+ADAFACTOR = (("deepseek-v3-671b", False), ("deepseek-v3-671b", True),
+             ("yi-6b", True))
+#: (arch, fsdp, momentum) of the three-step adafactor runs: each
+#: momentum on deepseek, fsdp's factored dims over ``data`` with and
+#: without it
+ADA_STEPS = (("deepseek-v3-671b", False, False),
+             ("deepseek-v3-671b", False, True),
+             ("deepseek-v3-671b", True, False), ("yi-6b", True, True))
+ADA_LR = 1e-2
 TOL_LOSS, TOL_GRAD, TOL_STEPS = 1e-5, 1e-4, 1e-4
 MOE = dict(name="t", family="moe", n_layers=1, d_model=64, n_heads=4,
            n_kv_heads=4, head_dim=16, d_ff=0, vocab_size=128, n_experts=8,
@@ -91,6 +117,7 @@ SP = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=6,
           seq_parallel_attn=True)
 CLI = ["--arch", "yi-6b", "--smoke", "--seq-len", "32", "--global-batch",
        "4", "--device", "cpu", "--log-every", "1"]
+DS_CLI = ["--arch", "deepseek-v3-671b"] + CLI[2:]
 
 REF_SCRIPT = r'''
 import dataclasses, sys
@@ -166,6 +193,14 @@ def arch_params(cfg):
     return TM.build_model(cfg).init(torch.Generator().manual_seed(5), "cpu")
 
 
+def adafactor_of(cfg, momentum: bool):
+    """adafactor as ``default_optimizer`` gives it to the >100B configs:
+    the layers the reference stacks update as one tensor each."""
+    return make_optimizer("adafactor", momentum=momentum,
+                          stacks=functools.partial(TM.stacked_layers,
+                                                   cfg=cfg))
+
+
 def moe_cfg(kw) -> ModelConfig:
     return ModelConfig(**{**MOE, **kw})
 
@@ -221,15 +256,65 @@ def _arch_runs(mesh, out: dict) -> None:
         out[key + "/gnorm"] = float(gn)
         out[key + "/grads"] = _gathered(tree_unflatten(local, iter(grads)),
                                         specs, mesh)
+        if (arch, fsdp) in ADAFACTOR:
+            out[key + "/adafactor_update"] = _adafactor_update(
+                local, grads, gn, specs, mesh)
         opt = make_optimizer("adamw")
-        step = steps.make_train_step(model, opt, peak_lr=1e-2, warmup=1,
-                                     total=10, mesh=mesh, specs=specs)
-        state = opt.init(local)
-        losses = []
-        for _ in range(3):
-            local, state, m = step(local, state, arch_batch(cfg))
-            losses.append(float(m["loss"]))
-        out[key + "/steps"] = losses
+        out[key + "/steps"] = _three_steps(cfg, opt, local, mesh, specs)
+        for momentum in [m for a, f, m in ADA_STEPS
+                         if (a, f) == (arch, fsdp)]:
+            opt = adafactor_of(cfg, momentum)
+            local, _ = steps.shard_params(cfg, arch_params(cfg), mesh)
+            out[f"{key}/adafactor_steps/{momentum}"] = _three_steps(
+                cfg, opt, local, mesh, specs)
+
+
+def _mla_heads_whole_run(out: dict) -> None:
+    """deepseek-v3 SMOKE on (1, 3), a mesh of the first three ranks (each
+    rank builds it; the fourth has no coordinate): the loss and the
+    gradients gathered back."""
+    mesh = DeviceMesh("cpu", torch.arange(3).reshape(1, 3),
+                      mesh_dim_names=("data", "model"))
+    if mesh.get_coordinate() is None:
+        return
+    cfg = arch_cfg("deepseek-v3-671b", False)
+    local, specs = steps.shard_params(cfg, arch_params(cfg), mesh)
+    grads, met, _ = steps.loss_and_grads(TM.build_model(cfg), local,
+                                         arch_batch(cfg), mesh=mesh,
+                                         specs=specs)
+    out["1x3/loss"] = float(met["loss"])
+    out["1x3/grads"] = _gathered(tree_unflatten(local, iter(grads)), specs,
+                                 mesh)
+
+
+def _three_steps(cfg, opt, local, mesh, specs) -> list:
+    step = steps.make_train_step(TM.build_model(cfg), opt, peak_lr=1e-2,
+                                 warmup=1, total=10, mesh=mesh, specs=specs)
+    state = opt.init(local, mesh=mesh,
+                     specs=[s for _, s in shd.leaves_with_path(specs)])
+    losses = []
+    for _ in range(3):
+        local, state, m = step(local, state, arch_batch(cfg))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _adafactor_update(local, grads, gn, specs, mesh) -> dict:
+    """One adafactor update (momentum on, every leaf its own tensor, as
+    the reference's) of copies of the shards by the synced gradients: its
+    statistics (whole on every rank), and the params and momentum
+    gathered back."""
+    flat = [s for _, s in shd.leaves_with_path(specs)]
+    params = tree_unflatten(local, iter([t.detach().clone()
+                                         for t in tree_leaves(local)]))
+    opt = make_optimizer("adafactor", momentum=True)
+    state = opt.init(params, mesh=mesh, specs=flat)
+    params, state, _ = opt.update(tree_unflatten(local, iter(grads)), state,
+                                  params, torch.tensor(ADA_LR), gnorm=gn,
+                                  mesh=mesh, specs=flat)
+    return {"stats": [t.clone() for t in tree_leaves(state.inner["stats"])],
+            "m": _gathered(state.inner["m"], specs, mesh),
+            "params": _gathered(params, specs, mesh)}
 
 
 def _ep_runs(out: dict) -> None:
@@ -284,6 +369,8 @@ def _cli_runs(d: str, out: dict) -> None:
     out["cli/mesh_resumes_single"] = ttrain.main(
         CLI + ["--steps", "3", "--mesh", "2x2", "--ckpt-dir",
                d + "/ck_single", "--ckpt-every", "5"])
+    out["cli/deepseek"] = ttrain.main(DS_CLI + ["--steps", "3", "--mesh",
+                                                "2x2"])
     # what a mesh checkpoint stores: the shards gathered back, bit for bit
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), fsdp=True)
@@ -321,6 +408,7 @@ def _port_rank(rank: int, world: int, d: str) -> None:
         out = {}
         for shape in MESHES:
             _arch_runs(make_mesh(shape, ("data", "model"), "cpu"), out)
+        _mla_heads_whole_run(out)
         _ep_runs(out)
         _sp_run(out)
         _cli_runs(d, out)
@@ -426,6 +514,99 @@ def test_mesh_step_matches_one_rank(runs, shape, arch, fsdp):
         params, state, m = step(params, state, arch_batch(cfg))
         losses.append(float(m["loss"]))
     np.testing.assert_allclose(got[key + "/steps"], losses, rtol=TOL_STEPS)
+
+
+ADA_IDS = [f"{a}{'-fsdp' if f else ''}" for a, f in ADAFACTOR]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_adafactor():
+    """(the reference's adafactor with momentum, its jitted update): one
+    trace per tree structure for the module."""
+    import jax
+    from repro.optim import optimizers as jopts
+    opt = jopts.adafactor(momentum=True)
+    return opt, jax.jit(opt.update)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize(
+    "arch,fsdp,momentum", ADA_STEPS,
+    ids=[f"{a}{'-fsdp' if f else ''}{'-momentum' if m else ''}"
+         for a, f, m in ADA_STEPS])
+def test_mesh_adafactor_steps_match_one_rank(runs, shape, arch, fsdp,
+                                             momentum):
+    """Three ``make_train_step`` steps with adafactor on shards (its
+    statistics whole and replicated, the stacked layers as one tensor)
+    against the same on one rank: the losses ≤ 1e-4."""
+    cfg = arch_cfg(arch, fsdp)
+    opt = adafactor_of(cfg, momentum)
+    step = steps.make_train_step(TM.build_model(cfg), opt, peak_lr=1e-2,
+                                 warmup=1, total=10)
+    params = arch_params(cfg)
+    state, losses = opt.init(params), []
+    for _ in range(3):
+        params, state, m = step(params, state, arch_batch(cfg))
+        losses.append(float(m["loss"]))
+    got = runs["port"][f"{shape}/{arch}/{fsdp}/adafactor_steps/{momentum}"]
+    np.testing.assert_allclose(got, losses, rtol=TOL_STEPS)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch,fsdp", ADAFACTOR, ids=ADA_IDS)
+def test_adafactor_on_shards_matches_reference(runs, shape, arch, fsdp):
+    """One adafactor update (momentum on) on the mesh, from the step's
+    synced gradients: the statistics r / c / v (whole on every rank) and
+    the params gathered back, against the reference's
+    ``adafactor().update`` on the gathered gradients and params (every
+    leaf its own tensor), ≤ 1e-6 relative; the bf16 momentum within one
+    bf16 ulp of each element (its f32 value rounds either way at a
+    boundary)."""
+    import jax
+    import jax.numpy as jnp
+    key = f"{shape}/{arch}/{fsdp}"
+    got = runs["port"][key + "/adafactor_update"]
+    params = tree_leaves(arch_params(arch_cfg(arch, fsdp)))
+
+    def tree(leaves):
+        return {f"{i:04d}": jnp.asarray(t.float().numpy())
+                for i, t in enumerate(leaves)}
+    jp = tree(params)
+    opt, update = _reference_adafactor()
+    jp, js, _ = update(tree(runs["port"][key + "/grads"]), opt.init(jp), jp,
+                       ADA_LR)
+    for what, port, ref in (("stats", got["stats"], js.inner["stats"]),
+                            ("m", got["m"], js.inner["m"]),
+                            ("params", got["params"], jp)):
+        ref = jax.tree.leaves(ref)
+        assert len(port) == len(ref), what
+        for i, (a, b) in enumerate(zip(port, ref)):
+            b = np.asarray(b, np.float32)
+            assert tuple(a.shape) == b.shape, (what, i, a.shape, b.shape)
+            if what == "m":
+                assert np.all(np.abs(a.float().numpy() - b)
+                              <= 2.0 ** -7 * np.abs(b)), (what, i)
+            else:
+                assert scaled(a.float(), b) <= 1e-6, (what, i,
+                                                      scaled(a.float(), b))
+
+
+def test_mla_whose_heads_do_not_divide_model(runs):
+    """deepseek-v3 SMOKE on (1, 3): its 4 heads do not divide model = 3,
+    so the MLA body runs whole on every rank, while ``wq_a``'s 24 q_rank
+    columns do and split (the body gathers the weight whole; its gradient
+    is each rank's part).  The loss ≤ 1e-5 and every gradient ≤ 1e-4 of
+    one rank's."""
+    cfg = arch_cfg("deepseek-v3-671b", False)
+    params = arch_params(cfg)
+    specs = shd.param_shardings(params, {"data": 1, "model": 3})
+    mixer = specs["stack"]["prefix"][0]["mixer"]
+    assert "model" in mixer["wq_a"] and "model" not in mixer["wq_b"]
+    loss, grads = one_rank(cfg, params, arch_batch(cfg))
+    got = runs["port"]
+    assert abs(got["1x3/loss"] - loss) <= TOL_LOSS * abs(loss)
+    errs = [scaled(a, b) for a, b in zip(got["1x3/grads"], grads)]
+    assert len(errs) == len(grads) and max(errs) <= TOL_GRAD, max(errs)
 
 
 @pytest.mark.parametrize("leaf", ("norm1", "router"))
@@ -536,6 +717,19 @@ def test_checkpoints_cross_between_mesh_and_one_device(runs, capsys):
     assert runs["port"]["cli/gathered_on"] == [1, 0, 0, 0]
 
 
+def test_cli_trains_deepseek_on_a_mesh(runs):
+    """``train.py --arch deepseek-v3-671b --mesh 2x2`` (bf16 SMOKE: MLA over
+    heads, MTP, the MoE's experts over ``model``): finite losses, the
+    first (the same seeded params on both) one device's ≤ 2e-3 relative
+    (bf16 sums in another order).  The later steps may part further: a
+    bf16 router near-tie sends a token to another expert (the f32 runs
+    above hold the steps to one rank's)."""
+    got = runs["port"]["cli/deepseek"]
+    assert len(got) == 3 and np.isfinite(got).all()
+    one = ttrain.main(DS_CLI + ["--steps", "1"])
+    np.testing.assert_allclose(got[0], one[0], rtol=2e-3)
+
+
 def test_a_preemption_on_one_rank_stops_every_rank(runs):
     """The trainer's stop flag is or-ed over the ranks, so every rank
     enters the checkpoint's collectives at the same step."""
@@ -543,11 +737,20 @@ def test_a_preemption_on_one_rank_stops_every_rank(runs):
     assert runs["port"]["cli/stop_none"] is False
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m",
+@pytest.mark.parametrize("arch", ["mla-seq-parallel", "xlstm-125m",
                                   "recurrentgemma-2b", "whisper-large-v3"])
 def test_the_families_left_out_refuse_a_mesh(arch):
-    """MLA, the recurrent mixers and the encoder-decoder say so on a mesh
-    of more than one device, before any rank is set up."""
+    """The recurrent mixers and the encoder-decoder say so on a mesh of
+    more than one device, before any rank is set up; so does MLA under
+    ``seq_parallel_attn`` (no shipped config sets it), as the train step
+    is made."""
     with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                     "--steps", "1", "--mesh", "1x2"])
+        if arch == "mla-seq-parallel":
+            cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
+                                      seq_parallel_attn=True)
+            steps.make_train_step(TM.build_model(cfg),
+                                  make_optimizer("adamw"),
+                                  mesh={"data": 1, "model": 2}, specs={})
+        else:
+            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--steps", "1", "--mesh", "1x2"])
