@@ -16,6 +16,10 @@ ranks add up to the global loss (``launch.steps``).  So:
 - ``scatter(x, dim, axes)`` / ``gather(x, dim, axes)``: take this rank's
   part of a replicated tensor / all-gather the parts into a replicated
   one; each is the other's backward;
+- ``scatter_sum(x, dim, axes)``: sums partial results over ``axes``,
+  this rank keeping its part along ``dim`` (a reduce-scatter); the
+  backward all-gathers the gradient (a row-split weight's partial output
+  entering a region split along ``dim``);
 - ``all_gather_sum(x, dim, axes)``: all-gather whose backward
   reduce-scatters (sums) the gradient back to the part: FSDP's weights,
   and K/V under sequence parallelism, whose consumers each hold a
@@ -25,8 +29,10 @@ ranks add up to the global loss (``launch.steps``).  So:
 - ``all_to_all(x, axes)``: chunk i of dim 0 to rank i of the group (the
   expert-parallel dispatch); its backward is the same exchange.
 
-Serving's forward-only exchanges: ``heads_to_seq`` (K/V split by heads
-to split by sequence, one all-to-all: a prefill's cache laid out by
+Serving's forward-only exchanges: ``move_split`` (a tensor split on one
+dimension to split on another, one all-to-all: a prefill's recurrent
+state from heads to its key dimension), ``heads_to_seq`` (K/V split by
+heads to split by sequence: a prefill's cache laid out by
 ``sharding.cache_shardings``) and ``lse_merge`` (per-rank partial reads of
 a sequence-split cache merged by log-sum-exp in a fixed rank order).
 ``ordered_sum`` is the same fixed-order sum for the optimizer's
@@ -242,18 +248,28 @@ def all_to_all_raw(t: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     return _run("all_to_all", _all_to_all0, out, t, group, reduces=False)
 
 
+def move_split(t: torch.Tensor, src: int, dst: int, axes="model",
+               mesh=None) -> torch.Tensor:
+    """``t`` split over ``axes`` on dimension ``src`` (rank i holds the
+    i-th part) -> split on ``dst`` instead (whole on ``src``), in one
+    all-to-all.  Forward only (serving)."""
+    group, n = group_of(axes, mesh)
+    if n == 1:
+        return t
+    x = t.movedim((dst, src), (0, 1))
+    D, h = x.shape[:2]
+    x = x.reshape((n, D // n) + x.shape[1:])
+    out = all_to_all_raw(x, axes, mesh=mesh)   # out[i]: rank i's part
+    out = out.transpose(0, 1).reshape((D // n, n * h) + x.shape[3:])
+    return out.movedim((0, 1), (dst, src))
+
+
 def heads_to_seq(t: torch.Tensor, axes="model", mesh=None) -> torch.Tensor:
     """K or V (B, S, KV_loc, D) split by heads over ``axes`` (rank i holds
     heads i·KV_loc on, every position) -> (B, S/n, n·KV_loc, D): every
     head of this rank's part of the positions (rank i the i-th S/n), in
     one all-to-all.  Forward only (serving)."""
-    group, n = group_of(axes, mesh)
-    if n == 1:
-        return t
-    B, S, h, D = t.shape
-    x = t.transpose(0, 1).reshape(n, S // n, B, h, D)
-    out = all_to_all_raw(x, axes, mesh=mesh)   # out[i]: rank i's heads
-    return out.permute(2, 1, 0, 3, 4).reshape(B, S // n, n * h, D)
+    return move_split(t, 2, 1, axes, mesh)
 
 
 def lse_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, axes,
@@ -391,6 +407,18 @@ class _AllGatherSum(torch.autograd.Function):
                                mesh=ctx.mesh).contiguous(), None, None, None)
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return reduce_scatter(x, dim, axes, mesh=mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.dim, ctx.axes, mesh=ctx.mesh).contiguous(),
+                None, None, None)
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh):
@@ -428,6 +456,10 @@ def scatter(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
 
 def gather(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
     return _apply(_Gather, x, dim, axes=axes)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    return _apply(_ScatterSum, x, dim, axes=axes)
 
 
 def all_gather_sum(x: torch.Tensor, dim: int, axes) -> torch.Tensor:

@@ -396,7 +396,8 @@ def batch_shardings(batch, mesh):
 
 
 def _cache_spec(keys, shape, mesh) -> list:
-    """The reference's rule for one decode-cache leaf (``keys`` its path)."""
+    """The reference's rule for one attention-cache or landmark-factor
+    leaf (``keys`` its path; recurrent states: ``state_pspec``)."""
     dp = data_axes(mesh)
     key = keys[-1] if keys else ""
     nd = len(shape)
@@ -442,20 +443,42 @@ def _cache_spec(keys, shape, mesh) -> list:
         if b < nd and shape[b] > 1 and _axis_size(mesh, dp) > 1 \
                 and shape[b] % _axis_size(mesh, dp) == 0:
             full[b] = dp
-    else:
-        # recurrent states: batch is the first DP-divisible dim among the
-        # first two; widest trailing dim -> model
-        for b in range(min(2, nd)):
-            if shape[b] > 1 and _axis_size(mesh, dp) > 1 \
-                    and shape[b] % _axis_size(mesh, dp) == 0:
-                full[b] = dp
-                break
-        if nd >= 2:
-            widest = max(range(nd), key=lambda i: shape[i])
-            if full[widest] is None and shape[widest] >= 128 \
-                    and _fit(shape[widest], "model", mesh):
-                full[widest] = "model"
     return full
+
+
+def _is_state(keys) -> bool:
+    """A recurrent state leaf (not an attention cache or landmark
+    factor)."""
+    key = keys[-1] if keys else ""
+    return not (key in ("k", "v", "ckv", "krope", "k_land", "uv", "u1",
+                        "offset") or "enc_kv" in keys)
+
+
+def state_pspec(shape: Tuple[int, ...], mesh) -> tuple:
+    """The port's rule for one recurrent decode-state leaf (B, ...): the
+    rows over the data axes where ``batch_pspec`` splits a batch of B
+    (the serving rows, ``row_axes``), and the widest of the other
+    dimensions (the first of equal ones) over ``model`` when it is at
+    least 128 and ``model`` divides it.  The recurrent mixers lay their
+    states out by it on a mesh (``models.recurrent``).
+
+    The reference's rule (ROADMAP C11) gives the data axes to the first
+    of the first two dimensions they divide and ``model`` to the widest
+    dimension of all.  On its stacked cache (reps, B, ...) the first is
+    the layer reps: recurrentgemma-2b's 8 and xlstm-125m's 6 reps go over
+    ``data`` there, and a batch of one puts an unstacked state's width
+    on ``data``.  Here the rows are what each data rank computes, so its
+    states stay on it; the values are the same."""
+    nd = len(shape)
+    full = [None] * nd
+    rows = batch_pspec((shape[0],), mesh)[0] if nd else None
+    if rows is not None and shape[0] > 1 and _axis_size(mesh, rows) > 1:
+        full[0] = rows
+    if nd >= 2:
+        widest = max(range(1, nd), key=lambda i: shape[i])
+        if shape[widest] >= 128 and _fit(shape[widest], "model", mesh):
+            full[widest] = "model"
+    return Spec(full)
 
 
 def row_axes(batch: int, mesh) -> Tuple[str, ...]:
@@ -470,16 +493,20 @@ def cache_shardings(cache, mesh):
     contract): k/v/enc_kv batch -> DP and KV heads -> 'model' when they
     divide it, else the sequence -> 'model' for a cache over 2e9 bytes a
     DP rank; MLA latents batch -> DP, sequence -> 'model'; landmark
-    factors batch -> DP; recurrent states batch -> DP, widest dim ->
-    'model'; a batch that DP does not divide puts the sequence on every
-    axis it divides.  A layer of a ``scanned`` section is decided as the
-    reference's stacked leaf (its reps on a leading axis) and that entry
-    dropped."""
+    factors batch -> DP; a batch that DP does not divide puts the
+    sequence on every axis it divides.  A layer of a ``scanned`` section
+    is decided as the reference's stacked leaf (its reps on a leading
+    axis) and that entry dropped.  Recurrent states follow the port's
+    ``state_pspec`` on each layer's leaf (rows -> DP, the widest other
+    dim -> 'model'), which differs from the reference's rule on its
+    stacked leaf (ROADMAP C11)."""
     reps = len(cache["scanned"]) if isinstance(cache, dict) \
         and isinstance(cache.get("scanned"), list) else 0
 
     def one(path, leaf):
         shape = tuple(leaf.shape)
+        if _is_state(path):
+            return state_pspec(shape, mesh)
         if reps and path and path[0] == "scanned":
             full = _cache_spec(path, (reps,) + shape, mesh)
             return Spec(full[1:])
@@ -615,7 +642,11 @@ def gather_cache(cache, mesh):
                     if isinstance(v, torch.Tensor)
                     else walk(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v) for v in tree)
+            specs = getattr(tree, "specs", None)
+            return tuple(gather_leaf(v, specs[i], mesh)
+                         if isinstance(v, torch.Tensor) else walk(v)
+                         for i, v in enumerate(tree)) \
+                if specs is not None else type(tree)(walk(v) for v in tree)
         return tree
     return walk(cache)
 
@@ -727,17 +758,42 @@ class MeshParams(dict):
         self.specs = dict(specs or {})
 
 
+class MeshTuple(tuple):
+    """A tuple of local shards on a mesh (the encoder-decoder's ``enc_kv``)
+    carrying ``specs``, one per element.  A plain tuple otherwise."""
+
+    def __new__(cls, items=(), specs=None):
+        out = super().__new__(cls, items)
+        out.specs = tuple(specs or ())
+        return out
+
+
 def mesh_view(params, specs):
     """``params`` (local shards) with every dict a ``MeshParams`` holding
-    its leaves' specs from the spec tree ``specs``."""
+    its leaves' specs from the spec tree ``specs``, and every tuple of
+    tensors a ``MeshTuple``."""
     if isinstance(params, dict):
         return MeshParams(
             {k: mesh_view(v, specs[k]) for k, v in params.items()},
             {k: specs[k] for k, v in params.items()
              if isinstance(v, torch.Tensor)})
     if isinstance(params, (list, tuple)):
-        return type(params)(mesh_view(v, s) for v, s in zip(params, specs))
+        items = [mesh_view(v, s) for v, s in zip(params, specs)]
+        if isinstance(params, tuple) and all(
+                isinstance(v, torch.Tensor) for v in params):
+            return MeshTuple(items, specs)
+        return type(params)(items)
     return params
+
+
+def split_dim(params, key: str) -> Optional[int]:
+    """The dimension of ``params[key]`` split over ``model`` (of size
+    > 1), or None (also for a plain dict)."""
+    specs = getattr(params, "specs", None)
+    if not specs or key not in specs or ambient_axis_size("model") <= 1:
+        return None
+    d = _model_dim(specs[key])
+    return None if d < 0 else d
 
 
 def split(params, key: str, dim: int, axis: str = "model") -> bool:

@@ -32,10 +32,19 @@ names another one.
 Each rank draws the same seeded params and keeps its shards; the
 prefill and decode steps run on them with the cache laid out by
 ``sharding.cache_shardings`` (``models.model``), and every rank returns
-the same tokens.  The dense, gemma3, MoE and MLA families run there
-(``--arch deepseek-v3-671b``: MLA over heads, its latent cache split by
-sequence at 1,024 positions or more and read through a log-sum-exp
-merge); the others raise ``NotImplementedError`` (ROADMAP A10-rest.3).
+the same tokens.  Every family runs there: ``--arch deepseek-v3-671b``
+(MLA over heads, its latent cache split by sequence at 1,024 positions
+or more and read through a log-sum-exp merge), the recurrent
+``recurrentgemma-2b`` and ``xlstm-125m`` (each mixer over its width or
+heads, its state laid out by ``sharding.state_pspec``) and
+``whisper-large-v3`` (the encoder K/V split by sequence at 1,024 frames
+or more where the rows are not split).  On the CPU:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --smoke --device cpu --mesh 1x2
+
+MLA under ``seq_parallel_attn`` raises ``NotImplementedError`` (ROADMAP
+A10-rest.3).
 """
 from __future__ import annotations
 

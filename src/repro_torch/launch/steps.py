@@ -40,9 +40,9 @@ elementwise; adafactor keeps its factored statistics whole and
 replicated, as the reference lays them out (``_opt_shardings``), formed
 from local sums added over the axes that split the reduced dimension in
 rank order (``optim.optimizers``); its state is made on the mesh by
-``opt.init(local, mesh=, specs=)``.  The families
-``models.model.check_mesh_support`` names raise there (ROADMAP
-A10-rest.3).
+``opt.init(local, mesh=, specs=)``.  Every family trains there but MLA
+under ``seq_parallel_attn``, which ``models.model.check_mesh_support``
+refuses (ROADMAP A10-rest.3).
 
 ``build_cell`` is the entry point the reference's dry-run, trainer and
 server share: the step function, its abstract arguments (tensors on the

@@ -21,11 +21,19 @@ under ``torchrun`` (the process group is set up from its environment:
 NCCL when every rank has a card of its own, else gloo) or in a process
 whose group is already initialized.  Each rank draws the same seeded
 params and keeps its shards (``launch.steps.shard_params``); the step is
-``launch.steps``' mesh executor.  The dense, MoE and MLA attention
-families run there (``--arch deepseek-v3-671b``: MLA over heads,
-multi-token prediction, and adafactor, which ``default_optimizer`` gives
-the uncut config, with its statistics whole on every rank); the others
-raise ``NotImplementedError`` (ROADMAP A10-rest.3).
+``launch.steps``' mesh executor.  Every family runs there:
+``--arch deepseek-v3-671b`` (MLA over heads, multi-token prediction, and
+adafactor, which ``default_optimizer`` gives the uncut config, with its
+statistics whole on every rank), the recurrent ``recurrentgemma-2b`` and
+``xlstm-125m`` and the encoder-decoder ``whisper-large-v3``; on the CPU
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch xlstm-125m --smoke --device cpu --steps 1 --mesh 1x2
+
+MLA under ``seq_parallel_attn`` raises ``NotImplementedError`` (ROADMAP
+A10-rest.3).  The encoder-decoder trains on ``input_specs``' shapes:
+``--seq-len`` seeded frame embeddings a row (the stubbed frontend, drawn
+from the step) and a decoder of ``--seq-len`` // 8 synthetic tokens.
 
 A checkpoint holds ``{"params", "opt": {"step", "inner"}}`` in whole
 leaves; a run with ``--ckpt-dir`` resumes from its latest step.  On a mesh
@@ -92,6 +100,20 @@ def _any_rank(flag: bool, mesh, device) -> bool:
     return bool(t.item())
 
 
+def batch_at(pipe, cfg, step: int, seq_len: int) -> dict:
+    """The global batch of ``step``: the pipeline's tokens and labels, and
+    for an encoder-decoder (B, ``seq_len``, frontend_dim) frame
+    embeddings drawn from (seed 0, step), the same on every rank and at
+    every restart."""
+    batch = pipe.batch_at(step)
+    if cfg.is_encdec:
+        rng = np.random.default_rng(np.random.SeedSequence([0, int(step)]))
+        batch["frames"] = rng.standard_normal(
+            (batch["tokens"].shape[0], seq_len, cfg.frontend_dim),
+            dtype=np.float32)
+    return batch
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -128,7 +150,8 @@ def main(argv=None):
     model = build_model(cfg)
     opt = default_optimizer(cfg)
     pipe = make_pipeline("synthetic", vocab_size=cfg.vocab_size,
-                         seq_len=args.seq_len, global_batch=args.global_batch)
+                         seq_len=max(args.seq_len // 8, 1) if cfg.is_encdec
+                         else args.seq_len, global_batch=args.global_batch)
 
     preempt = PreemptionHandler(install_signal=True)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -168,7 +191,8 @@ def main(argv=None):
     losses = []
     for step in range(start, args.steps):
         params, opt_state, metrics = step_fn(params, opt_state,
-                                             pipe.batch_at(step))
+                                             batch_at(pipe, cfg, step,
+                                                      args.seq_len))
         losses.append(metrics["loss"])
         if rank0 and (step % args.log_every == 0 or step == args.steps - 1):
             dt = time.time() - t0

@@ -220,20 +220,30 @@ def _kv_heads_of(rank: int, h_loc: int, cfg: ModelConfig) -> list:
 
 
 def _attention_tp(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, kind: str, with_kv: bool = False):
+                  positions: torch.Tensor, kind: str, with_kv: bool = False,
+                  causal: bool = True):
     """Heads split over ``model``: this rank's q heads (and kv heads), the
     partial output projection summed over the ranks.  ``with_kv`` also
     returns the rank's k and v (B, S, ·, D): its own kv heads where
-    ``wk``/``wv`` are split, else every kv head."""
+    ``wk``/``wv`` are split, else every kv head.  ``causal=False``: the
+    encoder's bidirectional attention."""
     p = shd.tp_local(params)
     x = C.copy_to(x, "model")
     q, k, v = _qkv(p, cfg, x, positions, _theta(cfg, kind))
-    kr, vr = k, v
-    if not shd.split(params, "wk", 1):
-        idx = _kv_heads_of(shd.axis_index("model"), q.shape[2], cfg)
-        kr, vr = k[:, :, idx].contiguous(), v[:, :, idx]
-    y = C.reduce_from(attend_full(p, cfg, q, kr, vr, kind), "model")
+    kr, vr = _rank_kv(params, cfg, q, k, v)
+    y = C.reduce_from(attend_full(p, cfg, q, kr, vr, kind, causal), "model")
     return (y, k, v) if with_kv else y
+
+
+def _rank_kv(params: dict, cfg: ModelConfig, q: torch.Tensor,
+             k: torch.Tensor, v: torch.Tensor):
+    """The kv heads this rank's q heads read: k and v as they are where
+    they hold the rank's own (``wk`` split, or a cache split by heads),
+    else the ones its q heads map to (``_kv_heads_of``)."""
+    if k.shape[2] != cfg.n_kv_heads or not shd.split(params, "wq", 1):
+        return k, v
+    idx = _kv_heads_of(shd.axis_index("model"), q.shape[2], cfg)
+    return k[:, :, idx].contiguous(), v[:, :, idx]
 
 
 def _attention_sp(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -352,8 +362,7 @@ def _cache_layout(t: torch.Tensor, spec, split: bool) -> torch.Tensor:
     the positions (over the spec's sequence axes) and of the heads.  Heads
     to sequence is one all-to-all over ``model``."""
     mesh = shd.ambient_mesh()
-    seq = tuple(a for a in shd._entry_axes(spec[1])
-                if shd.ambient_axis_size(a) > 1)
+    seq = _seq_axes(spec)
     by_head = "model" in shd._entry_axes(spec[2]) \
         and shd.ambient_axis_size("model") > 1
     if split and not by_head:
@@ -469,20 +478,63 @@ def _mla_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def cross_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    spec=None) -> torch.Tensor:
     """The decoder's x (B, S, d) against the encoder's K/V (B, S_enc, KV,
     D), precomputed by ``encoder_kv``: q projected (qk-norm, no RoPE), one
-    non-causal flash-attention call, then the output projection."""
+    non-causal flash-attention call, then the output projection.
+
+    On a mesh with the heads split over ``model`` each rank projects its
+    q heads against the K/V of its kv heads (as ``encoder_kv`` gives them,
+    or a cache split by heads; of a whole cache it reads its own), and the
+    partial output projection is summed over ``model``.  ``spec``, the
+    layout of a cache of K/V, may split it by sequence: a decode step's
+    q (of every head, all-gathered over ``model``) then reads the rank's
+    positions, the partial reads merged by log-sum-exp in rank order
+    (``collectives.lse_merge``), and the rank's heads leave through its
+    part of ``wo``."""
+    tp = shd.split(params, "wq", 1)
+    seq = _seq_axes(spec)
+    if tp:
+        params, x = shd.tp_local(params), C.copy_to(x, "model")
     q = _proj(x, params["wq"], cfg.cdtype)
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-    return attend_full(params, cfg, q, enc_k, enc_v, "attn", causal=False)
+    if seq:
+        h = q.shape[2]
+        if tp:
+            q = C.all_gather(q, 2, "model")
+        valid = torch.ones((1, enc_k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = C.lse_merge(*_partial_read(q, enc_k, enc_v, valid), seq,
+                          mesh=shd.ambient_mesh())
+        out = out.reshape(q.shape[:3] + (-1,)).to(cfg.cdtype)
+        if tp:
+            out = out.narrow(2, shd.axis_index("model") * h, h)
+        y = _out_proj(out, params["wo"], cfg.cdtype)
+    else:
+        enc_k, enc_v = _rank_kv(params, cfg, q, enc_k, enc_v)
+        y = attend_full(params, cfg, q, enc_k, enc_v, "attn", causal=False)
+    return C.reduce_from(y, "model") if tp else y
+
+
+def _seq_axes(spec) -> tuple:
+    """The axes (of size > 1) that split the sequence (dimension 1) of a
+    (B, S, ·) cache leaf under ``spec`` (none without one)."""
+    if spec is None:
+        return ()
+    return tuple(a for a in shd._entry_axes(spec[1])
+                 if shd.ambient_axis_size(a) > 1)
 
 
 def encoder_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor):
     """The cross-attention's K and V (B, S_enc, KV, D) of the encoder
-    output, in the compute dtype (no RoPE)."""
+    output, in the compute dtype (no RoPE).  On a mesh whose ``model``
+    splits ``wk``/``wv`` by heads, those of this rank's kv heads."""
     dt = cfg.cdtype
+    if shd.split(params, "wk", 1):
+        params = shd.tp_local(params)
+        enc_out = C.copy_to(enc_out, "model")
     k = _proj(enc_out, params["wk"], dt)
     v = _proj(enc_out, params["wv"], dt)
     if cfg.qk_norm:
@@ -588,8 +640,7 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
         if tp:
             q = C.all_gather(q, 2, "model")
     kc, vc = cache["k"], cache["v"]
-    seq = tuple(a for a in shd._entry_axes(spec[1])
-                if shd.ambient_axis_size(a) > 1)
+    seq = _seq_axes(spec)
     size = kc.shape[1] * shd.ambient_axis_size(seq)
     first = shd.local_range(spec, 1, size, mesh)[0]
     j = first + torch.arange(kc.shape[1], device=x.device)
@@ -647,8 +698,7 @@ def _mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     q_nope, q_rope, ckv_new, krope_new = _mla_project(params, cfg, x,
                                                       positions)
     ckv, krope = cache["ckv"], cache["krope"]
-    seq = tuple(a for a in shd._entry_axes(spec[1])
-                if shd.ambient_axis_size(a) > 1)
+    seq = _seq_axes(spec)
     S = ckv.shape[1] * shd.ambient_axis_size(seq)
     if pos >= S:
         raise IndexError(f"position {pos} past a cache of {S}")

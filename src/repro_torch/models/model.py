@@ -56,12 +56,17 @@ takes ``global_batch``, the rows of every rank) and the cache, laid out
 by ``sharding.cache_shardings`` of the whole cache: ``prefill`` returns
 this rank's shards carrying their specs (``sharding.mesh_view``), which
 ``decode_step`` reads.  The logits come back with their vocabulary
-whole (``batch_pspec((B, V))``).  The dense, MoE and MLA attention
-families run on a mesh, deepseek's multi-token prediction too (its
-``proj`` a partial product where ``model`` splits it, its block through
-``block_full``'s mesh paths, its NLL vocabulary-parallel); the recurrent
-mixers, the encoder-decoder and MLA under ``seq_parallel_attn`` raise
-``NotImplementedError`` naming their ROADMAP item
+whole (``batch_pspec((B, V))``).  Every family runs on a mesh:
+deepseek's multi-token prediction too (its ``proj`` a partial product
+where ``model`` splits it, its block through ``block_full``'s mesh paths,
+its NLL vocabulary-parallel), the recurrent mixers on their own mesh
+paths with their states laid out by ``sharding.state_pspec``
+(``models.recurrent``), and the encoder-decoder: the frontend projection
+split by d_model and gathered, the encoder, the decoder and the
+cross-attention over heads, ``enc_kv`` under ``cache_shardings`` (split
+by sequence at 1,024 frames or more where the batch is not split, read
+through a log-sum-exp merge at decode).  MLA under ``seq_parallel_attn``
+raises ``NotImplementedError`` naming its ROADMAP item
 (``check_mesh_support``).
 
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
@@ -70,6 +75,7 @@ Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Dict, NamedTuple, Optional
@@ -252,18 +258,12 @@ def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
 
 def check_mesh_support(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not yet run on
-    a mesh of more than one device (ROADMAP A10-rest.3)."""
-    what = None
-    if cfg.is_encdec:
-        what = "the encoder-decoder"
-    elif cfg.use_mla and cfg.seq_parallel_attn:
-        what = "MLA under seq_parallel_attn"
-    elif any(k in T.REC_KINDS for k in cfg.layer_pattern):
-        what = "the recurrent mixers"
-    if what is not None:
+    a mesh of more than one device: MLA under ``seq_parallel_attn``
+    (ROADMAP A10-rest.3)."""
+    if cfg.use_mla and cfg.seq_parallel_attn:
         raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh of more than one device is "
-            f"ROADMAP A10-rest.3")
+            f"{cfg.name}: MLA under seq_parallel_attn on a mesh of more "
+            f"than one device is ROADMAP A10-rest.3")
 
 
 def _check_mesh(cfg: ModelConfig) -> None:
@@ -417,13 +417,17 @@ def _serving_rows(cfg: ModelConfig, local: int,
 def _cache_rows(cfg: ModelConfig, cache: dict) -> tuple:
     """The axes that split the batch rows of a cache of shards carrying
     their specs (``sharding.shard_cache``, a prefill's output): the batch
-    entry of its first layer's leaves."""
-    section, r, i, _ = T.layer_slots(cfg)[0]
-    specs = getattr(T._entry(cache, section, r, i), "specs", None)
+    entry of its first layer's leaves (of the encoder-decoder's self
+    cache, whose batch is its second dimension)."""
+    if cfg.is_encdec:
+        specs, b = getattr(cache["self"], "specs", None), 1
+    else:
+        section, r, i, _ = T.layer_slots(cfg)[0]
+        specs, b = getattr(T._entry(cache, section, r, i), "specs", None), 0
     if not specs:
         raise ValueError("a decode cache on a mesh carries its specs "
                          "(sharding.shard_cache, or a prefill's output)")
-    return tuple(a for a in shd._entry_axes(next(iter(specs.values()))[0])
+    return tuple(a for a in shd._entry_axes(next(iter(specs.values()))[b])
                  if shd.ambient_axis_size(a) > 1)
 
 
@@ -542,6 +546,8 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     frames = torch.as_tensor(frames, device=device)
     with torch.profiler.record_function(ENCODE_RANGE):
         x = frames.to(dt) @ L.as_compute(params["frontend_proj"], dt)
+        if shd.split(params, "frontend_proj", 1):
+            x = C.gather(x, -1, "model")
         S = x.shape[1]
         x = x + _sinusoid(S, cfg.d_model, device).to(dt)[None]
         positions = torch.arange(S, device=device)
@@ -551,17 +557,20 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
 
 
 def _dec_layers(params: dict):
-    """(self-attention block, cross-attention params) per decoder layer."""
-    return [(rep[0], xp) for rep, xp in zip(params["decoder"]["scanned"],
-                                            params["xattn"])]
+    """(self-attention block, cross-attention params) per decoder layer;
+    on a mesh the cross-attention's FSDP-split weights are gathered as
+    its layer comes (``sharding.materialize``)."""
+    return ((rep[0], shd.materialize(xp)) for rep, xp in zip(
+        params["decoder"]["scanned"], params["xattn"]))
 
 
 def _cross(xp: dict, cfg: ModelConfig, h: torch.Tensor, ek: torch.Tensor,
-           ev: torch.Tensor) -> torch.Tensor:
-    """h + the cross-attention of norm(h) against the encoder K/V."""
+           ev: torch.Tensor, spec=None) -> torch.Tensor:
+    """h + the cross-attention of norm(h) against the encoder K/V (a cache
+    shard laid out by ``spec`` on a mesh)."""
     with torch.profiler.record_function(CROSS_RANGE):
         xnorm = L.rmsnorm(xp["xnorm"], h, cfg.norm_eps)
-        return h + A.cross_attention(xp["xattn"], cfg, xnorm, ek, ev)
+        return h + A.cross_attention(xp["xattn"], cfg, xnorm, ek, ev, spec)
 
 
 def _dec_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -588,12 +597,17 @@ def _encdec_hidden(params: dict, cfg: ModelConfig, batch: dict
 
 def _encdec_forward(params: dict, batch: dict, *, cfg: ModelConfig):
     h = _encdec_hidden(params, cfg, batch)
-    return (L.unembed(params["embed"], cfg, h),
+    return (_logits(params, cfg, h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _encdec_loss(params: dict, batch: dict, *, cfg: ModelConfig):
+    """The mean CE over the labels ≥ 0; on a mesh this rank's share of it
+    (``_mesh_nll``) and its global value."""
     h = _encdec_hidden(params, cfg, batch)
+    if shd.mesh_active():
+        share, ce = _mesh_nll(params, cfg, h, _labels(batch, h.device))
+        return share, {"ce": ce, "loss": ce}
     ce = softmax_xent(L.unembed(params["embed"], cfg, h),
                       _labels(batch, h.device))
     return ce, {"ce": ce, "loss": ce}
@@ -607,46 +621,87 @@ def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
     """Encode the frames; prime the decoder's self-attention cache with the
     prompt tokens; project each layer's cross-attention K/V once, into the
     cache.  Returns (the last position's logits, cache).  The decoder has
-    no landmark layer, so ``landmark_draws``, ``generator`` and
-    ``global_batch`` (taken as the LM's prefill takes them) are unused."""
+    no landmark layer, so ``landmark_draws`` and ``generator`` are unused.
+
+    On a mesh the rows are this rank's (``global_batch`` the rows of
+    every rank, as the LM's prefill takes them) and the cache is this
+    rank's shards under ``sharding.cache_shardings`` of the whole cache,
+    carrying their specs: the self cache as an attention layer lays its
+    own out, the encoder K/V, computed by each rank for its heads, moved
+    to a split by sequence in one all-to-all where the layout says so."""
     _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
     positions = torch.arange(x.shape[1], device=x.device)
-    cache = _encdec_cache(cfg, x.shape[0], max_len, x.device,
-                          enc_len=enc_out.shape[1])
-    ek_all, ev_all = cache["enc_kv"]
-    for i, (sb, xp) in enumerate(_dec_layers(params)):
-        x, c = T.block_prefill(sb, dcfg, "attn", x, positions, max_len)
-        cache["self"]["k"][i].copy_(c["k"])
-        cache["self"]["v"][i].copy_(c["v"])
-        del c
-        ek, ev = A.encoder_kv(xp["xattn"], cfg, enc_out)
-        ek_all[i].copy_(ek)
-        ev_all[i].copy_(ev)
-        del ek, ev
-        x = _cross(xp, cfg, x, ek_all[i], ev_all[i])
+    S_enc, specs, on_rows = enc_out.shape[1], None, contextlib.nullcontext()
+    if shd.mesh_active():
+        B, axes = _serving_rows(cfg, x.shape[0], global_batch)
+        mesh, on_rows = shd.ambient_mesh(), shd.use_rows(axes)
+        whole = _encdec_cache(cfg, B, max_len, "meta", enc_len=S_enc)
+        specs = shd.cache_shardings(whole, mesh)
+        cache = shd.map_with_path(lambda _, t: torch.zeros(
+            t.shape, dtype=t.dtype, device=x.device),
+            shd.shard_tree(whole, specs, mesh))
+    else:
+        cache = _encdec_cache(cfg, x.shape[0], max_len, x.device,
+                              enc_len=S_enc)
+    self_spec = None if specs is None else {
+        n: _layer_spec(specs["self"][n]) for n in ("k", "v")}
+    with on_rows:
+        for i, (sb, xp) in enumerate(_dec_layers(params)):
+            x, c = T.block_prefill(sb, dcfg, "attn", x, positions, max_len,
+                                   spec=self_spec)
+            cache["self"]["k"][i].copy_(c["k"])
+            cache["self"]["v"][i].copy_(c["v"])
+            del c
+            ek, ev = A.encoder_kv(xp["xattn"], cfg, enc_out)
+            x = _cross(xp, cfg, x, ek, ev)
+            split = shd.split(xp["xattn"], "wk", 1)
+            for t, dst, spec in zip((ek, ev), cache["enc_kv"], (
+                    (None, None) if specs is None else specs["enc_kv"])):
+                dst[i].copy_(t if spec is None else A._cache_layout(
+                    t, _layer_spec(spec), split))
+            del ek, ev
     h = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, h)[:, 0], cache
+    logits = _logits(params, cfg, h)[:, 0]
+    return logits, (cache if specs is None else shd.mesh_view(cache, specs))
+
+
+def _layer_spec(spec) -> shd.Spec:
+    """A per-layer spec of a stacked cache leaf's (its first entry, the
+    decoder layers, dropped)."""
+    return shd.Spec(spec[1:])
 
 
 def _encdec_decode(params: dict, cache: dict, tokens, pos: int, *,
                    cfg: ModelConfig):
     """One decoder token: each layer's self-attention reads and updates
     its slice of the self cache in place (the full-cache decode read),
-    then attends across to the cached encoder K/V."""
+    then attends across to the cached encoder K/V.  On a mesh the cache
+    is this rank's shards carrying their specs (a prefill's output): each
+    layer reads its slices under them (``attention.attention_decode``,
+    ``attention.cross_attention``)."""
     _check_mesh(cfg)
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
                                               _device(params)))
     ek_all, ev_all = cache["enc_kv"]
-    for i, (sb, xp) in enumerate(_dec_layers(params)):
-        c = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
-        x, _ = T.block_decode(sb, dcfg, "attn", x, c, int(pos))
-        x = _cross(xp, cfg, x, ek_all[i], ev_all[i])
+    self_specs = getattr(cache["self"], "specs", None)
+    enc_spec, on_rows = None, contextlib.nullcontext()
+    if shd.mesh_active():
+        on_rows = shd.use_rows(_cache_rows(cfg, cache))
+        enc_spec = _layer_spec(cache["enc_kv"].specs[0])
+    with on_rows:
+        for i, (sb, xp) in enumerate(_dec_layers(params)):
+            c = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
+            if self_specs:
+                c = shd.MeshParams(c, {n: _layer_spec(self_specs[n])
+                                       for n in c})
+            x, _ = T.block_decode(sb, dcfg, "attn", x, c, int(pos))
+            x = _cross(xp, cfg, x, ek_all[i], ev_all[i], enc_spec)
     h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, h)[:, 0], cache
+    return _logits(params, cfg, h)[:, 0], cache
 
 
 def _encdec_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,

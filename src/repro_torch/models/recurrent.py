@@ -48,6 +48,17 @@ out of place and never from a CUDA graph (``_slstm_loop_grad``); the
 mLSTM's chunk loop differentiates as it is.  Serving, grad mode on or
 off, keeps the in-place forms and their bits.
 
+On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``)
+each mixer reads its weights as the reference's rules lay them out
+(``_leaf``: whole, or the rank's part of one dimension; ``_matmul``: a
+weight split by rows as partial sums) and keeps its decode state as
+``sharding.state_pspec`` lays it out, the rule ``cache_shardings`` gives
+those leaves.  No collective runs inside a time loop: the RG-LRU runs its
+part of the width (its state's split), the mLSTM and the sLSTM their
+heads where ``model`` divides them; the exchanges come before and after
+the loops, and at decode once a layer a token.  A prefill's state moves
+to its layout once (``_relayout``).
+
 The reference has no Pallas kernel for any of this; these are torch ops.
 The recurrences run inside ``torch.profiler.record_function`` ranges
 (``SCAN_RANGE``, ``SLSTM_RANGE``) so a profile can class their kernels.
@@ -60,6 +71,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _out_proj, _proj
 from repro_torch.models.layers import as_compute
@@ -83,6 +96,74 @@ COMPUTE_WEIGHTS = {
     "slstm": ("wo_proj",),
 }
 _GATES = ("z", "i", "f", "o")
+
+
+# ===========================================================================
+# reading weights on a mesh
+# ===========================================================================
+
+def _leaf(params: dict, key: str, dim: Optional[int] = None) -> torch.Tensor:
+    """``params[key]`` whole, or (``dim``) with this rank's part of
+    dimension ``dim`` over ``model``, whatever split the weight has: a
+    dimension split elsewhere is all-gathered first.  The gradient comes
+    back to the weight's own layout (a part scattered from a whole weight
+    all-gathers its gradient; a gathered weight takes its part).  On one
+    device ``params[key]``."""
+    t = params[key]
+    have = shd.split_dim(params, key)
+    if have == dim:
+        return t
+    if have is not None:
+        t = C.gather(t, have, "model")
+    return t if dim is None else C.scatter(t, dim, "model")
+
+
+def _matmul(params: dict, key: str, x: torch.Tensor, dt, x_part: bool,
+            out_part: bool) -> torch.Tensor:
+    """x @ ``params[key]`` (n, ...) flattened to 2-D, for x that holds its
+    whole last dimension or (``x_part``) this rank's part of it over
+    ``model``; the product whole or (``out_part``) this rank's part of
+    its last dimension.  A weight split by rows gives partial sums,
+    summed over ``model`` (all-reduce, or reduce-scatter to the part);
+    any other weight is read whole.  On one device x @ w."""
+    if shd.split(params, key, 0):
+        w = as_compute(params[key], dt)
+        w = w.reshape(w.shape[0], -1)
+        if not x_part:
+            x = C.scatter(x, -1, "model")
+        y = x @ w
+        return C.scatter_sum(y, -1, "model") if out_part \
+            else C.reduce_from(y, "model")
+    w = as_compute(_leaf(params, key), dt)
+    w = w.reshape(w.shape[0], -1)
+    if x_part:
+        x = C.gather(x, -1, "model")
+    y = x @ w
+    return C.scatter(y, -1, "model") if out_part else y
+
+
+def _state_dim(shape) -> Optional[int]:
+    """The dimension of a recurrent state leaf of ``shape`` that ``model``
+    splits on the ambient mesh (``sharding.state_pspec``), or None."""
+    if not shd.mesh_active():
+        return None
+    d = shd._model_dim(shd.state_pspec(tuple(shape), shd.ambient_mesh()))
+    return None if d < 0 else d
+
+
+def _relayout(t: torch.Tensor, have: Optional[int],
+              want: Optional[int]) -> torch.Tensor:
+    """A state computed split over ``model`` on dimension ``have`` (None:
+    whole) laid out split on ``want``: a part taken, an all-gather, or one
+    all-to-all (``collectives.move_split``).  Forward only (serving)."""
+    if have == want:
+        return t
+    if have is None:
+        n = t.shape[want] // shd.ambient_axis_size("model")
+        return t.narrow(want, shd.axis_index("model") * n, n).contiguous()
+    if want is None:
+        return C.all_gather(t, have, "model")
+    return C.move_split(t, have, want, "model").contiguous()
 
 
 # ===========================================================================
@@ -122,12 +203,22 @@ def _causal_conv_full(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _rglru_gates(params: dict, cfg: ModelConfig, u: torch.Tensor):
-    """u: (..., w) post-conv input -> (log_a, b) of the recurrence, f32."""
+def _w_part(cfg: ModelConfig) -> bool:
+    """Does each rank run its part of the RG-LRU's width on the ambient
+    mesh?  Where ``model`` splits the width of its state
+    (``sharding.state_pspec``)."""
+    return _state_dim((1, cfg.lru_width or cfg.d_model)) == 1
+
+
+def _rglru_gates(params: dict, cfg: ModelConfig, u: torch.Tensor,
+                 part: bool = False):
+    """u: (..., w) post-conv input -> (log_a, b) of the recurrence, f32;
+    with ``part``, u and the outputs are this rank's part of the width."""
     dt = cfg.cdtype
-    r = torch.sigmoid(u @ as_compute(params["w_a"], dt)).to(_F32)
-    i = torch.sigmoid(u @ as_compute(params["w_i"], dt)).to(_F32)
-    log_a = -_RGLRU_C * F.softplus(params["lam"]) * r
+    r = torch.sigmoid(_matmul(params, "w_a", u, dt, part, part)).to(_F32)
+    i = torch.sigmoid(_matmul(params, "w_i", u, dt, part, part)).to(_F32)
+    lam = _leaf(params, "lam", 0 if part else None)
+    log_a = -_RGLRU_C * F.softplus(lam) * r
     del r
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * u.to(_F32))
@@ -209,11 +300,22 @@ def rglru_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
                   ) -> Tuple[torch.Tensor, dict]:
     """(y, state): the full pass and the state after its last token — the
     scan's last h, and the last K − 1 pre-conv inputs (zeros before the
-    first token when S < K − 1)."""
+    first token when S < K − 1).
+
+    On a mesh whose ``model`` splits the width of the state (``_w_part``)
+    each rank runs its part W_r of the width: the products of x (whole)
+    by ``w_x`` and ``w_gate`` and of u (its part) by ``w_a`` and ``w_i``
+    are reduce-scattered to W_r where the weights are split by rows (the
+    reference's rules split all five by their first dimension), the conv
+    and the scan run on W_r alone with ``conv_k`` and ``lam`` read there,
+    and (h·gate)[W_r] @ ``w_out``[W_r] is summed over ``model``.  The
+    state is W_r's."""
     dt = cfg.cdtype
     B, S, _ = x.shape
-    u_in = x @ as_compute(params["w_x"], dt)                 # pre-conv
-    u = _causal_conv_full(u_in, as_compute(params["conv_k"], dt))
+    part = _w_part(cfg)
+    u_in = _matmul(params, "w_x", x, dt, False, part)        # pre-conv
+    u = _causal_conv_full(u_in, as_compute(
+        _leaf(params, "conv_k", 1 if part else None), dt))
     K = cfg.rglru_conv_width
     conv = (F.pad(u_in, (0, 0, max(K - 1 - S, 0), 0))[:, -(K - 1):]
             if K > 1 else u_in[:, :0]).contiguous()
@@ -222,15 +324,17 @@ def rglru_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
     h_last = None
     with torch.profiler.record_function(SCAN_RANGE):
         for s0 in range(0, S, SCAN_CHUNK):
-            log_a, b = _rglru_gates(params, cfg, u[:, s0:s0 + SCAN_CHUNK])
+            log_a, b = _rglru_gates(params, cfg, u[:, s0:s0 + SCAN_CHUNK],
+                                    part)
             h = linear_scan(log_a, b, h_last)
             del log_a, b
             h_last = h[:, -1].clone()
             hb[:, s0:s0 + SCAN_CHUNK] = h.to(dt)
             del h
     del u
-    gate = F.gelu(x @ as_compute(params["w_gate"], dt), approximate="tanh")
-    y = (hb * gate) @ as_compute(params["w_out"], dt)
+    gate = F.gelu(_matmul(params, "w_gate", x, dt, False, part),
+                  approximate="tanh")
+    y = _matmul(params, "w_out", hb * gate, dt, part, False)
     return y, {"h": h_last, "conv": conv}
 
 
@@ -248,16 +352,21 @@ def init_rglru_state(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 def rglru_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  state: dict) -> Tuple[torch.Tensor, dict]:
-    """x: (B, 1, d)."""
+    """x: (B, 1, d).  On a mesh as ``rglru_prefill``: the state is this
+    rank's part of the width, and the token's products move as the full
+    pass's do (four reduce-scatters and one all-reduce a layer)."""
     dt = cfg.cdtype
+    part = _w_part(cfg)
     xt = x[:, 0]
-    gate = F.gelu(xt @ as_compute(params["w_gate"], dt), approximate="tanh")
-    u_new = xt @ as_compute(params["w_x"], dt)                # (B, w)
+    gate = F.gelu(_matmul(params, "w_gate", xt, dt, False, part),
+                  approximate="tanh")
+    u_new = _matmul(params, "w_x", xt, dt, False, part)       # (B, w)
     hist = torch.cat([state["conv"], u_new[:, None]], dim=1)  # (B, K, w)
-    u = torch.einsum("bkw,kw->bw", hist, as_compute(params["conv_k"], dt))
-    log_a, b = _rglru_gates(params, cfg, u)
+    u = torch.einsum("bkw,kw->bw", hist, as_compute(
+        _leaf(params, "conv_k", 1 if part else None), dt))
+    log_a, b = _rglru_gates(params, cfg, u, part)
     h = torch.exp(log_a) * state["h"] + b
-    y = (h.to(dt) * gate) @ as_compute(params["w_out"], dt)
+    y = _matmul(params, "w_out", h.to(dt) * gate, dt, part, False)
     state["h"], state["conv"] = h, hist[:, 1:]
     return y[:, None], state
 
@@ -280,15 +389,31 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig,
             "wog": dense((d, h, hd)), "wo": dense((h, hd, d))}
 
 
-def _mlstm_proj(params: dict, cfg: ModelConfig, x: torch.Tensor):
+def _mlstm_heads(params: dict) -> bool:
+    """Does each rank run its own mLSTM heads on the ambient mesh?  Where
+    ``model`` splits ``wq`` by heads (it divides them); otherwise the
+    mixer runs whole on every rank, its split weights gathered."""
+    return shd.split(params, "wq", 1)
+
+
+def _mlstm_proj(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                heads: bool = False):
+    """q, k, v, the log gates and the output gate of x; with ``heads``
+    those of this rank's heads, every weight read there (``_leaf``: the
+    heads of ``wq``/``wk``/``wv``, ``wi``/``wf`` split on d all-gathered
+    first, ``wog`` and ``bf`` whole)."""
     dt = cfg.cdtype
-    q = _proj(x, params["wq"], dt) * (cfg.head_dim ** -0.5)
-    k = _proj(x, params["wk"], dt)
-    v = _proj(x, params["wv"], dt)
+    dim = 1 if heads else None
+    if heads:
+        x = C.copy_to(x, "model")
+    q = _proj(x, _leaf(params, "wq", dim), dt) * (cfg.head_dim ** -0.5)
+    k = _proj(x, _leaf(params, "wk", dim), dt)
+    v = _proj(x, _leaf(params, "wv", dim), dt)
     x32 = x.to(_F32)
-    li = x32 @ params["wi"]                                   # log input gate
-    lf = F.logsigmoid(x32 @ params["wf"] + params["bf"])      # log forget
-    og = torch.sigmoid(_proj(x, params["wog"], dt))
+    li = x32 @ _leaf(params, "wi", dim)                       # log input gate
+    lf = F.logsigmoid(x32 @ _leaf(params, "wf", dim)
+                      + _leaf(params, "bf", 0 if heads else None))
+    og = torch.sigmoid(_proj(x, _leaf(params, "wog", dim), dt))
     return q, k, v, li, lf, og
 
 
@@ -326,19 +451,20 @@ def _mlstm_chunk(carry, qch, kch, vch, lich, lfch):
     return h, (C_new, n_new, m_new)
 
 
-def mlstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
-                  ) -> Tuple[torch.Tensor, dict]:
-    """(y, state): the full pass and its carry (C, n, m) at the last
-    chunk."""
+def _mlstm_run(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """(y, the carry (C, n, m) at the last chunk, heads): the full pass,
+    on this rank's heads where ``_mlstm_heads`` (the output projection's
+    partial sums summed over ``model``)."""
     B, S, _ = x.shape
     Lc = min(cfg.mlstm_chunk, S)
     if S % Lc:
         raise ValueError(
             f"mLSTM takes a sequence length that is a multiple of its chunk: "
             f"S = {S}, mlstm_chunk = {cfg.mlstm_chunk}")
-    q, k, v, li, lf, og = _mlstm_proj(params, cfg, x)
+    heads = _mlstm_heads(params)
+    q, k, v, li, lf, og = _mlstm_proj(params, cfg, x, heads)
     q, k, v = (t.to(_F32) for t in (q, k, v))
-    state = init_mlstm_state(cfg, B, x.device)
+    state = _mlstm_zero(B, q.shape[2], cfg.head_dim, x.device)
     carry = (state["C"], state["n"], state["m"])
     hs = torch.empty(q.shape, dtype=_F32, device=x.device)
     with torch.profiler.record_function(SCAN_RANGE):
@@ -348,39 +474,107 @@ def mlstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
                                             v[:, sl], li[:, sl], lf[:, sl])
     del q, k, v
     out = hs.to(cfg.cdtype) * og
-    y = _out_proj(out, params["wo"], cfg.cdtype)
-    return y, dict(zip(("C", "n", "m"), carry))
+    y = _out_proj(out, _leaf(params, "wo", 0 if heads else None), cfg.cdtype)
+    return (C.reduce_from(y, "model") if heads else y), carry, heads
+
+
+def _mlstm_dims(cfg: ModelConfig) -> tuple:
+    """The dimensions of C, n and m that ``model`` splits on the ambient
+    mesh (``sharding.state_pspec``): C and n on their key dimension (2)
+    where head_dim is ≥ 128 and divisible, else None."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    return (_state_dim((1, H, hd, hd)), _state_dim((1, H, hd)),
+            _state_dim((1, H)))
+
+
+def mlstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, dict]:
+    """(y, state): the full pass and its carry (C, n, m) at the last
+    chunk.  On a mesh the carry of the rank's heads moves to the state's
+    layout once (C and n split on their key dimension: one all-to-all
+    each; whole: an all-gather)."""
+    y, carry, heads = _mlstm_run(params, cfg, x)
+    have = 1 if heads else None
+    return y, {name: _relayout(t, have, want) for name, t, want in zip(
+        ("C", "n", "m"), carry, _mlstm_dims(cfg))}
 
 
 def mlstm_full(params: dict, cfg: ModelConfig, x: torch.Tensor
                ) -> torch.Tensor:
-    return mlstm_prefill(params, cfg, x)[0]
+    return _mlstm_run(params, cfg, x)[0]
+
+
+def _mlstm_zero(batch: int, heads: int, hd: int, device=None) -> dict:
+    return {"C": torch.zeros((batch, heads, hd, hd), dtype=_F32,
+                             device=device),
+            "n": torch.zeros((batch, heads, hd), dtype=_F32, device=device),
+            "m": torch.full((batch, heads), -1e30, dtype=_F32,
+                            device=device)}
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    H, hd = cfg.n_heads, cfg.head_dim
-    return {"C": torch.zeros((batch, H, hd, hd), dtype=_F32, device=device),
-            "n": torch.zeros((batch, H, hd), dtype=_F32, device=device),
-            "m": torch.full((batch, H), -1e30, dtype=_F32, device=device)}
+    return _mlstm_zero(batch, cfg.n_heads, cfg.head_dim, device)
+
+
+def _mlstm_step(q, k, v, li, lf, C_, n_, m_):
+    """One decode step's recurrence from (C, n, m): (num, q·n, the new
+    state), f32.  q/k/v (B, H, hd), li/lf (B, H)."""
+    m_new = torch.maximum(lf + m_, li)
+    decay = torch.exp(lf + m_ - m_new)
+    src = torch.exp(li - m_new)
+    C_ = decay[..., None, None] * C_ + src[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_ = decay[..., None] * n_ + src[..., None] * k
+    num = torch.einsum("bhk,bhkv->bhv", q, C_)
+    return num, torch.einsum("bhk,bhk->bh", q, n_), (C_, n_, m_new)
 
 
 def mlstm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  state: dict) -> Tuple[torch.Tensor, dict]:
-    q, k, v, li, lf, og = _mlstm_proj(params, cfg, x)         # S = 1
+    """One token.  On a mesh with C split on its key dimension each rank
+    updates its key block of every head: the rank's heads' q, k, v and
+    gates are all-gathered (one exchange), q·C and q·n are partial sums
+    over the key dimension, all-reduced once; the rank's heads leave
+    through its part of ``wo``, summed over ``model``.  With the state
+    whole, a rank's heads step their slice of it and the new slices are
+    all-gathered."""
+    heads = _mlstm_heads(params)
+    q, k, v, li, lf, og = _mlstm_proj(params, cfg, x, heads)   # S = 1
     q, k, v = (t[:, 0].to(_F32) for t in (q, k, v))
     li, lf, og = li[:, 0], lf[:, 0], og[:, 0]
-    m_new = torch.maximum(lf + state["m"], li)
-    decay = torch.exp(lf + state["m"] - m_new)
-    src = torch.exp(li - m_new)
-    C = decay[..., None, None] * state["C"] + src[..., None, None] * (
-        k[..., :, None] * v[..., None, :])
-    n = decay[..., None] * state["n"] + src[..., None] * k
-    num = torch.einsum("bhk,bhkv->bhv", q, C)
-    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, n)),
-                        torch.exp(-m_new))
+    h_loc = q.shape[1]
+    first = shd.axis_index("model") * h_loc if heads else 0
+    if _mlstm_dims(cfg)[0] is not None:        # C split by its key dim
+        if heads:
+            hd = q.shape[-1]
+            packed = C.all_gather(torch.cat([q, k, v, li[..., None],
+                                             lf[..., None]], -1), 1, "model")
+            q, k, v = packed[..., :hd], packed[..., hd:2 * hd], \
+                packed[..., 2 * hd:3 * hd]
+            li, lf = packed[..., 3 * hd], packed[..., 3 * hd + 1]
+        kb = state["C"].shape[2]
+        k0 = shd.axis_index("model") * kb
+        num, qn, (C_, n_, m_) = _mlstm_step(
+            q[..., k0:k0 + kb], k[..., k0:k0 + kb], v, li, lf, state["C"],
+            state["n"], state["m"])
+        summed = C.all_reduce(torch.cat([num, qn[..., None]], -1), "model")
+        num, qn = summed[..., :-1], summed[..., -1]
+        num, qn = num[:, first:first + h_loc], qn[:, first:first + h_loc]
+        m_mine = m_[:, first:first + h_loc]
+    else:
+        part = [t[:, first:first + h_loc] for t in (state["C"], state["n"],
+                                                   state["m"])]
+        num, qn, (C_, n_, m_) = _mlstm_step(q, k, v, li, lf, *part)
+        m_mine = m_
+        if heads:
+            C_, n_, m_ = (C.all_gather(t, 1, "model") for t in (C_, n_, m_))
+    den = torch.maximum(torch.abs(qn), torch.exp(-m_mine))
     h = (num / den[..., None]).to(cfg.cdtype) * og
-    y = torch.einsum("bhk,hkd->bd", h, as_compute(params["wo"], cfg.cdtype))
-    state["C"], state["n"], state["m"] = C, n, m_new
+    y = torch.einsum("bhk,hkd->bd", h, as_compute(
+        _leaf(params, "wo", 0 if heads else None), cfg.cdtype))
+    if heads:
+        y = C.reduce_from(y, "model")
+    state["C"], state["n"], state["m"] = C_, n_, m_
     return y[:, None], state
 
 
@@ -404,14 +598,47 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _slstm_weights(params: dict):
-    """The four gates' input weights side by side, (d, 4·H·hd), and their
-    recurrent weights per head, (H, hd, 4·hd), in f32."""
-    H, hd = params["rz"].shape[:2]
-    w = torch.cat([params[f"w{n}"].to(_F32).reshape(-1, H, 1, hd)
-                   for n in _GATES], dim=2)                   # (d, H, 4, hd)
-    r = torch.cat([params[f"r{n}"].to(_F32) for n in _GATES], dim=2)
-    return w.reshape(w.shape[0], -1), r
+def _slstm_weights(params: dict, w_dim: Optional[int] = None,
+                   r_dim: Optional[int] = None):
+    """The four gates' input weights side by side, (d, 4·H·hd) laid out
+    (d, H, 4, hd), and their recurrent weights per head, (H, hd, 4·hd), in
+    f32; on a mesh with this rank's part of dimension ``w_dim`` of the
+    input weights and ``r_dim`` of the recurrent ones (``_leaf``)."""
+    ws = [_leaf(params, f"w{n}", w_dim).to(_F32) for n in _GATES]
+    d, H, hd = ws[0].shape
+    w = torch.cat([t.reshape(d, H, 1, hd) for t in ws], dim=2)
+    r = torch.cat([_leaf(params, f"r{n}", r_dim).to(_F32) for n in _GATES],
+                  dim=2)
+    return w.reshape(d, -1), r
+
+
+def _slstm_heads(cfg: ModelConfig) -> bool:
+    """Does each rank run its own sLSTM heads on the ambient mesh (its
+    ``model`` divides them)?"""
+    tp = shd.ambient_axis_size("model")
+    return tp > 1 and cfg.n_heads % tp == 0
+
+
+def _slstm_proj(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                heads: bool = False):
+    """(the four gates' input projections of x (..., d), (..., H', 4·hd)
+    f32, the recurrent weights (H', hd, 4·hd), bf (H', 1, hd)): every
+    head, or (``heads``) this rank's.  Where ``model`` splits the gates'
+    input weights by rows (d), the partial products are summed once:
+    reduce-scattered to the rank's heads, or all-reduced."""
+    rows = all(shd.split(params, f"w{n}", 0) for n in _GATES)
+    dim = 0 if heads else None
+    w, r = _slstm_weights(params, 0 if rows else (1 if heads else None), dim)
+    bf = _leaf(params, "bf", dim)[:, None]
+    if rows:
+        y = (C.scatter(x.to(_F32), -1, "model") @ w).unflatten(
+            -1, (cfg.n_heads, -1))
+        y = C.scatter_sum(y, -2, "model") if heads \
+            else C.reduce_from(y, "model")
+        return y, r, bf
+    if heads:
+        x = C.copy_to(x, "model")
+    return (x.to(_F32) @ w).unflatten(-1, (-1, 4 * cfg.head_dim)), r, bf
 
 
 def _slstm_step(x_proj: torch.Tensor, r: torch.Tensor, bf: torch.Tensor,
@@ -511,18 +738,20 @@ def _state_bh(state: tuple) -> dict:
             for k, v in zip(("c", "n", "h", "m"), state)}
 
 
-def slstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
-                  ) -> Tuple[torch.Tensor, dict]:
-    """(y, state): the full pass and its last step's state."""
+def _slstm_run(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    """(y, the last state (c, n, h, m) laid out (H', B, hd), heads): the
+    full pass, on this rank's heads where ``_slstm_heads`` (the gates'
+    projections reduce-scattered to them before the loop, ``r*``, ``bf``
+    and ``wo_proj`` read at them, the output's partial sums summed over
+    ``model`` after it)."""
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    w, r = _slstm_weights(params)
+    heads = _slstm_heads(cfg)
+    proj, r, bf = _slstm_proj(params, cfg, x, heads)
+    H, hd = proj.shape[2], cfg.head_dim
     # every token's input projections at once, laid out (S, H, B, 4·hd) so
     # each step's (H, B, 4·hd) slab is contiguous for baddbmm
-    proj = (x.to(_F32) @ w).view(B, S, H, 4 * hd).permute(1, 2, 0, 3)
-    proj = proj.contiguous()
-    bf = params["bf"][:, None]                                # (H, 1, hd)
-    state = _state_hb(init_slstm_state(cfg, B, x.device))
+    proj = proj.permute(1, 2, 0, 3).contiguous()
+    state = _state_hb(_slstm_zero(B, H, hd, x.device))
     with torch.profiler.record_function(SLSTM_RANGE):
         if _records(x, *params.values()):
             # training: no in-place write, no CUDA graph (a replay records
@@ -535,32 +764,57 @@ def slstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
                                        SLSTM_GRAPH_STEPS)
             else:
                 state = _slstm_loop(proj, r, bf, state, hs, 0, S)
-    y = _out_proj(hs.permute(2, 0, 1, 3).to(cfg.cdtype), params["wo_proj"],
-                  cfg.cdtype)
-    return y, _state_bh(state)
+    y = _out_proj(hs.permute(2, 0, 1, 3).to(cfg.cdtype),
+                  _leaf(params, "wo_proj", 0 if heads else None), cfg.cdtype)
+    return (C.reduce_from(y, "model") if heads else y), state, heads
+
+
+def slstm_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, dict]:
+    """(y, state): the full pass and its last step's state, on a mesh
+    moved from the rank's heads to the state's layout once (split on
+    head_dim: one all-to-all a leaf; whole: an all-gather)."""
+    y, state, heads = _slstm_run(params, cfg, x)
+    want = _state_dim((1, cfg.n_heads, cfg.head_dim))
+    return y, {k: _relayout(t, 1 if heads else None, want)
+               for k, t in _state_bh(state).items()}
 
 
 def slstm_full(params: dict, cfg: ModelConfig, x: torch.Tensor
                ) -> torch.Tensor:
-    return slstm_prefill(params, cfg, x)[0]
+    return _slstm_run(params, cfg, x)[0]
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    H, hd = cfg.n_heads, cfg.head_dim
-    z = torch.zeros((batch, H, hd), dtype=_F32, device=device)
+def _slstm_zero(batch: int, heads: int, hd: int, device=None) -> dict:
+    z = torch.zeros((batch, heads, hd), dtype=_F32, device=device)
     return {"c": z, "n": torch.full_like(z, 1e-6), "h": z.clone(),
             "m": torch.full_like(z, -1e30)}
 
 
+def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    return _slstm_zero(batch, cfg.n_heads, cfg.head_dim, device)
+
+
 def slstm_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  state: dict) -> Tuple[torch.Tensor, dict]:
-    w, r = _slstm_weights(params)
-    x_proj = (x[:, 0].to(_F32) @ w).view(x.shape[0], cfg.n_heads, -1)
-    state.update(_state_bh(_slstm_step(x_proj.transpose(0, 1), r,
-                                       params["bf"][:, None],
-                                       _state_hb(state))))
-    y = torch.einsum("bhk,hkd->bd", state["h"].to(cfg.cdtype),
-                     as_compute(params["wo_proj"], cfg.cdtype))
+    """One token, every head on every rank.  On a mesh the gates' input
+    products are all-reduced where their weights are split by rows, and a
+    state split on head_dim is all-gathered once (its four leaves in one
+    exchange); each rank keeps its part of the new state."""
+    x_proj, r, bf = _slstm_proj(params, cfg, x[:, 0])         # (B, H, 4·hd)
+    sdim = _state_dim((1, cfg.n_heads, cfg.head_dim))
+    names = ("c", "n", "h", "m")
+    if sdim is None:
+        now = state
+    else:
+        whole = C.all_gather(torch.stack([state[k] for k in names]), 3,
+                             "model")
+        now = dict(zip(names, whole.unbind(0)))
+    new = _state_bh(_slstm_step(x_proj.transpose(0, 1), r, bf,
+                                _state_hb(now)))
+    y = torch.einsum("bhk,hkd->bd", new["h"].to(cfg.cdtype),
+                     as_compute(_leaf(params, "wo_proj"), cfg.cdtype))
+    state.update({k: _relayout(t, None, sdim) for k, t in new.items()})
     return y[:, None], state
 
 

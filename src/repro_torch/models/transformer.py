@@ -31,6 +31,10 @@ A recurrent block's cache entry is its mixer's decode state (RG-LRU
 Prefill takes it from the mixer's full pass (``recurrent.*_prefill``); the
 reference's per-token decode scan over the prompt is kept as
 ``_rec_prefill_state``, the oracle.  mLSTM and sLSTM blocks have no MLP.
+On a mesh the recurrent mixers run their own mesh paths
+(``models.recurrent``) and lay their states out by
+``sharding.state_pspec``, the rule ``cache_shardings`` gives those leaves:
+the entry a recurrent block returns and takes is this rank's shard.
 """
 from __future__ import annotations
 
@@ -127,7 +131,11 @@ def _encoder_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
                        positions: torch.Tensor) -> torch.Tensor:
     """Bidirectional self-attention (the encoder-decoder's encoder): q, k,
     v rotated at ``rope_theta`` as any self-attention's, one non-causal
-    flash-attention call, no window."""
+    flash-attention call, no window.  On a mesh whose ``model`` splits the
+    heads, each rank's heads (``attention._attention_tp``)."""
+    if shd.split(params, "wq", 1):
+        return A._attention_tp(params, cfg, x, positions, "attn",
+                               causal=False)
     q, k, v = A._qkv(params, cfg, x, positions, cfg.rope_theta)
     return A.attend_full(params, cfg, q, k, v, "attn", causal=False)
 

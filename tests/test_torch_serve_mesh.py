@@ -639,27 +639,21 @@ def test_cli_serves_deepseek_on_a_mesh(runs):
     assert parts[0].shape == tserve.main(DS_CLI).shape
 
 
-@pytest.mark.parametrize("arch", ["mla-seq-parallel", "xlstm-125m",
-                                  "recurrentgemma-2b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["mla-seq-parallel"])
 def test_the_families_left_out_refuse_a_serving_mesh(arch):
-    """The recurrent mixers and the encoder-decoder say so on a mesh of
-    more than one device, before any rank is set up; MLA under
-    ``seq_parallel_attn`` (no shipped config sets it) at its prefill on a
-    mesh, before any collective."""
+    """MLA under ``seq_parallel_attn`` (no shipped config sets it) says so
+    at its prefill on a mesh, before any collective.  (The recurrent
+    families and the encoder-decoder serve on a mesh:
+    ``tests/test_torch_rec_mesh.py``.)"""
+    cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
+                              seq_parallel_attn=True)
+    model = TM.build_model(cfg)
     with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        if arch == "mla-seq-parallel":
-            cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
-                                      seq_parallel_attn=True)
-            model = TM.build_model(cfg)
-            with shd.use_mesh({"data": 1, "model": 2}):
-                model.prefill(model.init(torch.Generator().manual_seed(0),
-                                         "cpu"),
-                              {"tokens": torch.zeros((1, 8),
-                                                     dtype=torch.int64)},
-                              8)
-        else:
-            tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                         "--mesh", "1x2"])
+        with shd.use_mesh({"data": 1, "model": 2}):
+            model.prefill(model.init(torch.Generator().manual_seed(0),
+                                     "cpu"),
+                          {"tokens": torch.zeros((1, 8),
+                                                 dtype=torch.int64)}, 8)
 
 
 # ---------------------------------------------------------------------------

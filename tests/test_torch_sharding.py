@@ -18,7 +18,9 @@ patched, in this process only, to hand back the ``PartitionSpec``).
 - **Caches**: ``cache_shardings`` over each arch's SMOKE decode cache at B
   1 and 32 and S 256, 1,024 and 32,768 (the 2e9-byte branch crossed by
   the shapes alone); a per-layer cache leaf against the reference's
-  stacked one (first entry dropped, and that entry unsplit).
+  stacked one (first entry dropped, and that entry unsplit); a recurrent
+  state's leaf against the reference's through the kept difference C11
+  (``c11_state``: the rows over the data axes, not the layer reps).
 - **``_opt_shardings``**: each arch's default optimizer state (adamw;
   adafactor for deepseek) and adafactor's on yi-6b against the
   reference's.
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -112,9 +115,38 @@ def _stacks(cfg, path) -> bool:
     return cfg.scan_layers
 
 
-def compare(port_tree, ref_tree, cfg, port_shapes=None, ref_shapes=None):
+def c11_state(want: tuple, stacked: bool, shape: tuple, mesh) -> tuple:
+    """The port's spec of a recurrent state leaf of ``shape`` from the
+    reference's (ROADMAP C11): the reference's stacked first entry (the
+    layer reps, which it may put on the data axes) dropped; the data axes
+    taken off every dimension and put on the rows where ``batch_pspec``
+    splits a batch of that many; ``model`` where the reference puts it,
+    and on the widest of the other dimensions where the reference's data
+    axes took it (a batch of one) and ``model`` fits it from 128 on."""
+    want = list(want[1:] if stacked else want)
+    data = set(shd.data_axes(mesh))
+    took = [d for d, e in enumerate(want)
+            if d and data & set(shd._entry_axes(e))]
+    out = []
+    for e in want:
+        axes = tuple(a for a in shd._entry_axes(e) if a not in data)
+        out.append(axes[0] if len(axes) == 1 else (axes or None))
+    rows = shd.batch_pspec((shape[0],), mesh)[0]
+    out[0] = norm((rows,))[0] if shape[0] > 1 and rows is not None \
+        and math.prod(mesh[a] for a in shd._entry_axes(rows)) > 1 else None
+    widest = max(range(1, len(shape)), key=lambda d: shape[d])
+    if widest in took and shape[widest] >= 128 \
+            and shape[widest] % mesh.get("model", 1) == 0 \
+            and mesh.get("model", 1) > 1:
+        out[widest] = "model"
+    return tuple(out)
+
+
+def compare(port_tree, ref_tree, cfg, port_shapes=None, ref_shapes=None,
+            mesh=None):
     """Every port leaf's spec against its reference leaf's (first entry
-    dropped where stacked); the shapes too when given."""
+    dropped where stacked; a recurrent state's through ``c11_state`` on
+    ``mesh``); the shapes too when given."""
     ref = ref_leaves(ref_tree)
     rshape = ref_leaves(ref_shapes) if ref_shapes is not None else None
     pshape = dict(shd.leaves_with_path(port_shapes)) \
@@ -124,7 +156,10 @@ def compare(port_tree, ref_tree, cfg, port_shapes=None, ref_shapes=None):
         rp, stacked = ref_path(path, _stacks(cfg, path))
         assert rp in ref, (path, rp)
         want = norm(ref[rp])
-        if stacked and want:
+        if mesh is not None and shd._is_state(path):
+            want = c11_state(want, stacked and bool(want),
+                             tuple(pshape[path].shape), mesh)
+        elif stacked and want:
             assert want[0] is None, (path, want)
             want = want[1:]
         assert norm(spec) == want, (path, norm(spec), want)
@@ -207,7 +242,7 @@ def test_cache_specs_match_reference(arch):
             for mesh in PROD + SMALL[:1]:
                 got = shd.cache_shardings(tc, mesh)
                 want = jshd.cache_shardings(jc, FakeMesh(mesh))
-                compare(got, want, tcfg, tc, jc)
+                compare(got, want, tcfg, tc, jc, mesh)
 
 
 def test_full_caches_cross_the_byte_branch():
@@ -227,7 +262,7 @@ def test_full_caches_cross_the_byte_branch():
             jc = jax.eval_shape(lambda: jm.cache_shape(32, 32_768))
         for mesh in PROD:
             got = shd.cache_shardings(tc, mesh)
-            compare(got, shd_ref(jc, mesh), tcfg, tc, jc)
+            compare(got, shd_ref(jc, mesh), tcfg, tc, jc, mesh)
             crossed += sum(
                 1 for path, spec in shd.leaves_with_path(got)
                 if path[-1] in ("k", "v") and len(spec) == 4

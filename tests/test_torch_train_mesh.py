@@ -737,20 +737,13 @@ def test_a_preemption_on_one_rank_stops_every_rank(runs):
     assert runs["port"]["cli/stop_none"] is False
 
 
-@pytest.mark.parametrize("arch", ["mla-seq-parallel", "xlstm-125m",
-                                  "recurrentgemma-2b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["mla-seq-parallel"])
 def test_the_families_left_out_refuse_a_mesh(arch):
-    """The recurrent mixers and the encoder-decoder say so on a mesh of
-    more than one device, before any rank is set up; so does MLA under
-    ``seq_parallel_attn`` (no shipped config sets it), as the train step
-    is made."""
+    """MLA under ``seq_parallel_attn`` (no shipped config sets it) says
+    so as the train step is made.  (The recurrent families and the
+    encoder-decoder train on a mesh: ``tests/test_torch_rec_mesh.py``.)"""
+    cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
+                              seq_parallel_attn=True)
     with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        if arch == "mla-seq-parallel":
-            cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
-                                      seq_parallel_attn=True)
-            steps.make_train_step(TM.build_model(cfg),
-                                  make_optimizer("adamw"),
-                                  mesh={"data": 1, "model": 2}, specs={})
-        else:
-            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                         "--steps", "1", "--mesh", "1x2"])
+        steps.make_train_step(TM.build_model(cfg), make_optimizer("adamw"),
+                              mesh={"data": 1, "model": 2}, specs={})
