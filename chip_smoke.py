@@ -293,14 +293,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
    prefill ms and decode ms a token a rank, peak, B6 a prefill (all on
    the tensor cores, none at decode), the collectives of a decode step
    and of a prefill and their ms in ``mesh.collective``;
+11d. dryrun: (a) ``launch.dryrun.run_cell`` on the host for gemma3-12b
+   x train_4k, gemma3-12b x long_500k and deepseek-v3-671b x decode_32k
+   on (16, 16) and qwen2-moe-a2.7b x prefill_32k on (2, 16, 16): each
+   ``format_table`` row and the kernels each cell reaches; (b) on a (1, 1)
+   mesh, train_gemma3's cell (6 layers, 2 x 4,096, accum 1, remat full),
+   a gemma3 landmark decode at serve_gemma3's size (12 layers, 2 x
+   32,768) and B5 through ``landmark_decode`` (m = 16 and 4,096), each
+   traced on ``meta`` and run on the card under the same recorder: FLOPs
+   in all and op by op, the recorder's bytes and op calls equal, the
+   custom-op calls equal the launches, the predicted peak above the
+   arguments within 10 % of ``max_memory_allocated`` above the base, the
+   step ms beside compute and memory ms under ``H100_SXM``; (c)
+   train_mesh's yi-6b TP (1, 2) cell dry-run on a fake 2-rank group:
+   each collective kind's count and result bytes equal rank 0's a step
+   on the card;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the nineteen paths (every count reset just before
+   own path and on each of the twenty paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
    launches, B4) also carries ``roofline``: the port's
    ``achieved_vs_roofline`` of its work under the H100 profile of its
    precision (``repro_torch.launch.roofline``), beside the route's bound;
+   B5's and B6's ``work_roofline``: their FLOP formulas
+   (``landmark_flops``, ``flash_flops``) and bytes at the line's shape
+   against its ms;
 13. the card line again, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -358,6 +376,7 @@ from repro_torch.kernels.rbf_sketch import ops as rbf_ops  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import serve_kernel as sk_launch  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
@@ -5094,7 +5113,8 @@ def _mesh_bf16_steps(tag: str, cfg, mesh, B: int, S: int, seed: int,
         losses.append(float(m["loss"]))
     launches = read_counts()
     stats = {k: {"count": v["count"] / n_steps,
-                 "bytes": v["bytes"] / n_steps}
+                 "bytes": v["bytes"] / n_steps,
+                 "result_bytes": v["result_bytes"] / n_steps}
              for k, v in coll.STATS.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
     check(b6 == [{"flash_attention": b6_per_step,
@@ -6105,6 +6125,207 @@ def phase_serve_mesh(tmesh: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry run on the host, and its counts held against the card
+# ---------------------------------------------------------------------------
+
+#: (a) the production cells dry-run on the host: (arch, shape, multi_pod)
+DRY_CELLS = (("gemma3-12b", "train_4k", False),
+             ("gemma3-12b", "long_500k", False),
+             ("deepseek-v3-671b", "decode_32k", False),
+             ("qwen2-moe-a2.7b", "prefill_32k", True))
+#: (b) the B5 read traced and run through ``landmark_decode``: queries
+DRY_READ_M = (ATT_DECODE_M, 4096)
+#: (b) the predicted peak above the step's arguments against the card's
+TOL_DRY_PEAK = 0.10
+
+
+def _dry_diff(traced: dict, ran: dict, key: str) -> dict:
+    """The entries of ``traced[key]`` and ``ran[key]`` that differ."""
+    a, b = traced[key], ran[key]
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)}
+
+
+def _dry_card(tag: str, fn, meta_args, card_args, *, memory: bool,
+              tokens: int) -> dict:
+    """``fn`` traced on ``meta_args`` and run on the card on ``card_args``
+    (after a warm-up run): a timed plain run (step ms, the peak above the
+    memory allocated before it, the kernels' launches), then a run under
+    the recorder and the FLOP counter, whose FLOPs (in all and op by
+    op), recorded bytes, calls and custom-op calls must equal the
+    trace's; the custom-op calls must equal the launches."""
+    traced = dry.trace_step(fn, meta_args)
+    fn(*card_args)                                     # warm-up
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    fn(*card_args)
+    _sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    c1 = read_counts()
+    ran = dry.trace_step(fn, card_args)
+    c2 = read_counts()
+    plain = {k: c1[k] - c0[k] for k in c0}
+    recorded = {k: c2[k] - c1[k] for k in c0}
+    for key in ("flops_by_op", "hbm_by_op", "calls", "kernels", "coll"):
+        check(traced[key] == ran[key], f"dryrun {tag}: the trace's {key} "
+              f"differ from the card's: {_dry_diff(traced, ran, key)}")
+    for key in ("flops", "hbm", "hlo_bytes"):
+        check(traced[key] == ran[key], f"dryrun {tag}: {key} traced "
+              f"{traced[key]} vs card {ran[key]}")
+    calls = {"flash_attention": traced["kernels"].get(
+                 "repro_torch::flash_attention", 0),
+             "landmark_read": traced["kernels"].get(
+                 "repro_torch::landmark_read", 0)}
+    for k, n in calls.items():
+        check(plain[k] == recorded[k] == n, f"dryrun {tag}: {k} calls in "
+              f"the trace {n}, launches on the card {plain[k]} (plain run) "
+              f"and {recorded[k]} (recorded run)")
+    prof = roofline.H100_SXM
+    res = {"flops": traced["flops"], "hbm_bytes": traced["hbm"],
+           "hlo_bytes": traced["hlo_bytes"], "kernel_calls": calls,
+           "launches": plain, "step_ms": step_ms,
+           "compute_ms": traced["flops"] / prof.peak_flops * 1e3,
+           "memory_ms": traced["hbm"] / prof.hbm_bw * 1e3,
+           "profile": prof.name, "trace_s": traced["seconds"],
+           "tokens": tokens}
+    if memory:
+        pred = traced["peak_bytes"] - traced["args_bytes"]
+        res.update(predicted_peak_above_args=pred, card_peak_above_base=peak,
+                   args_bytes=traced["args_bytes"],
+                   peak_gap=(peak - pred) / peak)
+        check(abs(peak - pred) <= TOL_DRY_PEAK * peak,
+              f"dryrun {tag}: predicted peak above the arguments "
+              f"{pred / 1e9:.4f} GB vs the card's {peak / 1e9:.4f} GB "
+              f"(limit {TOL_DRY_PEAK:.0%})")
+    log(f"dryrun {tag}: trace = card: {traced['flops'] / 1e12:.4f} TFLOP, "
+        f"{traced['hbm'] / 1e9:.3f} GB memory-real ({traced['hlo_bytes'] / 1e9:.3f} "
+        f"GB every op), {sum(traced['calls'].values())} ops, kernel calls "
+        f"{calls} = launches; step {step_ms:.2f} ms on the card beside "
+        f"compute {res['compute_ms']:.2f} ms and memory "
+        f"{res['memory_ms']:.2f} ms under {prof.name}"
+        + (f"; peak above the arguments predicted "
+           f"{res['predicted_peak_above_args'] / 1e9:.4f} GB, card "
+           f"{peak / 1e9:.4f} GB ({res['peak_gap']:+.2%})" if memory else ""))
+    return res
+
+
+def phase_dryrun(tmesh: dict) -> dict:
+    """(a) ``launch.dryrun.run_cell`` on the host for ``DRY_CELLS``; (b)
+    the trace held against the card on a (1, 1) mesh: train_gemma3's cell
+    (6 layers, 2 x 4,096 tokens, accum 1) and a gemma3 landmark decode at
+    serve_gemma3's size (12 layers, 2 x 32,768), each traced on ``meta``
+    and run on the card, and B5 through ``landmark_decode`` (no LM cell
+    reaches it: the model's landmark decode reads in einsums, as the
+    reference's); (c) train_mesh's yi-6b TP (1, 2) cell dry-run on a fake
+    2-rank group against rank 0's collectives a step on the card."""
+    from repro_torch.configs import ShapeConfig
+    t0 = time.perf_counter()
+    check(not torch.distributed.is_initialized(),
+          "dryrun: the main process holds a process group")
+    rows, cells = [], {}
+    for arch, shape, multi in DRY_CELLS:
+        rec = dry.run_cell(arch, shape, multi)
+        rows.append(rec)
+        cells[f"{arch} {shape} {rec['mesh']}"] = {
+            k: rec[k] for k in ("kind", "bytes_per_chip", "compute_s",
+                                "memory_s", "collective_s", "bottleneck",
+                                "useful_flops_frac", "kernels", "accum",
+                                "compile_full_s", "compile_extrap_s")}
+    log("dryrun (a): the dry run on the host\n" + roofline.format_table(rows)
+        + "\n" + "\n".join(f"  {k}: kernels {v['kernels']}"
+                            for k, v in cells.items()))
+    host_s = time.perf_counter() - t0
+
+    reset_counts()
+    card = {}
+    with dry.fake_world("1x1") as mesh:
+        tcfg = dataclasses.replace(train_config(), remat="full")
+        tshape = ShapeConfig("train_gemma3", TRAIN_SEQ, TRAIN_BATCH, "train")
+        cell = tsteps.build_cell(tcfg, tshape, mesh, accum=1)
+        card["train_gemma3"] = _dry_card(
+            "train_gemma3", cell.step_fn, tsteps.local_args(cell, mesh),
+            dry.concrete_args(cell, DEV, seed=71), memory=True,
+            tokens=TRAIN_SEQ * TRAIN_BATCH)
+        check(card["train_gemma3"]["kernel_calls"]["flash_attention"]
+              == 2 * TRAIN_LAYERS, f"dryrun: train_gemma3's cell should "
+              f"launch B6 {2 * TRAIN_LAYERS} times (forward + recompute)")
+        del cell
+        _free()
+        dshape = ShapeConfig("serve_gemma3", SERVE_CONTEXT, SERVE_BATCH,
+                             "decode")
+        cell = tsteps.build_cell(serve_config(), dshape, mesh)
+        card["decode_gemma3"] = _dry_card(
+            "decode_gemma3", cell.step_fn, tsteps.local_args(cell, mesh),
+            dry.concrete_args(cell, DEV, seed=72), memory=True,
+            tokens=SERVE_BATCH)
+        del cell
+        _free()
+    d, c = ATT_D, ATT_C
+    for m in DRY_READ_M:
+        g = gen(73 + m)
+        st = tsa.LandmarkState(
+            k_land=torch.randn(c, d, generator=g, device=DEV) * d ** -0.25,
+            UV=torch.randn(c, d, generator=g, device=DEV),
+            U1=torch.rand(c, generator=g, device=DEV) + 0.5,
+            scale=torch.tensor(1.0, device=DEV))
+        q = torch.randn(m, d, generator=g, device=DEV) * d ** -0.25
+        meta = (tsa.LandmarkState(*(t.to("meta") for t in st)),
+                q.to("meta"))
+        card[f"landmark_read m={m}"] = r = _dry_card(
+            f"landmark_read m={m}", tsa.landmark_decode, meta, (st, q),
+            memory=False, tokens=m)
+        check(r["kernel_calls"]["landmark_read"] == 1,
+              f"dryrun: landmark_decode at m = {m} should launch B5 once")
+    launches = read_counts()
+
+    from repro_torch.distributed import collectives as coll
+    want = tmesh["dense"]["1x2"]["collectives_per_step"][0]
+    with dry.fake_world("1x2") as mesh:
+        cell = tsteps.build_cell(
+            mesh_dense_config(),
+            ShapeConfig("train_mesh", MESH_SEQ, 1, "train"), mesh, accum=1)
+        got = dry.trace_step(cell.step_fn, tsteps.local_args(cell, mesh),
+                             count_flops=False)
+    mesh_coll = {}
+    for kind, hlo in coll.HLO_KIND.items():
+        w = want.get(kind, {"count": 0, "result_bytes": 0})
+        mesh_coll[hlo] = {"dry_count": got["coll_calls"][hlo],
+                          "card_count": w["count"],
+                          "dry_result_bytes": got["coll"][hlo],
+                          "card_result_bytes": w["result_bytes"]}
+        check(got["coll_calls"][hlo] == w["count"]
+              and got["coll"][hlo] == w["result_bytes"],
+              f"dryrun (c): {hlo} dry run {got['coll_calls'][hlo]} calls, "
+              f"{got['coll'][hlo]} result bytes; train_mesh rank 0 a step "
+              f"{w['count']}, {w['result_bytes']}")
+    log(f"dryrun (c): yi-6b TP (1, 2) on a fake 2-rank group counts rank "
+        f"0's collectives a step on the card, kind by kind: "
+        f"{json.dumps(mesh_coll)}")
+    res = {"cells": cells, "host_s": host_s, "card": card,
+           "collectives_tp_1x2": mesh_coll, "launches": launches,
+           "s": time.perf_counter() - t0}
+    log(f"dryrun: {res['s']:.1f} s ({host_s:.1f} on the host's dry runs)")
+    return res
+
+
+def _work_roofline(flops: float, nbytes: float, ms: float, prof) -> dict:
+    """A kernel's work (its flop formula, its operands read once and its
+    output written once) against its measured ms under ``prof``."""
+    compute = flops / prof.peak_flops * 1e3
+    memory = nbytes / prof.hbm_bw * 1e3
+    bound = max(compute, memory)
+    return {"flops": flops, "bytes": nbytes, "profile": prof.name,
+            "compute_ms": compute, "memory_ms": memory, "roofline_ms": bound,
+            "bottleneck": "compute" if compute >= memory else "memory",
+            "measured_ms": ms, "achieved_frac": bound / ms,
+            "tflops_per_s": flops / ms / 1e9}
+
+
 def _train_line(grad: dict, g3: dict, moe: dict, rec: dict,
                 par: dict) -> dict:
     """B6's ``train`` entry: the gradient check, attention_vjp beside
@@ -6186,6 +6407,7 @@ def main() -> int:
     tpar = timed(phase_train_parity)
     tmesh = timed(phase_train_mesh)
     smesh = timed(phase_serve_mesh, tmesh)
+    dr = timed(phase_dryrun, tmesh)
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
              "attention_long": att["launches"],
@@ -6200,7 +6422,7 @@ def main() -> int:
              "train_gemma3": tg3["launches"], "train_moe": tmoe["launches"],
              "train_recurrent": trecur["launches"],
              "train_mesh": tmesh["launches"],
-             "serve_mesh": smesh["launches"]}
+             "serve_mesh": smesh["launches"], "dryrun": dr["launches"]}
     for line, key in ((b1, "pairwise_matmat_multi"), (b2, "pairwise_block"),
                       (b4, "pairwise_matmat_multi_slab"),
                       (att["line"], "landmark_read"), (b6, "flash_attention")):
@@ -6298,6 +6520,31 @@ def main() -> int:
                 f"{r['roofline_s'] * 1e3:.5f} ms on {r['profile']} "
                 f"({r['bottleneck']}), measured {r['measured_s'] * 1e3:.4f} "
                 f"ms, achieved_frac {r['achieved_frac']:.4f}")
+    b6["dryrun"] = {k: dr[k] for k in ("cells", "card",
+                                       "collectives_tp_1x2", "host_s", "s")}
+    sh6 = b6["shape"]
+    b6["work_roofline"] = _work_roofline(
+        fa_kernel.flash_flops((sh6["B"], sh6["Hq"], sh6["S"], sh6["D"]),
+                              (sh6["B"], sh6["Hkv"], sh6["S"], sh6["D"]),
+                              (sh6["B"], sh6["Hkv"], sh6["S"], sh6["D"]),
+                              True, None),
+        2 * (2 * sh6["B"] * sh6["Hq"] * sh6["S"] * sh6["D"]
+             + 2 * sh6["B"] * sh6["Hkv"] * sh6["S"] * sh6["D"]),
+        b6["ms"], roofline.H100_SXM)
+    b5 = att["line"]
+    sh5 = b5["shape"]
+    b5["work_roofline"] = _work_roofline(
+        lm_kernel.landmark_flops((sh5["m"], sh5["d"]), (sh5["c"], sh5["d"]),
+                                 (sh5["c"], sh5["dv"])),
+        4 * (sh5["m"] * sh5["d"] + sh5["c"] * (sh5["d"] + sh5["dv"] + 1)
+             + sh5["m"] * sh5["dv"]), b5["ms"], roofline.H100_SXM_TF32)
+    for line in (b5, b6):
+        r = line["work_roofline"]
+        log(f"{line['name']} work roofline: {r['flops'] / 1e12:.4g} TFLOP, "
+            f"{r['bytes'] / 1e9:.4g} GB; {r['roofline_ms']:.4f} ms on "
+            f"{r['profile']} ({r['bottleneck']}), measured "
+            f"{r['measured_ms']:.4f} ms, achieved_frac "
+            f"{r['achieved_frac']:.4f}, {r['tflops_per_s']:.1f} TFLOP/s")
     kernels_line = {"kernels": [b1, b2, b4, att["line"], b6]}
     log(f"seconds by phase: {json.dumps(PHASE_S)}")
     log(f"total {time.perf_counter() - t0:.1f} s")

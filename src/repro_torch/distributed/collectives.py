@@ -46,9 +46,17 @@ rank in the same order.
 Gloo (ranks sharing one card) moves CUDA tensors through host memory.
 Where it refuses a collective on a CUDA tensor, the call is staged
 through pinned host memory here: ``STAGED`` names each such collective.
-Gloo sums bf16 in f32 here, and moves bf16 bits as f16.  Every call runs
-inside the profiler range ``COLLECTIVE_RANGE`` and is counted in
-``STATS`` (calls and payload bytes per kind).
+Gloo sums bf16 in f32 here, and moves bf16 bits as f16.  Under the
+``fake`` backend (``launch.dryrun``) the calls take ``meta`` tensors and
+move nothing.  Every call runs inside the profiler range
+``COLLECTIVE_RANGE`` and is counted in ``STATS``: calls, payload bytes
+(the input's) and ``result_bytes``, the reference dry run's convention
+(``repro.launch.roofline.collective_bytes``: the gathered output of an
+all-gather, the input of a reduce-scatter, else the result), per kind;
+``HLO_KIND`` maps the kinds to the reference's names.  ``LISTENERS`` are
+called with (kind, input, output) on every call (the dry run's op
+recorder).  The groups built for several axes are cached per mesh and
+world (``clear_groups`` drops them).
 """
 from __future__ import annotations
 
@@ -67,11 +75,22 @@ STATS: dict = {}
 #: the collective kinds staged through host memory (gloo on CUDA tensors)
 STAGED: set = set()
 
+#: the reference's HLO opcode of each kind
+HLO_KIND = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+            "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+#: callables ``fn(kind, input, output)`` told of every collective
+LISTENERS: list = []
+
 _GROUPS: dict = {}
 
 
 def reset_stats() -> None:
     STATS.clear()
+
+
+def clear_groups() -> None:
+    """Forget the cached multi-axis groups (their process group is gone)."""
+    _GROUPS.clear()
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -99,6 +118,8 @@ def group_of(axes, mesh=None):
                                                 for a in axes):
         raise ValueError(f"axes {axes} out of the mesh's order {names}")
     key = (id(mesh), axes)
+    if key in _GROUPS and _GROUPS[key][2] is not dist.group.WORLD:
+        del _GROUPS[key]               # built in a world since destroyed
     if key not in _GROUPS:
         perm = [i for i, n in enumerate(names) if n not in axes] \
             + [names.index(a) for a in axes]
@@ -108,14 +129,27 @@ def group_of(axes, mesh=None):
             g = dist.new_group(row)
             if me in row:
                 mine = g
-        _GROUPS[key] = (mesh, mine)
+        _GROUPS[key] = (mesh, mine, dist.group.WORLD)
     return _GROUPS[key][1], size
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
-    s = STATS.setdefault(kind, {"count": 0, "bytes": 0})
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def result_bytes(kind: str, inp: torch.Tensor, out: torch.Tensor) -> int:
+    """A call's bytes by the reference's convention: a reduce-scatter's
+    input (= output × group), else its result."""
+    return _nbytes(inp if kind == "reduce_scatter" else out)
+
+
+def _count(kind: str, inp: torch.Tensor, out: torch.Tensor) -> None:
+    s = STATS.setdefault(kind, {"count": 0, "bytes": 0, "result_bytes": 0})
     s["count"] += 1
-    s["bytes"] += t.numel() * t.element_size()
+    s["bytes"] += _nbytes(inp)
+    s["result_bytes"] += result_bytes(kind, inp, out)
+    for fn in LISTENERS:
+        fn(kind, inp, out)
 
 
 def _gloo(group) -> bool:
@@ -131,7 +165,7 @@ def _run(kind: str, fn, out: torch.Tensor, inp: torch.Tensor, group,
          reduces: bool) -> torch.Tensor:
     """``fn(out, inp, group)``, counted, with gloo's limits worked around:
     bf16 summed in f32 or moved as f16 bits.  Returns ``out``."""
-    _count(kind, inp)
+    _count(kind, inp, out)
     with torch.profiler.record_function(COLLECTIVE_RANGE):
         if _gloo(group) and inp.dtype == torch.bfloat16:
             if reduces:

@@ -77,6 +77,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import TensorSpec
+
 DATA_DIMS = ("pod", "data")
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
@@ -602,11 +604,23 @@ def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def shard_tree(tree, specs, mesh):
-    """This rank's local shards of a param or state tree."""
+    """This rank's local shards of a param or state tree; a shape-only
+    leaf (``TensorSpec``) becomes its local part's."""
     flat = dict(leaves_with_path(specs)) if specs is not None else {}
-    return map_with_path(
-        lambda path, leaf: local_shard(leaf, flat.get(path, ()), mesh)
-        if isinstance(leaf, torch.Tensor) else leaf, tree)
+
+    def one(path, leaf):
+        spec = flat.get(path, ())
+        if isinstance(leaf, torch.Tensor):
+            return local_shard(leaf, spec, mesh)
+        if isinstance(leaf, TensorSpec):
+            return TensorSpec(tuple(
+                n // _axis_size(mesh, axes) if axes else n
+                for n, axes in zip(leaf.shape,
+                                   split_axes(spec, len(leaf.shape), mesh))),
+                leaf.dtype)
+        return leaf
+
+    return map_with_path(one, tree)
 
 
 def local_range(spec, dim: int, size: int, mesh=None) -> Tuple[int, int]:

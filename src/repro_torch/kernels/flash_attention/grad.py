@@ -113,12 +113,11 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def route(q, k, v, causal: bool = True, window: Optional[int] = None
           ) -> torch.Tensor:
-    """B6 by the device of q: the plain version on the CPU, the kernel on
-    the card (which raises on what it does not take)."""
-    if q.device.type == "cpu":
-        return _k.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window)
-    return _k.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    """B6 by the device of q, through the custom op
+    ``repro_torch::flash_attention`` (``kernel.flash_attention_op``): the
+    plain version on the CPU, the kernel on the card (which raises on what
+    it does not take), the output's shape alone on ``meta``."""
+    return _k.flash_attention_op(q, k, v, causal, window)
 
 
 class FlashAttention(torch.autograd.Function):

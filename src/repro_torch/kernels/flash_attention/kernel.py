@@ -27,6 +27,14 @@ feature axis is contiguous; the output takes q's layout.
 where its kernel is launched and nowhere else); ``launch_counts()`` reads
 both.  CPU tensors never reach them: ``ops`` sends them to the plain
 version (``flash_attention_plain``).
+
+``flash_attention_op`` is the custom op ``repro_torch::flash_attention``
+that ``ops`` calls: its CUDA kernel is ``flash_attention_cuda``, its CPU
+kernel the plain version written into the layout the CUDA kernel gives
+(``_out_like``), and its fake kernel that layout alone, so a model traces
+on ``meta`` tensors (``launch.dryrun``).  Its FLOP formula
+(``flash_flops``) counts the (query, key) pairs the mask lets through,
+2·D + 2·Dv FLOPs each, for ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels.flash_attention.ref import \
     attention as flash_attention_plain  # noqa: F401  (the plain version)
@@ -197,3 +206,59 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_tc = 0
+
+
+# ---------------------------------------------------------------------------
+# the custom op: what a dispatcher mode (a FLOP counter, an op recorder, a
+# trace on ``meta``) sees as one call
+# ---------------------------------------------------------------------------
+
+def visible_pairs(Sq: int, Sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs the mask lets through for one (batch, query
+    head): query i sits at key position i + Sk − Sq; causal keeps keys at
+    or before it, ``window`` = w keeps keys less than w behind it."""
+    p = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(Sk, p + 1) if causal else np.full(Sq, Sk, np.int64)
+    lo = np.zeros(Sq, np.int64) if window is None \
+        else np.maximum(0, p - int(window) + 1)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal: bool,
+                window: Optional[int]) -> int:
+    """B6's work: 2·D FLOPs for a pair's score and 2·Dv for its share of
+    the read, over the visible pairs of every (batch, query head)."""
+    B, Hq, Sq, D = q_shape
+    Sk, Dv = k_shape[2], v_shape[3]
+    return B * Hq * visible_pairs(Sq, Sk, causal, window) * (2 * D + 2 * Dv)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int]) -> torch.Tensor:
+    # dispatched by device: the CPU kernel below, the CUDA one after it
+    raise NotImplementedError(f"flash_attention on {q.device}")
+
+
+@flash_attention_op.register_kernel("cpu")
+def _flash_cpu(q, k, v, causal, window):
+    plain = flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _out_like(q, v.shape[3]).copy_(plain)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, causal, window):
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _flash_fake(q, k, v, causal, window):
+    return _out_like(q, v.shape[3])
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.flash_attention)
+def _flash_flop_formula(q_shape, k_shape, v_shape, causal, window, *args,
+                        out_shape=None, **kwargs) -> int:
+    return flash_flops(q_shape, k_shape, v_shape, causal, window)

@@ -44,6 +44,13 @@ route through ``landmark_read_cuda`` or raise — there is no fallback.
 ``landmark_read_cuda.launches`` counts the reads, ``.launches_tc`` and
 ``.launches_split`` each route's (bumped where the route launches and
 nowhere else).
+
+``landmark_read_op`` is the custom op ``repro_torch::landmark_read`` that
+``ops`` calls: its CUDA kernel widens mixed dtypes to f32 and launches
+``landmark_read_cuda``, its CPU kernel is the plain version and its fake
+kernel gives the output's shape alone (a trace on ``meta``).  Its FLOP
+formula (``landmark_flops``) counts the scores, 2·m·c·d, and the read,
+2·m·c·(dv + 1) with the denominator.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels.landmark_attention.ref import inv_sqrt_d
 from repro_torch.kernels.landmark_attention.ref import \
@@ -221,3 +229,55 @@ def reset_launch_counts() -> None:
     landmark_read_cuda.launches = 0
     landmark_read_cuda.launches_tc = 0
     landmark_read_cuda.launches_split = 0
+
+
+# ---------------------------------------------------------------------------
+# the custom op: what a dispatcher mode (a FLOP counter, an op recorder, a
+# trace on ``meta``) sees as one call
+# ---------------------------------------------------------------------------
+
+def landmark_flops(q_shape, k_shape, uv_shape) -> int:
+    """B5's work: the (m, c) scores at 2·d FLOPs each, then P·UV and P·U1
+    at 2·(dv + 1) FLOPs a score."""
+    m, d = q_shape
+    c, dv = k_shape[0], uv_shape[1]
+    return 2 * m * c * d + 2 * m * c * (dv + 1)
+
+
+@torch.library.custom_op("repro_torch::landmark_read", mutates_args=())
+def landmark_read_op(Q: torch.Tensor, k_land: torch.Tensor, UV: torch.Tensor,
+                     U1: torch.Tensor, offset: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    # dispatched by device: the CPU kernel below, the CUDA one after it
+    raise NotImplementedError(f"landmark_read on {Q.device}")
+
+
+@landmark_read_op.register_kernel("cpu")
+def _landmark_cpu(Q, k_land, UV, U1, offset, eps):
+    return landmark_read_plain(Q, k_land, UV, U1, offset, eps)
+
+
+@landmark_read_op.register_kernel("cuda")
+def _landmark_cuda(Q, k_land, UV, U1, offset, eps):
+    out_dtype = Q.dtype
+    f32 = torch.float32
+    if not (Q.dtype == k_land.dtype == UV.dtype
+            and Q.dtype in KERNEL_DTYPES):
+        # the kernel reads one input dtype; widening to f32 is exact and is
+        # what the plain version does to each operand
+        Q, k_land, UV = Q.to(f32), k_land.to(f32), UV.to(f32)
+    return landmark_read_cuda(
+        Q.contiguous(), k_land.contiguous(), UV.contiguous(),
+        U1.to(f32).contiguous(), offset, eps, out_dtype)
+
+
+@landmark_read_op.register_fake
+def _landmark_fake(Q, k_land, UV, U1, offset, eps):
+    return Q.new_empty((Q.shape[0], UV.shape[1]))
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.landmark_read)
+def _landmark_flop_formula(q_shape, k_shape, uv_shape, u1_shape, off_shape,
+                           eps, *args, out_shape=None, **kwargs) -> int:
+    return landmark_flops(q_shape, k_shape, uv_shape)

@@ -2,9 +2,9 @@
 ``repro.kernels.landmark_attention.ops``).
 
 The device of Q picks the route: the plain version on the CPU, the CUDA
-kernel on the card (see ``kernel``).  Any m goes straight to the kernel,
-which masks its own ragged rows: nothing is padded to the TPU's 128-row
-tiles.
+kernel on the card (see ``kernel``), the output's shape alone on
+``meta``.  Any m goes straight to the kernel, which masks its own ragged
+rows: nothing is padded to the TPU's 128-row tiles.
 """
 from __future__ import annotations
 
@@ -20,16 +20,7 @@ def landmark_read(Q: torch.Tensor, k_land: torch.Tensor, UV: torch.Tensor,
                   ) -> torch.Tensor:
     """Attend Q (m, d) to a prebuilt landmark state -> (m, dv) in Q's
     dtype.  ``offset`` is a scalar (a one-element tensor stays on its
-    device, so the read costs no sync)."""
-    if Q.device.type == "cpu":
-        return _k.landmark_read_plain(Q, k_land, UV, U1, offset, eps)
-    out_dtype = Q.dtype
-    if not (Q.dtype == k_land.dtype == UV.dtype
-            and Q.dtype in _k.KERNEL_DTYPES):
-        # the kernel reads one input dtype; widening to f32 is exact and is
-        # what the plain version does to each operand
-        Q, k_land, UV = Q.to(_F32), k_land.to(_F32), UV.to(_F32)
+    device, so the read costs no sync).  One call of the custom op
+    ``repro_torch::landmark_read`` (``kernel.landmark_read_op``)."""
     off = torch.as_tensor(offset, dtype=_F32, device=Q.device).reshape(1)
-    return _k.landmark_read_cuda(
-        Q.contiguous(), k_land.contiguous(), UV.contiguous(),
-        U1.to(_F32).contiguous(), off, eps, out_dtype)
+    return _k.landmark_read_op(Q, k_land, UV, U1, off, eps)

@@ -92,6 +92,7 @@ class Cell(NamedTuple):
     in_shardings: tuple           # spec trees
     out_shardings: Any
     kind: str                     # train | prefill | decode
+    accum: int = 1                # the train step's microbatches
 
 
 def default_optimizer(cfg: ModelConfig):
@@ -362,13 +363,13 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         aopt = opt.init(aparams)
         osh = _opt_shardings(aopt, aparams, psh, mesh)
         bsh = shd.batch_shardings(batch, mesh)
+        accum = accum if accum is not None \
+            else default_accum(cfg, shape, mesh)
         step = make_train_step(
             model, opt, mesh=None if isinstance(mesh, dict) else mesh,
-            specs=psh,
-            accum=accum if accum is not None
-            else default_accum(cfg, shape, mesh))
+            specs=psh, accum=accum)
         return Cell(cfg, shape, model, step, (aparams, aopt, batch),
-                    (psh, osh, bsh), (psh, osh, repl), "train")
+                    (psh, osh, bsh), (psh, osh, repl), "train", accum)
 
     if shape.kind == "prefill":
         max_len = WHISPER_DECODER_LEN if cfg.is_encdec else shape.seq_len
@@ -408,6 +409,36 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 (aparams, acache, tokens, pos),
                 (psh, csh, shd.batch_pspec((B, 1), mesh), repl),
                 (shd.batch_pspec((B, cfg.vocab_size), mesh), csh), "decode")
+
+
+def decode_position(cell: Cell) -> int:
+    """The position a decode cell's step writes: the cache's last (the
+    encoder-decoder's decoder horizon's last)."""
+    return (WHISPER_DECODER_LEN if cell.cfg.is_encdec
+            else cell.shape.seq_len) - 1
+
+
+def local_args(cell: Cell, mesh) -> tuple:
+    """This rank's arguments of ``cell.step_fn`` on ``mesh`` (a
+    ``DeviceMesh``), as ``meta`` tensors: its blocks of the abstract
+    arguments under ``in_shardings``.  The params and the optimizer state
+    are taken by ``sharding.shard_tree`` (the optimizer state's specs are
+    ``_opt_shardings``': adafactor's factored statistics stay whole); a
+    prefill's batch and a decode's cache and tokens by their specs.  A
+    train step is handed the global batch and takes its rows itself
+    (``local_rows``), so its batch stays whole.  A decode step gets a
+    Python int position, ``decode_position``.  On a mesh of one device
+    the arguments are the abstract ones."""
+    args = list(cell.abstract_args)
+    for i, spec in enumerate(cell.in_shardings):
+        if shd.is_trivial(mesh) or (cell.kind == "train" and i == 2):
+            continue
+        args[i] = shd.local_shard(args[i], spec, mesh) \
+            if isinstance(args[i], torch.Tensor) \
+            else shd.shard_tree(args[i], spec, mesh)
+    if cell.kind == "decode":
+        args[3] = decode_position(cell)
+    return tuple(args)
 
 
 def _opt_shardings(aopt, aparams, psh, mesh):

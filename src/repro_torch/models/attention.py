@@ -553,7 +553,7 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     kv, hd = cfg.n_kv_heads, cfg.head_dim
 
     def z(shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return L.filled(shape, dtype, device)
 
     if _is_mla(cfg, kind):
         return {"ckv": z((batch, max_len, cfg.kv_lora_rank)),

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TensorSpec
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shd
 
@@ -36,6 +36,23 @@ _F32 = torch.float32
 def as_compute(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """``w`` in the compute dtype; no copy when it already is."""
     return w if w.dtype == dt else w.to(dt)
+
+
+#: the ``device`` that asks a cache or state builder (``Model.cache_shape``,
+#: ``transformer.stack_cache``) for its leaves' ``TensorSpec`` (shape and
+#: dtype) alone: nothing is made where only the layout is read
+#: (``sharding.cache_shardings``)
+SPECS = "specs"
+
+
+def filled(shape, dtype, device, value: float = 0.0):
+    """A leaf of a fresh cache or state: ``value`` everywhere (zeros by
+    default), or its ``TensorSpec`` on ``SPECS``."""
+    if isinstance(device, str) and device == SPECS:
+        return TensorSpec(tuple(shape), dtype)
+    if value == 0.0:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return torch.full(shape, value, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -317,7 +317,7 @@ def _mtp_hidden(params: dict, cfg: ModelConfig, batch: dict,
 
 def _mtp_labels(batch: dict, device) -> torch.Tensor:
     labels2 = torch.roll(_labels(batch, device), -1, dims=1)
-    labels2[:, -2:] = -1                                     # no target
+    labels2[:, -2:].fill_(-1)                                # no target
     return labels2
 
 
@@ -444,8 +444,8 @@ def _lm_prefill(params: dict, batch: dict, max_len: int, *,
     else:
         B, rows = _serving_rows(cfg, x.shape[0], global_batch)
         mesh = shd.ambient_mesh()
-        specs = shd.cache_shardings(T.stack_cache(cfg, B, max_len, "meta"),
-                                    mesh)
+        specs = shd.cache_shardings(
+            T.stack_cache(cfg, B, max_len, L.SPECS), mesh)
         with shd.use_rows(rows):
             x, caches = T.stack_prefill(params["stack"], cfg, x, positions,
                                         max_len, landmark_draws, generator,
@@ -638,7 +638,7 @@ def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
     if shd.mesh_active():
         B, axes = _serving_rows(cfg, x.shape[0], global_batch)
         mesh, on_rows = shd.ambient_mesh(), shd.use_rows(axes)
-        whole = _encdec_cache(cfg, B, max_len, "meta", enc_len=S_enc)
+        whole = _encdec_cache(cfg, B, max_len, L.SPECS, enc_len=S_enc)
         specs = shd.cache_shardings(whole, mesh)
         cache = shd.map_with_path(lambda _, t: torch.zeros(
             t.shape, dtype=t.dtype, device=x.device),
@@ -709,12 +709,13 @@ def _encdec_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
     """The zero cache: the decoder's self-attention k/v (n_dec_layers, B,
     max_len, KV, D) and the encoder K/V (n_dec_layers, B, enc_len, KV, D),
     in the compute dtype."""
-    device = resolve_device(device)
+    if device != L.SPECS:
+        device = resolve_device(device)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
 
     def z(length):
-        return torch.zeros((cfg.n_dec_layers, batch, length, kv, hd),
-                           dtype=cfg.cdtype, device=device)
+        return L.filled((cfg.n_dec_layers, batch, length, kv, hd),
+                        cfg.cdtype, device)
 
     return {"self": {"k": z(max_len), "v": z(max_len)},
             "enc_kv": (z(enc_len), z(enc_len))}

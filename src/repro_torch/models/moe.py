@@ -182,7 +182,7 @@ def _dispatch_compute(params: dict, cfg: ModelConfig, xf: torch.Tensor,
                                                        xf[tok].to(dt))
     else:
         buf = torch.empty((E * C + 1, d), dtype=dt, device=xf.device)
-        buf[:E * C] = 0
+        buf[:E * C].zero_()
         buf[slot] = xf[tok].to(dt)
     eb = buf[:E * C].view(E, C, d)                             # (E, C, d)
     gate = F.silu(torch.bmm(eb, as_compute(params["wi_gate"], dt)))
@@ -193,7 +193,7 @@ def _dispatch_compute(params: dict, cfg: ModelConfig, xf: torch.Tensor,
         buf = torch.cat([ob.view(E * C, d), ob.new_zeros((1, d))])
     else:                                  # serving reuses the buffer
         buf[:E * C] = ob.view(E * C, d)
-        buf[E * C] = 0                     # a dropped assignment adds 0
+        buf[E * C].zero_()                 # a dropped assignment adds 0
     del ob
     wk = (w.reshape(-1) * keep.to(_F32)).to(dt)
     vals = (buf[slot] * wk[:, None]).view(T, k, d)
@@ -242,7 +242,11 @@ def _moe_gather_mesh(params: dict, cfg: ModelConfig, xf: torch.Tensor):
     w, idx, aux = _route(params, cfg, xf, group_mean=_data_mean)
     offsets = None
     if n > 1:
-        counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+        # a bincount, which has no meta kernel (``launch.dryrun``)
+        flat = idx.reshape(-1).long()
+        counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                             device=idx.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
         every = C.all_gather(counts[None], 0, axes)          # (n, E)
         offsets = torch.sum(every[:shd.axis_index(axes)], dim=0)
     Cap = capacity(cfg, xf.shape[0] * n)

@@ -345,9 +345,9 @@ def rglru_full(params: dict, cfg: ModelConfig, x: torch.Tensor
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     w = cfg.lru_width or cfg.d_model
-    return {"h": torch.zeros((batch, w), dtype=_F32, device=device),
-            "conv": torch.zeros((batch, cfg.rglru_conv_width - 1, w),
-                                dtype=cfg.cdtype, device=device)}
+    return {"h": L.filled((batch, w), _F32, device),
+            "conv": L.filled((batch, cfg.rglru_conv_width - 1, w),
+                             cfg.cdtype, device)}
 
 
 def rglru_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -505,11 +505,9 @@ def mlstm_full(params: dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _mlstm_zero(batch: int, heads: int, hd: int, device=None) -> dict:
-    return {"C": torch.zeros((batch, heads, hd, hd), dtype=_F32,
-                             device=device),
-            "n": torch.zeros((batch, heads, hd), dtype=_F32, device=device),
-            "m": torch.full((batch, heads), -1e30, dtype=_F32,
-                            device=device)}
+    return {"C": L.filled((batch, heads, hd, hd), _F32, device),
+            "n": L.filled((batch, heads, hd), _F32, device),
+            "m": L.filled((batch, heads), _F32, device, -1e30)}
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -786,9 +784,11 @@ def slstm_full(params: dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _slstm_zero(batch: int, heads: int, hd: int, device=None) -> dict:
-    z = torch.zeros((batch, heads, hd), dtype=_F32, device=device)
-    return {"c": z, "n": torch.full_like(z, 1e-6), "h": z.clone(),
-            "m": torch.full_like(z, -1e30)}
+    shape = (batch, heads, hd)
+    return {"c": L.filled(shape, _F32, device),
+            "n": L.filled(shape, _F32, device, 1e-6),
+            "h": L.filled(shape, _F32, device),
+            "m": L.filled(shape, _F32, device, -1e30)}
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -73,7 +73,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
               "repro_torch.launch.train",
               "repro_torch.kernels.flash_attention.grad",
               "repro_torch.launch.mesh",
-              "repro_torch.distributed.collectives"):
+              "repro_torch.distributed.collectives",
+              "repro_torch.launch.dryrun"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
