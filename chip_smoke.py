@@ -13,7 +13,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    instantiation of the tensor-core kernels (``flash_wgmma_kernel``,
    ``pairwise_block_tc``, ``pairwise_matmat_tc``, ``landmark_read_tc``)
    must build with 0 bytes of spills and without ptxas's C7512 note, and
-   the landmark library's other kernels without spills;
+   the landmark library's other kernels without spills; in the same
+   ``build_all`` call, the user variants of the pairwise kernels for the
+   four ``USER_SPECS`` (specs with only a Python ``entry_fn``, lowered to
+   a generated epilogue): B1's and B2's kernels with 0 bytes of spills and
+   no C7512 note, as the built-ins (a variant that spills is refused when
+   it loads);
 3. parity: every kernel against its plain PyTorch version on the card, for
    every registered spec × precision at a ragged shape (plus laplacian with
    a sign-split edge table, and the softmax-Gram ``exp_affine`` spec of
@@ -45,6 +50,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    their tolerances of it; B4 timed alone at rank 1's slab (25,004 ×
    50,000, M = 1,064) against its plain version, and its rows held to B1's
    bit for bit; the carries' all-reduce timed in the ranks;
+4c. user_spec: the reference's custom-kernel story on the card
+   (``USER_SPECS``: cauchy 1/(1 + γ t) on sqdist at the README's γ = 0.5,
+   a rational quadratic on l1dist, a compact ``torch.where`` entry on
+   sqdist and exp(t/16) on dot, none registered; a sqdist variant
+   evaluates Σ(x − y)² directly on the CUDA cores): B1 and B2 of each
+   spec × precision against their plain versions at phase 3's ragged shape
+   (f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 and ≤ 5e-2 of f32), the one-hot gather
+   exact, B4 at phase 3's slabs with its rows equal to B1's; then the main
+   path's three calls with cauchy at n = 50,000 (route ``fused``, the
+   meter's counts and every launch count equal to rbf's run), C against
+   the plain version (≤ 1e-5) and against the f64 entries (≤ 1e-5, beside
+   the plain version's and the tensor-core statistic's distance from
+   them), U against the plain versions' U at the same draws, and B1, B2,
+   B4 at their main-path shapes timed in turns beside rbf (B1 also for the
+   other specs beside rbf or laplacian; B2's panel, which holds each
+   point's pair with itself, against the f64 statistic's entries ≤ 1e-5
+   and against the plain version ≤ 1e-5 unless the plain version lies
+   farther from them), with each user library's nvcc seconds, registers
+   and spills;
 5. attention_long: sketched attention at one (batch, kv-head) of a
    gemma3-12b global layer at ``long_500k`` (``src/repro/configs``:
    context n = 524,288, head_dim 256, landmark_c 512, landmark_theta 4,
@@ -309,7 +333,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    each collective kind's count and result bytes equal rank 0's a step
    on the card;
 12. one JSON line ``{"kernels": [...]}``: per kernel its launches on its
-   own path and on each of the twenty paths (every count reset just before
+   own path and on each of the twenty-one paths (every count reset just before
    the path and read just after it, and checked), time, plain-version
    time, bound, library-call time, error; each pairwise row (B1 f32 and
    bf16_f32acc, the laplacian l1dist launches, B2, B2's statistic-only
@@ -370,7 +394,7 @@ from repro_torch.kernels.landmark_attention import kernel as lm_kernel  # noqa: 
 from repro_torch.kernels.landmark_attention import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.pairwise import build as pw_build  # noqa: E402
 from repro_torch.kernels.pairwise import calibrate  # noqa: E402
-from repro_torch.kernels.pairwise import kernel, signsplit, specs  # noqa: E402
+from repro_torch.kernels.pairwise import kernel, lower, signsplit, specs  # noqa: E402
 from repro_torch.kernels.rbf_sketch import kernel as rbf_kernel  # noqa: E402
 from repro_torch.kernels.rbf_sketch import ops as rbf_ops  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
@@ -756,6 +780,36 @@ class SmokeFailure(AssertionError):
     pass
 
 
+# Specs with only a Python entry_fn, as a user registers them (the
+# reference's README: register cauchy, then PairwiseKernel + fast_model).
+# They are not registered, so phase_parity's registry loop does not see
+# them; phase_build builds their user libraries, phase_user_spec runs them.
+USER_GAMMA = 0.5                         # the README's example
+USER_SPECS = (
+    specs.KernelSpec("cauchy", "sqdist",
+                     lambda t: 1.0 / (1.0 + USER_GAMMA * t),
+                     params=(("gamma", USER_GAMMA),)),
+    # (1 + t / (2 α ℓ))^-α of the l1 distance, α = 2, ℓ = 2: a scale
+    # mixture of laplacians
+    specs.KernelSpec("rational_quadratic", "l1dist",
+                     lambda t: (1.0 + t / 8.0) ** -2.0,
+                     params=(("alpha", 2.0), ("length_scale", 2.0))),
+    specs.KernelSpec("compact", "sqdist",
+                     lambda t: torch.where(t < 40.0, (1.0 - t / 40.0) ** 2,
+                                           torch.zeros_like(t)),
+                     params=(("radius_sq", 40.0),)),
+    # on dot: the tensor-core statistic in a user variant
+    specs.KernelSpec("exponential_dot", "dot",
+                     lambda t: torch.exp(t / 16.0),
+                     params=(("scale", 16.0),)))
+#: each user library's nvcc seconds, registers and spills (phase_build)
+USER_BUILD: dict = {}
+
+
+def user_library(spec):
+    return pw_build.user_library(lower.program_for(spec), spec.stat)
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
@@ -916,10 +970,12 @@ def phase_card() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     libs = tkernels.libraries()
-    kbuild.build_all(libs)
+    user_libs = [user_library(spec) for spec in USER_SPECS]
+    kbuild.build_all([*libs, *user_libs])
     log(f"build: {time.perf_counter() - t0:.1f} s for the {len(libs)} "
-        f"libraries ({', '.join(lib.name for lib in libs)})")
-    for lib in libs:
+        f"libraries ({', '.join(lib.name for lib in libs)}) and "
+        f"{len(user_libs)} user variants of pairwise")
+    for lib in (*libs, *user_libs):
         log(f"  {lib.name}: nvcc {lib.build_seconds()} s -> "
             f"{lib.library_path()}")
         for ln in lib.build_log().splitlines():
@@ -932,6 +988,26 @@ def phase_build() -> None:
         check_wgmma_report(pw_build.LIBRARY.build_log(), name, 10,
                            "dot and sqdist x 2 precisions x 2 k-step "
                            "counts, l1dist x 2 precisions")
+    for spec, lib in zip(USER_SPECS, user_libs):
+        report = lib.build_log()
+        # dot: 2 precisions x 2 k-step counts; sqdist and l1dist: the
+        # l1dist kernels, 2 precisions
+        count = 4 if spec.stat == "dot" else 2
+        for name in ("pairwise_matmat_tc", "pairwise_block_tc"):
+            check_wgmma_report(report, name, count,
+                               f"{spec.stat} x 2 precisions (user variant)")
+        USER_BUILD[spec.name] = {
+            "library": lib.library_path().name, "stat": spec.stat,
+            "nvcc_s": lib.build_seconds(),
+            "registers": {k: max(ptxas_registers(report, k)) for k in (
+                "pairwise_block_tc", "pairwise_matmat_tc")},
+            "spill_bytes": {k: max(ptxas_spills(report, k).values()) for k in (
+                "pairwise_block_tc", "pairwise_matmat_tc")},
+            "entry_instructions": len(lower.program_for(spec).instrs)}
+        log(f"  user variant {spec.name} ({spec.stat}): nvcc "
+            f"{lib.build_seconds()} s, registers "
+            f"{json.dumps(USER_BUILD[spec.name]['registers'])}, spills "
+            f"{USER_BUILD[spec.name]['spill_bytes']} bytes")
     lm_log = lm_build.LIBRARY.build_log()
     check_wgmma_report(lm_log, "landmark_read_tc", 3,
                        "f32 -> f32, f32 -> bf16, bf16 -> bf16")
@@ -960,6 +1036,22 @@ def ptxas_spills(report: str, name: str) -> dict:
         if m and entry:
             spills[entry] += int(m.group(1)) + int(m.group(2))
     return spills
+
+
+def ptxas_registers(report: str, name: str) -> list:
+    """Registers of each entry function of an ``-Xptxas -v`` report whose
+    mangled name contains ``name``, in the report's order."""
+    regs, entry = [], False
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = name in m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            regs.append(int(m.group(1)))
+            entry = False
+    return regs
 
 
 def check_wgmma_report(report: str, name: str, count: int,
@@ -1303,7 +1395,10 @@ def phase_main() -> dict:
     log(f"main path C rows vs plain: fused {e_c:.3g}, columns {e_cl:.3g}")
     return dict(X=X, spec=spec, idx=idx, S=S, Z=Z, launches=launches,
                 times=times, err_h=err_h, err_b=err_b, U=apg.U,
-                err_h_tensor=out["err_h"])
+                err_h_tensor=out["err_h"],
+                counts={k: out[k] for k in ("counts_fused",
+                                            "counts_leverage",
+                                            "counts_blocked")})
 
 
 def phase_scaling() -> None:
@@ -1823,6 +1918,187 @@ def _b2_line(m: dict) -> dict:
             "roofline": work_roofline(spec, b, N, D, 0, ms),
             "roofline_laplacian_l1dist": work_roofline(lap, b, N, D, 0,
                                                        ms_l1)}
+
+
+# ---------------------------------------------------------------------------
+# user-registered specs
+# ---------------------------------------------------------------------------
+
+def _user_parity() -> dict:
+    """B1, B2 and B4 of each user spec × precision against their plain
+    versions at phase_parity's and phase_parity_slab's ragged shapes."""
+    rng = np.random.default_rng(1)
+    nr, nc = 1000, 1500
+    Xr = torch.as_tensor(rng.normal(size=(nr, D)), dtype=torch.float32,
+                         device=DEV)
+    Xc = torch.as_tensor(rng.normal(size=(nc, D)), dtype=torch.float32,
+                         device=DEV)
+    gidx = torch.as_tensor(rng.choice(nc, 37, replace=False), device=DEV)
+    Vs = (sweep_lib.one_hot_columns(gidx, nc, DEV),
+          torch.as_tensor(rng.normal(size=(nc, 129)), dtype=torch.float32,
+                          device=DEV),
+          torch.as_tensor(rng.normal(size=(nc, 16)), dtype=torch.float32,
+                          device=DEV))
+    slabs = ((0, 700), (400, 650), (1100, 700))      # the tail runs past n
+    errs = {}
+    for base in USER_SPECS:
+        for prec in specs.PRECISIONS:
+            spec = base.with_precision(prec)
+            label = f"user {base.name}/{prec}"
+            e = _parity_case(spec, Xr, Xc, Vs, None, label)
+            if prec == "f32":
+                gathered = kernel.pairwise_matmat_multi_cuda(
+                    spec, Xr, Xc, Vs[:1])[0]
+                direct = kernel.pairwise_block_cuda(spec, Xr, Xc[gidx])
+                gap = float((gathered - direct).abs().max())
+                check(gap == 0.0, f"{label}: one-hot gather not exact "
+                                  f"({gap})")
+                e["gather_gap"] = gap
+            e["slab"] = _slab_case(spec, Xc, Vs, slabs, f"B4 {label}")
+            errs[f"{base.name}/{prec}"] = e
+            log(f"parity {label:34s} " + " ".join(
+                f"{k}={v:.3g}" for k, v in e.items()))
+    return errs
+
+
+def _timed_pair(fns: dict, reps: int, warmup: int) -> dict:
+    """ms of each call in ``fns``, in turns a, b, b, a (each the mean of
+    the two turns)."""
+    names = list(fns)
+    order = names + names[::-1]
+    ms = {k: [] for k in names}
+    for k in order:
+        ms[k].append(cuda_ms(fns[k], reps=reps, warmup=warmup)[0])
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def phase_user_spec(m: dict, sh: dict) -> dict:
+    """The reference's custom-kernel story on the card: USER_SPECS through
+    B1, B2 and B4 against their plain versions, then cauchy on the main
+    path at n = 50,000 and the three kernels timed beside rbf."""
+    parity = _user_parity()
+    X, idx, S, Z = m["X"], m["idx"], m["S"], m["Z"]
+    cauchy = USER_SPECS[0]
+    op = CountingOperator(PairwiseKernel(X, cauchy, device=DEV))
+    _main_calls(op, idx, S, Z)                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    times, out = _main_calls(op, idx, S, Z)         # the counted run
+    launches = read_counts()
+    log(f"user_spec main path (cauchy, gamma {USER_GAMMA}): times ms "
+        f"{json.dumps(times)} (rbf {json.dumps(m['times'])})")
+    log(f"user_spec launches {json.dumps(launches)}")
+    check(launches == m["launches"],
+          f"cauchy's launches {launches} != rbf's {m['launches']}")
+    counts = {k: out[k] for k in m["counts"]}
+    check(counts == m["counts"] and out["route_fused"] == "fused"
+          and out["route_blocked"] == "panel",
+          f"cauchy's meter {counts} {out['route_fused']} != rbf's "
+          f"{m['counts']}")
+    apg = out["apg"]
+    err_h, err_b = float(out["err_h"]), float(out["err_b"])
+    check(tuple(apg.U.shape) == (C_COLS, C_COLS)
+          and bool(torch.isfinite(apg.U).all())
+          and bool(torch.isfinite(apg.C).all())
+          and np.isfinite(err_h) and np.isfinite(err_b) and err_b > 0,
+          f"cauchy model: U {tuple(apg.U.shape)}, errors {err_h} {err_b}")
+    # U against the plain versions' U at the same draws: C and K S from
+    # the plain block in row slabs, then the same fast_U
+    slab = 5000
+    C_plain = kernel.pairwise_block_plain(cauchy, X, X[idx])
+    KS_plain = torch.cat([kernel.pairwise_matmat_multi_plain(
+        cauchy, X[r0:r0 + slab], X, (S.mat,))[0]
+        for r0 in range(0, N, slab)])
+    U_plain = spsd.fast_U(S.left(C_plain), S.left(KS_plain))
+    e_c = scaled_err(apg.C, C_plain)
+    e_u = scaled_err(apg.U, U_plain)
+    del KS_plain
+    # C against the entries of the f64 statistic: the kernel's (the user
+    # sqdist variant sums (x - y)^2 directly), the plain version's (norms
+    # and cross term), and those of the built-in kernels' tensor-core
+    # statistic (split TF32, x - hi - lo dropped) under the same entry
+    t64 = torch.cdist(X.double(), X[idx].double()) ** 2
+    C64 = 1.0 / (1.0 + USER_GAMMA * t64)
+    t_tc = kernel.pairwise_block_cuda(specs.stat_only("sqdist"), X, X[idx])
+    e64 = {"kernel": scaled_err(apg.C.double(), C64),
+           "plain": scaled_err(C_plain.double(), C64),
+           "tensor_core_statistic": scaled_err(
+               1.0 / (1.0 + USER_GAMMA * t_tc.double()), C64)}
+    del t64, C64, t_tc
+    check(e_c <= TOL_F32, f"cauchy C vs plain {e_c:.3g} (vs f64: {e64})")
+    check(e64["kernel"] <= TOL_F32, f"cauchy C vs f64 {e64}")
+    check(e_u <= TOL_U, f"cauchy U vs plain {e_u:.3g}")
+    log(f"user_spec cauchy vs the plain versions: C {e_c:.3g}, U {e_u:.3g}; "
+        f"C vs the f64 statistic's entries: kernel {e64['kernel']:.3g}, plain "
+        f"{e64['plain']:.3g}, the tensor-core statistic "
+        f"{e64['tensor_core_statistic']:.3g}; rel err hutchinson "
+        f"{err_h:.6f}, blocked {err_b:.6f}")
+
+    # the kernels at their main-path shapes, each beside rbf in turns
+    rbf, lap = m["spec"], specs.suggested_spec("laplacian", D)
+    Vs = (sweep_lib.one_hot_columns(idx, N, DEV), S.mat, Z)
+    M = sum(int(V.shape[1]) for V in Vs)
+    b1 = _timed_pair({s.name: (lambda s=s: kernel.pairwise_matmat_multi_cuda(
+        s, X, X, Vs)) for s in (rbf, cauchy)}, reps=2, warmup=1)
+    for spec, beside in ((USER_SPECS[1], lap), (USER_SPECS[2], rbf),
+                         (USER_SPECS[3], rbf)):
+        pair = _timed_pair({f"{s.name}": (
+            lambda s=s: kernel.pairwise_matmat_multi_cuda(s, X, X, Vs))
+            for s in (beside, spec)}, reps=1, warmup=1)
+        b1[spec.name] = pair[spec.name]
+        b1[f"{beside.name} beside {spec.name}"] = pair[beside.name]
+    rows = torch.arange(0, N, N // 512, device=DEV)[:512]
+    outs = kernel.pairwise_matmat_multi_cuda(cauchy, X, X, Vs)
+    plain = kernel.pairwise_matmat_multi_plain(cauchy, X[rows], X, Vs)
+    e_b1 = max(scaled_err(o[rows], p) for o, p in zip(outs, plain))
+    check(e_b1 <= TOL_F32_MAIN, f"cauchy B1 rows vs plain {e_b1:.3g}")
+    b = sweep_lib.resolved_block_size(N, N, None)
+    Xr = X[:b].contiguous()
+    b2 = _timed_pair({s.name: (lambda s=s: kernel.pairwise_block_cuda(
+        s, Xr, X)) for s in (rbf, cauchy)}, reps=20, warmup=2)
+    # the panel holds the pairs of a point with itself and its neighbours,
+    # where the plain version's ||x||^2 + ||y||^2 - 2 x.y cancels: it is
+    # held to the f64 statistic's entries, and to the plain version unless
+    # that lies farther from them than the kernel does
+    blk = kernel.pairwise_block_cuda(cauchy, Xr, X)
+    blk_plain = kernel.pairwise_block_plain(cauchy, Xr, X)
+    P64 = 1.0 / (1.0 + USER_GAMMA * torch.cdist(Xr.double(), X.double()) ** 2)
+    e_b2 = scaled_err(blk, blk_plain)
+    e_b2_64 = {"kernel": scaled_err(blk.double(), P64),
+               "plain": scaled_err(blk_plain.double(), P64)}
+    del blk, blk_plain, P64
+    check(e_b2_64["kernel"] <= TOL_F32, f"cauchy B2 panel vs f64 {e_b2_64}")
+    check(e_b2 <= TOL_F32 or e_b2_64["kernel"] < e_b2_64["plain"],
+          f"cauchy B2 panel vs plain {e_b2:.3g} (vs f64: {e_b2_64})")
+    start = length = sh["slab"]
+    b4 = _timed_pair({s.name: (
+        lambda s=s: kernel.pairwise_matmat_multi_slab_cuda(
+            s, X, start, length, Vs)) for s in (rbf, cauchy)},
+        reps=2, warmup=1)
+    slab_out = kernel.pairwise_matmat_multi_slab_cuda(cauchy, X, start,
+                                                      length, Vs)
+    srows = kernel.slab_rows(N, start, length, DEV)
+    same = all(torch.equal(o, f[srows]) for o, f in zip(slab_out, outs))
+    check(same, "cauchy B4 rows differ from B1's")
+    del outs, slab_out
+    log(f"user_spec B1 ({N} x {N}, M = {M}) ms: {json.dumps(b1)}; B2 "
+        f"({b} x {N}) ms: {json.dumps(b2)}; B4 ({length} x {N} from row "
+        f"{start}) ms: {json.dumps(b4)}; cauchy/rbf B1 "
+        f"{b1['cauchy'] / b1['rbf']:.3f}, B2 {b2['cauchy'] / b2['rbf']:.3f}, "
+        f"B4 {b4['cauchy'] / b4['rbf']:.3f}; cauchy vs plain: B1 rows "
+        f"{e_b1:.3g}, B2 {e_b2:.3g} (B2 vs the f64 statistic's entries: "
+        f"kernel {e_b2_64['kernel']:.3g}, plain {e_b2_64['plain']:.3g}), B4 "
+        f"rows = B1's {same}")
+    log(f"user_spec builds: {json.dumps(USER_BUILD)}")
+    return {"launches": launches, "times": times, "parity": parity,
+            "C_err_vs_plain": e_c, "U_err_vs_plain": e_u,
+            "C_err_vs_f64": e64, "err_hutchinson": err_h, "err_blocked": err_b,
+            "b1_ms": b1, "b2_ms": b2, "b4_ms": b4, "b1_rows_err": e_b1,
+            "b2_err": e_b2, "b2_err_vs_f64": e_b2_64,
+            "b4_rows_equal_b1": same,
+            "shapes": {"b1": [N, N, D, M], "b2": [b, N, D],
+                       "b4": [start, length, N, D, M]},
+            "builds": USER_BUILD}
 
 
 # ---------------------------------------------------------------------------
@@ -6387,6 +6663,7 @@ def main() -> int:
     b1, b2 = _b1_line(m), _b2_line(m)
     sh = timed(phase_spsd_sharded, m)
     b4 = _b4_line(m, sh)
+    us = timed(phase_user_spec, m, sh)
     att = timed(phase_attention_long)
     pol = timed(phase_attention_policy)
     srv = timed(phase_serve_gemma3)
@@ -6410,6 +6687,7 @@ def main() -> int:
     dr = timed(phase_dryrun, tmesh)
     # each path's counts were reset just before it and read just after
     paths = {"spsd_main": m["launches"], "spsd_sharded": sh["launches"],
+             "user_spec": us["launches"],
              "attention_long": att["launches"],
              "attention_policy": pol["launches"],
              "serve_gemma3": srv["launches"], "serve_moe": moe["launches"],
@@ -6507,6 +6785,19 @@ def main() -> int:
                "bound_ms_exp_affine_policy_panel": pol["b2_panel"]["bound_ms"],
                "exp_affine_policy_panel_shape": pol["b2_panel"]["shape"]})
     b2["statistic_only"] = cal["statistic_only"]
+    for line, key in ((b1, "b1_ms"), (b2, "b2_ms"), (b4, "b4_ms")):
+        line["user_spec"] = {
+            "ms": us[key], "shape": us["shapes"][key[:2]],
+            "note": "cauchy (and for B1 the other USER_SPECS) timed in "
+                    "turns beside rbf / laplacian in phase_user_spec",
+            "launches_main_path": us["launches"][line["name"]],
+            "builds": us["builds"]}
+    b1["user_spec"].update({k: us[k] for k in (
+        "times", "C_err_vs_plain", "U_err_vs_plain", "C_err_vs_f64",
+        "err_hutchinson", "err_blocked", "b1_rows_err", "parity")})
+    b2["user_spec"]["err_vs_plain"] = us["b2_err"]
+    b2["user_spec"]["err_vs_f64"] = us["b2_err_vs_f64"]
+    b4["user_spec"]["rows_equal_b1"] = us["b4_rows_equal_b1"]
     b2["calibrate"] = cal["specs"]
     for line in (b1, b2, b4):
         rows = {k: v for k, v in line.items() if k.startswith("roofline")}

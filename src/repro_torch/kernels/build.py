@@ -4,8 +4,11 @@ Each library is one CUDA source under a kernel package's ``csrc/``,
 compiled at first use with ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``.  Libraries land in ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``), under a name keyed
-by a hash of the sources and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  The compile writes to a temporary
+by a hash of the sources, the headers a library force-includes and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  A library may add its own flags (``-D…``) and headers
+(``-include``): the user variants of the pairwise kernels build
+``pairwise_wgmma.cu`` with a generated header there.  The compile writes to a temporary
 name and is renamed into place, so a process never loads a half-written
 library.
 
@@ -54,27 +57,33 @@ class Library:
     ctypes signatures) and its build at first use."""
 
     def __init__(self, name: str, sources: Sequence[Path],
-                 bind: Callable[[ctypes.CDLL], ctypes.CDLL]):
+                 bind: Callable[[ctypes.CDLL], ctypes.CDLL],
+                 flags: Sequence[str] = (), headers: Sequence[Path] = ()):
         self.name = name
         self.sources = tuple(sources)
+        self.flags = tuple(flags)
+        self.headers = tuple(headers)
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
         self._build_seconds: Optional[float] = None
 
     def source_hash(self) -> str:
-        """Hash of the sources and the compile flags."""
+        """Hash of the sources, the force-included headers and the compile
+        flags."""
         h = hashlib.sha256()
-        for src in self.sources:
+        for src in (*self.sources, *self.headers):
             h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join((*NVCC_FLAGS, *self.flags)).encode())
         return h.hexdigest()[:16]
 
     def library_path(self) -> Path:
         return BUILD_DIR / f"lib{self.name}_{self.source_hash()}.so"
 
     def nvcc_command(self, nvcc: str, out: Path) -> List[str]:
-        return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, self.sources)]
+        includes = [a for h in self.headers for a in ("-include", str(h))]
+        return [nvcc, *NVCC_FLAGS, *self.flags, *includes, "-o", str(out),
+                *map(str, self.sources)]
 
     def build(self) -> Path:
         """Compile the library unless the hashed one exists; returns its

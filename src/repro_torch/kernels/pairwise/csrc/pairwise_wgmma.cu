@@ -16,6 +16,17 @@
 // entries: identity, exp(-a t), Matern-3/2, integer polynomial,
 // exp(a t - b), picked at run time by the ids the wrapper passes.
 //
+// User variants.  A KernelSpec with only a Python entry_fn is lowered to a
+// device function user_entry(float t) (repro_torch.kernels.pairwise.lower)
+// and this source is built again with
+//   -include <generated header> -DPAIRWISE_USER_STAT=<statistic id>:
+// the epilogue is user_entry and its id EPI_USER the only one the variant
+// takes, and only that statistic's kernels are instantiated (both
+// precisions; a sqdist variant's are the l1dist kernels with a squared
+// difference, SQ_DIRECT below), so a variant's nvcc is a fraction of the
+// built-in library's.  Without the define the library compiles as the
+// built-in one, which refuses EPI_USER.
+//
 // Precision and passes.
 //   * Cross term x.y of dot and sqdist on the tensor cores (wgmma, 64 rows x
 //     64 keys a warpgroup, k8 / k16 steps over 128-byte feature chunks).
@@ -122,8 +133,28 @@ enum {
   EPI_EXP_NEG = 1,
   EPI_MATERN32 = 2,
   EPI_POLY = 3,
-  EPI_EXP_AFFINE = 4   // exp(a t - b): the softmax Gram exp(t / sqrt(d) - offset)
+  EPI_EXP_AFFINE = 4,  // exp(a t - b): the softmax Gram exp(t / sqrt(d) - offset)
+  EPI_USER = 5         // user_entry(t), in a user variant only
 };
+
+#ifdef PAIRWISE_USER_STAT
+#if PAIRWISE_USER_STAT < 0 || PAIRWISE_USER_STAT > 2
+#error "PAIRWISE_USER_STAT must be a statistic id (0, 1 or 2)"
+#endif
+#endif
+
+// A user sqdist variant evaluates its statistic directly, sum (x - y)^2 in
+// feature order on the CUDA cores: the l1dist kernels with one FMA of the
+// difference a feature (SQ_DIRECT).  The tensor-core form ||x||^2 +
+// ||y||^2 - 2 x.y drops x - hi - lo (below 2^-22 |x|) from the cross term;
+// the built-in entries are flat enough near t = 0 to hide that, a user
+// entry need not be (chip_smoke.py's cauchy at gamma = 0.5 measures both
+// forms against f64 and the plain version).
+#if defined(PAIRWISE_USER_STAT) && PAIRWISE_USER_STAT == 1
+constexpr bool SQ_DIRECT = true;
+#else
+constexpr bool SQ_DIRECT = false;
+#endif
 
 struct Params {
   int epi;
@@ -160,7 +191,29 @@ __device__ __forceinline__ float ipow(float x, int p) {
   return acc;
 }
 
+// the statistic and epilogue ids a launch of this build may pass
+bool build_takes(int stat, int epi) {
+#ifdef PAIRWISE_USER_STAT
+  return stat == PAIRWISE_USER_STAT && epi == EPI_USER;
+#else
+  return stat >= STAT_DOT && stat <= STAT_L1 && epi >= EPI_IDENTITY &&
+         epi <= EPI_EXP_AFFINE;
+#endif
+}
+
+// the statistic a launch's kernels evaluate (SQ_DIRECT: sqdist on the
+// l1dist kernels)
+int kernel_stat(int stat) {
+  return SQ_DIRECT && stat == STAT_SQDIST ? STAT_L1 : stat;
+}
+
 __device__ __forceinline__ float entry(float t, const Params& p) {
+#ifdef PAIRWISE_USER_STAT
+  // a user variant: the generated header's lowered entry_fn, the only
+  // epilogue it takes (no switch beside it in the tiles' registers)
+  (void)p;
+  return user_entry(t);
+#else
   switch (p.epi) {
     case EPI_EXP_NEG:
       return expf(__fmul_rn(-p.a, t));
@@ -175,6 +228,7 @@ __device__ __forceinline__ float entry(float t, const Params& p) {
     default:
       return t;
   }
+#endif
 }
 
 // ---- PTX wrappers ----------------------------------------------------------
@@ -462,7 +516,8 @@ __device__ __forceinline__ void stat_chunk(float (&s)[32], uint32_t xr,
                                            const unsigned char* smem,
                                            uint32_t smem_base) {
   if constexpr (STAT == STAT_L1) {
-    // |x - y| summed in feature order on the CUDA cores (f32 values)
+    // |x - y| summed in feature order on the CUDA cores (f32 values); under
+    // SQ_DIRECT (x - y)^2, one FMA a feature
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG) / 32;
     const int r0 = 16 * warp + lane / 4, cl = 2 * (lane & 3);
     const unsigned char* pr = smem + (xr - smem_base);
@@ -487,7 +542,8 @@ __device__ __forceinline__ void stat_chunk(float (&s)[32], uint32_t xr,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float& a = s[4 * j + 2 * h + e];
-            a = __fadd_rn(a, fabsf(__fsub_rn(x[h], y)));
+            const float df = __fsub_rn(x[h], y);
+            a = SQ_DIRECT ? __fmaf_rn(df, df, a) : __fadd_rn(a, fabsf(df));
           }
         }
     }
@@ -1316,7 +1372,9 @@ cudaError_t launch_sweep(const Maps& maps, float* out, Geo G, int device,
 }
 
 // the instantiation for a launch: KS = 2 k steps where a point's padded
-// row is at most 64 bytes (one chunk), else 4; l1dist has no k steps
+// row is at most 64 bytes (one chunk), else 4; l1dist has no k steps.  A
+// user variant instantiates its own statistic only and refuses the others.
+#if !defined(PAIRWISE_USER_STAT)
 #define PAIRWISE_DISPATCH(CALL)                                   \
   switch (stat * 4 + (bf16 ? 2 : 0) + (ks == 2 ? 1 : 0)) {        \
     case 0: err = CALL(STAT_DOT, 0, 4); break;                    \
@@ -1330,6 +1388,19 @@ cudaError_t launch_sweep(const Maps& maps, float* out, Geo G, int device,
     case 8: case 9: err = CALL(STAT_L1, 0, 4); break;             \
     default: err = CALL(STAT_L1, 1, 4); break;                    \
   }
+#elif PAIRWISE_USER_STAT == 0
+#define PAIRWISE_DISPATCH(CALL)                                   \
+  switch ((bf16 ? 2 : 0) + (ks == 2 ? 1 : 0)) {                   \
+    case 0: err = CALL(STAT_DOT, 0, 4); break;                    \
+    case 1: err = CALL(STAT_DOT, 0, 2); break;                    \
+    case 2: err = CALL(STAT_DOT, 1, 4); break;                    \
+    default: err = CALL(STAT_DOT, 1, 2); break;                   \
+  }
+#else   // l1dist, and sqdist evaluated directly (SQ_DIRECT)
+#define PAIRWISE_DISPATCH(CALL)                                   \
+  (void)ks;                                                       \
+  err = bf16 ? CALL(STAT_L1, 1, 4) : CALL(STAT_L1, 0, 4);
+#endif
 
 int k_steps(const Geo& G) { return G.nch == 1 && G.row_bytes <= 64 ? 2 : 4; }
 
@@ -1353,9 +1424,10 @@ int sweep(const float* xr, long long count, long long first, long long last,
           long long nc, int d, long long m, int stat, int epi, float a,
           float b, int degree, int bf16, void* ws, long long ws_bytes,
           int device, void* stream) {
-  if (count <= 0 || nc <= 0 || d <= 0 || m <= 0 || stat < 0 || stat > 2 ||
-      ws == nullptr)
+  if (count <= 0 || nc <= 0 || d <= 0 || m <= 0 || ws == nullptr ||
+      !build_takes(stat, epi))
     return (int)cudaErrorInvalidValue;
+  stat = kernel_stat(stat);
   if (ws_bytes < workspace_bytes(count, nc, d, m, stat, bf16, same))
     return ERR_WORKSPACE;
   cudaError_t err = cudaSetDevice(device);
@@ -1409,14 +1481,15 @@ extern "C" {
 long long pairwise_workspace_bytes(long long nr, long long nc, int d,
                                    long long m, int stat, int bf16,
                                    int same) {
-  return workspace_bytes(nr, nc, d, m, stat, bf16, same != 0);
+  return workspace_bytes(nr, nc, d, m, kernel_stat(stat), bf16, same != 0);
 }
 
 // the tensor-core passes of a launch: of the statistic's cross term
 // (which = 0; 0 for l1dist, which runs on the CUDA cores) or of the sweep's
 // contraction (which = 1)
 int pairwise_passes(int stat, int bf16, int which) {
-  if (which == 0) return stat == STAT_L1 ? 0 : bf16 ? 1 : STAT_PASSES;
+  if (which == 0)
+    return kernel_stat(stat) == STAT_L1 ? 0 : bf16 ? 1 : STAT_PASSES;
   return bf16 ? 1 : CONTRACT_PASSES;
 }
 
@@ -1430,8 +1503,10 @@ int pairwise_block_f32(const float* xr, const float* xc, float* out,
                        long long nr, long long nc, int d, int stat, int epi,
                        float a, float b, int degree, int bf16, void* ws,
                        long long ws_bytes, int device, void* stream) {
-  if (nr <= 0 || nc <= 0 || d <= 0 || stat < 0 || stat > 2 || ws == nullptr)
+  if (nr <= 0 || nc <= 0 || d <= 0 || ws == nullptr ||
+      !build_takes(stat, epi))
     return (int)cudaErrorInvalidValue;
+  stat = kernel_stat(stat);
   if (ws_bytes < workspace_bytes(nr, nc, d, 0, stat, bf16, false))
     return ERR_WORKSPACE;
   cudaError_t err = cudaSetDevice(device);

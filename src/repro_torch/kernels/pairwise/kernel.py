@@ -17,11 +17,18 @@ Three kernels, hand-written in CUDA C++ for Hopper's tensor cores
   Rows at or past n read the last row (clamp padding the caller masks).
 
 Each takes any shapes: the kernels mask their own ragged edges, so nothing
-is padded to 128.  Dispatch is by the device of the tensors: CPU tensors run
-the plain version (``*_plain``, the same arithmetic in PyTorch); CUDA
+is padded to 128.  Dispatch is by the device of the tensors: CPU tensors
+run the plain version (``*_plain``, the same arithmetic in PyTorch); CUDA
 tensors launch the kernel through ``*_cuda`` or raise — there is no
 fallback.  ``*_cuda.launches`` counts the launches (a plain int bumped where
 the kernel is launched and nowhere else).
+
+A built-in spec passes its epilogue to the built-in library.  A spec with
+only a Python ``entry_fn`` is lowered once (``lower.program_for``) and
+launched from its user variant of the same kernels
+(``build.user_library``) with the ``EPI_USER`` epilogue, counted like any other
+launch.  An entry that cannot be lowered raises ``ValueError`` naming the
+op; a failed build or launch raises too.
 
 ``edges`` (a sign-split table) selects the sign-split form of the l1
 statistic in the plain version; the CUDA kernels sum |x_k − y_k| directly,
@@ -38,10 +45,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.pairwise import lower
 from repro_torch.kernels.pairwise import specs as _specs
 from repro_torch.kernels.pairwise.specs import KernelSpec
 
-_STAT_IDS = {"dot": 0, "sqdist": 1, "l1dist": 2}
+_STAT_IDS = _specs.STAT_IDS
+#: the CUDA kernels' id of the user epilogue (``EPI_USER`` in
+#: csrc/pairwise_wgmma.cu); a built-in epilogue's id is its index in
+#: ``specs.EPILOGUE_KINDS``
+EPI_USER = 5
 
 
 # ---------------------------------------------------------------------------
@@ -141,14 +153,19 @@ def _check_slab(X: torch.Tensor, start_row, slab_len) -> Tuple[int, int]:
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _epilogue(spec: KernelSpec) -> _specs.Epilogue:
-    if spec.epilogue is None:
-        raise NotImplementedError(
-            f"KernelSpec {spec.name!r} has only a Python entry_fn and no "
-            f"kernel epilogue, so the CUDA kernels cannot evaluate it; it "
-            f"runs on CPU tensors only (ROADMAP.md, queue B: epilogues for "
-            f"user-registered specs)")
-    return spec.epilogue
+def _epilogue(spec: KernelSpec):
+    """The library to launch and the epilogue arguments to pass (id, a, b,
+    degree): the built-in library and the spec's epilogue, or for a spec
+    with only a Python ``entry_fn`` its lowered program's user variant and
+    ``EPI_USER``.  Lowering happens here, before any other check
+    (``ValueError`` naming the op); the library is built at its first
+    ``load()``."""
+    from repro_torch.kernels.pairwise import build
+    ep = spec.epilogue
+    if ep is not None:
+        return build.LIBRARY, (ep.id, ep.a, ep.b, ep.degree)
+    return build.user_library(lower.program_for(spec), spec.stat), \
+        (EPI_USER, 0.0, 0.0, 0)
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
@@ -187,7 +204,7 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def pairwise_block_cuda(spec: KernelSpec, Xr: torch.Tensor, Xc: torch.Tensor,
                         edges: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the block kernel; raises on anything it does not take."""
-    ep = _epilogue(spec)
+    library, epi = _epilogue(spec)
     _check_points(Xr, Xc, edges)
     _check_cuda(Xr, Xc)
     nr, d = Xr.shape
@@ -197,12 +214,11 @@ def pairwise_block_cuda(spec: KernelSpec, Xr: torch.Tensor, Xc: torch.Tensor,
     out = torch.empty((nr, nc), dtype=torch.float32, device=Xr.device)
     if nr == 0 or nc == 0:
         return out
-    from repro_torch.kernels.pairwise import build
-    lib = build.load_library()
+    lib = library.load()
     ws = _workspace(lib, nr, nc, d, 0, spec, False, Xr.device)
     code = lib.pairwise_block_f32(
         _ptr(Xr), _ptr(Xc), _ptr(out), nr, nc, d, _STAT_IDS[spec.stat],
-        ep.id, ep.a, ep.b, ep.degree, int(spec.precision == "bf16_f32acc"),
+        *epi, int(spec.precision == "bf16_f32acc"),
         _ptr(ws), ws.numel(), Xr.device.index or 0, _stream(Xr.device))
     _raise_on(lib, code, "pairwise_block")
     pairwise_block_cuda.launches += 1
@@ -218,7 +234,7 @@ def pairwise_matmat_multi_cuda(spec: KernelSpec, Xr: torch.Tensor,
                                ) -> Tuple[torch.Tensor, ...]:
     """Launch the fused multi-right-hand-side kernel once for all ``Vs``;
     raises on anything it does not take."""
-    ep = _epilogue(spec)
+    library, epi = _epilogue(spec)
     _check_points(Xr, Xc, edges)
     Vs = tuple(Vs)
     _check_rhs(Xc, Vs)
@@ -235,15 +251,14 @@ def pairwise_matmat_multi_cuda(spec: KernelSpec, Xr: torch.Tensor,
     V = Vs[0] if len(Vs) == 1 else torch.cat(Vs, dim=1)
     _check_cuda(V)
     out = torch.empty((nr, M), dtype=torch.float32, device=Xr.device)
-    from repro_torch.kernels.pairwise import build
-    lib = build.load_library()
+    lib = library.load()
     # keys that are the rows are prepped once; this one decision sizes the
     # scratch and is passed to the library, which checks both
     same = Xr.data_ptr() == Xc.data_ptr() and nr == nc
     ws = _workspace(lib, nr, nc, d, M, spec, same, Xr.device)
     code = lib.pairwise_matmat_multi_f32(
         _ptr(Xr), _ptr(Xc), _ptr(V), _ptr(out), nr, nc, d, M, int(same),
-        _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
+        _STAT_IDS[spec.stat], *epi,
         int(spec.precision == "bf16_f32acc"), _ptr(ws), ws.numel(),
         Xr.device.index or 0, _stream(Xr.device))
     _raise_on(lib, code, "pairwise_matmat_multi")
@@ -262,7 +277,7 @@ def pairwise_matmat_multi_slab_cuda(spec: KernelSpec, X: torch.Tensor,
     """Launch the slab kernel once for all ``Vs``: rows ``start_row + i``
     (clamped to n − 1) of X against all of X.  Raises on anything it does
     not take."""
-    ep = _epilogue(spec)
+    library, epi = _epilogue(spec)
     _check_points(X, X, edges)
     start_row, slab_len = _check_slab(X, start_row, slab_len)
     Vs = tuple(Vs)
@@ -279,12 +294,11 @@ def pairwise_matmat_multi_slab_cuda(spec: KernelSpec, X: torch.Tensor,
     V = Vs[0] if len(Vs) == 1 else torch.cat(Vs, dim=1)
     _check_cuda(V)
     out = torch.empty((slab_len, M), dtype=torch.float32, device=X.device)
-    from repro_torch.kernels.pairwise import build
-    lib = build.load_library()
+    lib = library.load()
     ws = _workspace(lib, slab_len, n, d, M, spec, False, X.device)
     code = lib.pairwise_matmat_multi_slab_f32(
         _ptr(X), _ptr(V), _ptr(out), n, start_row, slab_len, d, M,
-        _STAT_IDS[spec.stat], ep.id, ep.a, ep.b, ep.degree,
+        _STAT_IDS[spec.stat], *epi,
         int(spec.precision == "bf16_f32acc"), _ptr(ws), ws.numel(),
         X.device.index or 0, _stream(X.device))
     _raise_on(lib, code, "pairwise_matmat_multi_slab")

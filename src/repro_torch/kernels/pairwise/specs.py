@@ -11,9 +11,13 @@ CUDA kernels (``repro_torch.kernels.pairwise.kernel``) serves all of them:
 - ``entry_fn``: the elementwise statistic → entry function, in torch (the
   plain versions run it);
 - ``epilogue``: the same function as the CUDA kernels evaluate it — an id
-  plus its float parameters.  Built-in specs carry one; a spec without one
-  (a user registration with only a Python ``entry_fn``) runs on CPU tensors
-  and raises on the CUDA path;
+  plus its float parameters.  Built-in specs carry one.  ``None`` marks a
+  spec with only a Python ``entry_fn`` (a user registration): on CUDA
+  tensors its entry function is lowered once to a generated CUDA epilogue
+  (``lower.py``, the kernels' ``EPI_USER`` epilogue) compiled into a variant of the pairwise
+  kernels at first use (``build.user_library``); an entry outside
+  ``lower``'s ops raises there, naming the op.  On CPU tensors nothing is
+  lowered: the plain versions call ``entry_fn``;
 - ``precision``: ``'f32'`` or ``'bf16_f32acc'`` (operands quantized to bf16
   round-to-nearest-even, every contraction and combine accumulated in f32).
 
@@ -34,6 +38,9 @@ STAT_KINDS = ("sqdist", "dot", "l1dist")
 
 #: tile-evaluation precision policies (operand dtype × accumulator dtype)
 PRECISIONS = ("f32", "bf16_f32acc")
+
+#: the statistics' ids in the CUDA kernels
+STAT_IDS = {"dot": 0, "sqdist": 1, "l1dist": 2}
 
 #: entry functions the CUDA kernels evaluate, by epilogue id (index)
 EPILOGUE_KINDS = ("identity", "exp_neg", "matern32", "polynomial",
@@ -113,7 +120,9 @@ class KernelSpec:
                 self.epilogue.kind not in EPILOGUE_KINDS:
             raise ValueError(
                 f"KernelSpec {self.name!r}: unknown epilogue "
-                f"{self.epilogue.kind!r}; one of {EPILOGUE_KINDS}")
+                f"{self.epilogue.kind!r}; one of {EPILOGUE_KINDS} "
+                f"(a spec with only an entry_fn leaves epilogue=None: the "
+                f"CUDA path lowers it)")
 
     def param(self, name: str):
         return dict(self.params)[name]

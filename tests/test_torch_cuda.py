@@ -7,7 +7,11 @@ a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, scale-normalized against the plain PyTorch versions on the same
-card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates); the landmark
+card: f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 (the reference's gates); a user spec's
+f32 contraction against the f64 contraction of the plain version's entries
+(≤ 1e-5, as ``chip_smoke.py``'s B1 witness: at one output summing 130
+normal terms, the kernel's and cuBLAS's f32 sums each lie within that of
+the exact one but not always of each other); the landmark
 read and flash attention with bf16 inputs within the reference's
 ``_tol(bf16)`` (rtol = atol = 2e-2).  Flash attention runs the CUDA-core
 kernel for f32 inputs and the tensor-core kernel for bf16 inputs.
@@ -15,6 +19,7 @@ kernel for f32 inputs and the tensor-core kernel for bf16 inputs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -34,6 +39,8 @@ from repro_torch.kernels.landmark_attention import ops as lm_ops
 from repro_torch.kernels.pairwise import kernel, specs
 from repro_torch.models import model as tm
 from repro_torch.models import moe as tmoe
+
+from _torch_user_entries import CORRECTLY_ROUNDED, ENTRIES
 
 NAMES = ("laplacian", "linear", "matern32", "polynomial", "rbf")
 PRECISIONS = ("f32", "bf16_f32acc")
@@ -160,7 +167,7 @@ def test_library_checks_scratch_and_reports_passes(cuda_device):
     rng = np.random.default_rng(3)
     n, d, m = 100, 16, 5
     spec = specs.rbf(1.0)
-    ep = kernel._epilogue(spec)
+    _, epi = kernel._epilogue(spec)
     X, V = _rand(rng, n, d, dev=cuda_device), _rand(rng, n, m, dev=cuda_device)
     Y = X.clone()
     out = torch.empty((n, m), device=cuda_device)
@@ -170,7 +177,7 @@ def test_library_checks_scratch_and_reports_passes(cuda_device):
                          device=cuda_device)
         code = lib.pairwise_matmat_multi_f32(
             kernel._ptr(X), kernel._ptr(xc), kernel._ptr(V), kernel._ptr(out),
-            n, n, d, m, same, ids[spec.stat], ep.id, ep.a, ep.b, ep.degree, 0,
+            n, n, d, m, same, ids[spec.stat], *epi, 0,
             kernel._ptr(ws), nbytes, cuda_device.index or 0,
             kernel._stream(cuda_device))
         torch.cuda.synchronize()
@@ -211,6 +218,266 @@ def test_fast_model_with_error_is_one_fused_launch(cuda_device):
     assert scaled(ap.C.cpu(), ap_cpu.C) <= 1e-5
     assert scaled(ap.dense().cpu(), ap_cpu.dense()) <= 1e-4
     assert abs(float(err) - float(err_cpu)) <= 1e-5
+
+
+#: specs with only a Python entry_fn, one per statistic (and a compact
+#: ``where``): their entries are lowered to the kernels' user epilogue
+USER_ENTRIES = {
+    "cauchy": ("sqdist", lambda t: 1.0 / (1.0 + 0.5 * t)),
+    "compact": ("sqdist", lambda t: torch.where(
+        t < 40.0, (1 - t / 40.0) ** 2, torch.zeros_like(t))),
+    "rational_quadratic_l1": ("l1dist", lambda t: (1 + t / 4.0) ** -2.0),
+    "exp_dot": ("dot", lambda t: torch.exp(0.1 * t)),
+}
+USER_SPECS = {name: specs.KernelSpec(f"user_{name}", stat, fn)
+              for name, (stat, fn) in USER_ENTRIES.items()}
+
+
+@pytest.mark.parametrize("name", sorted(USER_SPECS))
+@pytest.mark.parametrize("prec", PRECISIONS)
+@pytest.mark.parametrize("nr,nc,m", [(1, 130, 1), (129, 1001, 5),
+                                     (200, 150, 257)])
+def test_user_specs_match_plain_versions(cuda_device, name, prec, nr, nc, m):
+    """B2, B1 and B4 (a slab whose tail is clamp padding) of a user spec,
+    each one counted launch from its user library, at ragged shapes: B2
+    against the plain version; B1 and B4 under bf16_f32acc against theirs,
+    in f32 against the f64 contraction of the plain version's entries."""
+    rng = np.random.default_rng(5)
+    spec = USER_SPECS[name].with_precision(prec)
+    Xr, Xc = _rand(rng, nr, D, dev=cuda_device), _rand(rng, nc, D,
+                                                      dev=cuda_device)
+    V = _rand(rng, nc, m, dev=cuda_device)
+    before = kernel.launch_counts()
+    blk = kernel.pairwise_block(spec, Xr, Xc)
+    (out,) = kernel.pairwise_matmat_multi(spec, Xr, Xc, [V])
+    start = nc - nr // 2 - 1
+    (slab,) = kernel.pairwise_matmat_multi_slab(spec, Xc, start, nr, [V])
+    after = kernel.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "pairwise_block": 1, "pairwise_matmat_multi": 1,
+        "pairwise_matmat_multi_slab": 1}
+    assert scaled(blk, kernel.pairwise_block_plain(spec, Xr, Xc)) <= TOL[prec]
+    if prec == "f32":
+        rows = kernel.slab_rows(nc, start, nr, cuda_device)
+        for got, xr in ((out, Xr), (slab, Xc[rows])):
+            exact = kernel.pairwise_block_plain(spec, xr, Xc).double() \
+                @ V.double()
+            assert scaled(got.double(), exact) <= TOL[prec]
+        return
+    (plain,) = kernel.pairwise_matmat_multi_plain(spec, Xr, Xc, [V])
+    assert scaled(out, plain) <= TOL[prec]
+    (plain_slab,) = kernel.pairwise_matmat_multi_slab_plain(spec, Xc, start,
+                                                            nr, [V])
+    assert scaled(slab, plain_slab) <= TOL[prec]
+
+
+#: entries of the header's inline reciprocal, square root and quotient
+HELPER_ENTRIES = (("reciprocal", lambda t: 1.0 / t), ("sqrt", torch.sqrt),
+                  ("division", lambda t: (t + 0.7) / (t * 3.3 - 1.0)))
+
+
+@pytest.fixture(scope="module")
+def user_entry_libraries():
+    """Every ENTRIES spec's user libraries (its own statistic and l1dist)
+    and the HELPER_ENTRIES' (l1dist), built side by side once."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.pairwise import build as pw_build
+    from repro_torch.kernels.pairwise import lower
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    libs = {pw_build.user_library(lower.lower_entry(entry, name), stat)
+            for name, st, entry in ENTRIES for stat in (st, "l1dist")}
+    libs |= {pw_build.user_library(lower.lower_entry(entry, name), "l1dist")
+             for name, entry in HELPER_ENTRIES}
+    kbuild.build_all(sorted(libs, key=lambda lib: lib.name))
+
+
+@pytest.mark.parametrize("name,entry", HELPER_ENTRIES,
+                         ids=[e[0] for e in HELPER_ENTRIES])
+def test_user_helpers_are_correctly_rounded_on_every_input(
+        cuda_device, user_entry_libraries, name, entry):
+    """The header's reciprocal, square root and quotient against torch's
+    correctly rounded ones on the card, bit for bit, at every
+    non-negative f32 (0, the subnormals, the normals, +inf, a NaN): each
+    a column of points on l1dist against a key at 0, whose statistic is
+    the point itself (test_user_entries_on_a_grid_of_statistics)."""
+    spec = specs.KernelSpec(f"user_{name}", "l1dist", entry)
+    zero = torch.zeros((1, 1), device=cuda_device)
+    step, end, bad = 1 << 22, 0x7F800002, 0   # 32,768 row tiles a launch
+    for start in range(0, end, step):
+        bits = torch.arange(start, min(start + step, end), dtype=torch.int32,
+                            device=cuda_device)
+        x = bits.view(torch.float32).reshape(-1, 1)
+        got = kernel.pairwise_block_cuda(spec, x, zero)[:, 0]
+        want = entry(x[:, 0])
+        same = (got.view(torch.int32) == want.view(torch.int32)) | \
+            (got.isnan() & want.isnan())
+        bad += int((~same).sum())
+    assert bad == 0
+
+
+@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("name,stat,entry", ENTRIES,
+                         ids=[e[0] for e in ENTRIES])
+def test_user_entries_match_plain_versions(cuda_device, user_entry_libraries,
+                                           name, stat, entry, d):
+    """One B2 launch of each lowered entry on its statistic against the
+    plain version, f32, normal points at d = 16 and d = 40 (the dot
+    kernels' two k-step instantiations)."""
+    rng = np.random.default_rng(6)
+    spec = specs.KernelSpec(f"user_{name}", stat, entry)
+    Xr, Xc = _rand(rng, 129, d, dev=cuda_device), _rand(rng, 257, d,
+                                                       dev=cuda_device)
+    before = kernel.launch_counts()["pairwise_block"]
+    blk = kernel.pairwise_block(spec, Xr, Xc)
+    assert kernel.launch_counts()["pairwise_block"] == before + 1
+    assert scaled(blk, kernel.pairwise_block_plain(spec, Xr, Xc)) <= 1e-5
+
+
+def _statistic_grid() -> torch.Tensor:
+    """0, subnormals, normals of every exponent, the largest f32, inf and
+    NaN, as one column of points."""
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 0x7F800000, size=1 << 20, dtype=np.int64)
+    special = [0, 1, 2, 0x7FFFFF, 0x800000, 0x3F800000, 0x7F7FFFFF,
+               0x7F800000, 0x7FC00000]
+    vals = np.concatenate([bits, special]).astype(np.uint32).view(np.float32)
+    return torch.as_tensor(vals).reshape(-1, 1)
+
+
+@pytest.mark.parametrize("name,stat,entry", ENTRIES,
+                         ids=[e[0] for e in ENTRIES])
+def test_user_entries_on_a_grid_of_statistics(cuda_device,
+                                              user_entry_libraries, name,
+                                              stat, entry):
+    """Each lowered entry on l1dist with one feature against a key at 0:
+    the statistic is |x| exactly, so the launch evaluates the entry at
+    every value of the grid.  Against torch on the CPU: the correctly
+    rounded entries bit for bit; the others (exp, log, tanh, powf differ by
+    ulps between libraries) within 1e-5 of max(1, |entry|); NaN and inf at
+    the same places."""
+    grid = _statistic_grid()
+    x = grid.to(cuda_device)
+    zero = torch.zeros((1, 1), device=cuda_device)
+    t = kernel.pairwise_block(specs.stat_only("l1dist"), x, zero)[:, 0].cpu()
+    assert torch.equal(t.isnan(), grid[:, 0].isnan())
+    finite = ~t.isnan()
+    assert torch.equal(t[finite], grid[finite, 0].abs())
+    spec = specs.KernelSpec(f"grid_{name}", "l1dist", entry)
+    got = kernel.pairwise_block(spec, x, zero)[:, 0].cpu()
+    with np.errstate(all="ignore"):
+        want = entry(t)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf() & (got > 0), want.isinf() & (want > 0))
+    assert torch.equal(got.isinf() & (got < 0), want.isinf() & (want < 0))
+    fin = torch.isfinite(want)
+    if name in CORRECTLY_ROUNDED:
+        assert torch.equal(got[fin], want[fin])
+    else:
+        gap = (got[fin].double() - want[fin].double()).abs()
+        assert bool((gap <= 1e-5 * want[fin].double().abs().clamp_min(1.0))
+                    .all())
+
+
+def test_user_spec_fast_model_and_refusal_on_the_card(cuda_device):
+    """The reference's custom-kernel story on the card: a cauchy spec with
+    only an entry_fn takes the fused route in one launch and matches its
+    CPU run; an entry that cannot be lowered raises naming the op."""
+    rng = np.random.default_rng(1)
+    n, c, s = 700, 24, 96
+    X = rng.normal(size=(n, D)).astype(np.float32)
+    idx = rng.choice(n, c, replace=False)
+    S = (rng.normal(size=(n, s)) / np.sqrt(s)).astype(np.float32)
+    Z = rng.choice([-1.0, 1.0], size=(n, 64)).astype(np.float32)
+    spec = USER_SPECS["cauchy"]
+    op = CountingOperator(PairwiseKernel(X, spec, device=cuda_device))
+    kernel.reset_launch_counts()
+    ap, err = spsd.fast_model_with_error(op, c, s, idx=idx, S=S, Z=Z)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == 1
+    assert op.counts["sweeps"] == 1 and op.last_route == "fused"
+    cpu = PairwiseKernel(X, spec, device="cpu")
+    ap_cpu, err_cpu = spsd.fast_model_with_error(cpu, c, s, idx=idx, S=S,
+                                                 Z=Z)
+    assert scaled(ap.C.cpu(), ap_cpu.C) <= 1e-5
+    assert scaled(ap.dense().cpu(), ap_cpu.dense()) <= 1e-4
+    assert abs(float(err) - float(err_cpu)) <= 1e-5
+    erf = specs.KernelSpec("user_erf", "sqdist", lambda t: torch.erf(-t))
+    Xd = torch.as_tensor(X[:50], device=cuda_device)
+    with pytest.raises(ValueError, match="aten.erf"):
+        kernel.pairwise_block(erf, Xd, Xd)
+
+
+@functools.lru_cache(maxsize=None)
+def _user_cauchy(gamma: float) -> specs.KernelSpec:
+    return specs.KernelSpec("user_cauchy", "sqdist",
+                            lambda t: 1.0 / (1.0 + gamma * t),
+                            params=(("gamma", gamma),))
+
+
+def test_user_spec_consumers_on_the_card(cuda_device, monkeypatch):
+    """The consumers take a user spec on the card with no call-site change,
+    each against its CPU run on the same draws: the cross launch
+    ('fused_rows'), fast_cur with Gaussian sketches, streaming_subspace_eigh
+    (route 'fused'), and calibrate_sigma under a user rule (one
+    statistic-only B2 launch), whose calibrated spec then runs fused.  The
+    card's tile sums and the CPU's add in other orders: eigenpairs and the
+    pinv-based U are held to 1e-4, the rest to 1e-5."""
+    from repro_torch.core import cur as tcur
+    from repro_torch.core import eig as teig
+    from repro_torch.kernels.pairwise import calibrate
+    rng = np.random.default_rng(4)
+    n, c, s = 600, 20, 60
+    X = rng.normal(size=(n, D)).astype(np.float32)
+    spec = _user_cauchy(1.0 / 18.0)
+    gpu = PairwiseKernel(X, spec, device=cuda_device)
+    cpu = PairwiseKernel(X, spec, device="cpu")
+    Xq = rng.normal(size=(37, D)).astype(np.float32)
+    V = torch.as_tensor(rng.normal(size=(n, 5)), dtype=torch.float32)
+    kernel.reset_launch_counts()
+    (out,) = gpu.cross(Xq, [V.to(cuda_device)])
+    assert gpu._last_sweep_route == "fused_rows"
+    assert kernel.launch_counts()["pairwise_matmat_multi"] == 1
+    assert scaled(out.cpu(), cpu.cross(Xq, [V])[0]) <= 1e-5
+    draws = dict(cidx=rng.choice(n, c, replace=False),
+                 ridx=rng.choice(n, c, replace=False),
+                 Sc=(rng.normal(size=(n, s)) / np.sqrt(s)).astype(np.float32),
+                 Sr=(rng.normal(size=(n, s)) / np.sqrt(s)).astype(np.float32))
+    cg = tcur.fast_cur(gpu, c, c, s, s, sketch_kind="gaussian", **draws)
+    cc = tcur.fast_cur(cpu, c, c, s, s, sketch_kind="gaussian", **draws)
+    assert scaled(cg.C.cpu(), cc.C) <= 1e-5
+    assert scaled(cg.R.cpu(), cc.R) <= 1e-5
+    assert scaled(cg.U.cpu(), cc.U) <= 1e-4
+    Omega = rng.normal(size=(n, 13)).astype(np.float32)
+    eg = teig.streaming_subspace_eigh(gpu, 5, power_iters=3, Omega=Omega)
+    assert gpu._last_sweep_route == "fused"
+    ec = teig.streaming_subspace_eigh(cpu, 5, power_iters=3, Omega=Omega)
+    lam = ec.eigenvalues
+    assert float(((eg.eigenvalues.cpu() - lam).abs() / lam.abs()).max()) \
+        <= 1e-4
+    assert float(teig.misalignment(eg.eigenvectors.cpu(),
+                                   ec.eigenvectors)) <= 1e-4
+    monkeypatch.setattr(calibrate, "_RULES", dict(calibrate._RULES))
+    calibrate.register_calibration("user_cauchy")(
+        lambda stat_q, base: _user_cauchy(1.0 / max(stat_q, 1e-12)))
+    idx = rng.choice(n, size=64, replace=False)
+    before = kernel.launch_counts()["pairwise_block"]
+    got = calibrate.calibrate_sigma(X, spec=spec, anchor_idx=idx)
+    assert kernel.launch_counts()["pairwise_block"] == before + 1
+    want = calibrate.calibrate_sigma(X, spec=spec, anchor_idx=idx,
+                                     device="cpu")
+    g, w = got.param("gamma"), want.param("gamma")
+    assert abs(g - w) <= 1e-5 * w
+    op = CountingOperator(PairwiseKernel(X, got, device=cuda_device))
+    S = (rng.normal(size=(n, s)) / np.sqrt(s)).astype(np.float32)
+    cols = rng.choice(n, c, replace=False)
+    ap, _ = spsd.fast_model_with_error(op, c, s, idx=cols, S=S,
+                                       probes=8, Z=np.ones((n, 8), np.float32))
+    assert op.last_route == "fused"
+    ap_cpu, _ = spsd.fast_model_with_error(
+        PairwiseKernel(X, got, device="cpu"), c, s, idx=cols, S=S,
+        probes=8, Z=np.ones((n, 8), np.float32))
+    assert scaled(ap.C.cpu(), ap_cpu.C) <= 1e-5
 
 
 @pytest.mark.parametrize("prec", PRECISIONS)

@@ -5,7 +5,8 @@
   imports every module, and by a scan of the sources;
 - entry points default to the CUDA device and raise without one;
 - the CUDA wrappers raise on what their kernels do not take (CPU tensors,
-  other dtypes, specs without a kernel epilogue) instead of falling back;
+  other dtypes, specs whose entry_fn cannot be lowered to a kernel
+  epilogue) instead of falling back;
 - ``chip_smoke.py`` fails, printing no result, without a card or outside
   the repository.
 """
@@ -181,20 +182,28 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_dtypes():
 
 
 def test_user_spec_runs_on_cpu_and_raises_on_the_kernel_path():
-    """A spec with only a Python entry_fn has no kernel epilogue: its plain
-    version serves CPU tensors, the CUDA path raises (no hidden fallback)."""
+    """A spec with only a Python entry_fn: its plain version serves CPU
+    tensors.  The CUDA wrappers lower its entry_fn to a kernel epilogue
+    and then refuse CPU tensors like any launch (no hidden fallback); an
+    entry they cannot lower raises naming the op."""
     cauchy = tspecs.KernelSpec("cauchy", "sqdist",
                                lambda t: 1.0 / (1.0 + t))
+    erf = tspecs.KernelSpec("erf", "sqdist", lambda t: torch.erf(-t))
     X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
     K = PairwiseKernel(X, cauchy, device="cpu")
     ap = tsp.fast_model(K, 8, 16, s_sketch="gaussian")
     assert torch.isfinite(ap.U).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkernel.pairwise_block_cuda(cauchy, K.X, K.X)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkernel.pairwise_matmat_multi_cuda(cauchy, K.X, K.X, [K.X])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkernel.pairwise_matmat_multi_slab_cuda(cauchy, K.X, 0, 4, [K.X])
+    tkernel.reset_launch_counts()
+    for call in (lambda s: tkernel.pairwise_block_cuda(s, K.X, K.X),
+                 lambda s: tkernel.pairwise_matmat_multi_cuda(s, K.X, K.X,
+                                                              [K.X]),
+                 lambda s: tkernel.pairwise_matmat_multi_slab_cuda(
+                     s, K.X, 0, 4, [K.X])):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            call(cauchy)
+        with pytest.raises(ValueError, match="aten.erf.default"):
+            call(erf)
+    assert set(tkernel.launch_counts().values()) == {0}
 
 
 def test_build_flags_and_location():
