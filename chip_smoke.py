@@ -283,32 +283,40 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with 1,024 / 2,048 / 3,072 keys on the three ranks); each in f32
    against rank 0's one-rank run of the same weights and batch (loss ≤
    1e-5, every gradient ≤ 1e-4,
-   grad_norm ≤ 1e-5, 3 steps ≤ 1e-4); the dense runs then 3 bf16 steps:
+   grad_norm ≤ 1e-5); the dense runs then 2 bf16 steps:
    step ms a rank, tokens/s, peak, each collective's count and bytes a
    step, the ms in ``mesh.collective`` on a profiled step, B6 a step;
-   deepseek-v3-671b at full width in the 2-rank spawn: 2 layers (both of
-   the dense prefix) + the MTP block, fsdp, adafactor on shards (momentum
+   deepseek-v3-671b at full width in the 2-rank spawn: 1 layer (of the
+   dense prefix) + the MTP block, fsdp, adafactor on shards (momentum
    off, the stacked layers as one tensor, as the uncut config trains), on
    (2, 1) with 2 x 2,048 tokens and (1, 2) with 1 x 4,096: the f32 check
    on 1 layer + MTP at 2 x 1,024 (the loss, gradients and grad_norm
    gates above; one adafactor update from zeroed params at lr 1 against
    one rank's by the mesh's gathered gradients, r / c / v and rank 0's
-   block of the update ≤ 1e-5), then bf16 steps timed the same way, 2 on
-   (2, 1) and 3 on (1, 2);
+   block of the update ≤ 1e-5), then 2 bf16 steps timed the same way;
+   yi-6b FSDP on (2, 1) at a batch of one row of 4,096 tokens, whole on
+   both data ranks (the reference's ``batch_pspec``), in f32 against one
+   rank, then bf16; in the 3-rank spawn deepseek-v3-671b under
+   ``seq_parallel_attn`` on (1, 3): 1 dense layer + MTP, each rank's B6
+   (D = 192, Dv = 128) with its 1,024 of 3,072 query rows against 1,024,
+   2,048 or 3,072 keys of the latent expanded up to its last row, the f32
+   check at 1 x 1,536 against one rank, then 2 bf16 steps;
 11c. serve_mesh: prefill and decode on a device mesh, run in train_mesh's
-   2-rank spawn, each rank's cache laid out by the reference's
+   spawns, each rank's cache laid out by the reference's
    ``cache_shardings``: yi-6b at full width, 2 layers, TP on (1, 2) at
    1 x 4,096 + 16 tokens (the cache split by sequence) and data-parallel
    on (2, 1) at 2 x 4,096 + 16 (split by batch); gemma3-12b, 6 layers
    (5 local + 1 global), landmark decode (c 512, theta 4) on (1, 2) at
-   1 x 8,192 + 16 (the rings split by slots, the factors whole);
+   1 x 4,096 + 16 (the rings split by slots, the factors whole);
    qwen2-moe-a2.7b, 2 layers, on (1, 2) at 1 x 4,096 + 16;
    deepseek-v3-671b, 4 layers (3 dense + 1 MoE, 128 experts a rank) on
-   (1, 2) at 1 x 8,192 + 16 with absorbed MLA decode over its latent
+   (1, 2) at 1 x 4,096 + 16 with absorbed MLA decode over its latent
    split by sequence (the ranks draw their weights in turn; the f32 check
    on the 2 dense layers; the MoE layer at T = 512, capacity E/k,
    against each rank's f32 per-token evaluation of its own experts'
-   tokens summed over the ranks, ≤ 5e-2); each in f32
+   tokens summed over the ranks, ≤ 5e-2); deepseek-v3-671b, 1 dense
+   layer, under ``seq_parallel_attn`` on (1, 3) at 1 x 3,072 + 16, in the
+   3-rank spawn; each in f32
    against rank 0's one-rank run of the same weights, prompts and draws
    (every step's logits ≤ 1e-4, the greedy tokens equal, the cache
    gathered from the shards ≤ 1e-4: k, v, k_land, offset; the landmark
@@ -664,7 +672,8 @@ TOL_TRAIN_STEPS = 1e-4  # 3 train steps' losses, relative
 # as many are visible, else gloo with every rank on card 0).  yi-6b at full
 # width cut to 2 of 32 layers, 4,096 tokens a row: mesh (2, 1) FSDP over
 # data with 2 rows, mesh (1, 2) TP over model with 1 row; f32 against one
-# rank, then MESH_STEPS bf16 steps timed.  qwen2-moe-a2.7b at full width,
+# rank (MESH_F32_STEPS: the loss and gradients), then MESH_STEPS bf16
+# steps timed.  qwen2-moe-a2.7b at full width,
 # 2 of 24 layers, expert-parallel on (1, 2) with 1 x 2,048 tokens (cut
 # from 4,096: the phase's 150 s), its capacity factor raised from 1.25 to
 # E/k = 15, where no expert can overflow (a token picks an expert once;
@@ -672,7 +681,8 @@ TOL_TRAIN_STEPS = 1e-4  # 3 train steps' losses, relative
 # dispatch of the run is checked to drop nothing.  yi-6b, 2 layers,
 # sequence-parallel attention on (1, 3) with 1 x 3,072 tokens (32 heads
 # do not divide 3).
-MESH_LAYERS, MESH_SEQ, MESH_SP_SEQ, MESH_STEPS = 2, 4096, 3072, 3
+MESH_LAYERS, MESH_SEQ, MESH_SP_SEQ, MESH_STEPS = 2, 4096, 3072, 2
+MESH_F32_STEPS = 1
 MESH_EP_SEQ = 2048
 MESH_DENSE = ((2, 1), (1, 2))
 TOL_MESH_GNORM = 1e-5   # grad_norm, relative
@@ -682,22 +692,23 @@ TOL_MESH_AUX = 1e-5     # EP aux against its formula on the same slices
 # f32 against one rank of the same weights, prompts and draws (rank 0,
 # after the mesh freed its state): every step's logits, the greedy tokens,
 # the cache gathered from the shards; then in bf16, timed.  Prompt +
-# SERVE_MESH_GEN tokens (a cache of 4,112 / 8,208 positions, which the
+# SERVE_MESH_GEN tokens (a cache of 4,112 positions, which the
 # reference's cache_shardings splits by sequence where the batch is 1):
 # (a) yi-6b, 2 of 32 layers, TP (1, 2) at 1 x 4,096 and data-parallel
 # (2, 1) at 2 x 4,096 (FSDP's weights gathered on use); (b) gemma3-12b, 6
 # of 48 layers (5 local + 1 global), landmark decode (c 512, theta 4) on
-# (1, 2) at 1 x 8,192; (c) qwen2-moe-a2.7b, 2 of 24 layers, (1, 2) at
+# (1, 2) at 1 x 4,096; (c) qwen2-moe-a2.7b, 2 of 24 layers, (1, 2) at
 # 1 x 4,096 (the gather path, 30 experts a rank, capacity factor 1.25).
 SERVE_MESH = {"serve_yi_1x2": ("yi-6b", (1, 2), 1, 4096, 2),
               "serve_yi_2x1": ("yi-6b", (2, 1), 2, 4096, 2),
-              "serve_gemma3_1x2": ("gemma3-12b", (1, 2), 1, 8192, 6),
+              "serve_gemma3_1x2": ("gemma3-12b", (1, 2), 1, 4096, 6),
               "serve_moe_1x2": ("qwen2-moe-a2.7b", (1, 2), 1, 4096, 2),
-              "serve_ds_1x2": ("deepseek-v3-671b", (1, 2), 1, 8192, 4)}
-# (e) deepseek-v3-671b, 4 of 61 layers (the 3 dense + the first MoE: 128
-# of the 256 experts a rank), absorbed MLA decode, its latent cache of
-# 8,208 positions split by sequence (B = 1).  Its f32 check runs the dense
-# prefix alone (SERVE_MESH_F32_LAYERS); its MoE layer is checked apart
+              "serve_ds_1x2": ("deepseek-v3-671b", (1, 2), 1, 4096, 4)}
+# (e) deepseek-v3-671b at 1 x 4,096, 4 of 61 layers (the 3 dense + the
+# first MoE: 128 of the 256 experts a rank), absorbed MLA decode, its
+# latent cache of 4,112 positions split by sequence (B = 1).  Its f32
+# check runs the dense prefix alone (SERVE_MESH_F32_LAYERS); its MoE
+# layer is checked apart
 # (SERVE_MESH_MOE_T tokens, bf16, capacity E/k, nothing dropped) against
 # each rank's f32 per-token evaluation of its own experts' tokens, summed
 # over the ranks.  Its ranks draw their weights in turn (the whole draw,
@@ -705,8 +716,8 @@ SERVE_MESH = {"serve_yi_1x2": ("yi-6b", (1, 2), 1, 4096, 2),
 SERVE_MESH_F32_LAYERS = {"serve_ds_1x2": 2}
 SERVE_MESH_MOE_T = {"serve_ds_1x2": 512}
 SERVE_MESH_SERIAL_INIT = {"serve_ds_1x2"}
-# (d) train_mesh deepseek-v3-671b at full width: DS_TRAIN_LAYERS layers,
-# both of the dense prefix (first_k_dense cut with them), plus the MTP
+# (d) train_mesh deepseek-v3-671b at full width: DS_TRAIN_LAYERS layer of
+# the dense prefix (first_k_dense cut with it), plus the MTP
 # block; fsdp as the config sets it; adafactor (momentum off, the stacked
 # layers as one tensor) as default_optimizer gives the uncut > 100B config.
 # DS_BF16_STEPS bf16 steps of DS_TRAIN_TOKENS on (2, 1) (2 x 2,048) and
@@ -718,10 +729,35 @@ SERVE_MESH_SERIAL_INIT = {"serve_ds_1x2"}
 # params become the clipped update, -u), against one rank's update by the
 # mesh's gradients gathered: the statistics r / c / v (whole on every
 # rank) and rank 0's block of u, each <= TOL_ADA_UPDATE.
-DS_TRAIN_LAYERS, DS_TRAIN_TOKENS = 2, 4096
+DS_TRAIN_LAYERS, DS_TRAIN_TOKENS = 1, 4096
 DS_F32_LAYERS, DS_F32_B, DS_F32_S = 1, 2, 1024
 DS_BF16_STEPS = {(2, 1): 2, (1, 2): MESH_STEPS}
 DS_MESHES = ((2, 1), (1, 2))
+# (i) deepseek-v3-671b at full width on (1, 3) with seq_parallel_attn, in
+# the 3-rank spawn: 128 heads do not divide 3, so each rank projects its
+# 1,024 of 1 x DS_SP_SEQ query rows and launches B6's D = 192 / Dv = 128
+# instance against the latent expanded up to its last row (1,024, 2,048
+# and 3,072 keys).  Nothing but the MLP splits on (1, 3): attention and
+# the vocabulary (129,280) are whole on every rank, ~2.58B params with
+# DS_SP_LAYERS layer + MTP, 20.6 GB in f32 with their gradients
+# (PERF.md's reckoning).  Train: the f32 check (loss, every gradient,
+# grad_norm) against one rank at 1 x DS_SP_F32_SEQ (at 3,072 the three
+# ranks' f32 state and activations held 78.5 GiB of the card and the
+# backward's next 1.48 GiB did not fit, measured on one H100), then
+# DS_SP_BF16_STEPS bf16 adafactor steps at 1 x DS_SP_SEQ (step 2 timed),
+# B6's first launch on each rank against its plain version.  Serve
+# (``serve_ds_sp_1x3``): a prefill of 1 x DS_SP_SEQ + SERVE_MESH_GEN
+# tokens, f32 against one rank, then bf16 timed.
+DS_SP_LAYERS, DS_SP_SEQ, DS_SP_F32_SEQ, DS_SP_BF16_STEPS = 1, 3072, 1536, 2
+# the 3-rank spawn's allocator: three ranks' f32 state of (i) fill most of
+# the card, and the backward's gradient-sized blocks found no room among
+# the cached free blocks (3.76 GiB reserved but unallocated on a rank)
+MESH3_ALLOC_CONF = "expandable_segments:True"
+# (j) yi-6b, MESH_LAYERS layers, fsdp, on (2, 1) at 1 x MESH_SEQ: the row
+# is whole on both data ranks (the reference's batch_pspec of a batch that
+# data does not divide), whose equal shares FSDP's reduce-scatter sums.
+# The f32 check against one rank, then MESH_STEPS bf16 steps timed.
+ROWS_WHOLE_RUN = "yi_2x1_b1"
 # one adafactor update on the mesh against one rank's by the same (the
 # mesh's) gradients, scale-normalized, each leaf: the row and column sums
 # are added in another order on the card
@@ -740,14 +776,16 @@ TOL_SERVE_MESH_WITNESS = 1e-5
 # timed, with B6's first launch on each rank held to its plain version.
 # (f) recurrentgemma-2b, 3 layers (rglru, rglru, local): train (1, 2) at
 # 1 x 4,096 and (2, 1) at 2 x 2,048; serve (1, 2) at 2 x 8,192 + 16 (the
-# local ring split by slots).  (g) xlstm-125m, 4 of 12 layers: train
+# local ring split by slots).  (g) xlstm-125m, 2 of 12 layers (an mLSTM
+# and an sLSTM): train
 # (1, 2) at 1 x 1,024; serve (1, 2) at 2 x 4,096 + 16.  (h)
-# whisper-large-v3: train (1, 2) at 2 x 1,500 frames and 448 decoder
+# whisper-large-v3, 2 + 2 of 32 + 32 layers: train (1, 2) at 2 x 1,500
+# frames and 448 decoder
 # tokens; serve (1, 2) at 2 x 1,500 frames + 16 (enc_kv split by
 # sequence) and (2, 1) (by rows).  The serving runs are SERVE_MESH's;
 # their S counts whisper's frames (its decoder prompt is 1 token).
-REC_MESH_LAYERS = {"recurrentgemma-2b": 3, "xlstm-125m": 4,
-                   "whisper-large-v3": 4}
+REC_MESH_LAYERS = {"recurrentgemma-2b": 3, "xlstm-125m": 2,
+                   "whisper-large-v3": 2}
 REC_TRAIN_MESH = {"rg_1x2": ("recurrentgemma-2b", (1, 2), 1, 4096),
                   "rg_2x1": ("recurrentgemma-2b", (2, 1), 2, 2048),
                   "xl_1x2": ("xlstm-125m", (1, 2), 1, 1024),
@@ -774,6 +812,10 @@ SERVE_MESH.update({
 #: the runs of (f)-(h), whose seconds are summed apart
 REC_SERVE_MESH = ("serve_rg_1x2", "serve_xl_1x2", "serve_wh_1x2",
                   "serve_wh_2x1")
+SERVE_MESH["serve_ds_sp_1x3"] = ("deepseek-v3-671b", (1, 3), 1, DS_SP_SEQ,
+                                 DS_SP_LAYERS)
+#: config changes of a serving run
+SERVE_MESH_KW = {"serve_ds_sp_1x3": {"seq_parallel_attn": True}}
 
 
 class SmokeFailure(AssertionError):
@@ -785,6 +827,8 @@ class SmokeFailure(AssertionError):
 # They are not registered, so phase_parity's registry loop does not see
 # them; phase_build builds their user libraries, phase_user_spec runs them.
 USER_GAMMA = 0.5                         # the README's example
+# the built-in rbf at the same gamma (ROADMAP C14)
+RBF_PROBE_SIGMA = 1.0
 USER_SPECS = (
     specs.KernelSpec("cauchy", "sqdist",
                      lambda t: 1.0 / (1.0 + USER_GAMMA * t),
@@ -1972,6 +2016,33 @@ def _timed_pair(fns: dict, reps: int, warmup: int) -> dict:
     return {k: sum(v) / len(v) for k, v in ms.items()}
 
 
+def _rbf_steep_probe(X, idx, S, Z) -> dict:
+    """ROADMAP C14: the main path's three calls with the built-in
+    rbf at RBF_PROBE_SIGMA, where the split-TF32 statistic's dropped
+    x - hi - lo weighs as it did for cauchy at gamma 0.5: C against the
+    plain version and both against the f64 statistic's entries."""
+    op = CountingOperator(RBFKernel(X, sigma=RBF_PROBE_SIGMA, device=DEV))
+    C = _main_calls(op, idx, S, Z)[1]["apg"].C
+    C_plain = kernel.pairwise_block_plain(op.inner.spec, X, X[idx])
+    C64 = torch.exp(-torch.cdist(X.double(), X[idx].double()) ** 2
+                    / (2 * RBF_PROBE_SIGMA ** 2))
+    out = {"sigma": RBF_PROBE_SIGMA, "C_err_vs_plain": scaled_err(C, C_plain),
+           "C_err_vs_f64": {"kernel": scaled_err(C.double(), C64),
+                            "plain": scaled_err(C_plain.double(), C64)}}
+    check(bool(torch.isfinite(C).all()), "rbf probe: C not finite")
+    fault = out["C_err_vs_plain"] > TOL_F32 and \
+        out["C_err_vs_f64"]["plain"] < out["C_err_vs_f64"]["kernel"]
+    out["fault"] = bool(fault)
+    log(f"user_spec rbf probe at sigma {RBF_PROBE_SIGMA} (gamma "
+        f"{0.5 / RBF_PROBE_SIGMA ** 2}) on the main path: C vs plain "
+        f"{out['C_err_vs_plain']:.3g} (limit {TOL_F32}); vs the f64 "
+        f"statistic's entries: kernel {out['C_err_vs_f64']['kernel']:.3g}, "
+        f"plain {out['C_err_vs_f64']['plain']:.3g}; "
+        + ("a fault: over the limit with the plain version nearer f64"
+           if fault else "no fault"))
+    return out
+
+
 def phase_user_spec(m: dict, sh: dict) -> dict:
     """The reference's custom-kernel story on the card: USER_SPECS through
     B1, B2 and B4 against their plain versions, then cauchy on the main
@@ -2028,6 +2099,7 @@ def phase_user_spec(m: dict, sh: dict) -> dict:
     check(e_c <= TOL_F32, f"cauchy C vs plain {e_c:.3g} (vs f64: {e64})")
     check(e64["kernel"] <= TOL_F32, f"cauchy C vs f64 {e64}")
     check(e_u <= TOL_U, f"cauchy U vs plain {e_u:.3g}")
+    probe = _rbf_steep_probe(X, idx, S, Z)
     log(f"user_spec cauchy vs the plain versions: C {e_c:.3g}, U {e_u:.3g}; "
         f"C vs the f64 statistic's entries: kernel {e64['kernel']:.3g}, plain "
         f"{e64['plain']:.3g}, the tensor-core statistic "
@@ -2095,7 +2167,7 @@ def phase_user_spec(m: dict, sh: dict) -> dict:
             "C_err_vs_f64": e64, "err_hutchinson": err_h, "err_blocked": err_b,
             "b1_ms": b1, "b2_ms": b2, "b4_ms": b4, "b1_rows_err": e_b1,
             "b2_err": e_b2, "b2_err_vs_f64": e_b2_64,
-            "b4_rows_equal_b1": same,
+            "b4_rows_equal_b1": same, "rbf_probe": probe,
             "shapes": {"b1": [N, N, D, M], "b2": [b, N, D],
                        "b4": [start, length, N, D, M]},
             "builds": USER_BUILD}
@@ -5224,6 +5296,8 @@ def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
                                       loss=loss_fn(model))
     local, specs = tsteps.shard_params(cfg, model.init(gen(seed), DEV), mesh)
     _free()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with record("mesh") if record else _null():
@@ -5232,13 +5306,17 @@ def _mesh_f32_check(tag: str, cfg, mesh, batch: dict, seed: int, rank: int,
             steps=steps, probe=probe)
     launches = read_counts()
     parts = {"mesh": time.perf_counter() - t0}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+    reserved = torch.cuda.max_memory_reserved() / 1e9 \
+        if DEV == "cuda" else 0.0
     del local
     if rank != 0:
         del whole, mprobe
     _free()
     torch.distributed.barrier()
     out = {"loss": loss, "grad_norm": gn, "losses": losses,
-           "launches": launches, "parts_s": parts}
+           "launches": launches, "parts_s": parts, "peak_gb_mesh": peak,
+           "peak_reserved_gb_mesh": reserved}
     if rank == 0:
         t0 = time.perf_counter()
         params = model.init(gen(seed), DEV)
@@ -5393,6 +5471,8 @@ def _mesh_bf16_steps(tag: str, cfg, mesh, B: int, S: int, seed: int,
                  "result_bytes": v["result_bytes"] / n_steps}
              for k, v in coll.STATS.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else 0.0
+    reserved = torch.cuda.max_memory_reserved() / 1e9 \
+        if DEV == "cuda" else 0.0
     check(b6 == [{"flash_attention": b6_per_step,
                   "flash_attention_tc": b6_per_step}] * n_steps,
           f"{tag}: B6 a step on this rank {b6} (want {b6_per_step}, all on "
@@ -5421,14 +5501,43 @@ def _mesh_dense_run(rank: int, shape) -> dict:
     batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
                         global_batch=B, seed=1).batch_at(0)
     t0 = time.perf_counter()
-    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 91, rank)}
+    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 91, rank,
+                                  steps=MESH_F32_STEPS)}
     out["f32_s"] = time.perf_counter() - t0
     n = 2 * MESH_LAYERS
     check(out["f32"]["launches"] == no_launches(
-        flash_attention=n * MESH_STEPS), f"{tag}: the f32 steps should "
+        flash_attention=n * MESH_F32_STEPS), f"{tag}: the f32 steps should "
           f"launch the CUDA-core B6 {n} times a step on this rank: "
           f"{out['f32']['launches']}")
     out["bf16"] = _mesh_bf16_steps(tag, mesh_dense_config(), mesh, B,
+                                   MESH_SEQ, 92, n)
+    return out
+
+
+def _mesh_rows_whole_run(rank: int) -> dict:
+    """(j): yi-6b with fsdp on (2, 1) at a batch of one row, whole on both
+    data ranks (``tsteps.local_rows``), f32 against one rank, then bf16
+    timed."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 1), ("data", "model"), DEV)
+    tag = "train_mesh yi-6b 2x1 B = 1"
+    cfg = mesh_dense_config(dtype="float32")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                        global_batch=1, seed=1).batch_at(0)
+    mine = tsteps.local_rows(batch, mesh)
+    check(all(np.array_equal(np.asarray(mine[k]), np.asarray(batch[k]))
+              for k in batch), f"{tag}: rank {rank} does not hold the "
+          f"whole batch")
+    t0 = time.perf_counter()
+    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 91, rank,
+                                  steps=MESH_F32_STEPS)}
+    out["f32_s"] = time.perf_counter() - t0
+    n = 2 * MESH_LAYERS
+    check(out["f32"]["launches"] == no_launches(
+        flash_attention=n * MESH_F32_STEPS), f"{tag}: the f32 step should "
+          f"launch the CUDA-core B6 {n} times on this rank: "
+          f"{out['f32']['launches']}")
+    out["bf16"] = _mesh_bf16_steps(tag, mesh_dense_config(), mesh, 1,
                                    MESH_SEQ, 92, n)
     return out
 
@@ -5591,33 +5700,27 @@ def _mesh_ep_run(rank: int) -> dict:
     t0 = time.perf_counter()
     tally.clear()
     f32 = _mesh_f32_check(tag, cfg, mesh, batch, 95, rank, loss_fn=ce_only,
-                          record=record)
+                          record=record, steps=MESH_F32_STEPS)
     f32["dropped"] = {side: list(v) for side, v in tally.items()}
     check(tally["mesh"][0] == 0 and (rank or tally["one"][0] == 0),
           f"{tag}: assignments dropped in the run (dropped, of): {tally}")
     if rank == 0:
         log(f"{tag}: assignments dropped in the run's dispatches (dropped, "
             f"of) on rank 0 and on one rank: {f32['dropped']}")
-    n = 2 * MESH_LAYERS * MESH_STEPS
+    n = 2 * MESH_LAYERS * MESH_F32_STEPS
     check(f32["launches"] == no_launches(flash_attention=n),
           f"{tag}: B6 launches {f32['launches']} (want {n})")
     secs["f32"] = time.perf_counter() - t0
     return {"layer": layer, "f32": f32, "drops": drops, "parts_s": secs}
 
 
-def _mesh_sp_run(rank: int) -> dict:
-    """(c): yi-6b with sequence-parallel attention on (1, 3)."""
-    from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh((1, 3), ("data", "model"), DEV)
-    tag = "train_mesh yi-6b SP 1x3"
-    cfg = mesh_dense_config(dtype="float32", seq_parallel_attn=True)
-    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SP_SEQ,
-                        global_batch=1, seed=1).batch_at(0)
-    keys = []
+def _b6_shapes(shapes: list):
+    """A ``_mesh_f32_check`` ``record``: on the mesh's side each B6 launch
+    on this rank appends its (query rows, keys) to ``shapes``."""
     route = fa_grad.route
 
     def spy(q, k, v, causal=True, window=None):
-        keys.append(int(k.shape[2]))
+        shapes.append((int(q.shape[2]), int(k.shape[2])))
         return route(q, k, v, causal, window)
 
     class record:
@@ -5630,13 +5733,68 @@ def _mesh_sp_run(rank: int) -> dict:
 
         def __exit__(self, *exc):
             fa_grad.route = route
+    return record
 
-    out = _mesh_f32_check(tag, cfg, mesh, batch, 96, rank, record=record)
-    rows = MESH_SP_SEQ // 3
-    want = (rank + 1) * rows
-    check(keys and set(keys) == {want}, f"{tag}: rank {rank} launched B6 "
-          f"with keys {sorted(set(keys))} (want {want})")
-    out["b6_keys"] = sorted(set(keys))
+
+def _check_sp_shapes(tag: str, rank: int, shapes: list, S: int) -> list:
+    """Every B6 launch of a sequence-parallel rank on (1, 3): its S/3 query
+    rows against the keys up to its last row."""
+    rows = S // 3
+    want = (rows, (rank + 1) * rows)
+    check(shapes and set(shapes) == {want}, f"{tag}: rank {rank} launched "
+          f"B6 at (rows, keys) {sorted(set(shapes))} (want {want})")
+    return sorted(set(shapes))
+
+
+def _mesh_sp_run(rank: int) -> dict:
+    """(c): yi-6b with sequence-parallel attention on (1, 3)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 3), ("data", "model"), DEV)
+    tag = "train_mesh yi-6b SP 1x3"
+    cfg = mesh_dense_config(dtype="float32", seq_parallel_attn=True)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MESH_SP_SEQ,
+                        global_batch=1, seed=1).batch_at(0)
+    shapes = []
+    out = _mesh_f32_check(tag, cfg, mesh, batch, 96, rank,
+                          record=_b6_shapes(shapes), steps=MESH_F32_STEPS)
+    out["b6_keys"] = [k for _, k in _check_sp_shapes(tag, rank, shapes,
+                                                      MESH_SP_SEQ)]
+    return out
+
+
+def _mesh_ds_sp_run(rank: int) -> dict:
+    """(i): deepseek-v3-671b with sequence-parallel MLA on (1, 3): the f32
+    check against one rank, then bf16 adafactor steps timed, B6's first
+    launch on this rank against its plain version."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 3), ("data", "model"), DEV)
+    tag = "train_mesh deepseek-v3 SP 1x3"
+    t0 = time.perf_counter()
+    cfg = ds_config(DS_SP_LAYERS, dtype="float32", param_dtype="float32",
+                    seq_parallel_attn=True)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=DS_SP_F32_SEQ,
+                        global_batch=1, seed=1).batch_at(0)
+    shapes = []
+    out = {"f32": _mesh_f32_check(tag, cfg, mesh, batch, 99, rank, steps=1,
+                                  record=_b6_shapes(shapes))}
+    out["f32_s"] = time.perf_counter() - t0
+    out["b6_shapes_f32"] = _check_sp_shapes(tag, rank, shapes,
+                                            DS_SP_F32_SEQ)
+    # B6 a step: the layer's forward and its checkpoint's recompute, the
+    # MTP block's forward once
+    n = 2 * DS_SP_LAYERS + 1
+    check(out["f32"]["launches"] == no_launches(flash_attention=n),
+          f"{tag}: the f32 step should launch the CUDA-core B6 {n} times "
+          f"on this rank: {out['f32']['launches']}")
+    cfg = ds_config(DS_SP_LAYERS, seq_parallel_attn=True)
+    witness, shapes = [], []
+    with _b6_shapes(shapes)("mesh"):
+        out["bf16"] = _mesh_bf16_steps(
+            tag, cfg, mesh, 1, DS_SP_SEQ, 100, n,
+            make_opt=lambda: ds_optimizer(cfg), n_steps=DS_SP_BF16_STEPS,
+            witness=witness)
+    out["b6_shapes"] = _check_sp_shapes(tag, rank, shapes, DS_SP_SEQ)
+    out["b6_witness"] = _b6_check(witness[0], f"{tag} rank {rank} B6")
     return out
 
 
@@ -5825,8 +5983,10 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from torch.profiler import ProfilerActivity, profile
     arch, shape, B, S, layers = SERVE_MESH[run]
+    kw = SERVE_MESH_KW.get(run, {})
     mesh = make_mesh(shape, ("data", "model"), DEV)
-    tag = f"serve_mesh {arch} {shape[0]}x{shape[1]}"
+    tag = f"serve_mesh {arch} {shape[0]}x{shape[1]}" + (
+        " SP" if kw.get("seq_parallel_attn") else "")
     serial = run in SERVE_MESH_SERIAL_INIT
     f32_layers = SERVE_MESH_F32_LAYERS.get(run, layers)
     inputs = _serve_mesh_inputs(tconfigs.get_config(arch), B, S)
@@ -5838,19 +5998,19 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     # f32: the mesh, then one rank of the same weights, prompts and draws
     t0 = time.perf_counter()
     cfg = serve_mesh_config(arch, f32_layers, dtype="float32",
-                            param_dtype="float32")
+                            param_dtype="float32", **kw)
     draws = _serve_mesh_draws(cfg, B, S, 111)
     model = tmodel.build_model(cfg)
     local, specs = _init_shards(cfg, model, 112, mesh, serial)
     reset_counts()
-    build, built = tattention.build_landmark_cache, []
+    build, built, shapes = tattention.build_landmark_cache, [], []
 
     def spy(cfg_, k, v, draws_, generator=None, rows=0, heads=None):
         built.append((k.clone(), v.clone(), rows, heads))
         return build(cfg_, k, v, draws_, generator, rows=rows, heads=heads)
     tattention.build_landmark_cache = spy
     try:
-        with sharding.use_mesh(mesh):
+        with sharding.use_mesh(mesh), _b6_shapes(shapes)("mesh"):
             lg, toks, cache, _, _ = _serve_steps(
                 model, sharding.mesh_view(local, specs), mine, draws,
                 SERVE_MESH_GEN, global_batch=B)
@@ -5858,6 +6018,8 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     finally:
         tattention.build_landmark_cache = build
     launches = read_counts()
+    if cfg.seq_parallel_attn:
+        out["b6_shapes"] = _check_sp_shapes(tag, rank, shapes, S)
     whole = sharding.gather_cache(cache, mesh)
     # each landmark layer's K and V as the mesh built its factors from
     # them: every head (over ``model``) and row (over the row axes)
@@ -5942,7 +6104,7 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
 
     # bf16: a warm-up generate, then the timed one
     t0 = time.perf_counter()
-    cfg = serve_mesh_config(arch, layers)
+    cfg = serve_mesh_config(arch, layers, **kw)
     draws = _serve_mesh_draws(cfg, B, S, 111)
     model = tmodel.build_model(cfg)
     local, specs = _init_shards(cfg, model, 112, mesh, serial, prepare=True)
@@ -5952,7 +6114,8 @@ def _serve_mesh_run(rank: int, run: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     witness = []
     with sharding.use_mesh(mesh):
-        with _b6_witness(witness) if run in REC_SERVE_MESH else _null():
+        with _b6_witness(witness) if run in REC_SERVE_MESH \
+                or kw.get("seq_parallel_attn") else _null():
             _serve_steps(model, view, mine, draws, 2, global_batch=B)
         reset_counts()
         c0 = fa_kernel.launch_counts()
@@ -6104,6 +6267,8 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
             t0 = time.perf_counter()
             if run == "ep":
                 out[run] = _mesh_ep_run(rank)
+            elif run == "ds_sp_1x3":
+                out[run] = _mesh_ds_sp_run(rank)
             elif run.startswith("ds_"):
                 out[run] = _mesh_ds_train_run(rank, tuple(
                     int(v) for v in run[3:].split("x")))
@@ -6113,6 +6278,8 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
                 out[run] = _mesh_rec_train_run(rank, run)
             elif run == "sp":
                 out[run] = _mesh_sp_run(rank)
+            elif run == ROWS_WHOLE_RUN:
+                out[run] = _mesh_rows_whole_run(rank)
             else:
                 out[run] = _mesh_dense_run(rank, tuple(
                     int(v) for v in run.split("x")))
@@ -6125,10 +6292,14 @@ def _mesh_rank(rank: int, world: int, tmpdir: str, cfg: dict,
         dist.destroy_process_group()
 
 
-def _spawn_mesh(world: int, runs: tuple) -> list:
+def _spawn_mesh(world: int, runs: tuple, alloc_conf: str = "") -> list:
+    """Spawn ``world`` ranks of ``_mesh_rank`` running ``runs``; with
+    ``alloc_conf``, their caching allocator's PYTORCH_CUDA_ALLOC_CONF."""
     import torch.multiprocessing as mp
     cfg = {k: globals()[k] for k in (
         "DEV", "MESH_LAYERS", "MESH_SEQ", "MESH_SP_SEQ", "MESH_STEPS",
+        "MESH_F32_STEPS", "DS_SP_LAYERS", "DS_SP_SEQ", "DS_SP_F32_SEQ",
+        "DS_SP_BF16_STEPS", "SERVE_MESH_KW",
         "MESH_EP_SEQ", "SERVE_MESH", "SERVE_MESH_GEN",
         "SERVE_MESH_F32_LAYERS", "SERVE_MESH_MOE_T",
         "SERVE_MESH_SERIAL_INIT", "DS_TRAIN_LAYERS", "DS_TRAIN_TOKENS",
@@ -6137,8 +6308,17 @@ def _spawn_mesh(world: int, runs: tuple) -> list:
         "REC_SERVE_MESH", "WH_TRAIN_TOKENS", "TOL_WH_XATTN_GRAD")}
     tmpdir = tempfile.mkdtemp(prefix="train_mesh_")
     _free()
-    mp.spawn(_mesh_rank, args=(world, tmpdir, cfg, runs), nprocs=world,
-             join=True)
+    was = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if alloc_conf:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    try:
+        mp.spawn(_mesh_rank, args=(world, tmpdir, cfg, runs), nprocs=world,
+                 join=True)
+    finally:
+        if was is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = was
     infos = []
     for r in range(world):
         with open(os.path.join(tmpdir, f"rank{r}.json")) as f:
@@ -6151,18 +6331,23 @@ def _spawn_mesh(world: int, runs: tuple) -> list:
 
 def phase_train_mesh() -> dict:
     """The train step on a device mesh: (a) yi-6b FSDP on (2, 1) and TP on
-    (1, 2), (b) qwen2-moe-a2.7b expert-parallel on (1, 2), in 2 ranks;
-    (c) yi-6b with sequence-parallel attention on (1, 3), in 3 ranks; each
-    in f32 against one rank of the same weights and batch on the same
-    card, (a) also timed in bf16.  The 2-rank spawn then runs
-    ``serve_mesh``'s runs (``SERVE_MESH``), which ``phase_serve_mesh``
-    reads from ``res["serve_mesh"]``."""
+    (1, 2), (b) qwen2-moe-a2.7b expert-parallel on (1, 2), (d) deepseek-v3,
+    (f)-(h) the recurrent families and whisper, (j) yi-6b FSDP on (2, 1) at
+    a batch of one row, in 2 ranks; (c) yi-6b with sequence-parallel
+    attention and (i) deepseek-v3 with sequence-parallel MLA on (1, 3), in
+    3 ranks; each in f32 against one rank of the same weights and batch on
+    the same card, most also timed in bf16.  The spawns then run
+    ``serve_mesh``'s runs (``SERVE_MESH``) on their meshes, which
+    ``phase_serve_mesh`` reads from ``res["serve_mesh"]``."""
     t0 = time.perf_counter()
     runs2 = tuple(f"{d}x{m}" for d, m in MESH_DENSE) + ("ep",)
     ds = tuple(f"ds_{d}x{m}" for d, m in DS_MESHES)
     rec = tuple(REC_TRAIN_MESH)
-    two = _spawn_mesh(2, runs2 + ds + rec + tuple(SERVE_MESH))
-    three = _spawn_mesh(3, ("sp",))
+    serve3 = tuple(r for r, c in SERVE_MESH.items() if c[1] == (1, 3))
+    serve2 = tuple(r for r in SERVE_MESH if r not in serve3)
+    two = _spawn_mesh(2, runs2 + ds + rec + (ROWS_WHOLE_RUN,) + serve2)
+    three = _spawn_mesh(3, ("sp", "ds_sp_1x3") + serve3,
+                        alloc_conf=MESH3_ALLOC_CONF)
     wall = time.perf_counter() - t0
     backend = {2: two[0]["backend"], 3: three[0]["backend"]}
     staged = sorted(set(sum((i["staged"] for i in two + three), [])))
@@ -6176,8 +6361,18 @@ def phase_train_mesh() -> dict:
                        f"(b) {MESH_EP_SEQ} of 4,096 tokens (the phase's "
                        f"150 s)",
                        f"(c) {MESH_SP_SEQ} tokens (a multiple of 3)",
+                       f"(a)-(c) f32 checks cut to {MESH_F32_STEPS} step "
+                       f"(the loss and gradients) and the bf16 runs to "
+                       f"{MESH_STEPS} steps",
+                       f"(i) deepseek-v3-671b cut to {DS_SP_LAYERS} layer "
+                       f"(dense) + the MTP block at 1 x {DS_SP_SEQ} tokens, "
+                       f"{DS_SP_BF16_STEPS} bf16 steps; its f32 check at "
+                       f"1 x {DS_SP_F32_SEQ} (three ranks' f32 state at "
+                       f"3,072 did not fit the card)",
+                       f"(j) yi-6b cut to {MESH_LAYERS} layers, one f32 "
+                       f"step, {MESH_STEPS} bf16 steps",
                        f"(d) deepseek-v3-671b cut to {DS_TRAIN_LAYERS} "
-                       f"layers (both of the dense prefix, no MoE layer) + "
+                       f"layer(s) of the dense prefix, no MoE layer, + "
                        f"the MTP block; its f32 check to {DS_F32_LAYERS} "
                        f"layer + MTP at {DS_F32_B} x {DS_F32_S} tokens (one "
                        f"rank's f32 copy with gradients beside the mesh's), "
@@ -6311,56 +6506,107 @@ def phase_train_mesh() -> dict:
                  "s": sp["s"]}
     log(f"train_mesh yi-6b SP 1x3: B6 keys by rank "
         f"{res['sp']['b6_keys_by_rank']}")
+    for run, ranks, name in ((ROWS_WHOLE_RUN, two, "rows_whole"),
+                             ("ds_sp_1x3", three, "deepseek_sp")):
+        per_rank = [i[run]["bf16"] for i in ranks]
+        f32 = ranks[0][run]["f32"]
+        res[name] = {
+            "f32": {k: f32[k] for k in ("loss_err", "grad_err", "gnorm_err",
+                                        "worst_leaf", "leaves", "parts_s",
+                                        "peak_gb_mesh")},
+            "f32_peak_gb_mesh_by_rank": [i[run]["f32"]["peak_gb_mesh"]
+                                         for i in ranks],
+            **{k: [b[k] for b in per_rank] for k in (
+                "step_ms_median_2_on", "tokens_per_s", "peak_gb",
+                "collectives_per_step", "collective_ms_profiled_step")},
+            "b6_per_step": [b["b6_per_step"]["flash_attention"]
+                            for b in per_rank],
+            "losses_bf16": per_rank[0]["losses"], "s": ranks[0][run]["s"],
+            "f32_s": ranks[0][run]["f32_s"]}
+        if run == "ds_sp_1x3":
+            res[name].update(
+                b6_shapes_by_rank=[i[run]["b6_shapes"] for i in ranks],
+                b6_shapes_f32_by_rank=[i[run]["b6_shapes_f32"]
+                                       for i in ranks],
+                b6_witness=[i[run]["b6_witness"] for i in ranks])
+        d = res[name]
+        log(f"train_mesh {name} ({run}) bf16: step ms per rank "
+            f"{[round(v, 1) for v in d['step_ms_median_2_on']]}, tokens/s "
+            f"{[round(v) for v in d['tokens_per_s']]}, peak GB "
+            f"{[round(v, 2) for v in d['peak_gb']]} (f32 mesh "
+            f"{[round(v, 2) for v in d['f32_peak_gb_mesh_by_rank']]}), B6 "
+            f"a step {d['b6_per_step']}, collectives a step (rank 0) "
+            f"{json.dumps(d['collectives_per_step'][0])}, ms in "
+            f"mesh.collective on a profiled step "
+            f"{[round(v, 1) for v in d['collective_ms_profiled_step']]}; "
+            f"{d['s']:.1f} s (f32 {d['f32_s']:.1f})"
+            + (f"; B6 (rows, keys) by rank {d['b6_shapes_by_rank']}"
+               if "b6_shapes_by_rank" in d else ""))
     # the path's launches on rank 0: every count reset before a run's
     # counted part and read after it
     total = no_launches()
-    counted = runs2[:-1] + ds + rec
+    counted = runs2[:-1] + ds + rec + (ROWS_WHOLE_RUN,)
     for part in ([two[0][r]["f32"]["launches"] for r in counted]
                  + [two[0][r]["bf16"]["launches"] for r in counted]
-                 + [ep["f32"]["launches"], sp["launches"]]):
+                 + [ep["f32"]["launches"], sp["launches"],
+                    three[0]["ds_sp_1x3"]["f32"]["launches"],
+                    three[0]["ds_sp_1x3"]["bf16"]["launches"]]):
         total = {k: total[k] + part[k] for k in total}
     res["launches"] = total
-    f32_steps = {**{r: MESH_STEPS for r in runs2[:-1]},
-                 **{r: 1 for r in ds + rec}}
+    f32_steps = {**{r: MESH_F32_STEPS for r in runs2[:-1]},
+                 **{r: 1 for r in ds + rec}, ROWS_WHOLE_RUN: MESH_F32_STEPS}
     res["b6_launches_per_rank_per_step"] = {
         **{f"{r}_f32": [i[r]["f32"]["launches"]["flash_attention"]
                         / f32_steps[r] for i in two] for r in counted},
         **{f"{r}_bf16": [i[r]["bf16"]["b6_per_step"]["flash_attention_tc"]
                          for i in two] for r in counted},
         "ep_f32": [i["ep"]["f32"]["launches"]["flash_attention"]
-                   / MESH_STEPS for i in two],
-        "sp_f32": [i["sp"]["launches"]["flash_attention"] / MESH_STEPS
-                   for i in three]}
-    res["serve_mesh"] = [{run: i[run] for run in SERVE_MESH} for i in two]
+                   / MESH_F32_STEPS for i in two],
+        "sp_f32": [i["sp"]["launches"]["flash_attention"] / MESH_F32_STEPS
+                   for i in three],
+        "ds_sp_1x3_f32": [i["ds_sp_1x3"]["f32"]["launches"][
+            "flash_attention"] for i in three],
+        "ds_sp_1x3_bf16": [i["ds_sp_1x3"]["bf16"]["b6_per_step"][
+            "flash_attention_tc"] for i in three]}
+    res["serve_mesh"] = {run: [i[run] for i in (three if run in serve3
+                                                else two)]
+                         for run in SERVE_MESH}
     return res
 
 
 def phase_serve_mesh(tmesh: dict) -> dict:
     """The serving cells on a mesh (``SERVE_MESH``), run by
-    ``phase_train_mesh``'s 2-rank spawn: per run and rank the bf16 prefill
+    ``phase_train_mesh``'s spawns: per run and rank the bf16 prefill
     ms, decode ms a token, the collectives of a decode step, its ms in
     ``mesh.collective``, peak GB and B6 a prefill; the f32 errors against
     one rank.  The path's launches are rank 0's, each run's counts reset
     just before its mesh calls and read just after."""
     ranks = tmesh["serve_mesh"]
     res = {"runs": {}, "launches": no_launches(),
-           "s": sum(ranks[0][run]["s"] for run in SERVE_MESH),
+           "s": sum(ranks[run][0]["s"] for run in SERVE_MESH),
            "reduced": [
                "yi-6b and qwen2-moe-a2.7b cut to 2 layers, gemma3-12b to 6 "
                "(5 local + 1 global) of 48, deepseek-v3-671b to 4 (3 dense "
                "+ 1 MoE) of 61, its f32 check to the 2 dense layers",
-               f"contexts 4,096 (yi, qwen2-moe) and 8,192 (gemma3, "
-               f"deepseek) + {SERVE_MESH_GEN} tokens: the phase's 150 s",
+               f"contexts 4,096 + {SERVE_MESH_GEN} tokens",
                "deepseek's MoE layer checked at T = 512 with its capacity "
                "raised to E/k (nothing dropped)",
-               "(f)-(h) recurrentgemma-2b cut to 3 of 26 layers, xlstm-125m "
-               "to 4 of 12, whisper-large-v3 to 4 + 4 of 32 + 32; contexts "
+               f"(f)-(h) recurrentgemma-2b cut to "
+               f"{REC_MESH_LAYERS['recurrentgemma-2b']} of 26 layers, "
+               f"xlstm-125m to {REC_MESH_LAYERS['xlstm-125m']} of 12, "
+               f"whisper-large-v3 to {REC_MESH_LAYERS['whisper-large-v3']}"
+               f" + {REC_MESH_LAYERS['whisper-large-v3']} of 32 + 32; "
+               "contexts "
                "8,192 (recurrentgemma), 4,096 (xlstm) and 1,500 frames "
                f"(whisper), each at batch 2 + {SERVE_MESH_GEN} tokens",
+               f"(i) deepseek-v3-671b under seq_parallel_attn on (1, 3) "
+               f"cut to {DS_SP_LAYERS} (dense) layer, 1 x {DS_SP_SEQ} + "
+               f"{SERVE_MESH_GEN} tokens",
                "fsdp off (weights whole on every data rank)",
-               "two gloo ranks time-share one card (no NCCL: one card)"]}
+               "two or three gloo ranks time-share one card (no NCCL: one "
+               "card)"]}
     for run in SERVE_MESH:
-        per = [r[run] for r in ranks]
+        per = ranks[run]
         r0 = per[0]
         for part in (r0["f32_launches"], r0["bf16"]["launches"]):
             for k, v in part.items():
@@ -6378,6 +6624,8 @@ def phase_serve_mesh(tmesh: dict) -> dict:
             row["moe_layer"] = [p["moe_layer"] for p in per]
         if "b6_witness" in r0:
             row["b6_witness"] = [p["b6_witness"] for p in per]
+        if "b6_shapes" in r0:
+            row["b6_shapes_by_rank"] = [p["b6_shapes"] for p in per]
         res["runs"][run] = row
         arch, shape, B, S, layers = SERVE_MESH[run]
         log(f"serve_mesh {arch} {shape[0]}x{shape[1]} ({layers} layers, "
@@ -6392,8 +6640,8 @@ def phase_serve_mesh(tmesh: dict) -> dict:
             f"{json.dumps(row['collectives_prefill'][0])}, its ms in "
             f"mesh.collective {[round(v, 1) for v in row['collective_ms_prefill']]}"
             f"; f32 vs one rank {json.dumps(r0['f32'])}; {r0['s']:.1f} s")
-    res["recurrent_s"] = sum(ranks[0][run]["s"] for run in REC_SERVE_MESH)
-    log(f"serve_mesh: {res['s']:.1f} s inside train_mesh's spawn; reduced "
+    res["recurrent_s"] = sum(ranks[run][0]["s"] for run in REC_SERVE_MESH)
+    log(f"serve_mesh: {res['s']:.1f} s inside train_mesh's spawns; reduced "
         f"{res['reduced']}")
     log(f"the recurrent and encoder-decoder mesh runs (f)-(h): "
         f"{tmesh['recurrent_s'] + res['recurrent_s']:.1f} s (train "
@@ -6773,7 +7021,7 @@ def main() -> int:
     b6["train"] = _train_line(tgrad, tg3, tmoe, trecur, tpar)
     b6["train_mesh"] = {k: tmesh[k] for k in (
         "backend", "staged", "wall_s", "reduced", "dense", "deepseek",
-        "recurrent", "recurrent_s", "ep", "sp",
+        "recurrent", "recurrent_s", "ep", "sp", "deepseek_sp", "rows_whole",
         "b6_launches_per_rank_per_step")}
     b6["serve_mesh"] = {k: smesh[k] for k in ("runs", "reduced", "s",
                                               "recurrent_s")}
@@ -6798,6 +7046,7 @@ def main() -> int:
     b2["user_spec"]["err_vs_plain"] = us["b2_err"]
     b2["user_spec"]["err_vs_f64"] = us["b2_err_vs_f64"]
     b4["user_spec"]["rows_equal_b1"] = us["b4_rows_equal_b1"]
+    b1["rbf_probe"] = us["rbf_probe"]
     b2["calibrate"] = cal["specs"]
     for line in (b1, b2, b4):
         rows = {k: v for k, v in line.items() if k.startswith("roofline")}

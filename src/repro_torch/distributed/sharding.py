@@ -46,10 +46,13 @@ dicts carrying their specs, as a prefill on the mesh returns them),
 ``gather_cache`` gathers it back, ``local_range`` gives a rank's first
 position (or ring slot) and count along a split dimension.
 
-**Serving rows.**  A serving batch goes over the data axes only when they
-divide it (``batch_pspec``; ``row_axes``); otherwise every rank holds the
-whole batch.  ``use_rows`` tells the model code which (``batch_axes``:
-the MoE's global capacity, the landmark draws' rows).
+**Batch rows.**  A batch goes over the data axes where they divide it,
+else over ``data`` alone where it divides it (the ``pod`` ranks then hold
+the same rows), else it is whole on every rank (``batch_pspec``;
+``row_axes``): the reference's ``batch_shardings``, for serving and
+training alike.  ``use_rows`` tells the model code which (``batch_axes``:
+the MoE's global capacity and expert-parallel token slices, the landmark
+draws' rows).
 
 **The ambient mesh.**  ``use_mesh(mesh)`` sets the mesh the model code runs
 under (a ``contextvars`` variable of this module): ``ambient_axis_size``,
@@ -686,10 +689,9 @@ def ambient_mesh():
 
 @contextlib.contextmanager
 def use_rows(axes):
-    """Run the model code with its batch rows split over ``axes`` (a
-    serving batch that ``data`` does not divide is whole on every rank:
-    ``()``).  Outside it the rows are split over the data axes, as a train
-    step splits them."""
+    """Run the model code with its batch rows split over ``axes``
+    (``row_axes`` of the batch: ``()`` where it is whole on every rank).
+    Outside it the rows are split over the data axes."""
     token = _ROWS.set(tuple(axes))
     try:
         yield
@@ -710,17 +712,21 @@ def mesh_active() -> bool:
 
 
 def bind_mesh(fn):
-    """``fn`` called under the ambient mesh of now, wherever it runs: a
-    block that autograd recomputes for a checkpoint runs on autograd's
-    thread, outside this thread's ``use_mesh``.  ``fn`` itself without a
-    mesh."""
-    mesh = _MESH.get()
+    """``fn`` called under the ambient mesh and batch rows (``use_rows``)
+    of now, wherever it runs: a block that autograd recomputes for a
+    checkpoint runs on autograd's thread, outside this thread's
+    ``use_mesh``.  ``fn`` itself without a mesh."""
+    mesh, rows = _MESH.get(), _ROWS.get()
     if is_trivial(mesh):
         return fn
 
     def bound(*args, **kwargs):
-        with use_mesh(mesh):
-            return fn(*args, **kwargs)
+        token = _ROWS.set(rows)
+        try:
+            with use_mesh(mesh):
+                return fn(*args, **kwargs)
+        finally:
+            _ROWS.reset(token)
     return bound
 
 

@@ -43,14 +43,13 @@ or more where the rows are not split).  On the CPU:
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch whisper-large-v3 --smoke --device cpu --mesh 1x2
 
-MLA under ``seq_parallel_attn`` raises ``NotImplementedError`` (ROADMAP
-A10-rest.3).
+A config with ``seq_parallel_attn`` runs its MLA prefill over sequence
+rows where the heads do not divide ``model`` (``attention._mla_sp``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
 import time
 from typing import Dict, Optional
 
@@ -61,9 +60,9 @@ from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shd
-from repro_torch.launch.mesh import describe, mesh_dims, setup_mesh
+from repro_torch.launch.mesh import describe, setup_mesh
 from repro_torch.launch.steps import shard_params
-from repro_torch.models.model import Model, build_model, check_mesh_support
+from repro_torch.models.model import Model, build_model
 
 
 def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
@@ -138,8 +137,6 @@ def main(argv=None) -> None:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.landmark:
         cfg = dataclasses.replace(cfg, use_landmark_decode=True)
-    if math.prod(mesh_dims(args.mesh)[0]) > 1:
-        check_mesh_support(cfg)
     mesh, device = setup_mesh(args.mesh, resolve_device(args.device))
     rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)

@@ -24,12 +24,17 @@ params and the optimizer state are this rank's local shards, laid out by
 ``specs`` (``distributed.sharding.param_shardings`` of the global params;
 ``shard_params`` makes both).  Every rank is handed the same global
 batch; a microbatch is the reference's global row block, of which a rank
-takes its rows over (pod, data).  The model runs under
+takes the rows that ``batch_pspec`` gives it (``local_rows``): its block
+over (pod, data) where they divide the rows, else over ``data`` alone
+where it divides them, else the whole microbatch, as the reference's
+``batch_shardings`` lays a batch out.  The model runs under
 ``sharding.use_mesh`` on a ``mesh_view`` of the shards: FSDP gathers
 each block's weights over ``data`` on use, ``model`` carries heads, FFN
 width, vocabulary and experts (``models``).  A rank's loss is its share
-of the global loss, so after the backward each gradient is summed over
-the data axes that split the batch and do not split the leaf (an FSDP
+of the global loss (the global token count counts a row once for each
+rank that holds it, so the shares of ranks holding the same rows add up
+to that rows' loss), so after the backward each gradient is summed over
+the data axes that do not split the leaf (an FSDP
 leaf's was reduce-scattered over ``data`` in the backward); the leaves
 that a ``model`` rank uses in part (under TP, SP and EP) were summed over
 ``model`` inside autograd (``collectives.copy_to``).  The global-norm
@@ -40,9 +45,8 @@ elementwise; adafactor keeps its factored statistics whole and
 replicated, as the reference lays them out (``_opt_shardings``), formed
 from local sums added over the axes that split the reduced dimension in
 rank order (``optim.optimizers``); its state is made on the mesh by
-``opt.init(local, mesh=, specs=)``.  Every family trains there but MLA
-under ``seq_parallel_attn``, which ``models.model.check_mesh_support``
-refuses (ROADMAP A10-rest.3).
+``opt.init(local, mesh=, specs=)``.  Every family trains there, MLA
+under ``seq_parallel_attn`` too.
 
 ``build_cell`` is the entry point the reference's dry-run, trainer and
 server share: the step function, its abstract arguments (tensors on the
@@ -61,6 +65,7 @@ path suffix and shape, else replicated.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -70,8 +75,7 @@ from repro_torch.configs import config_for_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig, input_specs
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.model import (Model, build_model, check_mesh_support,
-                                      stacked_layers)
+from repro_torch.models.model import Model, build_model, stacked_layers
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
@@ -156,7 +160,6 @@ def make_train_step(model: Model, opt, *, peak_lr: float = 3e-4,
     on_mesh = not shd.is_trivial(mesh)
     flat_specs = None
     if on_mesh:
-        check_mesh_support(model.cfg)
         if specs is None:
             raise ValueError("a mesh step needs the params' spec tree")
         flat_specs = [s for _, s in shd.leaves_with_path(specs)]
@@ -188,7 +191,9 @@ def loss_and_grads(model: Model, params, batch: dict, *, accum: int = 1,
     """The step's forward and backward: (a gradient per leaf of
     ``params`` in tree order, the metrics, the global norm on a mesh or
     None).  On a mesh the gradients are this rank's shards, summed over
-    the data axes (``sync_grads``).  The leaves require grad on return."""
+    the data axes (``sync_grads``); each microbatch's loss runs on this
+    rank's rows of it under ``sharding.use_rows``.  The leaves require
+    grad on return."""
     leaves = tree_leaves(params)
     device = leaves[0].device
     for p in leaves:
@@ -201,10 +206,15 @@ def loss_and_grads(model: Model, params, batch: dict, *, accum: int = 1,
             accum)
         return grads, metrics, None
     flat_specs = [s for _, s in shd.leaves_with_path(specs)]
+
+    def loss_fn(p, micro):
+        B = next(iter(micro.values())).shape[0]
+        with shd.use_rows(shd.row_axes(B, mesh)):
+            return model.loss(p, local_rows(micro, mesh))
     with shd.use_mesh(mesh):
         grads, metrics = _grads_and_metrics(
-            model.loss, shd.mesh_view(params, specs), leaves,
-            lambda i: local_rows(_microbatch(batch, accum, i), mesh), accum)
+            loss_fn, shd.mesh_view(params, specs), leaves,
+            lambda i: _microbatch(batch, accum, i), accum)
     sync_grads(grads, flat_specs, mesh)
     return grads, metrics, mesh_global_norm(grads, flat_specs, mesh)
 
@@ -214,25 +224,25 @@ def loss_and_grads(model: Model, params, batch: dict, *, accum: int = 1,
 # ---------------------------------------------------------------------------
 
 def local_rows(batch: dict, mesh) -> dict:
-    """This rank's rows of a (micro)batch: its block over (pod, data),
-    row-major with ``pod`` outer.  A batch whose rows the data axes do not
-    divide (``batch_pspec`` would put its sequence on ``data``) is ROADMAP
-    A10-rest.3."""
-    n = shd.data_size(mesh)
-    if n == 1:
-        return batch
+    """This rank's rows of a (micro)batch, as ``batch_pspec`` lays them
+    out (``sharding.row_axes``): its block over (pod, data), row-major
+    with ``pod`` outer, where they divide the rows; else its block over
+    ``data`` alone where it divides them (the ``pod`` ranks hold the same
+    rows); else the whole batch.  The reference's trainer lays its batch
+    out so (``batch_shardings``, no sequence axis)."""
     B = next(iter(batch.values())).shape[0]
-    if B % n:
-        raise NotImplementedError(
-            f"a batch of {B} rows on {shd.mesh_shape(mesh)}: a batch the "
-            f"data axes do not split by rows is ROADMAP A10-rest.3")
-    i, rows = shd.shard_index(mesh), B // n
-    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+    axes = shd.row_axes(B, mesh)
+    if not axes:
+        return batch
+    first, n = shd.local_range((axes,), 0, B, mesh)
+    return {k: v[first:first + n] for k, v in batch.items()}
 
 
 def _reduce_axes(spec, mesh) -> tuple:
-    """The data axes a leaf's gradient is summed over: those that split
-    the batch and not the leaf."""
+    """The data axes a leaf's gradient is summed over: those (of size > 1)
+    that do not split the leaf.  Each rank's loss is its share of the
+    global loss, whether the axis splits the batch or its ranks hold the
+    same rows."""
     own = shd.spec_axes(spec)
     return tuple(a for a in shd.data_axes(mesh)
                  if a not in own and shd.mesh_shape(mesh)[a] > 1)
@@ -308,12 +318,15 @@ def default_accum(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                   dp: Optional[int] = None) -> int:
     """Microbatch count so per-step activation temps fit ~8 GB a device
     (the reference's calibrated budget: ~10x the bf16 block inputs).
-    The data-parallel size is the mesh's (pod × data), or ``dp`` where
-    no mesh is given; ``accum`` is capped at the local batch."""
+    The local batch is a rank's rows of the global batch on ``mesh``
+    (``sharding.row_axes``: the whole batch where it lies whole on every
+    rank), or the global batch over ``dp`` ranks, as the reference sizes
+    it, where ``dp`` is given; ``accum`` is capped at the local batch."""
     if shape.kind != "train":
         return 1
     if dp is None:
-        dp = shd.data_size(mesh)
+        dp = math.prod(shd.mesh_shape(mesh)[a] for a in shd.row_axes(
+            shape.global_batch, mesh))
     local_b = max(shape.global_batch // dp, 1)
     layers = cfg.n_layers + (cfg.n_dec_layers if cfg.is_encdec else 0)
     act = layers * local_b * shape.seq_len * cfg.d_model * 2 * 10

@@ -30,8 +30,11 @@ statistics whole on every rank), the recurrent ``recurrentgemma-2b`` and
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch xlstm-125m --smoke --device cpu --steps 1 --mesh 1x2
 
-MLA under ``seq_parallel_attn`` raises ``NotImplementedError`` (ROADMAP
-A10-rest.3).  The encoder-decoder trains on ``input_specs``' shapes:
+A batch whose rows the data axes do not divide lies over ``data`` alone
+where ``data`` divides it, else whole on every rank, as the reference
+lays it out (``launch.steps.local_rows``); MLA under
+``seq_parallel_attn`` splits its query rows over ``model`` where the
+heads do not divide it.  The encoder-decoder trains on ``input_specs``' shapes:
 ``--seq-len`` seeded frame embeddings a row (the stubbed frontend, drawn
 from the step) and a decoder of ``--seq-len`` // 8 synthetic tokens.
 
@@ -59,9 +62,9 @@ from repro_torch.data import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import mesh_dims, setup_mesh
+from repro_torch.launch.mesh import setup_mesh
 from repro_torch.launch.steps import default_optimizer, make_train_step
-from repro_torch.models.model import build_model, check_mesh_support
+from repro_torch.models.model import build_model
 from repro_torch.optim import OptState
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime import PreemptionHandler
@@ -143,8 +146,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if int(np.prod(mesh_dims(args.mesh)[0])) > 1:
-        check_mesh_support(cfg)
     mesh, device = setup_mesh(args.mesh, resolve_device(args.device))
     rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)

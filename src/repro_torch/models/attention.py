@@ -32,7 +32,11 @@ MLA on a mesh runs over heads (``_mla``): each rank holds its heads of
 ``wq_b``, ``wkv_b`` and ``wo`` and its part of ``wq_a``'s q_rank columns
 (the low-rank query all-gathered before its norm); ``wkv_a`` is
 replicated, so the latent is whole on every ``model`` rank and a prefill
-keeps its slice of it under the cache specs with no exchange.  At decode
+keeps its slice of it under the cache specs with no exchange.  Where the
+heads do not divide ``model`` and the positions do, under
+``seq_parallel_attn`` (``_mla_sp``), each rank projects its S/tp rows and
+the latent is all-gathered once a layer (not K and V), expanded through
+``wkv_b`` up to the rank's last row.  At decode
 the latent cache may be split by sequence: absorbed, every head's latent
 query reads the rank's positions and the partial reads merge by
 log-sum-exp; materialized, the slices are all-gathered first
@@ -388,7 +392,7 @@ def _narrow(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _mla_project(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, seq_split: bool = False):
     """-> q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated, the latent
     ckv (B, S, R) and the shared rope key k_rope (B, S, dr) rotated, all in
     the compute dtype.
@@ -398,14 +402,17 @@ def _mla_project(params: dict, cfg: ModelConfig, x: torch.Tensor,
     query ql is all-gathered over ``model`` before its norm, and its
     gradient, partial on each rank (each reads ql through its own heads),
     summed back to the part.  Where the heads are whole, ``wq_a`` itself
-    is gathered (the replicated body's gradient is taken at the part)."""
+    is gathered: the replicated body's gradient is taken at the part, or,
+    with ``seq_split`` (each ``model`` rank projects its own rows:
+    ``_mla_sp``), summed over the ranks back to it."""
     dt = cfg.cdtype
     dn, R = cfg.qk_nope_dim, cfg.kv_lora_rank
     wq_a = as_compute(params["wq_a"], dt)
     q_rank_split = shd.split(params, "wq_a", 1)
     heads = shd.split(params, "wq_b", 1)
     if q_rank_split and not heads:
-        wq_a = C.gather(wq_a, 1, "model")
+        wq_a = (C.all_gather_sum if seq_split else C.gather)(wq_a, 1,
+                                                             "model")
     ql = x @ wq_a
     if q_rank_split and heads:
         ql = C.all_gather_sum(ql, -1, "model")
@@ -427,13 +434,14 @@ def mla_attend_full(params: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     materialized from the latents, ``krope`` broadcast over the heads, one
     flash-attention call with q/k of width dn + dr and v of width dv (the
     softmax scale is 1/√(dn + dr), as the reference's), then the output
-    projection."""
+    projection.  The latents may be longer than the queries: B6
+    right-aligns the queries to the keys (``_mla_sp``)."""
     dt = cfg.cdtype
-    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    B, S, H, _ = q_nope.shape
-    kvb = _proj(ckv, params["wkv_b"], dt)                      # (B,S,H,dn+dv)
+    dn = cfg.qk_nope_dim
+    H = q_nope.shape[2]
+    kvb = _proj(ckv, params["wkv_b"], dt)                     # (B,Sk,H,dn+dv)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    kf = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(B, S, H, dr)],
+    kf = torch.cat([kvb[..., :dn], k_rope[:, :, None].expand(-1, -1, H, -1)],
                    dim=-1)
     v = kvb[..., dn:]
     out = fa_ops.flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
@@ -448,7 +456,9 @@ def _mla(params: dict, cfg: ModelConfig, x: torch.Tensor,
     over ``model`` it runs on this rank's heads of ``wq_b``, ``wkv_b`` and
     ``wo`` and the partial output projection is summed over ``model``; the
     latent, from the replicated ``wkv_a``, is whole on every rank with no
-    exchange."""
+    exchange.  Under sequence parallelism it is ``_mla_sp``."""
+    if _sp_active(cfg, x.shape[1]):
+        return _mla_sp(params, cfg, x, positions)
     tp = shd.split(params, "wq_b", 1)
     if tp:
         params, x = shd.tp_local(params), C.copy_to(x, "model")
@@ -457,12 +467,39 @@ def _mla(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return (C.reduce_from(y, "model") if tp else y), ckv, k_rope
 
 
+def _mla_sp(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """Sequence-parallel MLA (``_sp_active``: the heads do not divide
+    ``model``, the positions do), as ``_attention_sp`` for the other
+    mixers.  The weights are whole on every rank but ``wq_a``, whose
+    q_rank columns are gathered.  Each ``model`` rank projects its S/tp
+    rows: its queries and its rows' latent (ckv, k_rope), at its positions.
+    The latent, R + dr values a token against H·(dn + dr + dv) for K and
+    V, is all-gathered once a layer; each rank expands it through
+    ``wkv_b`` up to its last row and attends its queries against those
+    keys (B6 right-aligns them), then the output rows are all-gathered
+    back.  Returns (the output, the whole ckv, the whole k_rope)."""
+    r, tp = shd.axis_index("model"), shd.ambient_axis_size("model")
+    p = shd.tp_local(params)
+    rows = x.shape[1] // tp
+    xs = shd.constrain(x, (None, "model", None))
+    q_nope, q_rope, ckv, k_rope = _mla_project(
+        p, cfg, xs, positions[r * rows:(r + 1) * rows], seq_split=True)
+    ckv = C.all_gather_sum(ckv, 1, "model")
+    k_rope = C.all_gather_sum(k_rope, 1, "model")
+    end = (r + 1) * rows
+    y = mla_attend_full(p, cfg, q_nope, q_rope, ckv[:, :end],
+                        k_rope[:, :end])
+    return shd.constrain(y, (), src=(None, "model", None)), ckv, k_rope
+
+
 def _mla_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, max_len: int,
                  spec: Optional[dict]):
     """(MLA's output, its latent cache padded to ``max_len``): on a mesh
     this rank's slice of it under ``spec`` (the latent is whole on every
-    ``model`` rank, so the slice is a narrow)."""
+    ``model`` rank, computed there or gathered under sequence
+    parallelism, so the slice is a narrow)."""
     h, ckv, krope = _mla(params, cfg, x, positions)
     pad = (0, 0, 0, max_len - x.shape[1])
     cache = {"ckv": torch.nn.functional.pad(ckv, pad),

@@ -49,6 +49,13 @@ over the data ranks' count), and ``metrics`` holds the global values.  A
 vocabulary split over ``model`` gives the CE by a distributed
 log-sum-exp (``vocab_parallel_nll``): the logits are never gathered.
 
+``loss`` reads the rows of the batch that ``sharding.batch_pspec`` gives
+this rank (``launch.steps.local_rows``): a batch that the data axes do
+not divide lies over ``data`` alone where ``data`` divides it, else whole
+on every rank, as the reference lays it out.  The global token count is
+summed over every data axis, so it counts a row once for each rank that
+holds it, and the shares still add up to the global loss.
+
 ``prefill`` and ``decode_step`` run there too, on this rank's shards:
 the params, the batch rows that ``sharding.batch_pspec`` gives it (a
 batch that ``data`` does not divide is whole on every rank; ``prefill``
@@ -66,8 +73,8 @@ split by d_model and gathered, the encoder, the decoder and the
 cross-attention over heads, ``enc_kv`` under ``cache_shardings`` (split
 by sequence at 1,024 frames or more where the batch is not split, read
 through a log-sum-exp merge at decode).  MLA under ``seq_parallel_attn``
-raises ``NotImplementedError`` naming its ROADMAP item
-(``check_mesh_support``).
+too: its training and prefill split the query rows over ``model``
+(``attention._mla_sp``).
 
 Randomness is explicit: ``init`` draws from a ``torch.Generator``, and
 ``prefill`` takes the landmark layers' draws (``landmark_draws``, see
@@ -256,30 +263,11 @@ def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
     return _VocabParallelNLL.apply(logits, labels, first, shd.ambient_mesh())
 
 
-def check_mesh_support(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not yet run on
-    a mesh of more than one device: MLA under ``seq_parallel_attn``
-    (ROADMAP A10-rest.3)."""
-    if cfg.use_mla and cfg.seq_parallel_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA under seq_parallel_attn on a mesh of more "
-            f"than one device is ROADMAP A10-rest.3")
-
-
-def _check_mesh(cfg: ModelConfig) -> None:
-    """``check_mesh_support`` under an ambient mesh of more than one
-    device.  (The embeddings and the final norm are never split over
-    ``data``, so only the blocks gather weights: ``transformer``.)"""
-    if shd.mesh_active():
-        check_mesh_support(cfg)
-
-
 def _labels(batch: dict, device) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], dtype=torch.int64, device=device)
 
 
 def _lm_hidden(params: dict, cfg: ModelConfig, batch: dict):
-    _check_mesh(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = T.stack_full(params["stack"], cfg, x, positions)
@@ -399,7 +387,6 @@ def _serving_rows(cfg: ModelConfig, local: int,
                   global_batch: Optional[int]) -> tuple:
     """(the global batch, the axes that split its rows) of a prefill on
     the ambient mesh, this rank holding ``local`` rows."""
-    check_mesh_support(cfg)
     mesh = shd.ambient_mesh()
     if global_batch is None:
         if shd.data_size(mesh) > 1:
@@ -462,7 +449,6 @@ def _lm_decode(params: dict, cache: dict, tokens, pos: int, *,
     if not shd.mesh_active():
         x, cache = T.stack_decode(params["stack"], cfg, x, cache, int(pos))
     else:
-        check_mesh_support(cfg)
         with shd.use_rows(_cache_rows(cfg, cache)):
             x, cache = T.stack_decode(params["stack"], cfg, x, cache,
                                       int(pos))
@@ -587,7 +573,6 @@ def _dec_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _encdec_hidden(params: dict, cfg: ModelConfig, batch: dict
                    ) -> torch.Tensor:
-    _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
     positions = torch.arange(x.shape[1], device=x.device)
@@ -629,7 +614,6 @@ def _encdec_prefill(params: dict, batch: dict, max_len: int, *,
     carrying their specs: the self cache as an attention layer lays its
     own out, the encoder K/V, computed by each rank for its heads, moved
     to a split by sequence in one all-to-all where the layout says so."""
-    _check_mesh(cfg)
     enc_out = _encode(params, cfg, batch["frames"])
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens(batch, enc_out.device))
@@ -682,7 +666,6 @@ def _encdec_decode(params: dict, cache: dict, tokens, pos: int, *,
     is this rank's shards carrying their specs (a prefill's output): each
     layer reads its slices under them (``attention.attention_decode``,
     ``attention.cross_attention``)."""
-    _check_mesh(cfg)
     dcfg = _dec_cfg(cfg)
     x = L.embed(params["embed"], cfg, _tokens({"tokens": tokens},
                                               _device(params)))

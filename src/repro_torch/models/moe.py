@@ -52,8 +52,14 @@ On a mesh (``distributed.sharding.use_mesh``, params as ``MeshParams``):
   over the EP group) and capacity max(8, ⌈int(cf·(T_loc·k)/E)⌉₈); one
   ``all_to_all`` carries the slots to the experts' ranks and one brings
   them back; the combine is this path's fixed order, and the slices are
-  all-gathered over ``model``.  Without the divisibility it is the gather
-  path, as in the reference.
+  all-gathered over ``model``.  Its data slice is the reference's: the
+  global tokens split over every data axis (its ``tok_spec``).  Where
+  the rows are not split so (a batch that ``pod × data`` does not divide:
+  ``sharding.batch_axes``), the rows are all-gathered and each rank takes
+  its slice of the tokens, and the output is laid back by one all-gather
+  over the data axes (``_tokens_over_data``); a token count the data axes
+  do not divide keeps each rank's own rows.  Without the divisibility of
+  the experts it is the gather path, as in the reference.
 """
 from __future__ import annotations
 
@@ -279,10 +285,42 @@ def ep_capacity(cfg: ModelConfig, T_loc: int) -> int:
     return max(8, -(-int(cfg.capacity_factor * Tk / cfg.n_experts) // 8) * 8)
 
 
+def _tokens_over_data(xf: torch.Tensor):
+    """(this rank's slice of the global tokens over the data axes, a
+    function taking the path's output on that slice back to this rank's
+    rows) where the rows are split otherwise (``sharding.batch_axes``) and
+    the data axes divide the token count; (xf, None) elsewhere.  Each
+    all-gather's backward sums the ranks' gradients back
+    (``collectives.all_gather_sum``)."""
+    mesh = shd.ambient_mesh()
+    dp, rows = (tuple(a for a in axes if shd.ambient_axis_size(a) > 1)
+                for axes in (shd.data_axes(mesh), shd.batch_axes()))
+    n_rows = shd.ambient_axis_size(rows)
+    T = xf.shape[0] * n_rows
+    if rows == dp or T % shd.ambient_axis_size(dp):
+        return xf, None
+    whole = C.all_gather_sum(xf, 0, rows) if rows else xf
+    first, n = shd.local_range((dp,), 0, T, mesh)
+
+    def back(out: torch.Tensor) -> torch.Tensor:
+        out = C.all_gather_sum(out, 0, dp)
+        mine = shd.local_range((rows,), 0, T, mesh) if rows else (0, T)
+        return out.narrow(0, *mine)
+    return whole.narrow(0, first, n), back
+
+
 def _moe_shard_map(params: dict, cfg: ModelConfig, xf: torch.Tensor):
     """Expert parallelism over ('data', 'model') (the reference's
-    ``_moe_shard_map``, step for step): xf is this data slice's tokens,
-    replicated over ``model``."""
+    ``_moe_shard_map``, step for step): xf is this rank's rows' tokens,
+    replicated over ``model``, taken to the reference's data slice first
+    (``_tokens_over_data``)."""
+    xf, back = _tokens_over_data(xf)
+    out, aux = _expert_parallel(params, cfg, xf)
+    return (out if back is None else back(out)), aux
+
+
+def _expert_parallel(params: dict, cfg: ModelConfig, xf: torch.Tensor):
+    """``_moe_shard_map``'s body on this data slice's tokens xf."""
     axes = _ep_axes(cfg)
     tp = shd.ambient_axis_size("model")
     n_ep = shd.ambient_axis_size(axes)

@@ -344,6 +344,30 @@ def test_run_cell_on_the_production_meshes(multi_pod, tmp_path, jdry,
     assert dist.is_initialized() == was
 
 
+def test_mla_under_sequence_parallel_traces_on_the_production_mesh(
+        tmp_path, monkeypatch, capsys):
+    """``--set seq_parallel_attn=True`` on deepseek-v3 × train_4k (SMOKE:
+    4 heads, which ``model`` = 16 does not divide) traces on (16, 16):
+    rank 0's MLA attentions take its 256 of the 4,096 query rows against
+    the keys up to its last row, 256 (``attention._mla_sp``)."""
+    from repro_torch.models import attention as TA
+    monkeypatch.setattr(D, "get_config", tconfigs.get_smoke)
+    attend, shapes = TA.mla_attend_full, []
+
+    def spy(params, cfg, q_nope, q_rope, ckv, k_rope):
+        shapes.append((int(q_nope.shape[1]), int(ckv.shape[1])))
+        return attend(params, cfg, q_nope, q_rope, ckv, k_rope)
+    monkeypatch.setattr(TA, "mla_attend_full", spy)
+    D.main(["--arch", "deepseek-v3-671b", "--shape", "train_4k", "--set",
+            "seq_parallel_attn=True", "--out", str(tmp_path)])
+    assert "dry-run complete" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "deepseek-v3-671b__train_4k__16x16.json")
+                     .read_text())
+    assert rec["kind"] == "train" and rec["chips"] == 256
+    assert rec["kernels"]["repro_torch::flash_attention"] > 0
+    assert shapes and set(shapes) == {(256, 256)}, set(shapes)
+
+
 def test_the_fake_world_refuses_another_group_and_restores_the_process(
         tmp_path):
     from repro_torch.distributed import collectives as C

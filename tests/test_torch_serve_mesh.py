@@ -34,9 +34,12 @@ really splits the sequence:
   sequence over (data, model), the partial reads merged by log-sum-exp)
   and with B = 2 and ``fsdp`` (by batch over ``data``, by sequence over
   ``model``), materialized decode on (1, 4) (the slices all-gathered), and
-  a 240-token prompt on (1, 4) whose latent is not split; the first
-  layer's latent shards ≤ 1e-6 of one rank's, each case's exchanges
-  counted.
+  a 240-token prompt on (1, 4) whose latent is not split; and under
+  ``seq_parallel_attn`` on (1, 3), a mesh of the first three ranks (4
+  heads do not divide ``model``): each rank projects 342 of the 1,026
+  prompt rows, the latent gathered, and attends them against the keys up
+  to its last row; the first layer's latent shards ≤ 1e-6 of one rank's,
+  each case's exchanges counted.
 
 For each case: ``Model.prefill`` under ``use_mesh`` to ``max_len`` = prompt
 + 16, then 15 greedy steps through ``build_cell``'s decode cell; the
@@ -124,6 +127,8 @@ CASES = {
     "deepseek-1x4-materialized": ("deepseek-v3-671b", {"mla_absorb": False},
                                   (1, 4), 1, 1024),
     "deepseek-1x4-b2-short": ("deepseek-v3-671b", {}, (1, 4), 2, 240),
+    "deepseek-sp-1x3": ("deepseek-v3-671b", {"seq_parallel_attn": True},
+                        (1, 3), 1, 1026),
 }
 #: cases whose landmark draws come from a generator, not given
 GENERATOR = {"gemma3-2x2-b2-generator"}
@@ -326,14 +331,25 @@ def _serve_case(name: str, one: dict):
     first, n = shd.local_range((shd.row_axes(B, mesh),), 0, B, mesh)
     tokens = case_tokens(name)[first:first + n]
     C.reset_stats()
-    with shd.use_mesh(mesh):
-        logits, cache = model.prefill(shd.mesh_view(local, specs),
-                                      {"tokens": tokens}, S + GEN,
-                                      landmark_draws=case_draws(name),
-                                      generator=case_generator(name),
-                                      global_batch=B)
+    attend, shapes = TA.mla_attend_full, []
+
+    def spy(params, cfg_, q_nope, q_rope, ckv, k_rope):
+        shapes.append((int(q_nope.shape[1]), int(ckv.shape[1])))
+        return attend(params, cfg_, q_nope, q_rope, ckv, k_rope)
+    TA.mla_attend_full = spy
+    try:
+        with shd.use_mesh(mesh):
+            logits, cache = model.prefill(shd.mesh_view(local, specs),
+                                          {"tokens": tokens}, S + GEN,
+                                          landmark_draws=case_draws(name),
+                                          generator=case_generator(name),
+                                          global_batch=B)
+    finally:
+        TA.mla_attend_full = attend
     whole = _whole(one["prefill_cache"], one["cache"])
     out = {"rows": (first, n), "prefill_stats": dict(C.STATS),
+           "mla_attend": shapes, "coord": [int(c) for c in
+                                           mesh.get_coordinate()],
            "prefill_cache": _shard_errs(
                [t for _, t in shd.leaves_with_path(cache)], whole, mesh),
            "gathered_cache": [
@@ -639,21 +655,20 @@ def test_cli_serves_deepseek_on_a_mesh(runs):
     assert parts[0].shape == tserve.main(DS_CLI).shape
 
 
-@pytest.mark.parametrize("arch", ["mla-seq-parallel"])
-def test_the_families_left_out_refuse_a_serving_mesh(arch):
-    """MLA under ``seq_parallel_attn`` (no shipped config sets it) says so
-    at its prefill on a mesh, before any collective.  (The recurrent
-    families and the encoder-decoder serve on a mesh:
-    ``tests/test_torch_rec_mesh.py``.)"""
-    cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
-                              seq_parallel_attn=True)
-    model = TM.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        with shd.use_mesh({"data": 1, "model": 2}):
-            model.prefill(model.init(torch.Generator().manual_seed(0),
-                                     "cpu"),
-                          {"tokens": torch.zeros((1, 8),
-                                                 dtype=torch.int64)}, 8)
+@pytest.mark.parametrize("name", MLA_CASES)
+def test_mla_prefill_splits_query_rows_under_seq_parallel(runs, name):
+    """Under ``seq_parallel_attn`` with heads that do not divide ``model``
+    each rank's MLA attends its S/3 prompt rows against the keys up to its
+    last row (the latent gathered; the prefill and the first layer's
+    latent shards held above); over heads every attention takes the whole
+    prompt."""
+    S = CASES[name][4]
+    sp = case_cfg(name).seq_parallel_attn
+    for r, got in on_mesh(runs, name):
+        rows = S // 3 if sp else S
+        end = (got["coord"][1] + 1) * rows if sp else S
+        assert got["mla_attend"] and set(got["mla_attend"]) == {
+            (rows, end)}, (r, got["mla_attend"])
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,30 @@ run, once for the module:
   stops them all; ``--arch deepseek-v3-671b --mesh 2x2`` trains;
 - deepseek-v3 SMOKE on (1, 3), whose 4 heads do not divide ``model``
   while ``wq_a``'s q_rank columns do: the loss and every gradient against
-  one rank.
+  one rank;
+- ``ROWS``: batches laid out as the reference's ``batch_pspec`` lays them
+  (``steps.local_rows``) where ``pod × data`` does not divide the rows —
+  yi-6b with ``fsdp`` on (2, 1) at B = 1 (whole on both data ranks; FSDP's
+  reduce-scatter sums their equal shares), on (pod, data, model) = (2, 2,
+  1) at B = 2 (over ``data`` alone, the pods holding the same rows) and
+  B = 1 (whole), qwen2-moe with expert parallelism at B = 1 on (2, 1)
+  (the tokens split over ``data`` as the reference's ``tok_spec`` splits
+  them; capacity factor E/k, so nothing drops), recurrentgemma-2b at B = 1
+  on (2, 1) — and MLA under ``seq_parallel_attn``: deepseek-v3 SMOKE on
+  (1, 3) at 48 tokens (16 query rows a rank, against 16, 32 and 48 keys).
+  Each against one rank (the loss, every gradient, grad_norm, the loss
+  after one adamw step; the EP case without its aux, which EP forms per
+  token slice) and against the reference's jitted train step on the same
+  mesh with its ``build_cell`` shardings (the same, its gradients read
+  from adamw's first moment); each rank's rows against the reference's
+  ``batch_pspec``.
 
 Reference side: one subprocess sees 4 CPU devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``, as
 ``tests/test_distributed_paths.py`` runs its multi-device cases) and runs
 ``moe_ffn`` with ``moe_impl="shard_map"`` and the SP loss under ``with
 mesh:``; it asserts that the expert- and sequence-parallel paths engaged.
+A second subprocess jits the ``ROWS`` cases' train steps.
 The two sides run at once.  The spawn and the subprocess each have their
 own timeout (240 s), and the gloo group a 120 s one, so a hung collective
 fails the module instead of running out the suite's clock.
@@ -82,6 +99,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
 from repro_torch.optim import make_optimizer
@@ -115,6 +133,21 @@ EP_CASES = (("cf8", (2, 2), {}),
 SP = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=6,
           n_kv_heads=2, head_dim=8, d_ff=96, vocab_size=64, dtype="float32",
           seq_parallel_attn=True)
+DM, POD = ("data", "model"), ("pod", "data", "model")
+#: name: (arch, config changes, mesh shape, its axes, batch, tokens a row)
+ROWS = {
+    "yi-fsdp-2x1-b1": ("yi-6b", {"fsdp": True}, (2, 1), DM, 1, 32),
+    "yi-2x2x1-b2": ("yi-6b", {}, (2, 2, 1), POD, 2, 32),
+    "yi-2x2x1-b1": ("yi-6b", {}, (2, 2, 1), POD, 1, 32),
+    "qwen2moe-ep-2x1-b1": ("qwen2-moe-a2.7b", {"moe_impl": "shard_map",
+                                               "capacity_factor": 3.0},
+                           (2, 1), DM, 1, 32),
+    "recurrentgemma-2x1-b1": ("recurrentgemma-2b", {}, (2, 1), DM, 1, 32),
+    "deepseek-sp-1x3": ("deepseek-v3-671b", {"seq_parallel_attn": True},
+                        (1, 3), DM, 2, 48),
+}
+#: the rows cases' adamw steps (lr 1e-2 from the first step on)
+ROWS_LR = dict(peak_lr=1e-2, warmup=0, total=10)
 CLI = ["--arch", "yi-6b", "--smoke", "--seq-len", "32", "--global-batch",
        "4", "--device", "cpu", "--log-every", "1"]
 DS_CLI = ["--arch", "deepseek-v3-671b"] + CLI[2:]
@@ -174,6 +207,63 @@ out["sp/loss"] = np.asarray(loss)
 np.savez(d + "/ref.npz", **out)
 '''
 
+#: the reference's train steps of ``ROWS`` (a second subprocess): loss,
+#: grad_norm, the gradients (adamw's first moment over 1 - b1, unclipped)
+#: and the loss after one step, with ``build_cell``'s shardings
+REF_ROWS_SCRIPT = r'''
+import dataclasses, math, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs import get_smoke
+from repro.configs.base import ShapeConfig
+from repro.launch.steps import build_cell, make_train_step
+from repro.models import attention as A
+from repro.optim.optimizers import adamw
+
+assert len(jax.devices()) == 4, jax.devices()
+d = sys.argv[1]
+inp = dict(np.load(d + "/rows_inputs.npz", allow_pickle=True))
+cases = inp.pop("cases").item()
+out = {}
+
+
+def keys(tree):
+    return [jax.tree_util.keystr(p) for p, _ in
+            jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+for name, (arch, kw, shape, axes, B, S, lr) in cases.items():
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32", **kw)
+    mesh = jax.make_mesh(tuple(shape), tuple(axes),
+                         devices=jax.devices()[:math.prod(shape)],
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(shape))
+    batch = {k: jnp.asarray(inp[name + "/" + k]) for k in ("tokens",
+                                                          "labels")}
+    with mesh:
+        cell = build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
+                          opt=adamw())
+        shapes = jax.eval_shape(cell.model.init, jax.random.PRNGKey(0))
+        params = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(shapes),
+            [jnp.asarray(inp[name + "/p" + p]) for p in keys(shapes)])
+        if cfg.seq_parallel_attn:
+            assert A._sp_active(cfg, S), name
+        step = jax.jit(make_train_step(cell.model, adamw(), **lr),
+                       in_shardings=cell.in_shardings,
+                       out_shardings=cell.out_shardings)
+        p1, s1, m1 = step(params, adamw().init(params), batch)
+        _, _, m2 = step(p1, s1, batch)
+    gn = float(m1["grad_norm"])
+    out[name + "/loss"] = np.asarray(m1["loss"])
+    out[name + "/gnorm"] = np.asarray(gn)
+    out[name + "/losses"] = np.asarray([m1["loss"], m2["loss"]])
+    clip = min(1.0, 1.0 / max(gn, 1e-12))
+    m = s1.inner["m"]
+    for p, leaf in zip(keys(m), jax.tree_util.tree_leaves(m)):
+        out[name + "/grad" + p] = np.asarray(leaf) / (1 - 0.9) / clip
+np.savez(d + "/ref_rows.npz", **out)
+'''
+
 
 # ---------------------------------------------------------------------------
 # inputs shared by both sides
@@ -226,6 +316,46 @@ def sp_inputs():
     rng = np.random.default_rng(12)
     t = rng.integers(0, 64, size=(2, 64)).astype(np.int32)
     return cfg, params, {"tokens": t, "labels": np.roll(t, -1, 1)}
+
+
+def rows_cfg(name: str) -> ModelConfig:
+    arch, kw = ROWS[name][:2]
+    return dataclasses.replace(get_smoke(arch), dtype="float32", **kw)
+
+
+def rows_batch(name: str) -> dict:
+    B, S = ROWS[name][4:]
+    rng = np.random.default_rng(13)
+    t = rng.integers(0, rows_cfg(name).vocab_size, size=(B, S)).astype(
+        np.int32)
+    return {"tokens": t, "labels": np.roll(t, -1, 1)}
+
+
+def rows_params(name: str):
+    return arch_params(rows_cfg(name))
+
+
+def ce_only(model):
+    """``model`` whose loss leaves out the MoE aux: expert parallelism
+    forms the aux per token slice, the gather path on one rank over every
+    token.  On a mesh a rank's total holds its data rank's share of the
+    aux."""
+    def loss(p, b):
+        total, met = model.loss(p, b)
+        share = met["aux"] / shd.data_size(shd.ambient_mesh())
+        return (total - TM.MOE_AUX_WEIGHT * share,
+                {**met, "loss": met["ce"]})
+    return model._replace(loss=loss)
+
+
+def rows_models(name: str) -> dict:
+    """{"ref": the model held to the reference and to one rank}, or for
+    the EP case also {"one": the model held to one rank, without its
+    aux}."""
+    model = TM.build_model(rows_cfg(name))
+    if rows_cfg(name).moe_impl != "shard_map":
+        return {"ref": model}
+    return {"ref": model, "one": ce_only(model)}
 
 
 def _flat_ref(tree, prefix=""):
@@ -285,6 +415,78 @@ def _mla_heads_whole_run(out: dict) -> None:
     out["1x3/loss"] = float(met["loss"])
     out["1x3/grads"] = _gathered(tree_unflatten(local, iter(grads)), specs,
                                  mesh)
+
+
+def _sub_mesh(shape, axes):
+    """A mesh of ``shape`` over the first ranks of the world: every rank
+    builds it (its groups), a rank outside has no coordinate."""
+    n = int(np.prod(shape))
+    if n == WORLD:
+        return make_mesh(shape, axes, "cpu")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def _rows_runs(out: dict) -> None:
+    """Each ``ROWS`` case on its mesh: per model (``rows_models``) the loss,
+    grad_norm, the gradients gathered and two adamw steps' losses; and this
+    rank's record: its coordinate, its rows, the tokens each expert-
+    parallel dispatch routed and the (query, key) lengths of each MLA
+    attention."""
+    recs = {}
+    for name, (_, _, shape, axes, _, _) in ROWS.items():
+        mesh = _sub_mesh(shape, axes)
+        if mesh.get_coordinate() is None:
+            continue
+        cfg = rows_cfg(name)
+        rec = {"coord": [int(c) for c in mesh.get_coordinate()],
+               "rows": torch.as_tensor(steps.local_rows(
+                   rows_batch(name), mesh)["tokens"]),
+               "routed": [], "attend": []}
+        assign, attend = TMoE._assign, TA.mla_attend_full
+
+        def spy_assign(cfg_, idx, cap, *a, **k):
+            rec["routed"].append(int(idx.shape[0]))
+            return assign(cfg_, idx, cap, *a, **k)
+
+        def spy_attend(params, cfg_, q_nope, q_rope, ckv, k_rope):
+            rec["attend"].append((int(q_nope.shape[1]), int(ckv.shape[1])))
+            return attend(params, cfg_, q_nope, q_rope, ckv, k_rope)
+        TMoE._assign, TA.mla_attend_full = spy_assign, spy_attend
+        try:
+            for side, model in rows_models(name).items():
+                local, specs = steps.shard_params(cfg, rows_params(name),
+                                                  mesh)
+                grads, met, gn = steps.loss_and_grads(
+                    model, local, rows_batch(name), mesh=mesh, specs=specs)
+                key = f"rows/{name}/{side}"
+                out[key + "/loss"] = float(met["loss"])
+                out[key + "/gnorm"] = float(gn)
+                out[key + "/grads"] = _gathered(
+                    tree_unflatten(local, iter(grads)), specs, mesh)
+                out[key + "/steps"] = _adamw_steps(model, local, mesh, specs,
+                                                   rows_batch(name))
+        finally:
+            TMoE._assign, TA.mla_attend_full = assign, attend
+        recs[name] = rec
+    every = [None] * WORLD
+    dist.all_gather_object(every, recs)
+    out["rows/ranks"] = every
+
+
+def _adamw_steps(model, local, mesh, specs, batch) -> list:
+    """Two adamw steps' losses (``ROWS_LR``: the second after an update),
+    on ``mesh`` or, with None, on one rank."""
+    opt = make_optimizer("adamw")
+    step = steps.make_train_step(model, opt, mesh=mesh, specs=specs,
+                                 **ROWS_LR)
+    state = opt.init(local, mesh=mesh, specs=None if specs is None else
+                     [s for _, s in shd.leaves_with_path(specs)])
+    losses = []
+    for _ in range(2):
+        local, state, m = step(local, state, batch)
+        losses.append(float(m["loss"]))
+    return losses
 
 
 def _three_steps(cfg, opt, local, mesh, specs) -> list:
@@ -409,6 +611,7 @@ def _port_rank(rank: int, world: int, d: str) -> None:
         for shape in MESHES:
             _arch_runs(make_mesh(shape, ("data", "model"), "cpu"), out)
         _mla_heads_whole_run(out)
+        _rows_runs(out)
         _ep_runs(out)
         _sp_run(out)
         _cli_runs(d, out)
@@ -440,6 +643,13 @@ def runs(tmp_path_factory):
         "moe": {name: {**MOE, **kw} for name, _, kw in EP_CASES},
         "ep": [(name, shape) for name, shape, _ in EP_CASES], "sp": SP},
         dtype=object)}
+    rows = {"cases": np.array({
+        name: c + (ROWS_LR,) for name, c in ROWS.items()}, dtype=object)}
+    for name in ROWS:
+        rows.update(_flat_ref(convert.params_to_reference(
+            rows_params(name), rows_cfg(name)), name + "/p"))
+        rows.update({f"{name}/{k}": v for k, v in rows_batch(name).items()})
+    np.savez(d / "rows_inputs.npz", **rows)
     x = moe_x()
     for name, _, kw in EP_CASES:
         inputs[name + "/x"] = x
@@ -455,23 +665,26 @@ def runs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT, str(d)],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(d)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for script in (REF_SCRIPT, REF_ROWS_SCRIPT)]
     # the reverse checkpoint: two steps on one device, resumed on the mesh
     ttrain.main(CLI + ["--steps", "2", "--ckpt-dir", str(d / "ck_single"),
                        "--ckpt-every", "2"])
     try:
         _spawn(_port_rank, (WORLD, str(d)), WORLD, TIMEOUT)
     finally:
-        try:
-            stdout, stderr = proc.communicate(timeout=TIMEOUT)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            raise
-    assert proc.returncode == 0, stdout + "\n" + stderr
+        for proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                raise
+            assert proc.returncode == 0, stdout + "\n" + stderr
     return {"port": torch.load(d / "port.pt"),
-            "ref": dict(np.load(d / "ref.npz")), "dir": d}
+            "ref": {**np.load(d / "ref.npz"), **np.load(d / "ref_rows.npz")},
+            "dir": d}
 
 
 def scaled(got, want) -> float:
@@ -737,13 +950,85 @@ def test_a_preemption_on_one_rank_stops_every_rank(runs):
     assert runs["port"]["cli/stop_none"] is False
 
 
-@pytest.mark.parametrize("arch", ["mla-seq-parallel"])
-def test_the_families_left_out_refuse_a_mesh(arch):
-    """MLA under ``seq_parallel_attn`` (no shipped config sets it) says
-    so as the train step is made.  (The recurrent families and the
-    encoder-decoder train on a mesh: ``tests/test_torch_rec_mesh.py``.)"""
-    cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"),
-                              seq_parallel_attn=True)
-    with pytest.raises(NotImplementedError, match="A10-rest.3"):
-        steps.make_train_step(TM.build_model(cfg), make_optimizer("adamw"),
-                              mesh={"data": 1, "model": 2}, specs={})
+# ---------------------------------------------------------------------------
+# batches laid out as the reference lays them, and MLA under SP
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def rows_one_rank(name: str):
+    """(loss, gradients, two adamw steps' losses) on one rank."""
+    model = list(rows_models(name).values())[-1]
+    grads, met, _ = steps.loss_and_grads(model, rows_params(name),
+                                         rows_batch(name))
+    steps_ = _adamw_steps(model, rows_params(name), None, None,
+                          rows_batch(name))
+    return float(met["loss"]), [g.detach() for g in grads], steps_
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_batch_rows_and_sp_mla_match_one_rank(runs, name):
+    """The loss ≤ 1e-5, every gradient ≤ 1e-4, grad_norm ≤ 1e-5 and two
+    adamw steps' losses ≤ 1e-4 of one rank's."""
+    loss, grads, steps_ = rows_one_rank(name)
+    key = f"rows/{name}/{list(rows_models(name))[-1]}"
+    got = runs["port"]
+    assert abs(got[key + "/loss"] - loss) <= TOL_LOSS * abs(loss)
+    errs = [scaled(a, b) for a, b in zip(got[key + "/grads"], grads)]
+    assert len(errs) == len(grads) and max(errs) <= TOL_GRAD, max(errs)
+    gn = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+    assert abs(got[key + "/gnorm"] - gn) <= 1e-5 * gn
+    np.testing.assert_allclose(got[key + "/steps"], steps_, rtol=TOL_STEPS)
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_batch_rows_and_sp_mla_match_reference(runs, name):
+    """The reference's train step jitted with its ``build_cell``
+    shardings on the same mesh: the loss ≤ 1e-5, every gradient (in the
+    reference's layout) ≤ 1e-4, grad_norm ≤ 1e-5 and the loss after one
+    adamw step ≤ 1e-4."""
+    ref, got = runs["ref"], runs["port"]
+    key = f"rows/{name}/ref"
+    want = float(ref[name + "/loss"])
+    assert abs(got[key + "/loss"] - want) <= TOL_LOSS * abs(want)
+    gn = float(ref[name + "/gnorm"])
+    assert abs(got[key + "/gnorm"] - gn) <= 1e-5 * gn
+    grads = _flat_ref(convert.params_to_reference(tree_unflatten(
+        rows_params(name), iter(got[key + "/grads"])), rows_cfg(name)))
+    assert len(grads) == len([k for k in ref
+                              if k.startswith(name + "/grad")])
+    for p, g in grads.items():
+        assert scaled(g, ref[name + "/grad" + p]) <= TOL_GRAD, p
+    np.testing.assert_allclose(got[key + "/steps"], ref[name + "/losses"],
+                               rtol=TOL_STEPS)
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_batch_rows_lie_as_the_reference_lays_them(runs, name):
+    """Each rank's rows are its block under the reference's
+    ``batch_pspec`` (over the data axes, ``data`` alone, or whole); an
+    expert-parallel dispatch routes the reference's token slice, B·S over
+    pod × data × model; each MLA attention under SP takes the rank's S/3
+    query rows against the keys up to its last row."""
+    from repro.distributed import sharding as jshd
+    arch, _, shape, axes, B, S = ROWS[name]
+    sizes = dict(zip(axes, shape))
+    entry = jshd.batch_pspec((B, S), type("Mesh", (), {"shape": sizes})())[0]
+    split = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    tokens = torch.as_tensor(rows_batch(name)["tokens"])
+    recs = [r[name] for r in runs["port"]["rows/ranks"] if name in r]
+    assert len(recs) == int(np.prod(shape))
+    for rec in recs:
+        coord = dict(zip(axes, rec["coord"]))
+        n, i = 1, 0
+        for a in split:
+            n, i = n * sizes[a], i * sizes[a] + coord[a]
+        assert torch.equal(torch.as_tensor(rec["rows"]),
+                           tokens[i * B // n:(i + 1) * B // n]), coord
+        if rows_cfg(name).moe_impl == "shard_map":
+            assert rec["routed"] and set(rec["routed"]) == {B * S // int(
+                np.prod(shape))}, rec["routed"]
+        if rows_cfg(name).seq_parallel_attn:
+            rows = S // sizes["model"]
+            assert rec["attend"] and set(rec["attend"]) == {
+                (rows, (coord["model"] + 1) * rows)}, rec["attend"]
