@@ -53,16 +53,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
 4c. user_spec: the reference's custom-kernel story on the card
    (``USER_SPECS``: cauchy 1/(1 + γ t) on sqdist at the README's γ = 0.5,
    a rational quadratic on l1dist, a compact ``torch.where`` entry on
-   sqdist and exp(t/16) on dot, none registered; a sqdist variant
-   evaluates Σ(x − y)² directly on the CUDA cores): B1 and B2 of each
+   sqdist and exp(t/16) on dot, none registered; a sqdist variant takes
+   the built-in tensor-core statistic with its near pairs summed
+   directly): B1 and B2 of each
    spec × precision against their plain versions at phase 3's ragged shape
    (f32 ≤ 1e-5, bf16_f32acc ≤ 1e-2 and ≤ 5e-2 of f32), the one-hot gather
    exact, B4 at phase 3's slabs with its rows equal to B1's; then the main
    path's three calls with cauchy at n = 50,000 (route ``fused``, the
    meter's counts and every launch count equal to rbf's run), C against
-   the plain version (≤ 1e-5) and against the f64 entries (≤ 1e-5, beside
-   the plain version's and the tensor-core statistic's distance from
-   them), U against the plain versions' U at the same draws, and B1, B2,
+   the plain version (≤ 1e-5) and against the f64 entries (≤ 1e-6, beside
+   the plain version's and the built-in statistic's distance from them),
+   U against the plain versions' U at the same draws; the built-in rbf at
+   σ = 1 on the main path (C), B2's panel and B4's slab rows against the
+   f64 statistic's entries (≤ 2e-6) and the plain version, with the share
+   of near pairs; and B1, B2,
    B4 at their main-path shapes timed in turns beside rbf (B1 also for the
    other specs beside rbf or laplacian; B2's panel, which holds each
    point's pair with itself, against the f64 statistic's entries ≤ 1e-5
@@ -436,6 +440,14 @@ TOL_BF16_F32 = 5e-2     # bf16_f32acc kernel vs the f32 plain version
 # contraction of the plain version's f32 entries, and to this stated
 # tolerance against the f32 plain version itself.
 TOL_F32_MAIN = 5e-5
+
+# C of the main path against the entries of the f64 statistic, rbf at
+# RBF_PROBE_SIGMA: the f32 kernels sum sqdist's near pairs directly
+# (kernel.NEAR_TAU), so an entry left on the combine is at most (1/e) 4.5
+# 2^-23 / NEAR_TAU = 7.9e-7 off; the combine alone read 1.53e-5 there
+TOL_NEAR_F64 = 2e-6
+# cauchy at USER_GAMMA against the same: at most (1/4) 4.5 2^-23 / NEAR_TAU
+TOL_CAUCHY_F64 = 1e-6
 
 TOL_READ_BF16 = 2e-2    # landmark read with bf16 inputs: the reference's
                         # _tol(bf16), rtol = atol = 2e-2
@@ -893,9 +905,10 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def passes(spec) -> dict:
     """The tensor-core passes a pairwise launch under ``spec`` runs, as the
-    built library reports them: the statistic's cross term (0 for l1dist,
-    on the CUDA cores) and the sweep's contraction."""
-    lib = pw_build.load_library()
+    library it launches from (a user spec's variant) reports them: the
+    statistic's cross term (0 for l1dist, on the CUDA cores) and the
+    sweep's contraction."""
+    lib = kernel._epilogue(spec)[0].load()
     stat = kernel._STAT_IDS[spec.stat]
     bf16 = int(spec.precision == "bf16_f32acc")
     return {"statistic": int(lib.pairwise_passes(stat, bf16, 0)),
@@ -1034,9 +1047,9 @@ def phase_build() -> None:
                            "counts, l1dist x 2 precisions")
     for spec, lib in zip(USER_SPECS, user_libs):
         report = lib.build_log()
-        # dot: 2 precisions x 2 k-step counts; sqdist and l1dist: the
-        # l1dist kernels, 2 precisions
-        count = 4 if spec.stat == "dot" else 2
+        # dot and sqdist: 2 precisions x 2 k-step counts; l1dist: 2
+        # precisions
+        count = 2 if spec.stat == "l1dist" else 4
         for name in ("pairwise_matmat_tc", "pairwise_block_tc"):
             check_wgmma_report(report, name, count,
                                f"{spec.stat} x 2 precisions (user variant)")
@@ -2016,30 +2029,64 @@ def _timed_pair(fns: dict, reps: int, warmup: int) -> dict:
     return {k: sum(v) / len(v) for k, v in ms.items()}
 
 
-def _rbf_steep_probe(X, idx, S, Z) -> dict:
-    """ROADMAP C14: the main path's three calls with the built-in
-    rbf at RBF_PROBE_SIGMA, where the split-TF32 statistic's dropped
-    x - hi - lo weighs as it did for cauchy at gamma 0.5: C against the
-    plain version and both against the f64 statistic's entries."""
+def _near_share(Xr, Xc) -> float:
+    """The share of the pairs whose f64 statistic lies below NEAR_TAU times
+    the sum of the f32 squared norms: the near pairs the f32 kernels sum
+    directly, up to the pairs within the combine's rounding of the
+    threshold."""
+    nn = (Xr * Xr).sum(1).double()[:, None] + (Xc * Xc).sum(1).double()
+    D = torch.cdist(Xr.double(), Xc.double()) ** 2
+    return float((D < kernel.NEAR_TAU * nn).double().mean())
+
+
+def _rbf_steep_probe(X, idx, S, Z, slab) -> dict:
+    """ROADMAP C14: the main path's three calls with the built-in rbf at
+    RBF_PROBE_SIGMA (gamma 0.5), where the combine's rounding at the points'
+    norms weighs most, then B2's panel and B4's slab rows (one-hot columns)
+    at the same sigma.  Each against the f64 statistic's entries (within
+    TOL_NEAR_F64) and against the plain version (within TOL_F32, unless the
+    plain version lies farther from the f64 entries than the kernel)."""
+    spec = specs.rbf(RBF_PROBE_SIGMA)
+    gamma = 0.5 / RBF_PROBE_SIGMA ** 2
     op = CountingOperator(RBFKernel(X, sigma=RBF_PROBE_SIGMA, device=DEV))
     C = _main_calls(op, idx, S, Z)[1]["apg"].C
-    C_plain = kernel.pairwise_block_plain(op.inner.spec, X, X[idx])
-    C64 = torch.exp(-torch.cdist(X.double(), X[idx].double()) ** 2
-                    / (2 * RBF_PROBE_SIGMA ** 2))
-    out = {"sigma": RBF_PROBE_SIGMA, "C_err_vs_plain": scaled_err(C, C_plain),
-           "C_err_vs_f64": {"kernel": scaled_err(C.double(), C64),
-                            "plain": scaled_err(C_plain.double(), C64)}}
     check(bool(torch.isfinite(C).all()), "rbf probe: C not finite")
-    fault = out["C_err_vs_plain"] > TOL_F32 and \
-        out["C_err_vs_f64"]["plain"] < out["C_err_vs_f64"]["kernel"]
-    out["fault"] = bool(fault)
-    log(f"user_spec rbf probe at sigma {RBF_PROBE_SIGMA} (gamma "
-        f"{0.5 / RBF_PROBE_SIGMA ** 2}) on the main path: C vs plain "
-        f"{out['C_err_vs_plain']:.3g} (limit {TOL_F32}); vs the f64 "
-        f"statistic's entries: kernel {out['C_err_vs_f64']['kernel']:.3g}, "
-        f"plain {out['C_err_vs_f64']['plain']:.3g}; "
-        + ("a fault: over the limit with the plain version nearer f64"
-           if fault else "no fault"))
+    C_plain = kernel.pairwise_block_plain(spec, X, X[idx])
+    C64 = torch.exp(-gamma * torch.cdist(X.double(), X[idx].double()) ** 2)
+    srows = kernel.slab_rows(N, slab, slab, DEV)
+    rows = kernel.pairwise_matmat_multi_slab_cuda(
+        spec, X, slab, slab, (sweep_lib.one_hot_columns(idx, N, DEV),))[0]
+    b = sweep_lib.resolved_block_size(N, N, None)
+    Xr = X[:b].contiguous()
+    P64 = torch.exp(-gamma * torch.cdist(Xr.double(), X.double()) ** 2)
+    cases = {"C": (C, C_plain, C64),
+             "b2_panel": (kernel.pairwise_block_cuda(spec, Xr, X),
+                          kernel.pairwise_block_plain(spec, Xr, X), P64),
+             "b4_rows": (rows, C_plain[srows], C64[srows])}
+    out = {"sigma": RBF_PROBE_SIGMA, "near_tau": kernel.NEAR_TAU,
+           "near_share": {"C": _near_share(X, X[idx]),
+                          "b2_panel": _near_share(Xr, X)},
+           "b4_rows_equal_b1": bool(torch.equal(rows, C[srows]))}
+    for name, (got, plain, exact) in cases.items():
+        e = {"vs_plain": scaled_err(got, plain),
+             "vs_f64": scaled_err(got.double(), exact),
+             "plain_vs_f64": scaled_err(plain.double(), exact)}
+        out[name] = e
+        check(e["vs_f64"] <= TOL_NEAR_F64,
+              f"rbf probe {name} vs f64 {e['vs_f64']:.3g} > {TOL_NEAR_F64}")
+        check(e["vs_plain"] <= TOL_F32 or e["vs_f64"] < e["plain_vs_f64"],
+              f"rbf probe {name} vs plain {e['vs_plain']:.3g} with the "
+              f"plain version nearer f64 ({e})")
+    del P64, C64
+    check(out["b4_rows_equal_b1"], "rbf probe: B4's rows differ from B1's C")
+    log(f"user_spec rbf probe at sigma {RBF_PROBE_SIGMA} (gamma {gamma}), "
+        f"near pairs below {kernel.NEAR_TAU} (xx + yy) summed directly "
+        f"(share: C {out['near_share']['C']:.4f}, B2 panel "
+        f"{out['near_share']['b2_panel']:.4f}): " + "; ".join(
+            f"{k} vs f64 {out[k]['vs_f64']:.3g} (limit {TOL_NEAR_F64}), vs "
+            f"plain {out[k]['vs_plain']:.3g}, plain vs f64 "
+            f"{out[k]['plain_vs_f64']:.3g}" for k in cases)
+        + f"; B4 rows = B1's C {out['b4_rows_equal_b1']}")
     return out
 
 
@@ -2084,26 +2131,32 @@ def phase_user_spec(m: dict, sh: dict) -> dict:
     e_c = scaled_err(apg.C, C_plain)
     e_u = scaled_err(apg.U, U_plain)
     del KS_plain
-    # C against the entries of the f64 statistic: the kernel's (the user
-    # sqdist variant sums (x - y)^2 directly), the plain version's (norms
-    # and cross term), and those of the built-in kernels' tensor-core
-    # statistic (split TF32, x - hi - lo dropped) under the same entry
+    # C against the entries of the f64 statistic: the kernel's, the plain
+    # version's (the reference's combine), and the built-in library's
+    # statistic-only B2 under the same entry; the statistic the variant
+    # takes, as its library reports it: tensor-core passes of the cross
+    # term (0: on the CUDA cores), the near pairs summed directly
     t64 = torch.cdist(X.double(), X[idx].double()) ** 2
     C64 = 1.0 / (1.0 + USER_GAMMA * t64)
     t_tc = kernel.pairwise_block_cuda(specs.stat_only("sqdist"), X, X[idx])
     e64 = {"kernel": scaled_err(apg.C.double(), C64),
            "plain": scaled_err(C_plain.double(), C64),
-           "tensor_core_statistic": scaled_err(
+           "builtin_statistic": scaled_err(
                1.0 / (1.0 + USER_GAMMA * t_tc.double()), C64)}
     del t64, C64, t_tc
+    stat_passes = passes(cauchy)["statistic"]
+    statistic = (f"tensor cores ({stat_passes} split-TF32 passes), near pairs "
+                 f"below {kernel.NEAR_TAU} (xx + yy) summed directly"
+                 if stat_passes else "sum (x - y)^2 on the CUDA cores")
     check(e_c <= TOL_F32, f"cauchy C vs plain {e_c:.3g} (vs f64: {e64})")
-    check(e64["kernel"] <= TOL_F32, f"cauchy C vs f64 {e64}")
+    check(e64["kernel"] <= TOL_CAUCHY_F64, f"cauchy C vs f64 {e64}")
     check(e_u <= TOL_U, f"cauchy U vs plain {e_u:.3g}")
-    probe = _rbf_steep_probe(X, idx, S, Z)
-    log(f"user_spec cauchy vs the plain versions: C {e_c:.3g}, U {e_u:.3g}; "
-        f"C vs the f64 statistic's entries: kernel {e64['kernel']:.3g}, plain "
-        f"{e64['plain']:.3g}, the tensor-core statistic "
-        f"{e64['tensor_core_statistic']:.3g}; rel err hutchinson "
+    probe = _rbf_steep_probe(X, idx, S, Z, sh["slab"])
+    log(f"user_spec cauchy (statistic: {statistic}) vs the plain versions: "
+        f"C {e_c:.3g}, U {e_u:.3g}; C vs the f64 statistic's entries: kernel "
+        f"{e64['kernel']:.3g} (limit {TOL_CAUCHY_F64}), plain "
+        f"{e64['plain']:.3g}, the built-in statistic "
+        f"{e64['builtin_statistic']:.3g}; rel err hutchinson "
         f"{err_h:.6f}, blocked {err_b:.6f}")
 
     # the kernels at their main-path shapes, each beside rbf in turns
@@ -2164,7 +2217,8 @@ def phase_user_spec(m: dict, sh: dict) -> dict:
     log(f"user_spec builds: {json.dumps(USER_BUILD)}")
     return {"launches": launches, "times": times, "parity": parity,
             "C_err_vs_plain": e_c, "U_err_vs_plain": e_u,
-            "C_err_vs_f64": e64, "err_hutchinson": err_h, "err_blocked": err_b,
+            "C_err_vs_f64": e64, "statistic": statistic,
+            "err_hutchinson": err_h, "err_blocked": err_b,
             "b1_ms": b1, "b2_ms": b2, "b4_ms": b4, "b1_rows_err": e_b1,
             "b2_err": e_b2, "b2_err_vs_f64": e_b2_64,
             "b4_rows_equal_b1": same, "rbf_probe": probe,
@@ -7042,7 +7096,8 @@ def main() -> int:
             "builds": us["builds"]}
     b1["user_spec"].update({k: us[k] for k in (
         "times", "C_err_vs_plain", "U_err_vs_plain", "C_err_vs_f64",
-        "err_hutchinson", "err_blocked", "b1_rows_err", "parity")})
+        "statistic", "err_hutchinson", "err_blocked", "b1_rows_err",
+        "parity")})
     b2["user_spec"]["err_vs_plain"] = us["b2_err"]
     b2["user_spec"]["err_vs_f64"] = us["b2_err_vs_f64"]
     b4["user_spec"]["rows_equal_b1"] = us["b4_rows_equal_b1"]

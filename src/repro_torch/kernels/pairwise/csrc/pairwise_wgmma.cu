@@ -22,10 +22,9 @@
 //   -include <generated header> -DPAIRWISE_USER_STAT=<statistic id>:
 // the epilogue is user_entry and its id EPI_USER the only one the variant
 // takes, and only that statistic's kernels are instantiated (both
-// precisions; a sqdist variant's are the l1dist kernels with a squared
-// difference, SQ_DIRECT below), so a variant's nvcc is a fraction of the
-// built-in library's.  Without the define the library compiles as the
-// built-in one, which refuses EPI_USER.
+// precisions), so a variant's nvcc is a fraction of the built-in
+// library's.  Without the define the library compiles as the built-in one,
+// which refuses EPI_USER.
 //
 // Precision and passes.
 //   * Cross term x.y of dot and sqdist on the tensor cores (wgmma, 64 rows x
@@ -33,15 +32,24 @@
 //     f32 policy: split TF32.  The prep kernel stores each point as hi =
 //     cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi); STAT_PASSES = 4 passes
 //     lo.lo + hi.lo + lo.hi + hi.hi (small ones first), f32 accumulation
-//     (pairwise_passes reports the counts a launch runs); x - hi -
-//     lo, below 2^-22 |x|, is dropped.  bf16_f32acc: points rounded to bf16
-//     (RNE), one bf16 pass; products of bf16 values are exact in f32.  Each
-//     128-byte feature chunk sums in a fresh accumulator that is then added
-//     into the statistic with __fadd_rn.
+//     (pairwise_passes reports the counts a launch runs); x - hi - lo,
+//     below 2^-22 |x|, is dropped, which weighs less than the combine's own
+//     rounding below.  bf16_f32acc: points rounded to bf16 (RNE), one bf16
+//     pass; products of bf16 values are exact in f32.  Each 128-byte
+//     feature chunk sums in a fresh accumulator that is then added into the
+//     statistic with __fadd_rn.
 //   * Row and column squared norms are computed once per point by the prep
 //     kernel (FP32 FMAs: in feature order for rows of at most 32 features,
 //     else per lane over a warp and a fixed butterfly); the combine is
 //     written with _rn intrinsics so the compiler cannot contract it.
+//   * The near pairs of sqdist (f32 policy).  The combine (xx + yy) - 2 x.y
+//     rounds at the scale of xx + yy, whatever the cross term's accuracy:
+//     where the points lie far from the origin and near each other (a point
+//     and itself) D comes out a few ulps of xx + yy off, and a steep entry
+//     multiplies that (rbf: by gamma).  So each entry whose combine is
+//     below NEAR_TAU (xx + yy) is evaluated again directly, sum (x - y)^2
+//     in feature order with one FMA a feature, x = hi + lo (sq_near
+//     below).
 //   * l1dist is a direct |x - y| sum in feature order on the CUDA cores.
 //   * The contraction K @ V of the sweep kernel: f32 policy in
 //     CONTRACT_PASSES = 4 TF32 passes, hi.Vhi + hi.Vlo + lo.Vhi + rem.Vhi, where hi, lo, rem are the
@@ -59,9 +67,11 @@
 // Bitwise agreements the callers check.  The statistic of the block kernel
 // and of the sweep kernel comes from one device function (stat_chunk) with
 // the same wgmma shape (m64n64) and the same order of steps and passes, on
-// the same prepped operands; a row's arithmetic depends neither on its
-// position in a tile nor on the slab's start.  So the one-hot gather
-// through B1 or B4 equals B2's entries, and B4's rows equal B1's.
+// the same prepped operands, and the near pairs' direct sum is a function
+// of the two points' values alone (sq_near, for both); a row's
+// arithmetic depends neither on its position in a tile nor on the slab's
+// start.  So the one-hot gather through B1 or B4 equals B2's entries, and
+// B4's rows equal B1's.
 //
 // Design.  Prep kernels write the points once per launch in operand form
 // (hi/lo TF32 parts, bf16, or f32 values for l1dist, features zero-padded
@@ -143,19 +153,6 @@ enum {
 #endif
 #endif
 
-// A user sqdist variant evaluates its statistic directly, sum (x - y)^2 in
-// feature order on the CUDA cores: the l1dist kernels with one FMA of the
-// difference a feature (SQ_DIRECT).  The tensor-core form ||x||^2 +
-// ||y||^2 - 2 x.y drops x - hi - lo (below 2^-22 |x|) from the cross term;
-// the built-in entries are flat enough near t = 0 to hide that, a user
-// entry need not be (chip_smoke.py's cauchy at gamma = 0.5 measures both
-// forms against f64 and the plain version).
-#if defined(PAIRWISE_USER_STAT) && PAIRWISE_USER_STAT == 1
-constexpr bool SQ_DIRECT = true;
-#else
-constexpr bool SQ_DIRECT = false;
-#endif
-
 struct Params {
   int epi;
   float a;
@@ -199,12 +196,6 @@ bool build_takes(int stat, int epi) {
   return stat >= STAT_DOT && stat <= STAT_L1 && epi >= EPI_IDENTITY &&
          epi <= EPI_EXP_AFFINE;
 #endif
-}
-
-// the statistic a launch's kernels evaluate (SQ_DIRECT: sqdist on the
-// l1dist kernels)
-int kernel_stat(int stat) {
-  return SQ_DIRECT && stat == STAT_SQDIST ? STAT_L1 : stat;
 }
 
 __device__ __forceinline__ float entry(float t, const Params& p) {
@@ -455,6 +446,11 @@ struct Maps {
 
 struct Geo {
   const float* xr_nrm;   // squared norms of the block's rows
+  // the prepped parts (f32 sqdist: the near pairs' values where a row
+  // spans chunks), rows of dp features
+  const float* xr_part[2];
+  const float* xc_part[2];
+  int dp;
   long long nr, nc, M;
   int row_bytes, nch, stages;
   long long col_tiles;   // block kernel: column tiles of 64 keys
@@ -516,8 +512,7 @@ __device__ __forceinline__ void stat_chunk(float (&s)[32], uint32_t xr,
                                            const unsigned char* smem,
                                            uint32_t smem_base) {
   if constexpr (STAT == STAT_L1) {
-    // |x - y| summed in feature order on the CUDA cores (f32 values); under
-    // SQ_DIRECT (x - y)^2, one FMA a feature
+    // |x - y| summed in feature order on the CUDA cores (f32 values)
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG) / 32;
     const int r0 = 16 * warp + lane / 4, cl = 2 * (lane & 3);
     const unsigned char* pr = smem + (xr - smem_base);
@@ -542,8 +537,7 @@ __device__ __forceinline__ void stat_chunk(float (&s)[32], uint32_t xr,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float& a = s[4 * j + 2 * h + e];
-            const float df = __fsub_rn(x[h], y);
-            a = SQ_DIRECT ? __fmaf_rn(df, df, a) : __fadd_rn(a, fabsf(df));
+            a = __fadd_rn(a, fabsf(__fsub_rn(x[h], y)));
           }
         }
     }
@@ -581,25 +575,189 @@ __device__ __forceinline__ void stat_chunk(float (&s)[32], uint32_t xr,
   }
 }
 
-// s -> entries in place: the sqdist combine, then the epilogue.  xx: this
-// lane's two rows' squared norms, yy[2 j + e]: its keys'.
-template <int STAT>
-__device__ __forceinline__ void finish_tile(float (&s)[32], const float (&xx)[2],
+// ---- the near pairs of the f32 sqdist statistic -------------------------------
+//
+// The combine D0 = max((xx + yy) - 2 x.y, 0) is off by a few f32 ulps of
+// xx + yy, at most c 2^-23 (xx + yy) with c ~ 4.5 (xx, yy, their sum, 2 x.y
+// and the difference each round once; 4.45 at most on quickstart's data),
+// however exact x.y is.  An entry whose D0 is below NEAR_TAU (xx + yy) is
+// evaluated again directly; one left on the combine has D >= NEAR_TAU
+// (xx + yy), so its relative error is at most c 2^-23 / NEAR_TAU = 2.1e-6,
+// and an entry f(D) moves by |D f'(D)| times that: at most 1/e of it for
+// exp(-g D) (7.9e-7), 1/4 for 1 / (1 + g D) (5.4e-7), of the entries'
+// scale 1.  A smaller NEAR_TAU redoes fewer entries for a larger bound:
+// at 1/16, tests/test_torch_pairwise_split.py's emulation reads 1.4e-6
+// from f64 (rbf at sigma 3); at 1/4, 3.2 % of C's entries are redone on
+// quickstart's data (32 clusters of spread 0.5 around centers 2 N(0, 1) in
+// 16 dimensions; tools/pairwise_ab.py), whatever the bandwidth.
+//
+// The direct sum reads each point as hi + lo, its prepped TF32 parts (x
+// within 2^-22 |x|; a point against itself gives exactly 0): from shared
+// memory where a point's padded row is one 128-byte chunk (the resident
+// rows, the stage's keys, which the warps release only after it), else
+// from the prepped arrays in global memory.  Each lane evaluates its own
+// near slots (about one a lane on quickstart's data).
+constexpr float NEAR_TAU = 0.25f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// where the near pairs read the points: the warpgroup's rows (rw: the
+// first) and the tile's keys (c0: the first), part 0 (hi) with part 1 (lo)
+// at + XR_PART / + XC_PART in shared memory, or the prepped parts in G
+struct NearSrc {
+  const unsigned char* xr;
+  const unsigned char* xc;
+  long long rw, c0;
+};
+
+__device__ __forceinline__ float sq4(float a, const float4& xh,
+                                     const float4& xl, const float4& yh,
+                                     const float4& yl) {
+  float df = __fsub_rn(__fadd_rn(xh.x, xl.x), __fadd_rn(yh.x, yl.x));
+  a = __fmaf_rn(df, df, a);
+  df = __fsub_rn(__fadd_rn(xh.y, xl.y), __fadd_rn(yh.y, yl.y));
+  a = __fmaf_rn(df, df, a);
+  df = __fsub_rn(__fadd_rn(xh.z, xl.z), __fadd_rn(yh.z, yl.z));
+  a = __fmaf_rn(df, df, a);
+  df = __fsub_rn(__fadd_rn(xh.w, xl.w), __fadd_rn(yh.w, yl.w));
+  return __fmaf_rn(df, df, a);
+}
+
+// sum_k (x_k - y_k)^2 of row r (of the warpgroup's 64) and key n (of the
+// tile's 64), x = hi + lo, in feature order, one FMA a feature.  KS: the
+// kernel's k steps; where a row is one chunk, its 32-byte steps past the
+// width hold zeros (TMA's fill), which add exact zeros, so the sum runs
+// over all KS of them, unrolled.
+template <int KS>
+__device__ __forceinline__ float sq_near(const Geo& G, const NearSrc& src,
+                                         int r, int n) {
+  float a = 0.f;
+  if (KS == 2 || G.nch == 1) {
+    const unsigned char* pr = src.xr + r * ROWB;
+    const unsigned char* pc = src.xc + n * ROWB;
+#pragma unroll
+    for (int q = 0; q < 2 * KS; ++q) {
+      const int qr = (q ^ (r & 7)) << 4, qn = (q ^ (n & 7)) << 4;
+      a = sq4(a, *reinterpret_cast<const float4*>(pr + qr),
+              *reinterpret_cast<const float4*>(pr + XR_PART + qr),
+              *reinterpret_cast<const float4*>(pc + qn),
+              *reinterpret_cast<const float4*>(pc + XC_PART + qn));
+    }
+  } else {
+    // rows and keys clamped: a lane without an entry reads in bounds
+    const long long ro = min(src.rw + r, G.nr - 1) * G.dp;
+    const long long no = min(src.c0 + n, G.nc - 1) * G.dp;
+    for (int q = 0; q < G.dp / 4; ++q)
+      a = sq4(a, __ldg(reinterpret_cast<const float4*>(G.xr_part[0] + ro) + q),
+              __ldg(reinterpret_cast<const float4*>(G.xr_part[1] + ro) + q),
+              __ldg(reinterpret_cast<const float4*>(G.xc_part[0] + no) + q),
+              __ldg(reinterpret_cast<const float4*>(G.xc_part[1] + no) + q));
+  }
+  return a;
+}
+
+// row and key (of the warpgroup's 64, of the tile's 64) of slot i = 4 j +
+// 2 h + e of lane l
+__device__ __forceinline__ int slot_row(int l, int i) {
+  return 16 * ((threadIdx.x % WG) / 32) + l / 4 + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int slot_key(int l, int i) {
+  return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+}
+
+__device__ __forceinline__ void entries(float (&s)[32], const Params& p) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = entry(s[i], p);
+}
+
+// the entry of the direct statistic at slot i of this lane
+template <int KS>
+__device__ __forceinline__ float near_entry(const Geo& G, const NearSrc& src,
+                                            int i) {
+  const int lane = threadIdx.x % 32;
+  return entry(sq_near<KS>(G, src, slot_row(lane, i), slot_key(lane, i)),
+               G.p);
+}
+
+// s (the statistic) -> entries, the near slots' from the direct statistic
+// (the sweep: they go on to the contraction in registers).  Each lane
+// evaluates its own near slots: the first beside the other entries (it
+// needs none of s), the rest two at a time while any lane of the warp has
+// some.  The whole warp calls it.
+template <int KS>
+__device__ __forceinline__ void entries_near(float (&s)[32], uint32_t near,
+                                             const Geo& G,
+                                             const NearSrc& src) {
+  uint32_t m = near;
+  const int i0 = __ffs(m) - 1;
+  m &= m - 1;
+  const float e0 = near_entry<KS>(G, src, max(i0, 0));
+  entries(s, G.p);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if (i == i0) s[i] = e0;
+  while (__any_sync(FULL, m != 0)) {
+    const int i1 = __ffs(m) - 1;
+    m &= m - 1;
+    const int i2 = __ffs(m) - 1;
+    m &= m - 1;
+    float e1 = 0.f, e2 = 0.f;
+    if (i1 >= 0) e1 = near_entry<KS>(G, src, i1);
+    if (i2 >= 0) e2 = near_entry<KS>(G, src, i2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i == i1) s[i] = e1;
+      if (i == i2) s[i] = e2;
+    }
+  }
+}
+
+// put(row, key, entry) for each near slot, each lane its own, two at a
+// time (the block kernel, after the warp's tile is stored)
+template <int KS, class Put>
+__device__ __forceinline__ void store_near(uint32_t near, const Geo& G,
+                                           const NearSrc& src, Put put) {
+  const int lane = threadIdx.x % 32;
+  while (near != 0) {
+    const int i1 = __ffs(near) - 1;
+    near &= near - 1;
+    const int i2 = __ffs(near) - 1;
+    near &= near - 1;
+    const float e1 = near_entry<KS>(G, src, i1);
+    put(slot_row(lane, i1), slot_key(lane, i1), e1);
+    if (i2 >= 0) {
+      const float e2 = near_entry<KS>(G, src, i2);
+      put(slot_row(lane, i2), slot_key(lane, i2), e2);
+    }
+  }
+}
+
+// the sqdist combine in place; returns the near slots (f32 policy; rows
+// past nr and keys past nc are never near).  xx: this lane's two rows'
+// squared norms, yy[2 j + e]: its keys'.
+template <int BF>
+__device__ __forceinline__ uint32_t combine(float (&s)[32],
+                                            const float (&xx)[2],
                                             const float (&yy)[16],
-                                            const Params& p) {
+                                            const Geo& G,
+                                            const NearSrc& src) {
+  uint32_t near = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1, k2 = 2 * (i >> 2) + (i & 1);   // yy index
+    float& t = s[i];
+    const float nn = __fadd_rn(xx[h], yy[k2]);
+    t = fmaxf(__fsub_rn(nn, __fmul_rn(2.f, t)), 0.f);
+    if (BF == 0) near |= (t < __fmul_rn(NEAR_TAU, nn) ? 1u : 0u) << i;
+  }
+  if (BF == 0 && (src.rw + 64 > G.nr || src.c0 + 64 > G.nc)) {
+    const int lane = threadIdx.x % 32;
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float& t = s[4 * j + 2 * h + e];
-        if constexpr (STAT == STAT_SQDIST)
-          t = fmaxf(__fsub_rn(__fadd_rn(xx[h], yy[2 * j + e]),
-                              __fmul_rn(2.f, t)),
-                    0.f);
-        t = entry(t, p);
-      }
+    for (int i = 0; i < 32; ++i)
+      if (src.rw + slot_row(lane, i) >= G.nr ||
+          src.c0 + slot_key(lane, i) >= G.nc)
+        near &= ~(1u << i);
+  }
+  return near;
 }
 
 // this lane's keys' squared norms from the stage's copy
@@ -763,10 +921,19 @@ pairwise_block_tc(const __grid_constant__ Maps maps, float* __restrict__ out,
     float yy[16];
     if constexpr (STAT == STAT_SQDIST)
       if (c == nch - 1) key_norms(yy, smem + L.yy + 256 * sc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * sc);
-    if (c == nch - 1 && G.tma_store) {
-      finish_tile<STAT>(s, xx, yy, G.p);
+    if (c != nch - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sc);
+      continue;
+    }
+    // the tile's entries; f32 sqdist: the near pairs, evaluated again once
+    // the warp's entries are stored, read the stage, released after them
+    const NearSrc src{smem + (xr - base), smem + (stage - base),
+                      r0 + 64 * g, c0};
+    uint32_t near = 0;
+    if constexpr (STAT == STAT_SQDIST) near = combine<BF>(s, xx, yy, G, src);
+    entries(s, G.p);
+    if (G.tma_store) {
       // the tile through this warpgroup's staging buffer (two 32-column
       // boxes, 128-byte swizzle) and two TMA stores, clipped at the edges
       const uint32_t buf = base + L.v + g * OUT_STAGE;
@@ -786,6 +953,17 @@ pairwise_block_tc(const __grid_constant__ Maps maps, float* __restrict__ out,
                        : "memory");
         }
       }
+      if constexpr (STAT == STAT_SQDIST && BF == 0) {
+        __syncwarp();
+        store_near<KS>(near, G, src, [&](int r, int n, float v) {
+          const int q = (n & 31) >> 2;
+          const uint32_t a = buf + (n >> 5) * (OUT_STAGE / 2) + r * ROWB +
+                             ((q ^ (r & 7)) << 4) + 4 * (n & 3);
+          asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+        });
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sc);
       fence_async_smem();
       wg_sync(1 + g);
       if (threadIdx.x % WG == 0) {
@@ -794,8 +972,7 @@ pairwise_block_tc(const __grid_constant__ Maps maps, float* __restrict__ out,
         tma_store_2d(&maps.out, buf + OUT_STAGE / 2, (int)c0 + 32, row);
         bulk_commit();
       }
-    } else if (c == nch - 1) {
-      finish_tile<STAT>(s, xx, yy, G.p);
+    } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long gr = r0 + 64 * g + 16 * warp + lane / 4 + 8 * h;
@@ -814,6 +991,14 @@ pairwise_block_tc(const __grid_constant__ Maps maps, float* __restrict__ out,
           }
         }
       }
+      if constexpr (STAT == STAT_SQDIST && BF == 0) {
+        __syncwarp();
+        store_near<KS>(near, G, src, [&](int r, int n, float v) {
+          __stcs(out + (r0 + 64 * g + r) * G.nc + c0 + n, v);
+        });
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sc);
     }
   }
   if (G.tma_store && threadIdx.x % WG == 0) bulk_wait();
@@ -877,11 +1062,26 @@ pairwise_matmat_tc(const __grid_constant__ Maps maps, float* __restrict__ out,
     float yy[16];
     if constexpr (STAT == STAT_SQDIST)
       if (c == nch - 1) key_norms(yy, smem + L.yy + 256 * sc);
+    if (c != nch - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sc);
+      continue;
+    }
+    // the entries; f32 sqdist: the near pairs read the stage, released
+    // after them
+    if constexpr (STAT == STAT_SQDIST && BF == 0) {
+      const NearSrc src{smem + (xr - base), smem + (stage - base),
+                        r0 + 64 * g, c0};
+      entries_near<KS>(s, combine<BF>(s, xx, yy, G, src), G, src);
+    } else {
+      if constexpr (STAT == STAT_SQDIST) {
+        const NearSrc src{nullptr, nullptr, r0 + 64 * g, c0};
+        combine<BF>(s, xx, yy, G, src);
+      }
+      entries(s, G.p);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * sc);
-    if (c != nch - 1) continue;
-
-    finish_tile<STAT>(s, xx, yy, G.p);
     // keys past nc contribute exact zeros
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -1388,15 +1588,15 @@ cudaError_t launch_sweep(const Maps& maps, float* out, Geo G, int device,
     case 8: case 9: err = CALL(STAT_L1, 0, 4); break;             \
     default: err = CALL(STAT_L1, 1, 4); break;                    \
   }
-#elif PAIRWISE_USER_STAT == 0
+#elif PAIRWISE_USER_STAT != 2   // dot or sqdist: the tensor-core kernels
 #define PAIRWISE_DISPATCH(CALL)                                   \
   switch ((bf16 ? 2 : 0) + (ks == 2 ? 1 : 0)) {                   \
-    case 0: err = CALL(STAT_DOT, 0, 4); break;                    \
-    case 1: err = CALL(STAT_DOT, 0, 2); break;                    \
-    case 2: err = CALL(STAT_DOT, 1, 4); break;                    \
-    default: err = CALL(STAT_DOT, 1, 2); break;                   \
+    case 0: err = CALL(PAIRWISE_USER_STAT, 0, 4); break;          \
+    case 1: err = CALL(PAIRWISE_USER_STAT, 0, 2); break;          \
+    case 2: err = CALL(PAIRWISE_USER_STAT, 1, 4); break;          \
+    default: err = CALL(PAIRWISE_USER_STAT, 1, 2); break;         \
   }
-#else   // l1dist, and sqdist evaluated directly (SQ_DIRECT)
+#else   // l1dist
 #define PAIRWISE_DISPATCH(CALL)                                   \
   (void)ks;                                                       \
   err = bf16 ? CALL(STAT_L1, 1, 4) : CALL(STAT_L1, 0, 4);
@@ -1408,6 +1608,11 @@ Geo geometry(const Prepped& R, const Prepped& C, const Form& f, long long m,
              int epi, float a, float b, int degree) {
   Geo G{};
   G.xr_nrm = R.nrm;
+  for (int q = 0; q < 2; ++q) {
+    G.xr_part[q] = reinterpret_cast<const float*>(R.part[q]);
+    G.xc_part[q] = reinterpret_cast<const float*>(C.part[q]);
+  }
+  G.dp = f.dp;
   G.nr = R.rows;
   G.nc = C.rows;
   G.M = m;
@@ -1427,7 +1632,6 @@ int sweep(const float* xr, long long count, long long first, long long last,
   if (count <= 0 || nc <= 0 || d <= 0 || m <= 0 || ws == nullptr ||
       !build_takes(stat, epi))
     return (int)cudaErrorInvalidValue;
-  stat = kernel_stat(stat);
   if (ws_bytes < workspace_bytes(count, nc, d, m, stat, bf16, same))
     return ERR_WORKSPACE;
   cudaError_t err = cudaSetDevice(device);
@@ -1481,7 +1685,7 @@ extern "C" {
 long long pairwise_workspace_bytes(long long nr, long long nc, int d,
                                    long long m, int stat, int bf16,
                                    int same) {
-  return workspace_bytes(nr, nc, d, m, kernel_stat(stat), bf16, same != 0);
+  return workspace_bytes(nr, nc, d, m, stat, bf16, same != 0);
 }
 
 // the tensor-core passes of a launch: of the statistic's cross term
@@ -1489,7 +1693,7 @@ long long pairwise_workspace_bytes(long long nr, long long nc, int d,
 // contraction (which = 1)
 int pairwise_passes(int stat, int bf16, int which) {
   if (which == 0)
-    return kernel_stat(stat) == STAT_L1 ? 0 : bf16 ? 1 : STAT_PASSES;
+    return stat == STAT_L1 ? 0 : bf16 ? 1 : STAT_PASSES;
   return bf16 ? 1 : CONTRACT_PASSES;
 }
 
@@ -1506,7 +1710,6 @@ int pairwise_block_f32(const float* xr, const float* xc, float* out,
   if (nr <= 0 || nc <= 0 || d <= 0 || ws == nullptr ||
       !build_takes(stat, epi))
     return (int)cudaErrorInvalidValue;
-  stat = kernel_stat(stat);
   if (ws_bytes < workspace_bytes(nr, nc, d, 0, stat, bf16, false))
     return ERR_WORKSPACE;
   cudaError_t err = cudaSetDevice(device);

@@ -36,7 +36,15 @@ which is the same function on data inside the plan.
 
 Each CUDA launch also takes a scratch buffer the wrapper allocates
 (``_workspace``): the points in the kernels' operand form (TF32 parts or
-bf16, with their squared norms) and, for a sweep, Vᵀ's parts.
+bf16, with their squared norms; f32 sqdist keeps the f32 values too) and,
+for a sweep, Vᵀ's parts.
+
+Under the f32 policy the kernels' sqdist is the tensor cores' (xx + yy) −
+2 x·y, except where that is below ``NEAR_TAU`` (xx + yy): there the
+combine's rounding at the scale of the norms would dominate, so those near
+pairs are summed again directly, Σ (x_k − y_k)² in feature order with each
+point read as its TF32 parts hi + lo (``csrc/pairwise_wgmma.cu``
+``sq_near``).  The plain version keeps the reference's combine.
 """
 from __future__ import annotations
 
@@ -54,6 +62,9 @@ _STAT_IDS = _specs.STAT_IDS
 #: csrc/pairwise_wgmma.cu); a built-in epilogue's id is its index in
 #: ``specs.EPILOGUE_KINDS``
 EPI_USER = 5
+#: the f32 kernels evaluate a sqdist entry directly where the combine is
+#: below NEAR_TAU (‖x‖² + ‖y‖²) (``NEAR_TAU`` in csrc/pairwise_wgmma.cu)
+NEAR_TAU = 0.25
 
 
 # ---------------------------------------------------------------------------

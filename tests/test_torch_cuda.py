@@ -1242,11 +1242,12 @@ def test_statistic_only_block_at_ragged_edges(cuda_device, stat, n, m, d,
                                               offset):
     """B2 with the identity epilogue over the raw statistic (calibration's
     n × m gather) against its plain version; under sqdist and l1dist no
-    entry is negative, the self-pairs included.  With the points offset far
-    from the origin the sqdist combine ‖x‖² + ‖y‖² − 2x·y cancels most:
-    there both versions round at the scale of the norms, so the kernel is
-    held to the f64 statistic within twice the plain version's own error
-    against it, plus 4 f32 ulps of the largest entry."""
+    entry is negative and the self-pairs are exactly 0 (sqdist's are near
+    pairs, summed directly).  With the points offset far from the origin
+    the sqdist combine ‖x‖² + ‖y‖² − 2x·y cancels most: there the plain
+    version rounds at the scale of the norms, so the kernel is held to the
+    f64 statistic within twice the plain version's own error against it,
+    plus 4 f32 ulps of the largest entry."""
     rng = np.random.default_rng(7)
     X = _rand(rng, n, d, dev=cuda_device) + offset
     m = min(m, n)
@@ -1259,7 +1260,6 @@ def test_statistic_only_block_at_ragged_edges(cuda_device, stat, n, m, d,
     assert kernel.launch_counts()["pairwise_block"] == before + 1
     assert out.shape == (n, m)
     plain = kernel.pairwise_block_plain(spec, X, Xa)
-    norms = float((X.double() ** 2).sum(1).max()) * 2.0
     if stat == "sqdist" and offset:
         X64, A64 = X.double(), Xa.double()
         exact = torch.clamp((X64 ** 2).sum(1)[:, None] + (A64 ** 2).sum(1)
@@ -1275,7 +1275,43 @@ def test_statistic_only_block_at_ragged_edges(cuda_device, stat, n, m, d,
     if stat != "dot":
         assert bool((out >= 0).all())
         self_pairs = out[idx, torch.arange(m, device=cuda_device)]
-        assert float(self_pairs.max()) <= 1e-6 * norms
+        assert bool((self_pairs == 0).all())
+
+
+@pytest.mark.parametrize("sigma", [1.0, 3.0])
+def test_near_pairs_on_quickstart_data_against_f64(cuda_device, sigma):
+    """rbf on ``examples/quickstart.py``'s data (32 centers 2·N(0, 1),
+    spread 0.5, d = 16) at n = 20,000 with 200 columns, f32: C through B1's
+    one-hot gather, B2's block and B4's slab rows within 2e-6 of the f64
+    statistic's entries (the combine alone read 1.53e-5 at σ = 1: it
+    rounds at the scale of the points' norms, ~68); B1's gather equal to
+    B2's entries (bit for bit at 2^-104 and more, as
+    ``test_tensor_core_tiles_at_every_shape``) and B4's rows to B1's."""
+    rng = np.random.default_rng(0)
+    n = 20_000
+    centers = rng.normal(size=(32, D)) * 2.0
+    labels = rng.integers(0, 32, size=n)
+    X = torch.as_tensor(centers[labels] + rng.normal(size=(n, D)) * 0.5,
+                        dtype=torch.float32, device=cuda_device)
+    idx = torch.as_tensor(rng.choice(n, 200, replace=False),
+                          device=cuda_device)
+    spec = specs.rbf(sigma)
+    C64 = torch.exp(-torch.cdist(X.double(), X[idx].double()) ** 2
+                    / (2.0 * sigma ** 2))
+    Vs = [sweep_lib.one_hot_columns(idx, n, cuda_device),
+          _rand(rng, n, 3, dev=cuda_device)]
+    full = kernel.pairwise_matmat_multi(spec, X, X, Vs)
+    blk = kernel.pairwise_block(spec, X, X[idx])
+    start, length = n // 3, n // 2
+    slab = kernel.pairwise_matmat_multi_slab(spec, X, start, length, Vs)
+    rows = kernel.slab_rows(n, start, length, cuda_device)
+    for got, want in ((full[0], C64), (blk, C64), (slab[0], C64[rows])):
+        assert scaled(got.double(), want) <= 2e-6
+    gap = (full[0] - blk).abs()
+    assert bool(torch.where(blk.abs() >= 2.0 ** -104, gap == 0,
+                            gap < 2.0 ** -126).all())
+    for o, f in zip(slab, full):
+        assert torch.equal(o, f[rows])
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -7,6 +7,9 @@
   passes lo·lo + hi·lo + lo·hi + hi·hi into a fresh f32 sum that is added
   into the statistic, then the combine max((xx + yy) − 2 x·y, 0) with f32
   norms;
+- sqdist's near pairs: where that combine is below NEAR_TAU (xx + yy), the
+  entry again as Σ (x_k − y_k)² in feature order, one FMA a feature, each
+  point read as hi + lo (``sq_near``);
 - the sweep's contraction K @ V in four TF32 passes per 64-key tile, hi·Vhi
   + hi·Vlo + lo·Vhi + rem·Vhi, where hi, lo, rem are the entry's three TF32
   parts and Vhi, Vlo V's two, each tile's sum added into a running f32 sum;
@@ -15,25 +18,32 @@
 
 TF32 rounding is ``cvt.rna.tf32.f32``: round to nearest, ties away from
 zero, the 13 low mantissa bits cleared; emulated here on the int32 view.
-The products of TF32 parts are exact in f32, so an f32 matmul of the parts
-is each pass up to the order of its sums; the card's tensor cores add in
-their own order (and flush subnormal inputs), which the card tests cover.
+The products of TF32 parts are exact in f32; each pass is summed here in
+feature order, so a pair's statistic depends on its two points alone, as
+the kernels' does.  The card's tensor cores add in their own order (and
+flush subnormal inputs), which the card tests cover.  An FMA is emulated in
+f64 and rounded once to f32 (exact up to a rare double rounding).
 
 What is shown here (tolerances stated per test):
 (a) the parts of an f32 value sum back to it exactly;
 (b) the emulated contraction returns a one-hot column bit for bit;
 (c) the emulated contraction is within 1e-5 of the f64 contraction;
 (d) the emulated split-TF32 statistic is within TOL["f32"] = 1e-5 of the
-    f32 plain statistic.
+    f32 plain statistic;
+(e) on quickstart's data the combine alone cancels at the points' norms
+    (however exact its cross term), and the near pairs repair it.
 """
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import sketched_attention as tsa
-from repro_torch.kernels.pairwise import specs
+from repro_torch.kernels.pairwise import kernel, specs
 
 TOL = {"f32": 1e-5}
 TOL_F64 = 1e-5       # the emulated f32 contraction against f64 (chip_smoke's
@@ -79,23 +89,59 @@ def low_bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32) & 0x1FFF
 
 
-def stat_split(stat: str, Xr: torch.Tensor, Xc: torch.Tensor):
-    """The statistic as the kernels compute it under the f32 policy."""
-    rh, rl = split2(Xr)
-    ch, cl = split2(Xc)
+#: the row and key parts (0 = hi, 1 = lo, 2 = rem) of each pass of the
+#: cross term, small ones first: the kernels' four, and a three-part
+#: variant's six
+PASSES = {2: ((1, 1), (0, 1), (1, 0), (0, 0)),
+          3: ((1, 1), (2, 0), (0, 2), (0, 1), (1, 0), (0, 0))}
+
+
+def fma_sum_sq(diffs) -> torch.Tensor:
+    """Σ_k diffs[k]² in order, one f32 FMA a term (emulated in f64)."""
+    acc = torch.zeros_like(diffs[0])
+    for df in diffs:
+        acc = (df.double() * df.double() + acc.double()).float()
+    return acc
+
+
+def cross_split(Xr: torch.Tensor, Xc: torch.Tensor,
+                parts: int = 2) -> torch.Tensor:
+    """x·y from the TF32 parts: per 32-feature chunk the passes, each
+    summed in feature order into the chunk's fresh f32 sum, the chunk's sum
+    added into the statistic."""
+    split = split3 if parts == 3 else split2
+    rp = [p.T.contiguous() for p in split(Xr)]     # features first
+    cp = [p.T.contiguous() for p in split(Xc)]
     cross = torch.zeros((Xr.shape[0], Xc.shape[0]), dtype=torch.float32)
     for f0 in range(0, Xr.shape[1], CHUNK):
-        f = slice(f0, f0 + CHUNK)
-        part = rl[:, f] @ cl[:, f].T
-        part = part + rh[:, f] @ cl[:, f].T
-        part = part + rl[:, f] @ ch[:, f].T
-        part = part + rh[:, f] @ ch[:, f].T
+        part = torch.zeros_like(cross)
+        for pr, pc in PASSES[parts]:
+            for k in range(f0, min(f0 + CHUNK, Xr.shape[1])):
+                # a product of TF32 values is exact in f32: one rounding
+                part.addcmul_(rp[pr][k, :, None], cp[pc][k, None, :])
         cross = cross + part
+    return cross
+
+
+def stat_split(stat: str, Xr: torch.Tensor, Xc: torch.Tensor,
+               parts: int = 2, exact_cross: bool = False,
+               near: bool = True) -> torch.Tensor:
+    """The statistic as the kernels compute it under the f32 policy:
+    ``parts`` TF32 parts of the cross term (or, ``exact_cross``, the f64
+    x·y rounded once), the norms by FMAs in feature order, the combine,
+    then (``near``) the near pairs summed again directly from hi + lo."""
+    cross = (Xr.double() @ Xc.double().T).float() if exact_cross \
+        else cross_split(Xr, Xc, parts)
     if stat == "dot":
         return cross
-    xx = torch.sum(Xr * Xr, dim=1)
-    yy = torch.sum(Xc * Xc, dim=1)
-    return torch.clamp(xx[:, None] + yy[None, :] - 2.0 * cross, min=0.0)
+    xx, yy = fma_sum_sq(Xr.T), fma_sum_sq(Xc.T)
+    nn = xx[:, None] + yy[None, :]
+    D = torch.clamp(nn - 2.0 * cross, min=0.0)
+    if near:
+        i, j = torch.nonzero(D < kernel.NEAR_TAU * nn, as_tuple=True)
+        xr, xc = (sum(split2(X)) for X in (Xr, Xc))
+        D[i, j] = fma_sum_sq((xr[i] - xc[j]).T)
+    return D
 
 
 def entries_split(spec, Xr, Xc):
@@ -242,3 +288,81 @@ def test_key_permutation_is_the_a_fragment():
     A = K[:, order]                  # column 8 g + l holds key 8 g + perm[l]
     B = V[order]                     # V^T's stored key order, transposed
     assert torch.allclose(A @ B, K @ V, rtol=1e-5, atol=1e-5)
+
+
+def _quickstart(n: int, cols: int, seed: int = 0):
+    """``examples/quickstart.py``'s data (32 centers 2·N(0, 1), spread
+    0.5, d = 16) and ``cols`` columns drawn uniformly."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(32, 16)) * 2.0
+    labels = rng.integers(0, 32, size=n)
+    X = centers[labels] + rng.normal(size=(n, 16)) * 0.5
+    idx = rng.choice(n, cols, replace=False)
+    return torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(idx)
+
+
+@pytest.fixture(scope="module")
+def quickstart_c():
+    X, idx = _quickstart(5000, 200)
+    return X, idx, torch.cdist(X.double(), X[idx].double()) ** 2
+
+
+def _rbf_err(sigma, D, D64) -> float:
+    """max |rbf(D) − rbf(D64)| / max rbf(D64), the entries in f32."""
+    want = torch.exp(-D64 / (2.0 * sigma ** 2))
+    got = specs.rbf(sigma).entry_fn(D).double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("form", ["two_parts", "three_parts", "exact_cross"])
+def test_combine_cancels_at_the_norms(quickstart_c, form):
+    """(e) C = K(X, X[idx]) of rbf at σ = 1 on quickstart's data (n =
+    5,000, 200 columns): the combine alone reads ≥ 1e-5 from the f64
+    statistic's entries, with the kernels' two TF32 parts, with three, and
+    with the exact cross term rounded once to f32.  The points' squared
+    norms lie near 68, so ‖x‖² + ‖y‖² in [128, 256) rounds to 2^-16 =
+    1.53e-5, and rbf passes γ = 0.5 of a near pair's error on: the cause is
+    the combine, not the cross term.  (The plain version, the reference's
+    combine, reads 1.53e-5 here too.)"""
+    X, idx, D64 = quickstart_c
+    kw = {"two_parts": {}, "three_parts": {"parts": 3},
+          "exact_cross": {"exact_cross": True}}[form]
+    D = stat_split("sqdist", X, X[idx], near=False, **kw)
+    assert _rbf_err(1.0, D, D64) >= 1e-5
+
+
+@pytest.mark.parametrize("sigma", [1.0, 3.0])
+def test_near_pairs_repair_the_statistic(quickstart_c, sigma):
+    """(e) With the near pairs (D0 < NEAR_TAU (xx + yy), 3.2 % of C's
+    entries) summed again directly, C reads ≤ 1e-6 from the f64 statistic's
+    entries at σ = 1 and 3, and every pair of a point with itself is
+    exactly 0.  The plain version reads 1.53e-5 from f64 at σ = 1 and
+    2.2e-6 at σ = 3 (its combine): it is not the yardstick here."""
+    X, idx, D64 = quickstart_c
+    D = stat_split("sqdist", X, X[idx])
+    assert _rbf_err(sigma, D, D64) <= 1e-6
+    assert bool((D[idx, torch.arange(idx.numel())] == 0).all())
+    nn = torch.sum(X * X, 1)[:, None] + torch.sum(X[idx] * X[idx], 1)
+    share = float((D64 < kernel.NEAR_TAU * nn.double()).double().mean())
+    assert 0.02 < share < 0.05
+
+
+def test_near_pairs_keep_the_gather_exact(quickstart_c):
+    """(e) The emulated B1 one-hot gather of K(X[:600], X) @ P equals the
+    emulated B2 block K(X[:600], X[idx]) bit for bit: a pair's statistic,
+    near or not, depends on its two points alone."""
+    X, idx, _ = quickstart_c
+    rows = X[:600]
+    onehot = torch.zeros((X.shape[0], idx.numel()), dtype=torch.float32)
+    onehot[idx, torch.arange(idx.numel())] = 1.0
+    spec = specs.rbf(1.0)
+    gathered = contract_split(entries_split(spec, rows, X), onehot)
+    assert torch.equal(gathered, entries_split(spec, rows, X[idx]))
+
+
+def test_near_tau_matches_the_cuda_source():
+    """``kernel.NEAR_TAU`` is the kernels' threshold."""
+    src = (Path(kernel.__file__).parent / "csrc" / "pairwise_wgmma.cu"
+           ).read_text()
+    m = re.search(r"constexpr float NEAR_TAU = ([0-9.]+)f;", src)
+    assert m and float(m.group(1)) == kernel.NEAR_TAU
